@@ -1,0 +1,38 @@
+// Shared helpers of the hand-written CUDA kernels.
+//
+// The per-pair / per-segment bodies are plain functions, so a host-only
+// build (-DTA_HOST_REHEARSAL, any C++17 compiler) can run exactly the code
+// the device runs, one "thread" at a time; that build exists only to
+// rehearse the arithmetic where no CUDA compiler is at hand.
+// host_rehearsal.cpp is that build's C interface, and
+// tests/test_torch_host_rehearsal.py holds it against the plain versions.
+#pragma once
+
+#include <stdint.h>
+
+#ifdef TA_HOST_REHEARSAL
+#define TA_DEV inline
+struct uint4 {
+  uint32_t x, y, z, w;
+};
+static inline int ta_popcll(uint64_t x) { return __builtin_popcountll(x); }
+#else
+#include <cuda_runtime.h>
+#define TA_DEV __device__ __forceinline__
+static __device__ __forceinline__ int ta_popcll(uint64_t x) {
+  return __popcll(x);
+}
+#endif
+
+// byte r (0..15) of a 16-byte chunk loaded as four little-endian words
+static TA_DEV uint32_t ta_byte_of(const uint4& v, int r) {
+  const uint32_t w = (r & 8) ? ((r & 4) ? v.w : v.z) : ((r & 4) ? v.y : v.x);
+  return (w >> (8 * (r & 3))) & 0xFFu;
+}
+
+// low `nbits` bits set, nbits clipped to [0, 64]
+static TA_DEV uint64_t ta_low_mask(int nbits) {
+  if (nbits <= 0) return 0ull;
+  if (nbits >= 64) return ~0ull;
+  return (1ull << nbits) - 1ull;
+}

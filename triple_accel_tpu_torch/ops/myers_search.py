@@ -1,0 +1,263 @@
+"""Bit-parallel approximate search (unit / restricted-Damerau): kernel K2.
+
+Counterpart of the JAX package's ops/pallas/search_myers.py, subgroup
+engine only.  One module holds the plan, the needle prep, the plain PyTorch
+version, the wrapper of the CUDA kernel (csrc/myers_search.cu) with its
+launch counter, the hit collection, and the bridge from the JAX package's
+needle layout.
+
+The function (the same the TPU kernel `search_myers.py:_make_kernel`
+computes): the column-oriented Myers bit-vector search, D[m][j] = the
+least cost of matching the whole needle against a haystack substring that
+ends after j characters (unanchored: starting anywhere; anchored: starting
+at 0), for unit costs or with the restricted-Damerau transposition seed.
+The haystack is cut into segments: segment c owns the end positions
+(c*own_len, (c+1)*own_len] (segment 0 also owns 0), starts `halo` bytes
+before its first owned column — or at byte 0 if that comes later — with a
+fresh state, and emits only owned columns.  With halo >= the widest window
+a cost-<=k match can span, every value <= k is exact and no value is below
+the truth.  The kernel reads the RAW haystack: no halo-duplicated windows
+are built, and segment 0 sees no synthetic pad bytes.
+
+Output: int32 [num, iter_len + 1] in plain global order.  On an H100 bytes
+bound the function for needles of up to 32 chars, operations beyond; what
+the kernel loses time to is latency and its store path; see the note at the
+top of csrc/myers_search.cu.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from . import bitwords as bw
+from .search_common import seg_count
+
+__all__ = [
+    "WORD",
+    "MAX_NW",
+    "MAX_NEEDLE",
+    "myers_search_plan",
+    "suggest_own_len",
+    "prepare_myers_needles",
+    "from_reference_needles",
+    "myers_search",
+    "myers_search_plain",
+    "collect_hits",
+]
+
+WORD = 64
+MAX_NW = 20
+MAX_NEEDLE = MAX_NW * WORD  # 1280 chars, the TPU kernel's ceiling too
+
+# segments wanted in flight on a large haystack: about a thousand threads
+# for each of the card's 132 SMs
+_TARGET_SEGMENTS = 132 * 1024
+
+
+def myers_search_plan(needle_len: int) -> Optional[Tuple[int]]:
+    """(NW words,) for a needle of `needle_len` chars; None when the needle
+    is empty or longer than 1280 chars."""
+    if needle_len < 1 or needle_len > MAX_NEEDLE:
+        return None
+    return (-(-needle_len // WORD),)
+
+
+def suggest_own_len(iter_len: int, halo: int) -> int:
+    """Owned end positions per segment: enough segments to fill the card
+    on a large haystack, while the halo re-read stays under a sixteenth of
+    the owned length; a multiple of 256, at least 1024.  The factor 16 was
+    measured at ONE halo only: on an H100 at a 256-byte halo (needle 24,
+    k = 3), 4096 owned columns timed best in benches/search_sweep.py
+    (shorter segments re-read more and scatter their stores, longer ones
+    leave too few threads).  For every other halo it is an extrapolation."""
+    per_target = -(-max(iter_len, 1) // _TARGET_SEGMENTS)
+    own = max(per_target, 16 * halo, 1024)
+    return -(-own // 256) * 256
+
+
+def prepare_myers_needles(needles: Sequence[np.ndarray], needle_len: int, *,
+                          device) -> torch.Tensor:
+    """Stack same-length needles into uint8 [num, needle_len] on
+    `device`."""
+    if myers_search_plan(needle_len) is None:
+        raise ValueError(f"needle length {needle_len} outside [1, 1280]")
+    arr = np.zeros((len(needles), needle_len), dtype=np.uint8)
+    for i, nd in enumerate(needles):
+        nd = np.asarray(nd, dtype=np.uint8)
+        if nd.shape != (needle_len,):
+            raise ValueError("every needle must have needle_len chars")
+        arr[i] = nd
+    return torch.from_numpy(arr).to(torch.device(device))
+
+
+def from_reference_needles(nchar: np.ndarray, needle_len: int) -> np.ndarray:
+    """Bridge from the JAX package's needle layout: `nchar` is
+    `search_myers.prepare_myers_needles`' [num * WINP, 128] int32 array
+    (needle chars on rows, -1 padded, replicated across the 128 lanes,
+    WINP = needle_len rounded up to 8).  Returns uint8 [num, needle_len]
+    for `prepare_myers_needles`."""
+    winp = -(-max(needle_len, 1) // 8) * 8
+    nchar = np.asarray(nchar)
+    num = nchar.shape[0] // winp
+    chars = nchar.reshape(num, winp, -1)[:, :needle_len, 0]
+    if (chars < 0).any() or (chars > 255).any():
+        raise ValueError("reference needle rows hold pad values")
+    return chars.astype(np.uint8)
+
+
+def _check_inputs(hay, needles, own_len: int, halo: int) -> int:
+    if hay.dtype != torch.uint8 or hay.dim() != 1:
+        raise TypeError("hay must be uint8 [iter_len]")
+    if needles.dtype != torch.uint8 or needles.dim() != 2:
+        raise TypeError("needles must be uint8 [num, m]")
+    if needles.device != hay.device:
+        raise ValueError("hay and needles lie on different devices")
+    m = needles.shape[1]
+    if myers_search_plan(m) is None:
+        raise ValueError(f"needle length {m} outside [1, 1280]")
+    if own_len < 1 or halo < 0:
+        raise ValueError("own_len must be >= 1 and halo >= 0")
+    return m
+
+
+def _peq_table(needles: torch.Tensor, nw32: int) -> torch.Tensor:
+    """Peq[num, 256, nw32] int64: bit t of word w of entry (i, ch) is set
+    iff needles[i, 32 * w + t] == ch."""
+    num, m = needles.shape
+    nd = needles.cpu().numpy()
+    peq = np.zeros((num, 256, nw32), dtype=np.int64)
+    t = np.arange(m)
+    for i in range(num):
+        np.bitwise_or.at(
+            peq[i], (nd[i], t // bw.WORD32),
+            np.int64(1) << (t % bw.WORD32).astype(np.int64))
+    return torch.from_numpy(peq).to(needles.device)
+
+
+def myers_search_plain(hay: torch.Tensor, needles: torch.Tensor, *,
+                       own_len: int, halo: int, anchored: bool = False,
+                       damerau: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of kernel K2: the same recurrence and the same
+    segmentation, vectorised over (needle, segment), a Python loop over the
+    halo + own_len columns of a segment.  int32 [num, iter_len + 1]."""
+    m = _check_inputs(hay, needles, own_len, halo)
+    dev = hay.device
+    n = hay.shape[0]
+    num = needles.shape[0]
+    nw32 = -(-m // bw.WORD32)
+    wS, offS = (m - 1) // bw.WORD32, (m - 1) % bw.WORD32
+    C = seg_count(n, own_len)
+    peq = _peq_table(needles, nw32)
+    hay64 = hay.to(torch.int64)
+    own0 = own_len * torch.arange(C, dtype=torch.int64, device=dev)
+
+    shape = (num, C, nw32)
+    Pv = torch.full(shape, bw.M32, dtype=torch.int64, device=dev)
+    Mv = torch.zeros(shape, dtype=torch.int64, device=dev)
+    EqP = torch.zeros(shape, dtype=torch.int64, device=dev)
+    D0P = torch.zeros(shape, dtype=torch.int64, device=dev)
+    S = torch.full((num, C), m, dtype=torch.int64, device=dev)
+    owned = torch.zeros((num, C, own_len), dtype=torch.int64, device=dev)
+
+    steps = min(halo + own_len, halo + n) if n else 0
+    for t in range(1, steps + 1):
+        jb = own0 - halo + (t - 1)  # byte index read by local column t
+        active = (jb >= 0) & (jb < n)
+        ch = hay64[jb.clamp(0, n - 1)]
+        Eq = peq[:, ch, :]  # [num, C, nw32]
+        seeds = Eq
+        if damerau:
+            # a transposition at (i, t) seeds a zero diagonal when
+            # p[i] = txt[t-1], p[i-1] = txt[t] and the previous column's
+            # diagonal delta at row i-1 was +1
+            seeds = Eq | (EqP & bw.shl1(Eq, 0) & bw.shl1(bw.bnot(D0P), 0))
+        Xh = (bw.add_words(seeds & Pv, Pv) ^ Pv) | seeds
+        Ph = Mv | bw.bnot(Xh | Pv)
+        Mh = Pv & Xh
+        S_new = S + ((Ph[..., wS] >> offS) & 1) - ((Mh[..., wS] >> offS) & 1)
+        PhS = bw.shl1(Ph, 1 if anchored else 0)
+        MhS = bw.shl1(Mh, 0)
+        D0 = (Xh | Mv) if damerau else (Eq | Mv)  # Mv: previous column's VN
+        Pv_new = MhS | bw.bnot(D0 | PhS)
+        Mv_new = PhS & D0
+        act = active[None, :, None]
+        Pv = torch.where(act, Pv_new, Pv)
+        Mv = torch.where(act, Mv_new, Mv)
+        S = torch.where(active[None, :], S_new, S)
+        if damerau:
+            EqP = torch.where(act, Eq, EqP)
+            D0P = torch.where(act, D0, D0P)
+        if t > halo:
+            owned[:, :, t - halo - 1] = S
+    out = torch.empty((num, n + 1), dtype=torch.int32, device=dev)
+    out[:, 0] = m  # D[m][0] = m, both modes
+    out[:, 1:] = owned.reshape(num, C * own_len)[:, :n].to(torch.int32)
+    return out
+
+
+def myers_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
+                 halo: int, anchored: bool = False,
+                 damerau: bool = False) -> torch.Tensor:
+    """D[m][j] for every end position j in [0, len(hay)] of every needle,
+    int32 [num, len(hay) + 1].
+
+    CUDA tensors launch the hand-written kernel (built at first use) and
+    count one launch in `myers_search.launches`; a build or launch failure
+    raises.  CPU tensors — and only those — take the plain PyTorch version.
+    An anchored search must run as one segment (own_len >= len(hay),
+    halo = 0).
+    """
+    m = _check_inputs(hay, needles, own_len, halo)
+    n = hay.shape[0]
+    if anchored and (halo != 0 or own_len < n):
+        raise ValueError("an anchored search runs as ONE segment, halo 0")
+    if hay.device.type == "cpu":
+        return myers_search_plain(hay, needles, own_len=own_len, halo=halo,
+                                  anchored=anchored, damerau=damerau)
+    if hay.device.type != "cuda":
+        raise ValueError(f"unsupported device {hay.device}")
+    from ..utils.build import check_launch, load_kernels
+
+    lib = load_kernels()
+    hay = hay.contiguous()
+    if hay.data_ptr() % 16:
+        hay = hay.clone()  # a fresh allocation is aligned
+    if hay.data_ptr() % 16:
+        raise ValueError("haystack buffer must be 16-byte aligned")
+    needles = needles.contiguous()
+    num = needles.shape[0]
+    # rows padded to a multiple of 4 ints: the kernel stores four columns
+    # at a time, 16-byte aligned; the pad columns are never written
+    stride = -(-(n + 1) // 4) * 4
+    out = torch.empty((num, stride), dtype=torch.int32, device=hay.device)
+    with torch.cuda.device(hay.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.ta_myers_search(
+            hay.data_ptr(), n, needles.data_ptr(), num, m, own_len, halo,
+            seg_count(n, own_len), int(anchored), int(damerau),
+            out.data_ptr(), stride, stream,
+        )
+    check_launch(lib, code, "myers_search")
+    if num:
+        myers_search.launches += 1
+    return out[:, : n + 1]
+
+
+myers_search.launches = 0
+
+
+def collect_hits(dist: torch.Tensor, k: int):
+    """Decoded hits of a distance array: (needle index, global end
+    position, distance) int64 numpy arrays for every position with
+    distance <= k, sorted by (needle, end position).  Only the hits cross
+    to the host."""
+    ni, gpos = torch.nonzero(dist <= k, as_tuple=True)
+    d = dist[ni, gpos]
+    return (
+        ni.cpu().numpy().astype(np.int64),
+        gpos.cpu().numpy().astype(np.int64),
+        d.cpu().numpy().astype(np.int64),
+    )
