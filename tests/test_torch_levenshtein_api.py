@@ -5,7 +5,9 @@ kernels' plain PyTorch versions compute) and must equal, exactly, the
 same-named function of the JAX package on its default CPU path and the
 scalar oracle.  Also: the dispatch log names the engine, every route that
 is not ported raises NotImplementedError, and results do not depend on the
-native host library.
+native host library.  The general-cost and traced distance routes have
+their own files (test_torch_band_distance.py, test_torch_band_trace.py),
+Hamming has test_torch_hamming.py.
 """
 
 import importlib
@@ -195,19 +197,24 @@ def test_nul_bytes_are_legal_inputs():
     assert tl.levenshtein(b"a\x00b", b"ab\x00", **CPU) == 2
 
 
+_LONG_A = np.full(9000, 65, np.uint8)
+_LONG_B = np.full(9000, 66, np.uint8)
+
+
 @pytest.mark.parametrize("call,engine", [
-    (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, trace_on=True,
-                                    **CPU), "lev_band"),
-    (lambda: tl.levenshtein_simd_k_with_opts(b"ab", b"ba", 2, True, **CPU),
-     "band_scan"),
     (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, mesh=object(),
                                     **CPU), "sharded"),
-    (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2,
+    (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, trace_on=True,
+                                    mesh=object(), **CPU), "sharded"),
+    # past the band plan (band half-width over 4096) the JAX engines that
+    # take over are still to be ported
+    (lambda: tl.levenshtein(_LONG_A, _LONG_B, **CPU), "myers_chunked"),
+    (lambda: tl.rdamerau(_LONG_A, _LONG_B, **CPU), "myers_chunked"),
+    (lambda: tl.levenshtein_k_batch([_LONG_A], [_LONG_B], 10**6,
                                     EditCosts(2, 1, 2, None), **CPU),
-     "lev_band"),
-    (lambda: tl.rdamerau(b"abc", b"acb", **CPU), "lev_band"),
-    (lambda: tl.rdamerau_exp(b"abc", b"acb", **CPU), "lev_band"),
-    (lambda: tl.levenshtein(b"a" * 400, b"b" * 400, **CPU), "myers_chunked"),
+     "search_flat"),
+    (lambda: tl.levenshtein_simd_k_with_opts(_LONG_A, _LONG_B, 10**6, True,
+                                             **CPU), "band_scan"),
     (lambda: tl.levenshtein_search_simd_with_opts(
         b"abc", b"xxabcxx", 1, SearchType.All, EditCosts(2, 1, 0, None),
         **CPU), "search_flat"),
@@ -219,9 +226,13 @@ def test_nul_bytes_are_legal_inputs():
     (lambda: tl.levenshtein_search_many([b"ab"], b"abab", 1), "search_many"),
     (lambda: tl.PackedHaystack(b"abab"), "PackedHaystack"),
     (lambda: tl.levenshtein_search_sharded(b"ab", b"abab", 1), "sharded"),
-    (lambda: tt.hamming(b"ab", b"ab"), "hamming"),
-    (lambda: tt.hamming_search(b"ab", b"abab"), "hamming"),
-    (lambda: tt.hamming_batch([b"ab"], [b"ab"]), "hamming"),
+    (lambda: tt.hamming_search_sharded(b"ab", b"abab", 1, None), "hamming"),
+], ids=[
+    "k_batch_mesh", "k_batch_traced_mesh", "levenshtein_past_band_plan",
+    "rdamerau_past_band_plan", "affine_past_band_plan",
+    "trace_past_band_plan", "search_general_costs", "search_long_needle",
+    "search_dense_hits", "search_many", "packed_haystack", "search_sharded",
+    "hamming_search_sharded",
 ])
 def test_unported_routes_raise(call, engine):
     with pytest.raises(NotImplementedError, match=engine):
@@ -230,7 +241,7 @@ def test_unported_routes_raise(call, engine):
 
 def test_forced_oracle_and_debug_log(monkeypatch, capsys):
     monkeypatch.setenv("TRIPLE_ACCEL_TORCH_FORCE_PATH", "oracle")
-    assert tl.rdamerau(b"abc", b"acb", **CPU) == 1  # the oracle knows it
+    assert tl.rdamerau(b"abc", b"acb", **CPU) == 1
     d_t, tr_t = tl.levenshtein_simd_k_with_opts(b"ab", b"ba", 2, True, **CPU)
     d_j, tr_j = jl.levenshtein_simd_k_with_opts(b"ab", b"ba", 2, True)
     assert d_t == d_j  # each package has its own Edit type: compare fields

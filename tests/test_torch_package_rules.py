@@ -28,6 +28,9 @@ def _submodules():
 def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
     mods = _submodules()
     assert "triple_accel_tpu_torch.ops.myers_distance" in mods
+    for new in ("ops.band_scan", "ops.lev_band", "ops.hamming_ops",
+                "oracle.hamming", "hamming"):
+        assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
         "import importlib, sys\n"
@@ -72,6 +75,9 @@ def test_source_imports_no_jax(path):
     lambda: tt.levenshtein_k_batch([b"abc"], [b"ab"], 2),
     lambda: tt.levenshtein_exp_batch([b"abc"], [b"ab"]),
     lambda: tt.levenshtein_search(b"abc", b"xxabcxx"),
+    lambda: tt.rdamerau(b"abc", b"acb"),
+    lambda: tt.rdamerau_exp(b"abc", b"acb"),
+    lambda: tt.levenshtein_k_batch([b"abc"], [b"ab"], 2, trace_on=True),
     lambda: sys.modules["triple_accel_tpu_torch.levenshtein"]
     .levenshtein_simd_k_str("abc", "ab", 1),
 ])
@@ -100,6 +106,54 @@ def test_cuda_tensors_never_take_the_plain_version():
         resolve_device("meta")
 
 
+@pytest.mark.parametrize("module,wrappers", [
+    ("myers_distance", ["myers_distance"]),
+    ("myers_search", ["myers_search"]),
+    ("lev_band", ["band_distance", "band_trace"]),
+])
+def test_wrappers_take_the_plain_version_for_cpu_tensors_only(module,
+                                                              wrappers):
+    """Read from the source: a wrapper reaches its plain version on exactly
+    one line, guarded by the tensor's device being the CPU; it refuses any
+    device but CPU and CUDA; there is no `try` around the launch; and it
+    counts a launch after `check_launch` only."""
+    import importlib
+    import inspect
+
+    mod = importlib.import_module(f"triple_accel_tpu_torch.ops.{module}")
+    for name in wrappers:
+        fn = getattr(mod, name)
+        assert fn.launches == 0 or isinstance(fn.launches, int)
+        src = inspect.getsource(fn)
+        assert src.count('.device.type == "cpu"') == 1
+        assert src.count('.device.type != "cuda"') == 1
+        assert "try:" not in src and "except" not in src
+        cpu_at = src.index('.device.type == "cpu"')
+        plain_at = min(src.index(p, cpu_at) for p in
+                       ("_plain(", "band_scan_distance(") if p in src[cpu_at:])
+        assert plain_at - cpu_at < 80  # the very next statement
+        assert src.index(".launches += 1") > src.index('!= "cuda"')
+    launch_src = inspect.getsource(mod)
+    assert "check_launch(" in launch_src and "load_kernels()" in launch_src
+
+
+def test_band_wrappers_refuse_other_devices():
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    import numpy as np
+
+    t = lb.prepare_band_tensors([np.frombuffer(b"ab", np.uint8)],
+                                [np.frombuffer(b"abc", np.uint8)], 4, 8,
+                                device="cpu")
+    meta = [x.to("meta") for x in t]
+    ct = (1, 1, 0, 0, False)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lb.band_distance(*meta, unit_k=4, costs_t=ct)
+    with pytest.raises(ValueError, match="unsupported device"):
+        lb.band_trace(*meta, unit_k=4, costs_t=ct)
+    assert lb.band_distance.launches == 0 and lb.band_trace.launches == 0
+
+
 def test_build_raises_without_nvcc(monkeypatch):
     from triple_accel_tpu_torch.utils import build
 
@@ -108,4 +162,5 @@ def test_build_raises_without_nvcc(monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc"):
         build.load_kernels()
     assert all(s.endswith(".cu") for s in build._sources())
-    assert len(build._sources()) == 2
+    assert [os.path.basename(s) for s in build._sources()] == [
+        "band_distance.cu", "myers_distance.cu", "myers_search.cu"]

@@ -7,8 +7,10 @@ decides where work runs:
 * every entry point takes a keyword-only ``device=``; ``None`` means
   ``"cuda"``.  A CUDA device that is not there raises `RuntimeError` —
   nothing moves to the CPU unless the caller names the CPU in the call.
-* ``TRIPLE_ACCEL_TORCH_FORCE_PATH`` in {"oracle", "kernel"} forces the
-  scalar oracle or the device engines (the default).
+* ``TRIPLE_ACCEL_TORCH_FORCE_PATH`` in {"oracle", "kernel", "band"} forces
+  the scalar oracle, the device engines (the default), or — the counterpart
+  of the JAX package's ``pallas_band`` — the general band kernel for
+  unit-cost distance batches that would otherwise take the Myers kernel.
 * ``TRIPLE_ACCEL_TORCH_DEBUG_DISPATCH=1`` logs every dispatch decision.
 """
 
@@ -55,9 +57,10 @@ def select_cost_bucket(max_k: int) -> str:
 
 
 def forced_path() -> str | None:
-    """Backend override from the environment: "oracle" | "kernel"."""
+    """Backend override from the environment: "oracle" | "kernel" |
+    "band"."""
     v = os.environ.get("TRIPLE_ACCEL_TORCH_FORCE_PATH", "").strip().lower()
-    return v if v in ("oracle", "kernel") else None
+    return v if v in ("oracle", "kernel", "band") else None
 
 
 def _debug_enabled() -> bool:
@@ -81,7 +84,9 @@ def round_up_pow2(n: int, minimum: int = 8) -> int:
 class DispatchDecision:
     """A record of one dispatch decision, for logging and tests."""
 
-    path: str  # "oracle" | "myers" | "myers_search" | "myers_search_rdamerau"
+    # "oracle" | "myers" | "band" | "band_trace" | "myers_search" |
+    # "myers_search_rdamerau" | "torch" (Hamming)
+    path: str
     cost_bucket: str  # "u8" | "u16" | "u32"
     unit_k: int
     max_k: int

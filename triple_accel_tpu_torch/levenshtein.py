@@ -2,20 +2,24 @@
 
 Counterpart of the JAX package's `levenshtein.py`, same names and result
 semantics: distances, None-above-threshold, Match{start, end, k} lists with
-the reference's Best/All/overlap rules.  The port carries two device
+the reference's Best/All/overlap rules.  The port carries these device
 engines and every host step around them:
 
 * `myers` — `levenshtein_k_batch` and every wrapper that routes through it,
   unit costs, per-batch threshold up to 191 (ops/myers_distance.py);
+* `band` / `band_trace` — the same entry points with any cost model, with
+  unit costs past 191, and with `trace_on=True`: the general-cost band
+  kernels (ops/lev_band.py, band up to unit_k 4096, any string length),
+  the batched traceback walk and its RLE decode (ops/band_scan.py);
 * `myers_search` / `myers_search_rdamerau` — `levenshtein_search_simd_with_opts`
   and its wrappers, unit and restricted-Damerau costs, anchored or not,
   needles up to 1280 chars (ops/myers_search.py), followed by the hit fetch
   and the All-mode length replay on the host.
 
-Every other route of the JAX package (tracebacks, meshes, general costs,
-wider bands, longer needles, the dense-hit device resolution, dictionary
-search, sharded search) raises `NotImplementedError` naming the JAX engine
-that is still to be ported.  Nothing falls back to the oracle, the plain
+Every other route of the JAX package (meshes, bands wider than the band
+plan, general-cost search, longer needles, the dense-hit device resolution,
+dictionary search, sharded search) raises `NotImplementedError` naming the
+JAX engine that is still to be ported.  Nothing falls back to the oracle, the plain
 PyTorch versions or the CPU: the same dispatch runs on both devices.
 
 Device rule: every entry point takes a keyword-only `device=`; None means
@@ -91,6 +95,11 @@ U32_MAX = (1 << 32) - 1
 
 # smallest pair group worth its own kernel launch in per-bucket dispatch
 _MIN_BUCKET = 256
+
+# bytes of packed argmin codes one traced launch may hold on the device:
+# larger traced batches chunk on the batch axis (pairs walk independently).
+# The walk indexes the codes with int64, so no batch overflows an index.
+_TRACE_CODE_BYTES_CAP = 1 << 30
 
 _UNIT = (1, 1, 0, 0, False)
 _RDAMERAU = (1, 1, 0, 1, True)
@@ -176,10 +185,13 @@ def levenshtein_simd_k_with_opts(
     """Banded distance with options, device accelerated
     (reference levenshtein.rs:714-827).
 
-    Returns None when the distance exceeds the (capped) threshold.  The
+    Returns None when the distance exceeds the (capped) threshold; with
+    `trace_on`, additionally returns the RLE edit traceback.  The
     single-pair wrapper routes through the batched dispatcher at batch
-    size 1, so it reaches the same kernel by the same rules.  `trace_on`
-    is not ported yet.
+    size 1, traced or not, so it reaches the same kernels by the same
+    rules (the JAX package keeps a separate single-pair scan for traces
+    only to spare compiles; `band_scan.decode_traceback` is its host walk,
+    kept as the scalar check of the batched walk).
     """
     dev = resolve_device(device)
     a = to_bytes_array(a)
@@ -191,10 +203,9 @@ def levenshtein_simd_k_with_opts(
         return levenshtein_naive_k_with_opts(a, b, k, trace_on, costs)
 
     if trace_on:
-        raise _not_ported(
-            "levenshtein_simd_k_with_opts(trace_on=True)",
-            "ops/band_scan.py band_scan_distance + decode_traceback",
-        )
+        dists, traces = levenshtein_k_batch([a], [b], k, costs, True,
+                                            device=dev)
+        return None if dists[0] < 0 else (int(dists[0]), traces[0])
     dists = levenshtein_k_batch([a], [b], k, costs, device=dev)
     if dists[0] < 0:
         return None
@@ -212,8 +223,8 @@ def levenshtein_simd_k(a: BytesLike, b: BytesLike, k: int, *,
 def levenshtein(a: BytesLike, b: BytesLike, *, device=None) -> int:
     """Exact Levenshtein distance (reference levenshtein.rs:1397-1399).
     The threshold is unbounded, so the band is about the string length:
-    pairs whose capped threshold passes 191 raise until a wider engine is
-    ported."""
+    pairs whose capped threshold passes 191 take the general band kernel,
+    and strings past its plan (band half-width over 4096) raise."""
     res = levenshtein_simd_k(a, b, U32_MAX, device=device)
     if res is None:
         raise AssertionError("an unbounded threshold always resolves")
@@ -222,8 +233,8 @@ def levenshtein(a: BytesLike, b: BytesLike, *, device=None) -> int:
 
 def rdamerau(a: BytesLike, b: BytesLike, *, device=None) -> int:
     """Exact restricted Damerau-Levenshtein distance (reference
-    levenshtein.rs:1419-1423).  The Myers distance kernel is unit-cost
-    only, so this raises until the general band engine is ported."""
+    levenshtein.rs:1419-1423), on the general band kernel; strings past
+    its plan (band half-width over 4096) raise."""
     res = levenshtein_simd_k_with_opts(a, b, U32_MAX, False, RDAMERAU_COSTS,
                                        device=device)
     if res is None:
@@ -326,10 +337,35 @@ def levenshtein_k_batch(
     Computes the reference's `levenshtein_simd_k(a, b, k)` for every pair.
     Returns int64 distances with -1 where the pair's distance exceeds its
     (per-pair capped) threshold — the batched analog of the reference
-    returning None.  Unit costs run the bit-parallel Myers band kernel,
-    one launch per (padded length, band) bucket; the largest capped
-    threshold of a bucket must fit the kernel's plan (<= 191).
+    returning None.  One launch per (padded length, band) bucket.
+
+    With `trace_on`, returns (dists, traces): traces[p] is the RLE edit
+    list (None where dists[p] == -1): the band kernel emits argmin codes,
+    which stay on the device, a batched walk follows every pair back from
+    (m, n) at once, and only the compact edit streams reach the host.
+
+    The ladder, and the path names in the dispatch log (the JAX package's
+    names in brackets):
+    * `myers` [`myers`]: unit costs, capped threshold <= 191, untraced;
+    * `band` [`pallas`, untiled and tiled]: every other untraced batch
+      whose band fits `lev_band.band_plan` (unit_k <= 4096; any length);
+      `TRIPLE_ACCEL_TORCH_FORCE_PATH=band` [`pallas_band`] sends unit-cost
+      batches here too;
+    * `band_trace` [`trace_pallas`, `trace_tiled`]: traced batches, same
+      plan, chunked on the batch axis by `_TRACE_CODE_BYTES_CAP`;
+    * past the plan: NotImplementedError naming the JAX engine
+      (`myers_chunked.blocked_distance_chunked` for unit and rDamerau
+      costs, `search_flat.flat_distance` for the others, the
+      `band_scan.band_trace_batch` scan walk for traces).
+    `mesh=` is not ported.
     """
+    from .ops.band_scan import decode_walked_batch, walk_packed_traceback
+    from .ops.lev_band import (
+        band_distance,
+        band_plan,
+        band_trace,
+        prepare_band_tensors,
+    )
     from .ops.myers_distance import (
         myers_distance,
         myers_plan,
@@ -337,12 +373,6 @@ def levenshtein_k_batch(
     )
 
     dev = resolve_device(device)
-    if trace_on:
-        raise _not_ported(
-            "levenshtein_k_batch(trace_on=True)",
-            "ops/pallas/lev_band.py band_trace_pallas / "
-            "band_trace_pallas_tiled and ops/band_scan.py band_trace_batch",
-        )
     if mesh is not None:
         raise _not_ported(
             "levenshtein_k_batch(mesh=...)",
@@ -355,7 +385,8 @@ def levenshtein_k_batch(
         raise ValueError("batch lengths differ")
     B = len(a_list)
     if B == 0:
-        return np.empty(0, dtype=np.int64)
+        out0 = np.empty(0, dtype=np.int64)
+        return (out0, []) if trace_on else out0
 
     # vectorized per-pair dispatch math (compute_max_k / compute_unit_k
     # element for element)
@@ -426,33 +457,82 @@ def levenshtein_k_batch(
                 merged.append(carry)
         if len(merged) > 1:
             out = np.empty(B, dtype=np.int64)
+            traces_all: List[Optional[List[Edit]]] = [None] * B
             for members in merged:
-                out[list(members)] = levenshtein_k_batch(
+                sub = levenshtein_k_batch(
                     [a_list[p] for p in members],
                     [b_list[p] for p in members],
-                    k, costs, device=dev,
+                    k, costs, trace_on, device=dev,
                 )
-            return out
+                if trace_on:
+                    sub, sub_traces = sub
+                    for q, p in enumerate(members):
+                        traces_all[p] = sub_traces[q]
+                out[list(members)] = sub
+            return (out, traces_all) if trace_on else out
 
     uk_dev = round_up_pow2(unit_k, 4)
-    max_m = round_up_pow2(max((len(a) for a in swapped_a), default=1), 8)
+    longest = max((len(a) for a in swapped_a), default=1)
+    max_m = round_up_pow2(longest, 8)
     max_k = int(max_ks.max(initial=0))
+    ct = _costs_tuple(costs)
 
-    if _costs_tuple(costs) != _UNIT:
-        raise _not_ported(
-            f"levenshtein_k_batch with costs {_costs_tuple(costs)} (the "
-            "Myers distance kernel is unit-cost only)",
-            "ops/pallas/lev_band.py band_distance_pallas / "
-            "band_distance_pallas_tiled (rdamerau past the band plans: "
-            "ops/pallas/myers_chunked.py blocked_distance_chunked)",
-        )
-    if myers_plan(max_k) is None:
-        raise _not_ported(
-            f"a unit-cost batch whose capped threshold reaches {max_k} "
-            "(the Myers distance plan covers <= 191)",
-            "ops/pallas/lev_band.py band_distance_pallas[_tiled] and "
-            "ops/pallas/myers_chunked.py blocked_distance_chunked",
-        )
+    use_myers = (
+        not trace_on
+        and ct == _UNIT
+        and forced_path() != "band"
+        and myers_plan(max_k) is not None
+    )
+    if not use_myers:
+        # the band kernel streams the strings and takes its sizes at run
+        # time, so rows are padded to 16, not to a power of two
+        rows = -(-max(longest, 1) // 16) * 16
+        plan = band_plan(rows, uk_dev, trace_on)
+        if plan is None:
+            what = (f"a batch whose band half-width reaches {uk_dev} (the "
+                    "band plan covers unit_k <= 4096)")
+            if trace_on:
+                raise _not_ported(
+                    what + " with trace_on=True",
+                    "ops/band_scan.py band_trace_batch (the chunked scan "
+                    "walk)")
+            if ct in (_UNIT, _RDAMERAU):
+                raise _not_ported(
+                    what, "ops/pallas/myers_chunked.py "
+                    "blocked_distance_chunked")
+            raise _not_ported(
+                what, "ops/pallas/search_flat.py flat_distance")
+        DispatchDecision(
+            path="band_trace" if trace_on else "band",
+            cost_bucket=select_cost_bucket(max_k),
+            unit_k=uk_dev,
+            max_k=max_k,
+            padded_m=rows,
+            padded_n=B,
+        ).log("levenshtein_k_batch")
+        if not trace_on:
+            bargs = prepare_band_tensors(swapped_a, swapped_b, uk_dev, rows,
+                                         device=dev)
+            dist = band_distance(*bargs, unit_k=uk_dev, costs_t=ct)
+            out = dist.cpu().numpy().astype(np.int64)
+            return np.where(feasible & (out <= max_ks), out, -1)
+        # traced: chunk the batch so one launch's codes stay under the cap
+        b_cap = max(1, _TRACE_CODE_BYTES_CAP // plan["code_bytes_per_pair"])
+        outs, seqs = [], []
+        for lo in range(0, B, b_cap):
+            hi = min(lo + b_cap, B)
+            bargs = prepare_band_tensors(swapped_a[lo:hi], swapped_b[lo:hi],
+                                         uk_dev, rows, device=dev)
+            dist, codes = band_trace(*bargs, unit_k=uk_dev, costs_t=ct)
+            seq, _steps = walk_packed_traceback(codes, *bargs, unit_k=uk_dev)
+            del codes
+            outs.append(dist.cpu().numpy().astype(np.int64))
+            seqs.append(seq.cpu().numpy())
+        out = np.concatenate(outs)
+        out = np.where(feasible & (out <= max_ks), out, -1)
+        decoded = decode_walked_batch(np.concatenate(seqs, axis=0), swaps)
+        traces = [decoded[p] if out[p] >= 0 else None for p in range(B)]
+        return out, traces
 
     DispatchDecision(
         path="myers",

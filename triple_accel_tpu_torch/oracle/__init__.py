@@ -2,9 +2,16 @@
 
 Analog of the reference's `*_naive*` functions (the always-available scalar
 fallbacks that its SIMD implementations are differentially tested against).
-Only the Levenshtein half is carried by the port so far.
 """
 
+from .hamming import (
+    default_hamming_k,
+    hamming_naive,
+    hamming_search_naive,
+    hamming_search_naive_with_opts,
+    hamming_words_64,
+    hamming_words_128,
+)
 from .levenshtein import (
     compute_max_k,
     compute_unit_k,
@@ -18,6 +25,12 @@ from .levenshtein import (
 )
 
 __all__ = [
+    "default_hamming_k",
+    "hamming_naive",
+    "hamming_search_naive",
+    "hamming_search_naive_with_opts",
+    "hamming_words_64",
+    "hamming_words_128",
     "compute_max_k",
     "compute_unit_k",
     "default_search_k",

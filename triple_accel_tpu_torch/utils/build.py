@@ -135,6 +135,11 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     lib.ta_myers_search.argtypes = [
         vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64, vp,
     ]
+    lib.ta_band_distance.restype = ctypes.c_int
+    lib.ta_band_distance.argtypes = [
+        vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
+        i32, i32, i32, i32, i32, i32, vp,
+    ]
     lib.ta_cuda_error_string.restype = ctypes.c_char_p
     lib.ta_cuda_error_string.argtypes = [ctypes.c_int]
     _INFO.update(

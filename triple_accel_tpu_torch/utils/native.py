@@ -25,6 +25,7 @@ __all__ = [
     "native_available",
     "postprocess_matches_native",
     "myers_distance_batch_native",
+    "scalar_banded_batch_native",
     "search_all_native",
     "search_intervals_native",
 ]
@@ -66,6 +67,14 @@ def _load_lib() -> Optional[ctypes.CDLL]:
                 lib.ta_myers_distance_batch.argtypes = [
                     u8p, i64p, ctypes.c_int64, u8p, i64p, ctypes.c_int64,
                     ctypes.c_int64, ctypes.c_int64, i64p,
+                ]
+            if hasattr(lib, "ta_scalar_banded_batch"):
+                lib.ta_scalar_banded_batch.restype = ctypes.c_int64
+                lib.ta_scalar_banded_batch.argtypes = [
+                    u8p, i64p, ctypes.c_int64, u8p, i64p, ctypes.c_int64,
+                    ctypes.c_int64, ctypes.c_int64,
+                    ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                    ctypes.c_int32, ctypes.c_int32, i64p,
                 ]
             if hasattr(lib, "ta_search_all"):
                 lib.ta_search_all.restype = ctypes.c_int64
@@ -149,6 +158,31 @@ def myers_distance_batch_native(a_list, b_list, k: int) -> Optional[np.ndarray]:
         a_buf.ctypes.data_as(u8p), _as_i64_ptr(a_lens), a_stride,
         b_buf.ctypes.data_as(u8p), _as_i64_ptr(b_lens), b_stride,
         len(a_list), k, _as_i64_ptr(out),
+    )
+    return out
+
+
+def scalar_banded_batch_native(a_list, b_list, k: int,
+                               costs) -> Optional[np.ndarray]:
+    """Compiled scalar banded distance batch (native/scalar_baseline.cpp),
+    a C++ port of the oracle's banded DP for any cost model: the
+    kernel-independent reference of chip_smoke.py where the Python oracle
+    is too slow.  Returns int64 distances (-1 over threshold), or None if
+    the library isn't built."""
+    lib = _load()
+    if lib is None or not hasattr(lib, "ta_scalar_banded_batch"):
+        return None
+    a_buf, a_lens, a_stride = _pack_batch(a_list)
+    b_buf, b_lens, b_stride = _pack_batch(b_list)
+    out = np.empty(len(a_list), dtype=np.int64)
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.ta_scalar_banded_batch(
+        a_buf.ctypes.data_as(u8p), _as_i64_ptr(a_lens), a_stride,
+        b_buf.ctypes.data_as(u8p), _as_i64_ptr(b_lens), b_stride,
+        len(a_list), k,
+        costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
+        costs.transpose_cost_or_zero, 1 if costs.allow_transpose else 0,
+        _as_i64_ptr(out),
     )
     return out
 
