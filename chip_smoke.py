@@ -21,7 +21,16 @@ each against its plain PyTorch version on the card:
   band kernel, the batched walk on the device and the RLE decode;
 * `hamming`: `hamming_batch` on the distance pairs and a Hamming search of
   the search needle over the 128 MiB haystack (plain PyTorch ops: the JAX
-  package has no hand-written kernel there either).
+  package has no hand-written kernel there either);
+* `blocked_distance`: `levenshtein_k_batch` at an unbounded threshold (as
+  `levenshtein()` / `rdamerau()` call it) on 1,024 pairs of 20,000 ACGT
+  bytes against copies with 10% edits, unit costs, then the restricted-
+  Damerau costs on the same pairs with adjacent swaps added (kernel
+  `blocked_distance`, past the band plan);
+* `blocked_search`: `levenshtein_search_simd_with_opts` with a 3,000-byte
+  needle at k = 150 over a 128 MiB ACGT haystack holding 16 copies with 1%
+  substitutions, unit and restricted-Damerau costs, Best and All, then an
+  anchored search at a copy planted at 0 (kernel `blocked_search`).
 
 Every phase prints one JSON line and any failure ends the run with a
 non-zero exit code; nothing is caught and carried past.  Needs one CUDA
@@ -40,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -115,6 +125,32 @@ TRACE_LONG_PAIRS, TRACE_LONG_LEN, K_TRACE_LONG = 256, 3000, 64
 AFFINE = (2, 1, 2, None)
 SWAPS_PER_PAIR = 4
 HAMMING_K = 3
+
+# the blocked phases (sizes of the full run): long pairs at an unbounded
+# threshold, a long needle over the search haystack's size
+BLOCKED_PAIRS, BLOCKED_LEN, BLOCKED_EDIT_SHARE = 1024, 20_000, 0.10
+BLOCKED_SWAP_SHARE = 0.01  # adjacent swaps added for the rDamerau run
+LONG_NEEDLE_LEN, K_LONG_NEEDLE = 3000, 150
+N_PLANTED_LONG, LONG_NEEDLE_SUBS = 16, 30  # 1% substitutions a copy
+# the anchored call: a threshold whose window (m + k = 4000 columns) is one
+# the JAX package runs on its chunked engine (myers_chunked.py:386)
+K_ANCHORED_LONG = 1000
+COPY_FREE_BYTES = 1 << 20  # the haystack's tail holds no planted copy
+FRONT_DOOR_LEN, FRONT_DOOR_NEEDLE = 50_000, 2000
+ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
+U32_MAX = (1 << 32) - 1
+# K5, the blocked distance, per column and 32 needle bits: K2's recurrence
+# (K2_OPS_PER_COL_WORD32: 11, 15 with the restricted-Damerau seeds) over
+# the pair's whole needle; per column besides, 3: the score's two bit picks
+# and one 3-input add.  No emit: the score is read once, at the pair's n.
+K5_OPS_PER_COL_WORD32 = K2_OPS_PER_COL_WORD32
+K5_OPS_PER_COL = 3
+# K6, the blocked search, computes K2's function for any needle length:
+# K2's counts, over ceil(m / 32) words, for every column of the haystack
+# once (a segment's halo re-read is the kernel's overhead, not the
+# function's).
+K6_OPS_PER_COL_WORD32 = K2_OPS_PER_COL_WORD32
+K6_OPS_PER_COL = K2_OPS_PER_COL
 
 
 def emit(obj) -> None:
@@ -235,6 +271,128 @@ def planted_alone(planted: np.ndarray) -> np.ndarray:
     checked = planted[alone]
     check(checked.size >= N_PLANTED // 2, "too many planted copies overlap")
     return checked
+
+
+_ACGT_INDEX = np.zeros(256, dtype=np.uint8)
+_ACGT_INDEX[ACGT] = np.arange(4, dtype=np.uint8)
+
+
+def substitute_acgt(seq: np.ndarray, pos: np.ndarray, rng) -> None:
+    """Overwrite the ACGT letters at `pos` with another ACGT letter each,
+    in place."""
+    seq[pos] = ACGT[(_ACGT_INDEX[seq[pos]]
+                     + rng.integers(1, 4, len(pos)).astype(np.uint8)) % 4]
+
+
+def edit_acgt(a: np.ndarray, n_edits: int, rng) -> np.ndarray:
+    """A copy of the ACGT string `a` with `n_edits` edits, each a
+    substitution (to another letter), an insertion or a deletion with equal
+    odds."""
+    kind = rng.integers(0, 3, n_edits)
+    n_sub, n_ins = int((kind == 0).sum()), int((kind == 1).sum())
+    b = a.copy()
+    substitute_acgt(b, rng.choice(len(b), n_sub, replace=False), rng)
+    b = np.delete(b, rng.choice(len(b), n_edits - n_sub - n_ins,
+                                replace=False))
+    return np.insert(b, rng.integers(0, len(b) + 1, n_ins),
+                     ACGT[rng.integers(0, 4, n_ins)])
+
+
+def make_long_pairs(n_pairs: int, length: int, edit_share: float,
+                    seed: int):
+    """Pairs for the blocked distance phase: a random ACGT string of
+    `length` bytes and a copy with `edit_share` of its length in edits
+    (`edit_acgt`)."""
+    rng = np.random.default_rng(seed)
+    a_rows = ACGT[rng.integers(0, 4, (n_pairs, length), dtype=np.uint8)]
+    n_edits = int(length * edit_share)
+    return list(a_rows), [edit_acgt(a, n_edits, rng) for a in a_rows]
+
+
+def swap_adjacent_list(rows, share: float, rng):
+    """Copies of byte strings of any length with `share` of their length
+    in adjacent swaps, made one after the other."""
+    out = []
+    for r in rows:
+        r = r.copy()
+        for q in rng.integers(0, max(len(r) - 1, 1),
+                              int(len(r) * share)).tolist():
+            r[q], r[q + 1] = r[q + 1], r[q]
+        out.append(r)
+    return out
+
+
+def make_long_haystack(n_bytes: int, m: int, n_planted: int, n_subs: int,
+                       seed: int):
+    """The long-needle search input: an ACGT needle of `m` bytes, an ACGT
+    haystack of `n_bytes` with `n_planted` copies that carry `n_subs`
+    substitutions each, one copy at 0 and one in each equal slot of the
+    haystack before its copy-free tail of COPY_FREE_BYTES."""
+    rng = np.random.default_rng(seed)
+    needle = ACGT[rng.integers(0, 4, m, dtype=np.uint8)]
+    hay = ACGT[rng.integers(0, 4, n_bytes, dtype=np.uint8)]
+    slot = (n_bytes - COPY_FREE_BYTES) // n_planted
+    check(slot >= 2 * m, "the haystack is too short for its copies")
+    planted = np.arange(n_planted, dtype=np.int64) * slot
+    planted[1:] += rng.integers(0, slot - m, n_planted - 1)
+    for pos in planted.tolist():
+        copy = needle.copy()
+        substitute_acgt(copy, rng.choice(m, n_subs, replace=False), rng)
+        hay[pos: pos + m] = copy
+    return needle, hay, planted
+
+
+def merge_intervals(starts: np.ndarray, ends: np.ndarray):
+    """Disjoint sorted intervals covering the [starts[i], ends[i])."""
+    order = np.argsort(starts, kind="stable")
+    out_s, out_e = [], []
+    for s0, e0 in zip(starts[order].tolist(), ends[order].tolist()):
+        if out_s and s0 <= out_e[-1]:
+            out_e[-1] = max(out_e[-1], e0)
+        else:
+            out_s.append(s0)
+            out_e.append(e0)
+    return np.array(out_s, np.int64), np.array(out_e, np.int64)
+
+
+def long_search_intervals(planted: np.ndarray, m: int, k: int, n: int):
+    """Where the All-mode reference searches: around every planted copy,
+    from one window span (m + k) before it to one after its end, where
+    every candidate that overlaps the copy lies with its whole window; and
+    the copy-free tail, where there must be none."""
+    span = m + k
+    starts = np.append(np.maximum(planted - span, 0), n - COPY_FREE_BYTES)
+    ends = np.append(np.minimum(planted + m + span, n), n)
+    return merge_intervals(starts, ends)
+
+
+def k5_bound(m_arr: np.ndarray, n_arr: np.ndarray, damerau: bool) -> dict:
+    """The least time the card could take for K5 on these pairs: every
+    byte of both strings read, two lengths read and one distance written a
+    pair, against K2's recurrence over each pair's needle words at each of
+    its columns (K5_OPS_*)."""
+    words32 = -(-m_arr.astype(np.int64) // 32)
+    ops = int((n_arr.astype(np.int64)
+               * (words32 * K5_OPS_PER_COL_WORD32[damerau]
+                  + K5_OPS_PER_COL)).sum())
+    bytes_moved = int(m_arr.sum()) + int(n_arr.sum()) + 12 * m_arr.size
+    return _bound(bytes_moved, ops)
+
+
+def k6_bound(iter_len: int, m: int, damerau: bool) -> dict:
+    """The same for K6 on one needle: the haystack read once, one int
+    written a column, the needle read; K2's operations a column."""
+    ops = iter_len * (-(-m // 32) * K6_OPS_PER_COL_WORD32[damerau]
+                      + K6_OPS_PER_COL)
+    return _bound(iter_len + 4 * (iter_len + 1) + m, ops)
+
+
+def _bound(bytes_moved: int, ops: int) -> dict:
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops}
 
 
 # ---------------------------------------------------------------------------
@@ -436,6 +594,119 @@ def check_band_kernels(dev):
                 cases[regime] += 2  # the untraced and the traced kernel
                 del got_codes, ref_codes
     return cases, worst
+
+
+# the blocked distance kernel's checks: (largest needle, one full-byte
+# needle in the batch): the word count a lane the plan picks at each of
+# 1, 2, 4, 6, 10, two strips at 10, three strips at 2 (full byte)
+BLOCKED_CHECKS = ((2000, False), (4000, False), (8000, False),
+                  (12_000, False), (20_000, False), (40_000, False),
+                  (9000, True))
+BLOCKED_CHECK_PAIRS, BLOCKED_CHECK_COLS = 24, 1000
+# the blocked search kernel's checks: (needle length, a full-byte needle
+# beside the ACGT one, the (damerau, anchored) modes): the main path's
+# needle in every mode, and two strips at two words a lane with the
+# restricted-Damerau seeds crossing them
+BLOCKED_SEARCH_CHECKS = (
+    (LONG_NEEDLE_LEN, False,
+     ((False, False), (False, True), (True, False), (True, True))),
+    (4200, True, ((True, False),)))
+
+
+def blocked_distance_cases(rng, n_pairs: int, max_m: int, full_byte: bool):
+    """Pairs for K5 against its plain version.  Needle lengths on both
+    sides of a 64-bit word, of a lane's words and of a strip at the word
+    count a lane the plan picks for `max_m`, up to `max_m`; texts of at
+    most BLOCKED_CHECK_COLS bytes (the plain version pays one step a
+    column), edited copies of the needle's start, so long needles meet
+    short texts; NUL bytes; an empty needle; with `full_byte`, one needle
+    over all 256 byte values.  Needles may be longer than their texts."""
+    from triple_accel_tpu_torch.ops.myers_chunked import LANES, blocked_plan
+
+    wpt, _ = blocked_plan(max_m, 257 if full_byte else 6)
+    lane, strip = 64 * wpt, 64 * wpt * LANES
+    edges = [1, 63, 64, 65, lane - 1, lane, lane + 1, strip - 1, strip,
+             strip + 1, max_m]
+    lengths = sorted({x for x in edges if 0 < x <= max_m})
+    lengths += rng.integers(1, max_m + 1,
+                            n_pairs - 1 - len(lengths)).tolist()
+    a_list, b_list = [np.empty(0, np.uint8)], [ACGT[rng.integers(0, 4, 40)]]
+    for p, m in enumerate(lengths):
+        a = ACGT[rng.integers(0, 4, m)]
+        if full_byte and p == len(lengths) - 1:
+            a = np.resize(rng.permutation(256).astype(np.uint8), m)
+        a[rng.integers(0, m, 2)] = 0  # NUL bytes: pads are 0 too
+        b = edit_acgt(a[: BLOCKED_CHECK_COLS - 20],
+                      max(1, min(m, BLOCKED_CHECK_COLS - 20) // 10), rng)
+        a_list.append(a)
+        b_list.append(b)
+    return a_list, b_list
+
+
+def check_blocked_kernels(dev):
+    """K5 and K6 against their plain versions on the card, exactly.  K5:
+    the batches of BLOCKED_CHECKS under unit and rDamerau costs.  K6: a
+    3,000-byte ACGT needle, and a 4,200-byte one beside a full-byte needle
+    (two strips at two words a lane), over a 1 MiB haystack with NUL bytes
+    and planted copies, unit and rDamerau, anchored and not, unanchored
+    over segments whose owned length is not a multiple of 4
+    (BLOCKED_SEARCH_CHECKS: the plain version pays a step a column)."""
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops.myers_search import prepare_myers_needles
+    from triple_accel_tpu_torch.ops.search_common import window_span
+
+    rng = np.random.default_rng(6060)
+    d_cases, worst = 0, 0
+    for max_m, full_byte in BLOCKED_CHECKS:
+        a_list, b_list = blocked_distance_cases(rng, BLOCKED_CHECK_PAIRS,
+                                                max_m, full_byte)
+        t = mc.prepare_blocked_distance_inputs(a_list, b_list, device=dev)
+        for damerau in (False, True):
+            got = mc.blocked_distance(*t, damerau=damerau)
+            torch.cuda.synchronize()
+            ref = mc.blocked_distance_plain(*t, damerau=damerau)
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            worst = max(worst, err)
+            check(err == 0, f"blocked_distance != plain at max_m={max_m} "
+                            f"full_byte={full_byte} damerau={damerau}")
+            d_cases += 1
+    s_cases, s_worst = 0, 0
+    k = 40
+    n = CHECK_HAY_BYTES[1]
+    for m, full_byte, modes in BLOCKED_SEARCH_CHECKS:
+        hay = ACGT[rng.integers(0, 4, n)]
+        hay[:2] = 0
+        needles = [ACGT[rng.integers(0, 4, m)], ACGT[rng.integers(0, 4, m)]]
+        if full_byte:
+            needles[1] = np.resize(rng.permutation(256).astype(np.uint8), m)
+        needles[1][0] = 0  # a NUL needle byte against a NUL haystack start
+        for pos in [0] + rng.integers(0, n - m, 8).tolist():
+            copy = needles[0].copy()
+            substitute_acgt(copy, rng.choice(m, 10, replace=False), rng)
+            copy[5], copy[6] = copy[6], copy[5]
+            hay[pos: pos + m] = copy
+        nd = prepare_myers_needles(needles, m, device=dev)
+        for damerau, anchored in modes:
+            if anchored:
+                iter_len, halo = min(m + k, n), 0
+                own_len = iter_len
+            else:
+                iter_len = n
+                halo = min(-(-window_span(m, k, 1, 0) // 256) * 256, n)
+                own_len = 1027  # the tail of every segment is ragged
+            hay_d = torch.from_numpy(hay[:iter_len].copy()).to(dev)
+            kw = dict(own_len=own_len, halo=halo, anchored=anchored,
+                      damerau=damerau)
+            got = mc.blocked_search(hay_d, nd, **kw)
+            torch.cuda.synchronize()
+            ref = mc.blocked_search_plain(hay_d, nd, **kw)
+            err = int((got.to(torch.int64) - ref.to(torch.int64))
+                      .abs().max())
+            s_worst = max(s_worst, err)
+            check(err == 0, f"blocked_search != plain at m={m} "
+                            f"damerau={damerau} anchored={anchored}")
+            s_cases += 1
+    return (d_cases, worst), (s_cases, s_worst)
 
 
 # ---------------------------------------------------------------------------
@@ -1083,6 +1354,349 @@ def run_hamming(dev, a_list, b_list, needle, hay, planted):
           "reference_prefix_bytes": prefix})
 
 
+# ---------------------------------------------------------------------------
+# the blocked phases: unbounded lengths, long needles
+# ---------------------------------------------------------------------------
+
+# the plain versions pay one Python step a column, so they are timed and
+# held against the kernels at a cut, unit costs (kernel_checks holds both
+# cost models): the first pairs with texts cut to this many bytes, the
+# first bytes of the haystack
+BLOCKED_PLAIN_PAIRS, BLOCKED_PLAIN_COLS = 16, 2000
+LONG_SEARCH_PLAIN_BYTES, LONG_SEARCH_PLAIN_OWN = 64 << 10, 1024
+
+
+def run_blocked_distance(dev, scale: float, native_loaded: bool):
+    """Exact distances past the band plan: unit costs, then rDamerau on the
+    same pairs with adjacent swaps added."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.utils.native import (
+        myers_distance_batch_native, scalar_banded_batch_native)
+
+    check(native_loaded, "the blocked phases need the compiled comparators "
+                         "of native/ (a Python oracle takes hours there)")
+    n_pairs = max(64, int(BLOCKED_PAIRS * scale))
+    t_phase = t0 = time.perf_counter()
+    a_list, b_list = make_long_pairs(n_pairs, BLOCKED_LEN, BLOCKED_EDIT_SHARE,
+                                     seed=2020)
+    b_swapped = swap_adjacent_list(b_list, BLOCKED_SWAP_SHARE,
+                                   np.random.default_rng(2021))
+    gen_s = time.perf_counter() - t0
+
+    def drive(b_l, costs, what):
+        dispatch_history(clear=True)
+        mc.blocked_distance.launches = 0  # 0 just before the path ...
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = tt.levenshtein_k_batch(a_list, b_l, U32_MAX, costs)
+        torch.cuda.synchronize()
+        e2e_s = time.perf_counter() - t0
+        launches = mc.blocked_distance.launches  # ... read just after it
+        paths = {d.path for _, d in dispatch_history()}
+        check(launches >= 1, f"{what}: no blocked_distance kernel launched")
+        check(paths == {"myers_blocked_distance"},
+              f"{what}: dispatch took {paths}")
+        check(out.shape == (n_pairs,) and out.dtype == np.int64
+              and bool((out > 0).all()), f"{what}: wrong shape, type or sign")
+        return out, e2e_s, launches
+
+    out_u, e2e_u, launches_u = drive(b_list, tt.LEVENSHTEIN_COSTS, "unit")
+    out_r, e2e_r, launches_r = drive(b_swapped, tt.RDAMERAU_COSTS,
+                                     "rdamerau")
+    n_ref = min(128, n_pairs)
+    ref = myers_distance_batch_native(a_list[:n_ref], b_list[:n_ref],
+                                      U32_MAX)
+    check(np.array_equal(out_u[:n_ref], ref),
+          "unit distances != compiled CPU Myers comparator")
+    # rDamerau: the scalar banded comparator, its band narrowed to the
+    # pairs' unit distance (an upper bound of the rDamerau one)
+    unit_sw = myers_distance_batch_native(a_list[:4], b_swapped[:4], U32_MAX)
+    ref_r = scalar_banded_batch_native(a_list[:4], b_swapped[:4],
+                                       int(unit_sw.max()), tt.RDAMERAU_COSTS)
+    check(np.array_equal(out_r[:4], ref_r),
+          "rDamerau distances != compiled scalar banded comparator")
+    check(bool((ref_r < unit_sw).all()),
+          "adjacent swaps never made a pair cheaper than unit costs")
+
+    # kernel only, at the tensors the main path gives it
+    a_s = [a if len(a) <= len(b) else b for a, b in zip(a_list, b_list)]
+    b_s = [b if len(a) <= len(b) else a for a, b in zip(a_list, b_list)]
+    a_r = [a if len(a) <= len(b) else b for a, b in zip(a_list, b_swapped)]
+    b_r = [b if len(a) <= len(b) else a for a, b in zip(a_list, b_swapped)]
+    times, bounds = {}, {}
+    for damerau, (a_l, b_l), out in ((False, (a_s, b_s), out_u),
+                                     (True, (a_r, b_r), out_r)):
+        t0 = time.perf_counter()
+        t = mc.prepare_blocked_distance_inputs(a_l, b_l, device=dev)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        got = mc.blocked_distance(*t, damerau=damerau)
+        check(np.array_equal(got.cpu().numpy().astype(np.int64), out),
+              "kernel-only rerun != main path result")
+        times[damerau] = time_launches(
+            lambda: mc.blocked_distance(*t, damerau=damerau), 7)
+        bounds[damerau] = k5_bound(t[2].cpu().numpy(), t[3].cpu().numpy(),
+                                   damerau)
+        if not damerau:
+            # the plain version at a cut of the unit-cost tensors
+            cut = BLOCKED_PLAIN_COLS
+            tc = (t[0][:BLOCKED_PLAIN_PAIRS],
+                  t[1][:BLOCKED_PLAIN_PAIRS, :cut].contiguous(),
+                  t[2][:BLOCKED_PLAIN_PAIRS],
+                  t[3][:BLOCKED_PLAIN_PAIRS].clamp(max=cut))
+            got_c = mc.blocked_distance(*tc)
+            ref_c = None
+
+            def run_plain():
+                nonlocal ref_c
+                ref_c = mc.blocked_distance_plain(*tc)
+
+            plain_ms = time_once_ms(run_plain)
+            worst = int((got_c.to(torch.int64) - ref_c.to(torch.int64))
+                        .abs().max())
+            check(worst == 0, "blocked_distance != plain at the cut of the "
+                              "main-path tensors")
+        del t, got
+    emit({"phase": "blocked_distance", "pairs": n_pairs,
+          "str_len": BLOCKED_LEN, "edits": BLOCKED_EDIT_SHARE,
+          "swaps_rdamerau": BLOCKED_SWAP_SHARE, "k": "U32_MAX",
+          "dispatch": "myers_blocked_distance",
+          "launches": {"unit": launches_u, "rdamerau": launches_r},
+          "reference": f"ta_myers_distance_batch ({n_ref} pairs), "
+                       "ta_scalar_banded_batch (4 pairs)",
+          "datagen_s": round(gen_s, 3),
+          "input_MB": round(sum(len(a) + len(b) for a, b in zip(
+              a_list, b_list)) / 1e6, 1),
+          "e2e_s": {"unit": round(e2e_u, 4), "rdamerau": round(e2e_r, 4)},
+          "pairs_per_s_e2e": {"unit": round(n_pairs / e2e_u, 1),
+                              "rdamerau": round(n_pairs / e2e_r, 1)},
+          "host_prep_and_upload_s": round(prep_s, 4),
+          "kernel_ms_median_min_max": {
+              "unit": [round(x, 4) for x in times[False]],
+              "rdamerau": [round(x, 4) for x in times[True]]},
+          "pairs_per_s_kernel": round(n_pairs / (times[False][0] * 1e-3), 1),
+          "plain_cut": [BLOCKED_PLAIN_PAIRS, BLOCKED_PLAIN_COLS],
+          "plain_ms": round(plain_ms, 1),
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return {
+        "name": "blocked_distance", "route": "cuda",
+        "source": "triple_accel_tpu_torch/csrc/myers_blocked.cu",
+        "kernel": "blocked_kernel<WPT, *>, distance mode",
+        "replaces": "triple_accel_tpu/ops/pallas/myers_chunked.py:69",
+        "launches": launches_u + launches_r, "max_abs_err": worst,
+        "ms": times[False][0], "ms_min": times[False][1],
+        "ms_max": times[False][2],
+        "plain_ms": plain_ms,
+        "plain_shape": f"{BLOCKED_PLAIN_PAIRS} pairs, texts cut to "
+                       f"{BLOCKED_PLAIN_COLS} bytes",
+        **bounds[False], "library_ms": None,
+        # the restricted-Damerau launches of the same path
+        "ms_rdamerau": times[True][0],
+        "bound_ms_rdamerau": bounds[True]["bound_ms"],
+    }
+
+
+def run_blocked_search(dev, hay_mb: int, native_loaded: bool):
+    """A long needle over a genome-sized haystack: unanchored at k = 150,
+    Best and All, unit and rDamerau; then anchored at a copy planted at 0
+    with a threshold whose window the JAX package tiles with its chunked
+    engine."""
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.levenshtein import (
+        _RESOLVE_CELLS_BUDGET, _resolve_cells,
+        levenshtein_search_simd_with_opts)
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops.myers_search import prepare_myers_needles
+    from triple_accel_tpu_torch.ops.search_common import window_span
+    from triple_accel_tpu_torch.types import (
+        LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType)
+    from triple_accel_tpu_torch.utils.native import (
+        search_all_native, search_intervals_native)
+
+    check(native_loaded, "the blocked phases need the compiled comparators "
+                         "of native/")
+    m, k = LONG_NEEDLE_LEN, K_LONG_NEEDLE
+    t_phase = t0 = time.perf_counter()
+    needle, hay, planted = make_long_haystack(
+        hay_mb << 20, m, N_PLANTED_LONG, LONG_NEEDLE_SUBS, seed=3030)
+    gen_s = time.perf_counter() - t0
+    n = len(hay)
+    costs_of = {"unit": LEVENSHTEIN_COSTS, "rdamerau": RDAMERAU_COSTS}
+
+    dispatch_history(clear=True)
+    mc.blocked_search.launches = 0  # 0 just before the path ...
+    results, e2e = {}, {}
+    for cname, costs in costs_of.items():
+        for st in (SearchType.Best, SearchType.All):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[(cname, st)] = levenshtein_search_simd_with_opts(
+                needle, hay, k, st, costs, False)
+            torch.cuda.synchronize()
+            e2e[f"{cname}_{st.name}"] = time.perf_counter() - t0
+    launches = mc.blocked_search.launches  # ... read just after it
+    paths = [d.path for _, d in dispatch_history()]
+    check(launches == 4, f"4 long-needle searches launched {launches}")
+    check(paths == ["myers_search_blocked"] * 4,
+          f"long-needle dispatch took {paths}")
+
+    starts, ends = long_search_intervals(planted, m, k, n)
+    # the references cost about 3e9 cells each (the copy-free tail times
+    # the needle): independent C++ calls that release the interpreter lock,
+    # so both run side by side
+    with ThreadPoolExecutor(len(costs_of)) as pool:
+        futures = {cname: pool.submit(search_intervals_native, needle, hay,
+                                      starts, ends, k, costs)
+                   for cname, costs in costs_of.items()}
+        refs = {cname: f.result() for cname, f in futures.items()}
+    replay_cells = {}
+    for cname, costs in costs_of.items():
+        all_m = results[(cname, SearchType.All)]
+        by_end = {mt.end: mt for mt in all_m}
+        for pos in planted.tolist():
+            mt = by_end.get(pos + m)
+            check(mt is not None and mt.k <= LONG_NEEDLE_SUBS,
+                  f"{cname}: planted copy at {pos} not found with k <= "
+                  f"{LONG_NEEDLE_SUBS}")
+        best = results[(cname, SearchType.Best)]
+        kmin = min(mt.k for mt in all_m)
+        check(best and all(mt.k == kmin for mt in best)
+              and all(by_end.get(mt.end) is not None for mt in best),
+              f"{cname}: Best-mode matches are not the minimum-cost ones")
+        ref_e, ref_k, ref_l = refs[cname]
+        check([(mt.start, mt.end, mt.k) for mt in all_m]
+              == list(zip((ref_e - ref_l).tolist(), ref_e.tolist(),
+                          ref_k.tolist())),
+              f"{cname}: All-mode matches != the compiled scalar search "
+              "over the copies' windows and the copy-free tail")
+        replay_cells[cname] = _resolve_cells(
+            np.array([mt.end for mt in all_m], np.int64), m + k, m)
+        check(replay_cells[cname] <= _RESOLVE_CELLS_BUDGET,
+              f"{cname}: the All-mode replay passed its budget")
+
+    # anchored at the copy planted at 0: one segment of m + k columns
+    k_a = K_ANCHORED_LONG
+    mc.blocked_search.launches = 0  # 0 just before the path ...
+    anchored, e2e_a = {}, {}
+    for st in (SearchType.Best, SearchType.All):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        anchored[st] = levenshtein_search_simd_with_opts(
+            needle, hay, k_a, st, LEVENSHTEIN_COSTS, True)
+        torch.cuda.synchronize()
+        e2e_a[st.name] = time.perf_counter() - t0
+    launches_a = mc.blocked_search.launches  # ... read just after it
+    check(launches_a == 2, f"2 anchored searches launched {launches_a}")
+    ref_e, ref_k, ref_l = search_all_native(needle, hay, k_a,
+                                            LEVENSHTEIN_COSTS, anchored=True)
+    all_a = [(mt.start, mt.end, mt.k) for mt in anchored[SearchType.All]]
+    check(all_a == list(zip((ref_e - ref_l).tolist(), ref_e.tolist(),
+                            ref_k.tolist())),
+          "anchored All-mode matches != the compiled scalar search")
+    best_a = anchored[SearchType.Best]
+    check(best_a and best_a[0].start == 0
+          and best_a[0].k <= LONG_NEEDLE_SUBS
+          and all(mt.k == min(ref_k.tolist()) for mt in best_a),
+          f"anchored Best-mode gave {best_a[:3]}")
+
+    # kernel only, at the tensors the main path gives it
+    halo = min(-(-window_span(m, k, 1, 0) // 256) * 256, n)
+    own_len = mc.suggest_own_len_blocked(n, halo)
+    hay_d = torch.from_numpy(hay).to(dev)
+    nd = prepare_myers_needles([needle], m, device=dev)
+    times = {damerau: time_launches(
+        lambda: mc.blocked_search(hay_d, nd, own_len=own_len, halo=halo,
+                                  damerau=damerau), 5)
+        for damerau in (False, True)}
+    # the plain version at a cut: the haystack's first bytes, unit costs
+    cut = hay_d[:LONG_SEARCH_PLAIN_BYTES]
+    kw = dict(own_len=LONG_SEARCH_PLAIN_OWN, halo=halo)
+    got = mc.blocked_search(cut, nd, **kw)
+    ref = None
+
+    def run_plain():
+        nonlocal ref
+        ref = mc.blocked_search_plain(cut, nd, **kw)
+
+    plain_ms = time_once_ms(run_plain)
+    worst = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    check(worst == 0, "blocked_search != plain at the cut of the haystack")
+    # the anchored (chunked) regime at its full shape, plain version too
+    it_a = min(m + k_a, n)
+    hay_a = hay_d[:it_a]
+    times_a = time_launches(
+        lambda: mc.blocked_search(hay_a, nd, own_len=it_a, halo=0,
+                                  anchored=True), 9)
+    got = mc.blocked_search(hay_a, nd, own_len=it_a, halo=0, anchored=True)
+    ref = None
+
+    def run_plain_a():
+        nonlocal ref
+        ref = mc.blocked_search_plain(hay_a, nd, own_len=it_a, halo=0,
+                                      anchored=True)
+
+    plain_a = time_once_ms(run_plain_a)
+    err_a = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    check(err_a == 0, "blocked_search != plain at the anchored shape")
+    bound = k6_bound(n, m, False)
+    bound_r = k6_bound(n, m, True)
+    bound_a = k6_bound(it_a, m, False)
+    emit({"phase": "blocked_search", "haystack_bytes": n, "needle_len": m,
+          "k": k, "planted": N_PLANTED_LONG,
+          "planted_subs": LONG_NEEDLE_SUBS, "halo": halo,
+          "own_len": own_len, "segments": -(-n // own_len),
+          "dispatch": "myers_search_blocked", "launches": launches,
+          "matches": {f"{c}_{st.name}": len(r)
+                      for (c, st), r in results.items()},
+          "reference": "ta_search_intervals over the copies' windows and "
+                       f"the last {COPY_FREE_BYTES} bytes",
+          "replay_cells": replay_cells,
+          "replay_budget": _RESOLVE_CELLS_BUDGET,
+          "datagen_s": round(gen_s, 3),
+          "e2e_s": {k_: round(v, 4) for k_, v in e2e.items()},
+          "GBps_e2e": {k_: round(n / v / 1e9, 3) for k_, v in e2e.items()},
+          "kernel_ms_median_min_max": {
+              "unit": [round(x, 4) for x in times[False]],
+              "rdamerau": [round(x, 4) for x in times[True]]},
+          "GBps_kernel": {
+              "unit": round(n / (times[False][0] * 1e-3) / 1e9, 3),
+              "rdamerau": round(n / (times[True][0] * 1e-3) / 1e9, 3)},
+          "plain_cut": [LONG_SEARCH_PLAIN_BYTES, LONG_SEARCH_PLAIN_OWN],
+          "plain_ms": round(plain_ms, 1),
+          "anchored": {"k": k_a, "columns": it_a, "launches": launches_a,
+                       "matches": {st.name: len(r)
+                                   for st, r in anchored.items()},
+                       "e2e_s": {k_: round(v, 4) for k_, v in e2e_a.items()},
+                       "kernel_ms": round(times_a[0], 4),
+                       "plain_ms": round(plain_a, 1)},
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    source = "triple_accel_tpu_torch/csrc/myers_blocked.cu"
+    entries = [{
+        "name": "blocked_search", "route": "cuda", "source": source,
+        "kernel": "blocked_kernel<WPT, *>, search mode", "regime": "blocked",
+        "replaces": "triple_accel_tpu/ops/pallas/search_myers.py:938",
+        "launches": launches, "max_abs_err": worst,
+        "ms": times[False][0], "ms_min": times[False][1],
+        "ms_max": times[False][2], "plain_ms": plain_ms,
+        "plain_shape": f"the haystack's first {LONG_SEARCH_PLAIN_BYTES} "
+                       f"bytes, own_len {LONG_SEARCH_PLAIN_OWN}",
+        **bound, "library_ms": None,
+        "ms_rdamerau": times[True][0],
+        "bound_ms_rdamerau": bound_r["bound_ms"],
+    }, {
+        "name": "blocked_search_chunked", "route": "cuda", "source": source,
+        "kernel": "blocked_kernel<WPT, *>, search mode",
+        "regime": f"chunked (anchored, {it_a} columns)",
+        "replaces": "triple_accel_tpu/ops/pallas/myers_chunked.py:386",
+        "launches": launches_a, "max_abs_err": err_a,
+        "ms": times_a[0], "ms_min": times_a[1], "ms_max": times_a[2],
+        "plain_ms": plain_a, **bound_a, "library_ms": None,
+    }]
+    return entries
+
+
 def front_door(dev):
     """Parity calls and misuse probes that the port carries."""
     import triple_accel_tpu_torch as tt
@@ -1121,6 +1735,43 @@ def front_door(dev):
               f"traced batch pair {p}: {got} != oracle {exp}")
     check(dists.tolist() == [3, 3, 0, -1, 3, 1],
           f"traced batch gave {dists.tolist()}")
+    # past the band plan, and past the 1280-char needles of the Myers
+    # search kernel: the blocked kernel, against the compiled comparators
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.utils.native import (
+        myers_distance_batch_native, scalar_banded_batch_native,
+        search_all_native)
+
+    (la,), (lb,) = make_long_pairs(1, FRONT_DOOR_LEN, 0.01, seed=50)
+    (lb_sw,) = swap_adjacent_list([lb], 0.002, np.random.default_rng(51))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d = tt.levenshtein(la, lb)
+    long_pair_s = time.perf_counter() - t0
+    # one pair is one warp on one SM: its kernel alone
+    a1, b1 = (la, lb) if len(la) <= len(lb) else (lb, la)
+    t = mc.prepare_blocked_distance_inputs([a1], [b1], device=dev)
+    long_pair_ms = time_launches(lambda: mc.blocked_distance(*t), 3)
+    check(d == int(myers_distance_batch_native([la], [lb], U32_MAX)[0]),
+          f"levenshtein on {FRONT_DOOR_LEN} bytes gave {d}")
+    d_unit = int(myers_distance_batch_native([la], [lb_sw], U32_MAX)[0])
+    d_r = tt.rdamerau(la, lb_sw)
+    check(d_r == int(scalar_banded_batch_native(
+        [la], [lb_sw], d_unit, tt.RDAMERAU_COSTS)[0]) and d_r < d_unit,
+          f"rdamerau on {FRONT_DOOR_LEN} bytes gave {d_r}")
+    needle, hay, _ = make_long_haystack(COPY_FREE_BYTES + 40_000,
+                                        FRONT_DOOR_NEEDLE, 1, 20, seed=52)
+    hay = hay[:40_000]  # one copy, at 0
+    found = tt.levenshtein_search(needle, hay)
+    ends, ks, lens = search_all_native(needle, hay, FRONT_DOOR_NEEDLE // 2,
+                                       tt.LEVENSHTEIN_COSTS)
+    ref = {e: (e - ln, kk) for e, kk, ln in zip(ends.tolist(), ks.tolist(),
+                                                lens.tolist())}
+    check(found and found[0].start == 0 and found[0].k <= 20
+          and all(ref.get(mt.end) == (mt.start, mt.k)
+                  and mt.k == min(ks.tolist()) for mt in found),
+          f"levenshtein_search with a {FRONT_DOOR_NEEDLE}-byte needle gave "
+          f"{found[:3]}")
     probes = 0
     for fn, exc in (
         (lambda: tt.EditCosts(0, 1, 0, None), ValueError),
@@ -1140,7 +1791,12 @@ def front_door(dev):
             probes += 1
         else:
             raise RuntimeError("a misuse probe raised nothing")
-    emit({"phase": "front_door", "parity_calls": 9, "misuse_probes": probes})
+    emit({"phase": "front_door", "parity_calls": 12, "misuse_probes": probes,
+          "levenshtein_long_pair": {
+              "str_len": FRONT_DOOR_LEN, "distance": d,
+              "e2e_s": round(long_pair_s, 4),
+              "kernel_ms_median_min_max": [round(x, 4)
+                                           for x in long_pair_ms]}})
 
 
 def main() -> int:
@@ -1185,12 +1841,15 @@ def main() -> int:
     d_cases, d_err = check_distance_kernel(dev)
     s_cases, s_err = check_search_kernel(dev)
     b_cases, b_err = check_band_kernels(dev)
+    (bd_cases, bd_err), (bs_cases, bs_err) = check_blocked_kernels(dev)
     emit({"phase": "kernel_checks", "tolerance": "exact (integers)",
           "myers_distance": {"cases": d_cases, "max_abs_err": d_err},
           "myers_search": {"cases": s_cases, "max_abs_err": s_err},
           "band_distance_and_band_trace": {
               "cases_short": b_cases["short"], "cases_long": b_cases["long"],
               "cases_widest_band": b_cases["wide"], "max_abs_err": b_err},
+          "blocked_distance": {"cases": bd_cases, "max_abs_err": bd_err},
+          "blocked_search": {"cases": bs_cases, "max_abs_err": bs_err},
           "seconds": round(time.perf_counter() - t0, 1)})
 
     n_pairs = int(os.environ.get("CHIP_SMOKE_PAIRS", FULL_PAIRS))
@@ -1229,13 +1888,21 @@ def main() -> int:
     # 8. Hamming (plain ops)
     run_hamming(dev, a_list, b_list, needle, hay, planted)
 
-    # 9. front door
+    # 9, 10. unbounded lengths and long needles
+    k5 = run_blocked_distance(dev, scale, native_loaded)
+    k5.update(cases=bd_cases, ok=True)
+    k6, k6_chunked = run_blocked_search(dev, hay_mb, native_loaded)
+    for entry in (k6, k6_chunked):
+        entry.update(cases=bs_cases, ok=True)
+
+    # 11. front door
     front_door(dev)
 
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_start, 1),
           "peak_device_MB": round(torch.cuda.max_memory_allocated() / 2**20)})
-    emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long]})
+    emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k5, k6,
+                      k6_chunked]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

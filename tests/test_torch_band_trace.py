@@ -273,9 +273,12 @@ def test_single_pair_trace_equals_jax_and_oracle(a, b):
     assert tl.levenshtein_simd_k_with_opts(b"", b"", 3, True, **CPU) == (0, [])
 
 
+# untraced unit and rDamerau batches past the plan have an engine, the
+# blocked Myers distance kernel (test_torch_blocked_distance.py); their
+# traces do not yet
 @pytest.mark.parametrize("c,trace,engine", [
-    (COSTS[0], False, "blocked_distance_chunked"),
-    (COSTS[1], False, "blocked_distance_chunked"),
+    (COSTS[0], True, "band_trace_batch"),
+    (COSTS[1], True, "band_trace_batch"),
     (COSTS[2], False, "flat_distance"),
     (COSTS[3], True, "band_trace_batch"),
 ], ids=["unit", "rdamerau", "affine", "traced"])

@@ -145,3 +145,95 @@ def test_smoke_run_fails_without_a_card_and_imports_no_jax(capsys,
         elif isinstance(node, ast.ImportFrom):
             imported.add((node.module or "").split(".")[0])
     assert "jax" not in imported and "triple_accel_tpu" not in imported
+
+
+def test_long_pairs_and_swaps_keep_their_rules():
+    from triple_accel_tpu_torch.utils.native import (
+        myers_distance_batch_native, scalar_banded_batch_native)
+
+    a_list, b_list = cs.make_long_pairs(8, 300, 0.1, seed=4)
+    acgt = set(cs.ACGT.tolist())
+    for a, b in zip(a_list, b_list):
+        assert len(a) == 300 and 270 <= len(b) <= 330
+        assert set(a.tolist()) <= acgt and set(b.tolist()) <= acgt
+    d = myers_distance_batch_native(a_list, b_list, 10**6)
+    assert (d >= 1).all() and (d <= 30).all()
+    swapped = cs.swap_adjacent_list(b_list, 0.02, np.random.default_rng(5))
+    for b, s in zip(b_list, swapped):
+        assert len(s) == len(b) and sorted(s.tolist()) == sorted(b.tolist())
+    unit = myers_distance_batch_native(a_list, swapped, 10**6)
+    rdam = scalar_banded_batch_native(a_list, swapped, 10**6, RDAMERAU_COSTS)
+    assert (rdam <= unit).all() and (rdam < unit).any()
+
+
+def test_long_haystack_copies_are_found_where_they_were_planted(
+        monkeypatch):
+    from triple_accel_tpu_torch.utils.native import (
+        search_all_native, search_intervals_native)
+
+    monkeypatch.setattr(cs, "COPY_FREE_BYTES", 20_000)
+    m, subs = 200, 4
+    needle, hay, planted = cs.make_long_haystack(28_000, m, 6, subs, seed=6)
+    assert planted[0] == 0 and (np.diff(planted) >= m).all()
+    assert planted[-1] + m <= len(hay) - cs.COPY_FREE_BYTES
+    for pos in planted.tolist():
+        assert (hay[pos: pos + m] != needle).sum() == subs
+    full = search_all_native(needle, hay, 20, LEVENSHTEIN_COSTS)
+    by_end = dict(zip(full[0].tolist(), full[1].tolist()))
+    assert all(by_end[pos + m] <= subs for pos in planted.tolist())
+    assert not (full[0] > len(hay) - cs.COPY_FREE_BYTES).any()
+    # the reference's intervals hold every candidate of the whole haystack
+    starts, stops = cs.long_search_intervals(planted, m, 20, len(hay))
+    assert (starts[1:] > stops[:-1]).all()
+    assert stops[-1] == len(hay) and starts[-1] <= len(hay) - 20_000
+    got = search_intervals_native(needle, hay, starts, stops, 20,
+                                  LEVENSHTEIN_COSTS)
+    assert all(np.array_equal(x, y) for x, y in zip(got, full))
+
+
+def test_k5_and_k6_bounds_count_bytes_and_operations():
+    m = np.array([64, 65, 0])
+    n = np.array([100, 10, 5])
+    b = cs.k5_bound(m, n, False)
+    ops = 100 * (2 * 11 + 3) + 10 * (3 * 11 + 3) + 5 * 3
+    assert cs.K5_OPS_PER_COL_WORD32 == {False: 11, True: 15}
+    assert b["bound_operations_ms"] == pytest.approx(
+        ops / cs.PEAK_INT32_OPS_PER_S * 1e3)
+    assert b["bound_bytes_ms"] == pytest.approx(
+        (129 + 115 + 36) / cs.PEAK_BYTES_PER_S * 1e3)
+    assert b["bound_ms"] == max(b["bound_bytes_ms"],
+                                b["bound_operations_ms"])
+    r = cs.k6_bound(1000, 3000, True)
+    assert r["bound_operations_ms"] == pytest.approx(
+        1000 * (94 * 15 + 4) / cs.PEAK_INT32_OPS_PER_S * 1e3)
+    assert r["bound_by"] == "operations"
+    # the full-size distance phase's reckoning: about 9 ms
+    full = cs.k5_bound(np.full(1024, 20_000), np.full(1024, 20_000), False)
+    assert 8 < full["bound_ms"] < 11
+
+
+def test_blocked_distance_cases_cross_the_plan_boundaries():
+    """Every batch of the K5 checks: each word count a lane the kernel is
+    built for, strips at 10 and at 2 words a lane; both sides of a lane's
+    words and of a strip; short texts; NUL bytes; one full-byte needle."""
+    from triple_accel_tpu_torch.ops.myers_chunked import blocked_plan
+
+    plans = set()
+    for max_m, full_byte in cs.BLOCKED_CHECKS:
+        rng = np.random.default_rng(max_m)
+        a_list, b_list = cs.blocked_distance_cases(
+            rng, cs.BLOCKED_CHECK_PAIRS, max_m, full_byte)
+        la = [len(a) for a in a_list]
+        assert len(a_list) == cs.BLOCKED_CHECK_PAIRS and la[0] == 0
+        assert max(la) == max_m
+        assert max(len(b) for b in b_list) <= cs.BLOCKED_CHECK_COLS + 30
+        assert all((a == 0).any() for a in a_list[1:])  # NUL bytes
+        distinct = max(len(set(a.tolist())) for a in a_list)
+        assert (distinct == 256) == full_byte
+        wpt, strips = blocked_plan(max_m, distinct + 1)
+        plans.add((wpt, strips > 1))
+        assert {64 * wpt, 64 * wpt + 1} <= set(la)  # a lane's words
+        if strips > 1:
+            assert {2048 * wpt, 2048 * wpt + 1} <= set(la)  # a strip
+    assert {w for w, _ in plans} == {1, 2, 4, 6, 10}
+    assert {(10, True), (2, True)} <= plans

@@ -1,9 +1,10 @@
 """The CUDA kernels' bodies, compiled for the host, against their plain
 PyTorch versions and the oracle.
 
-`csrc/myers_distance.cu`, `csrc/myers_search.cu` and `csrc/band_distance.cu`
-keep their per-pair, per-segment and per-row code in plain functions that
-also compile with a host C++ compiler (`-DTA_HOST_REHEARSAL`);
+`csrc/myers_distance.cu`, `csrc/myers_search.cu`, `csrc/band_distance.cu` and
+`csrc/myers_blocked.cu` keep their per-pair, per-segment, per-row and
+per-lane code in plain functions that also compile with a host C++
+compiler (`-DTA_HOST_REHEARSAL`);
 `csrc/host_rehearsal.cpp` wraps them in a C interface that runs one
 "thread" at a time.  So the arithmetic the card
 runs is checked here, where no CUDA compiler exists: integer results, exact
@@ -24,12 +25,18 @@ import torch
 
 from triple_accel_tpu_torch.ops import band_scan as bs
 from triple_accel_tpu_torch.ops import lev_band as lb
+from triple_accel_tpu_torch.ops import myers_chunked as mc
 from triple_accel_tpu_torch.ops import myers_distance as md
 from triple_accel_tpu_torch.ops import myers_search as ms
 from triple_accel_tpu_torch.ops.search_common import seg_count, window_span
 from triple_accel_tpu_torch.oracle import (
     levenshtein_naive_k_with_opts,
     levenshtein_search_naive_with_opts,
+)
+from triple_accel_tpu_torch.utils.native import (
+    myers_distance_batch_native,
+    scalar_banded_batch_native,
+    search_all_native,
 )
 from triple_accel_tpu_torch.types import (
     EditCosts,
@@ -63,6 +70,13 @@ def lib(tmp_path_factory):
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 6)
+    lib.ta_rehearse_blocked_distance.restype = ctypes.c_int
+    lib.ta_rehearse_blocked_distance.argtypes = (
+        [vp] * 5 + [i32, i32, vp, i64, i64, i64, vp, i64, i32])
+    lib.ta_rehearse_blocked_search.restype = ctypes.c_int
+    lib.ta_rehearse_blocked_search.argtypes = [
+        vp, i64, vp, i32, i32, vp, i32, i32, i64, i64, i64, i32, i32, vp,
+        i64, vp, i64]
     return lib
 
 
@@ -277,3 +291,117 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
     assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 48) == 1
     assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 2048) == 1
     assert lib.ta_rehearse_band(*args, 8192, 16, 1, 1, 0, 0, 0, 32) == 1
+
+
+def _blocked_distance_rehearsal(lib, t, wpt, damerau):
+    """The K5 body over prepared tensors at `wpt` words a lane (the plan
+    would pick one; every word count the kernel is built for is run)."""
+    a, b, m, n = (x.numpy() for x in t)
+    codes, rows = mc.alphabet_codes(t[0], t[2])
+    codes = codes.numpy()
+    sstride = -(-max(int(n.max()), 1) // 16) * 16
+    scratch = np.zeros((len(m), sstride), np.uint8)
+    out = np.full(len(m), -7, np.int32)
+    rc = lib.ta_rehearse_blocked_distance(
+        a.ctypes.data, b.ctypes.data, m.ctypes.data, n.ctypes.data,
+        codes.ctypes.data, rows, wpt, out.ctypes.data, len(m), a.shape[1],
+        b.shape[1], scratch.ctypes.data, sstride, int(damerau))
+    return rc, out
+
+
+@pytest.mark.parametrize("damerau", [False, True], ids=["unit", "rdamerau"])
+def test_blocked_distance_body_equals_plain_version_and_native(lib, damerau):
+    """Needle lengths on both sides of the word (64 chars), of a lane's
+    words at every built word count (64 * {1, 2, 4, 6, 10}) and of a strip
+    at one word a lane (2048), edited copies with adjacent swaps, NUL
+    bytes, an empty a, and one full-byte needle (its 257-row table allows
+    at most 2 words a lane: the rest run without it)."""
+    rng = np.random.default_rng(77 + damerau)
+    lengths = [1, 63, 64, 65, 127, 129, 255, 257, 383, 385, 639, 641, 2047,
+               2048, 2049, 2100]
+    a_list, b_list = [np.empty(0, np.uint8)], [
+        rng.integers(0, 4, 9).astype(np.uint8)]
+    for ln in lengths:
+        a = rng.integers(0, 4, ln).astype(np.uint8)
+        a[rng.integers(0, ln, 2)] = 0  # NUL chars: pads are 0 too
+        b = a.copy()
+        b[rng.integers(0, ln, ln // 20 + 1)] = 1
+        for q in rng.integers(0, max(ln - 1, 1), ln // 40 if ln > 1 else 0):
+            b[q], b[q + 1] = b[q + 1], b[q]
+        b = np.insert(b, rng.integers(0, ln + 1, ln // 30 + 1), 3)
+        a_list.append(a)
+        b_list.append(b)
+    full = rng.permutation(256).astype(np.uint8)  # every byte, NUL included
+    a_list.append(np.tile(full, 5))
+    b_list.append(np.concatenate([np.tile(full, 5)[7:], full[:40]]))
+    t = mc.prepare_blocked_distance_inputs(a_list, b_list, device="cpu")
+    plain = mc.blocked_distance_plain(*t, damerau=damerau).numpy()
+    exp = (scalar_banded_batch_native(a_list, b_list, 1 << 30,
+                                      RDAMERAU_COSTS) if damerau
+           else myers_distance_batch_native(a_list, b_list, 1 << 30))
+    assert np.array_equal(np.where(t[2].numpy() == 0, t[3].numpy(), plain),
+                          exp)
+    for wpt in (1, 2):
+        rc, out = _blocked_distance_rehearsal(lib, t, wpt, damerau)
+        assert rc == 0 and np.array_equal(out, plain), wpt
+    rc, _ = _blocked_distance_rehearsal(lib, t, 4, damerau)
+    assert rc == 1  # 257 rows x 4 words a lane pass a block's shared memory
+    t4 = [x[:-1] for x in t]  # without the full-byte needle
+    for wpt in (4, 6, 10):
+        rc, out = _blocked_distance_rehearsal(lib, t4, wpt, damerau)
+        assert rc == 0 and np.array_equal(out, plain[:-1]), wpt
+
+
+@pytest.mark.parametrize("anchored", [False, True],
+                         ids=["unanchored", "anchored"])
+@pytest.mark.parametrize("damerau", [False, True], ids=["unit", "rdamerau"])
+def test_blocked_search_body_equals_plain_version_and_native(lib, damerau,
+                                                             anchored):
+    """Two 2100-char needles in one call, one of them over all 256 bytes
+    (NUL included), against a haystack that holds NUL bytes and a planted
+    copy with an adjacent swap: two strips at one word a lane, one at two;
+    unanchored over segments of an owned length that is not a multiple of
+    4 (the scalar edges of the four-column stores)."""
+    rng = np.random.default_rng(5 + 2 * damerau + anchored)
+    costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
+    m, n, k = 2100, 2600, 30
+    needles = np.stack([rng.integers(0, 256, m).astype(np.uint8),
+                        rng.integers(0, 4, m).astype(np.uint8)])
+    needles[0, rng.integers(0, m, 3)] = 0
+    hay = rng.integers(0, 4, n).astype(np.uint8)
+    hay[[0, 5, n - 1]] = 0
+    pos = 0 if anchored else 300
+    hay[pos:pos + m] = needles[1]
+    hay[pos + 50], hay[pos + 51] = hay[pos + 51], hay[pos + 50]
+    if anchored:
+        it, halo = min(m + k, n), 0
+        own = it
+    else:
+        it, halo, own = n, window_span(m, k, 1, 0), 333
+    h = hay[:it].copy()
+    plain = ms.myers_search_plain(
+        torch.from_numpy(h), torch.from_numpy(needles), own_len=own,
+        halo=halo, anchored=anchored, damerau=damerau).numpy()
+    codes, rows = mc.alphabet_codes(torch.from_numpy(needles),
+                                    torch.full((2,), m))
+    codes = codes.numpy()
+    nseg = seg_count(it, own)
+    stride = -(-(it + 1) // 4) * 4
+    sstride = -(-(halo + own) // 16) * 16
+    for wpt in (1, 2):
+        out = np.full((2, stride), -7, np.int32)
+        scratch = np.zeros((2 * nseg, sstride), np.uint8)
+        rc = lib.ta_rehearse_blocked_search(
+            h.ctypes.data, it, needles.ctypes.data, 2, m, codes.ctypes.data,
+            rows, wpt, own, halo, nseg, int(anchored), int(damerau),
+            out.ctypes.data, stride, scratch.ctypes.data, sstride)
+        assert rc == 0
+        assert np.array_equal(out[:, : it + 1], plain), wpt
+        assert (out[:, it + 1:] == -7).all()  # pad columns stay unwritten
+    for i in range(2):
+        ends, ks, _ = search_all_native(needles[i], hay, k, costs,
+                                        anchored=anchored)
+        got = {j: int(plain[i, j]) for j in range(it + 1)
+               if plain[i, j] <= k}
+        assert got == dict(zip(ends.tolist(), ks.tolist()))
+    assert int(plain[1].min()) <= 2  # the planted copy

@@ -206,10 +206,14 @@ _LONG_B = np.full(9000, 66, np.uint8)
                                     **CPU), "sharded"),
     (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, trace_on=True,
                                     mesh=object(), **CPU), "sharded"),
-    # past the band plan (band half-width over 4096) the JAX engines that
-    # take over are still to be ported
-    (lambda: tl.levenshtein(_LONG_A, _LONG_B, **CPU), "myers_chunked"),
-    (lambda: tl.rdamerau(_LONG_A, _LONG_B, **CPU), "myers_chunked"),
+    # past the band plan (band half-width over 4096) unit and rDamerau
+    # distances have an engine (test_torch_blocked_distance.py); their
+    # tracebacks, and other cost models, do not yet
+    (lambda: tl.levenshtein_k_batch([_LONG_A], [_LONG_B], tl.U32_MAX,
+                                    trace_on=True, **CPU), "band_scan"),
+    (lambda: tl.levenshtein_simd_k_with_opts(
+        _LONG_A, _LONG_B, tl.U32_MAX, True, RDAMERAU_COSTS, **CPU),
+     "band_scan"),
     (lambda: tl.levenshtein_k_batch([_LONG_A], [_LONG_B], 10**6,
                                     EditCosts(2, 1, 2, None), **CPU),
      "search_flat"),
@@ -218,8 +222,11 @@ _LONG_B = np.full(9000, 66, np.uint8)
     (lambda: tl.levenshtein_search_simd_with_opts(
         b"abc", b"xxabcxx", 1, SearchType.All, EditCosts(2, 1, 0, None),
         **CPU), "search_flat"),
+    # needles past 1280 chars have an engine for unit and rDamerau costs
+    # (test_torch_blocked_search.py), not for general costs
     (lambda: tl.levenshtein_search_simd_with_opts(
-        b"a" * 1281, b"b" * 2000, 1, **CPU), "blocked_search"),
+        b"a" * 1281, b"b" * 2000, 1, SearchType.Best,
+        EditCosts(1, 2, 1, None), **CPU), "search_flat"),
     (lambda: tl.levenshtein_search_simd_with_opts(
         b"ab" * 200, b"ab" * 600_000, 398, SearchType.All, **CPU),
      "_resolve_hits_flat"),

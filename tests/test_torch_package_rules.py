@@ -29,7 +29,7 @@ def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
     mods = _submodules()
     assert "triple_accel_tpu_torch.ops.myers_distance" in mods
     for new in ("ops.band_scan", "ops.lev_band", "ops.hamming_ops",
-                "oracle.hamming", "hamming"):
+                "oracle.hamming", "hamming", "ops.myers_chunked"):
         assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
@@ -80,6 +80,9 @@ def test_source_imports_no_jax(path):
     lambda: tt.levenshtein_k_batch([b"abc"], [b"ab"], 2, trace_on=True),
     lambda: sys.modules["triple_accel_tpu_torch.levenshtein"]
     .levenshtein_simd_k_str("abc", "ab", 1),
+    # past the band plan, and past K2's 1280-char needles
+    lambda: tt.levenshtein(b"a" * 5000, b"b" * 5100),
+    lambda: tt.levenshtein_search(b"ab" * 700, b"ab" * 2000),
 ])
 def test_default_device_raises_without_a_card(call):
     if torch.cuda.is_available():
@@ -110,6 +113,7 @@ def test_cuda_tensors_never_take_the_plain_version():
     ("myers_distance", ["myers_distance"]),
     ("myers_search", ["myers_search"]),
     ("lev_band", ["band_distance", "band_trace"]),
+    ("myers_chunked", ["blocked_distance", "blocked_search"]),
 ])
 def test_wrappers_take_the_plain_version_for_cpu_tensors_only(module,
                                                               wrappers):
@@ -163,4 +167,5 @@ def test_build_raises_without_nvcc(monkeypatch):
         build.load_kernels()
     assert all(s.endswith(".cu") for s in build._sources())
     assert [os.path.basename(s) for s in build._sources()] == [
-        "band_distance.cu", "myers_distance.cu", "myers_search.cu"]
+        "band_distance.cu", "myers_blocked.cu", "myers_distance.cu",
+        "myers_search.cu"]

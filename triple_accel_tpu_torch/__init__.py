@@ -10,10 +10,12 @@ JAX package stays beside it as the reference the tests compare against.
 Module names follow the JAX package's so a reader finds the counterpart.
 So far the port carries the distance paths (`levenshtein_k_batch` and its
 wrappers: unit costs on the Myers kernel, every cost model, wide bands and
-tracebacks on the general band kernels), the Myers search path
-(`levenshtein_search*`, unit and restricted-Damerau costs) and Hamming
-distance and search; every other route raises `NotImplementedError`
-naming the JAX engine still to be ported.  Entry points run on "cuda"
+tracebacks on the general band kernels, unit and restricted-Damerau costs
+past the band plan on the blocked Myers kernel, so `levenshtein` and
+`rdamerau` take strings of any length), the Myers search path
+(`levenshtein_search*`, unit and restricted-Damerau costs, needles of any
+length) and Hamming distance and search; every other route raises
+`NotImplementedError` naming the JAX engine still to be ported.  Entry points run on "cuda"
 unless the caller passes `device=`; without a card they raise.
 """
 

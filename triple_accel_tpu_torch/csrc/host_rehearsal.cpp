@@ -1,8 +1,9 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
-// functions of myers_distance.cu and myers_search.cu and the row passes of
-// band_distance.cu, compiled for the CPU and run one "thread" at a time, so
-// their arithmetic can be held against the plain PyTorch versions where
-// there is no CUDA compiler and no card.
+// functions of myers_distance.cu and myers_search.cu, the row passes of
+// band_distance.cu and the per-lane wavefront steps of myers_blocked.cu,
+// compiled for the CPU and run one "thread" at a time, so their arithmetic
+// can be held against the plain PyTorch versions where there is no CUDA
+// compiler and no card.
 //
 //   g++ -std=c++17 -O1 -shared -fPIC -I triple_accel_tpu_torch/csrc \
 //       triple_accel_tpu_torch/csrc/host_rehearsal.cpp -o libta_rehearsal.so
@@ -14,6 +15,7 @@
 #include <vector>
 
 #include "band_distance.cu"
+#include "myers_blocked.cu"
 #include "myers_distance.cu"
 #include "myers_search.cu"
 
@@ -178,4 +180,119 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                  b_stride, unit_k, code_rows, costs, threads);
   }
   return 0;
+}
+
+// One work item of myers_blocked.cu: the 32 lanes of the warp run each
+// wavefront step in turn, and what lane l returns at step s is what lane
+// l + 1 takes at step s + 1 (the device's __shfl_up_sync).
+template <int WPT, bool DAM>
+static void rehearse_blocked_item(const BlkArgs& g, int64_t x, int64_t y) {
+  const BlkItem it = blk_item(g, x, y);
+  if (it.m == 0) {
+    g.out[x] = 0;
+    return;
+  }
+  if (g.search && x == 0) it.out_row[0] = it.m;
+  std::vector<uint64_t> tab((size_t)g.rows * WPT * BLK_LANES);
+  std::vector<BlkLane<WPT, DAM>> L(BLK_LANES);
+  std::vector<BlkStream> txt(BLK_LANES), bits(BLK_LANES);
+  std::vector<BlkSink> sink(BLK_LANES);
+  BlkStrip sp;
+  sp.tab = tab.data();
+  sp.geo = blk_geom<WPT>(it.m);
+  for (int64_t strip = 0; strip < sp.geo.ns; ++strip) {
+    sp.first = strip == 0;
+    sp.last = strip == sp.geo.ns - 1;
+    for (int l = 0; l < BLK_LANES; ++l) {
+      blk_build<WPT>(tab.data(), g.rows, it, strip, l);
+      blk_reset(L[l], it.m);
+      txt[l].start(it.text, it.text_len);
+      bits[l].start(it.scratch, it.ncols);
+    }
+    const int64_t steps = blk_steps(it, sp);
+    uint32_t in[BLK_LANES] = {}, out[BLK_LANES];
+    for (int64_t s = 0; s < steps; ++s) {
+      for (int l = 0; l < BLK_LANES; ++l)
+        out[l] = blk_step<WPT, DAM>(g, it, sp, L[l], txt[l], bits[l],
+                                    sink[l], l, s, in[l]);
+      in[0] = out[0];
+      for (int l = 1; l < BLK_LANES; ++l) in[l] = out[l - 1];
+    }
+  }
+  const int ls = sp.geo.lane_S;
+  if (g.search)
+    sink[ls].flush(it);
+  else
+    g.out[x] = L[ls].S;
+}
+
+template <bool DAM>
+static int rehearse_blocked(const BlkArgs& g, int wpt, int64_t nx,
+                            int64_t ny) {
+  for (int64_t y = 0; y < ny; ++y)
+    for (int64_t x = 0; x < nx; ++x) switch (wpt) {
+        case 1: rehearse_blocked_item<1, DAM>(g, x, y); break;
+        case 2: rehearse_blocked_item<2, DAM>(g, x, y); break;
+        case 4: rehearse_blocked_item<4, DAM>(g, x, y); break;
+        case 6: rehearse_blocked_item<6, DAM>(g, x, y); break;
+        case 10: rehearse_blocked_item<10, DAM>(g, x, y); break;
+        default: return 1;
+      }
+  return 0;
+}
+
+// Same arguments as ta_blocked_distance, host pointers, no stream.
+extern "C" int ta_rehearse_blocked_distance(
+    const void* a, const void* b, const void* m, const void* n,
+    const void* codes, int rows, int wpt, void* out, int64_t B,
+    int64_t a_stride, int64_t b_stride, void* scratch,
+    int64_t scratch_stride, int damerau) {
+  if (!blk_plan_ok(rows, wpt) || (b_stride & 15) || (scratch_stride & 15))
+    return 1;
+  BlkArgs g = {};
+  g.needles = (const uint8_t*)a;
+  g.needle_stride = a_stride;
+  g.m_arr = (const int32_t*)m;
+  g.codes = (const int16_t*)codes;
+  g.rows = rows;
+  g.text = (const uint8_t*)b;
+  g.text_stride = b_stride;
+  g.n_arr = (const int32_t*)n;
+  g.anchored = 1;
+  g.out = (int32_t*)out;
+  g.scratch = (uint8_t*)scratch;
+  g.scratch_stride = scratch_stride;
+  return damerau ? rehearse_blocked<true>(g, wpt, B, 1)
+                 : rehearse_blocked<false>(g, wpt, B, 1);
+}
+
+// Same arguments as ta_blocked_search, host pointers, no stream.
+extern "C" int ta_rehearse_blocked_search(
+    const void* hay, int64_t iter_len, const void* needles, int num, int m,
+    const void* codes, int rows, int wpt, int64_t own_len, int64_t halo,
+    int64_t nseg, int anchored, int damerau, void* out, int64_t out_stride,
+    void* scratch, int64_t scratch_stride) {
+  if (!blk_plan_ok(rows, wpt) || m < 1 || own_len < 1 || halo < 0 ||
+      nseg < 1 || out_stride < iter_len + 1 || (out_stride & 3) ||
+      (scratch_stride & 15))
+    return 1;
+  BlkArgs g = {};
+  g.needles = (const uint8_t*)needles;
+  g.needle_stride = m;
+  g.m = m;
+  g.codes = (const int16_t*)codes;
+  g.rows = rows;
+  g.text = (const uint8_t*)hay;
+  g.text_len = iter_len;
+  g.own_len = own_len;
+  g.halo = halo;
+  g.nseg = nseg;
+  g.anchored = anchored;
+  g.search = 1;
+  g.out = (int32_t*)out;
+  g.out_stride = out_stride;
+  g.scratch = (uint8_t*)scratch;
+  g.scratch_stride = scratch_stride;
+  return damerau ? rehearse_blocked<true>(g, wpt, nseg, num)
+                 : rehearse_blocked<false>(g, wpt, nseg, num);
 }

@@ -68,16 +68,6 @@ struct RingTables {
   }
 };
 
-static TA_DEV uint4 load16(const uint8_t* p) {
-#ifdef TA_HOST_REHEARSAL
-  uint4 v;
-  __builtin_memcpy(&v, p, 16);
-  return v;
-#else
-  return *reinterpret_cast<const uint4*>(p);
-#endif
-}
-
 // One pair.  a: m chars (row stride multiple of 16, 0 pads up to a multiple
 // of 16); b: the pair's b chars placed at byte offset ukl in a zero-filled
 // row of at least roundup16(m) + 64 * NW bytes.
@@ -97,7 +87,7 @@ TA_DEV int32_t distance_pair(const uint8_t* a, const uint8_t* b, int m,
     // initial window: buffer indices [0, WP)
     ring.clear_all();
     for (int q = 0; q < WP / 16; ++q) {
-      const uint4 v = load16(b + 16 * q);
+      const uint4 v = ta_load16(b + 16 * q);
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
         const int x = 16 * q + r;
@@ -107,9 +97,9 @@ TA_DEV int32_t distance_pair(const uint8_t* a, const uint8_t* b, int m,
     int pos = 0;  // ring position of the window's first byte, r0 mod WP
     const int nblk = (m + 15) / 16;
     for (int q = 0; q < nblk; ++q) {
-      const uint4 av = load16(a + 16 * q);
-      const uint4 bout = load16(b + 16 * q);
-      const uint4 bin = load16(b + 16 * q + WP);
+      const uint4 av = ta_load16(a + 16 * q);
+      const uint4 bout = ta_load16(b + 16 * q);
+      const uint4 bin = ta_load16(b + 16 * q + WP);
 #pragma unroll
       for (int r = 0; r < 16; ++r) {
         const int r0 = 16 * q + r;  // 0-based row, i = r0 + 1

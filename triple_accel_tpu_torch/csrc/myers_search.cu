@@ -56,14 +56,6 @@ struct SearchArgs {
   int64_t out_stride;   // ints per output row, a multiple of 4
 };
 
-static TA_DEV void store4(int32_t* p, const int32_t* v) {
-#ifdef TA_HOST_REHEARSAL
-  __builtin_memcpy(p, v, 16);
-#else
-  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
-#endif
-}
-
 // One (needle, segment).  peq: 256 * nw words, entry (ch, w) at peq[ch*nw+w].
 template <int MAXW>
 TA_DEV void search_segment(const SearchArgs& g, const uint64_t* peq,
@@ -166,7 +158,7 @@ TA_DEV void search_segment(const SearchArgs& g, const uint64_t* peq,
           sbuf[j & 3] = S;
           if ((j & 3) == 3) {
             if (j - 3 > own0) {
-              store4(out_row + (j - 3), sbuf);
+              ta_store4(out_row + (j - 3), sbuf);
             } else {
               for (int64_t jj = own0 + 1; jj <= j; ++jj)
                 out_row[jj] = sbuf[jj & 3];

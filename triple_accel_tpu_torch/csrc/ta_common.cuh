@@ -30,6 +30,26 @@ static TA_DEV uint32_t ta_byte_of(const uint4& v, int r) {
   return (w >> (8 * (r & 3))) & 0xFFu;
 }
 
+// 16 bytes from a 16-byte aligned address
+static TA_DEV uint4 ta_load16(const uint8_t* p) {
+#ifdef TA_HOST_REHEARSAL
+  uint4 v;
+  __builtin_memcpy(&v, p, 16);
+  return v;
+#else
+  return *reinterpret_cast<const uint4*>(p);
+#endif
+}
+
+// four ints to a 16-byte aligned address in one store
+static TA_DEV void ta_store4(int32_t* p, const int32_t* v) {
+#ifdef TA_HOST_REHEARSAL
+  __builtin_memcpy(p, v, 16);
+#else
+  *reinterpret_cast<int4*>(p) = make_int4(v[0], v[1], v[2], v[3]);
+#endif
+}
+
 // low `nbits` bits set, nbits clipped to [0, 64]
 static TA_DEV uint64_t ta_low_mask(int nbits) {
   if (nbits <= 0) return 0ull;

@@ -11,13 +11,18 @@ engines and every host step around them:
   unit costs past 191, and with `trace_on=True`: the general-cost band
   kernels (ops/lev_band.py, band up to unit_k 4096, any string length),
   the batched traceback walk and its RLE decode (ops/band_scan.py);
+* `myers_blocked_distance` — the same entry points past the band plan
+  with unit or restricted-Damerau costs, untraced: exact distances of
+  pairs of any length (ops/myers_chunked.py, kernel K5), so `levenshtein`
+  and `rdamerau` take strings of any length;
 * `myers_search` / `myers_search_rdamerau` — `levenshtein_search_simd_with_opts`
   and its wrappers, unit and restricted-Damerau costs, anchored or not,
-  needles up to 1280 chars (ops/myers_search.py), followed by the hit fetch
-  and the All-mode length replay on the host.
+  needles up to 1280 chars (ops/myers_search.py), and `myers_search_blocked`
+  for longer needles (ops/myers_chunked.py, kernel K6), each followed by
+  the hit fetch and the All-mode length replay on the host.
 
-Every other route of the JAX package (meshes, bands wider than the band
-plan, general-cost search, longer needles, the dense-hit device resolution,
+Every other route of the JAX package (meshes, general costs or traces past
+the band plan, general-cost search, the dense-hit device resolution,
 dictionary search, sharded search) raises `NotImplementedError` naming the
 JAX engine that is still to be ported.  Nothing falls back to the oracle, the plain
 PyTorch versions or the CPU: the same dispatch runs on both devices.
@@ -191,7 +196,10 @@ def levenshtein_simd_k_with_opts(
     size 1, traced or not, so it reaches the same kernels by the same
     rules (the JAX package keeps a separate single-pair scan for traces
     only to spare compiles; `band_scan.decode_traceback` is its host walk,
-    kept as the scalar check of the batched walk).
+    kept as the scalar check of the batched walk).  Untraced unit and
+    restricted-Damerau thresholds past the band plan take the blocked
+    Myers distance kernel, so any string length resolves; a trace or
+    another cost model there raises NotImplementedError.
     """
     dev = resolve_device(device)
     a = to_bytes_array(a)
@@ -214,7 +222,8 @@ def levenshtein_simd_k_with_opts(
 
 def levenshtein_simd_k(a: BytesLike, b: BytesLike, k: int, *,
                        device=None) -> Optional[int]:
-    """Banded distance (reference levenshtein.rs:677-684)."""
+    """Banded distance (reference levenshtein.rs:677-684); any length and
+    threshold (past the band plan on the blocked Myers kernel)."""
     res = levenshtein_simd_k_with_opts(a, b, k, False, LEVENSHTEIN_COSTS,
                                        device=device)
     return None if res is None else res[0]
@@ -224,7 +233,9 @@ def levenshtein(a: BytesLike, b: BytesLike, *, device=None) -> int:
     """Exact Levenshtein distance (reference levenshtein.rs:1397-1399).
     The threshold is unbounded, so the band is about the string length:
     pairs whose capped threshold passes 191 take the general band kernel,
-    and strings past its plan (band half-width over 4096) raise."""
+    and pairs past its plan (band half-width over 4096, strings longer
+    than about 4,100 chars) the blocked Myers distance kernel: any
+    length."""
     res = levenshtein_simd_k(a, b, U32_MAX, device=device)
     if res is None:
         raise AssertionError("an unbounded threshold always resolves")
@@ -233,8 +244,9 @@ def levenshtein(a: BytesLike, b: BytesLike, *, device=None) -> int:
 
 def rdamerau(a: BytesLike, b: BytesLike, *, device=None) -> int:
     """Exact restricted Damerau-Levenshtein distance (reference
-    levenshtein.rs:1419-1423), on the general band kernel; strings past
-    its plan (band half-width over 4096) raise."""
+    levenshtein.rs:1419-1423), on the general band kernel, and past its
+    plan (band half-width over 4096) on the blocked Myers distance kernel:
+    any length."""
     res = levenshtein_simd_k_with_opts(a, b, U32_MAX, False, RDAMERAU_COSTS,
                                        device=device)
     if res is None:
@@ -244,7 +256,8 @@ def rdamerau(a: BytesLike, b: BytesLike, *, device=None) -> int:
 
 def levenshtein_exp(a: BytesLike, b: BytesLike, *, device=None) -> int:
     """Distance via exponential threshold search — much faster when the
-    edit count is small (reference levenshtein.rs:1445-1454)."""
+    edit count is small (reference levenshtein.rs:1445-1454).  A threshold
+    past the band plan takes the blocked Myers kernel: any length."""
     k = 30
     while True:
         res = levenshtein_simd_k(a, b, k, device=device)
@@ -262,7 +275,9 @@ def levenshtein_exp_with_opts(
     device=None,
 ) -> Tuple[int, Optional[List[Edit]]]:
     """Exponential-search distance with options (reference levenshtein.rs:
-    1480-1494)."""
+    1480-1494).  Untraced unit and restricted-Damerau costs resolve at any
+    length (past the band plan on the blocked Myers kernel); a traced or
+    general-cost search that outgrows the plan raises."""
     k = 30
     while True:
         res = levenshtein_simd_k_with_opts(a, b, k, trace_on, costs,
@@ -274,7 +289,8 @@ def levenshtein_exp_with_opts(
 
 def rdamerau_exp(a: BytesLike, b: BytesLike, *, device=None) -> int:
     """Exponential-search rdamerau distance (reference levenshtein.rs:
-    1516-1526)."""
+    1516-1526); any length (past the band plan on the blocked Myers
+    kernel)."""
     k = 30
     while True:
         res = levenshtein_simd_k_with_opts(a, b, k, False, RDAMERAU_COSTS,
@@ -295,7 +311,9 @@ def levenshtein_exp_batch(
     """Batched exponential-search exact distance — the batched-first analog
     of `levenshtein_exp` (reference levenshtein.rs:1445-1454): all pairs
     start at k = 30; unresolved pairs retry together with k doubled, so a
-    batch dominated by similar pairs never pays for a wide band.
+    batch dominated by similar pairs never pays for a wide band.  Unit and
+    restricted-Damerau rungs past the band plan take the blocked Myers
+    kernel, so pairs of any length resolve.
 
     Returns int64 exact distances (always resolves; never -1).
     """
@@ -353,9 +371,13 @@ def levenshtein_k_batch(
       batches here too;
     * `band_trace` [`trace_pallas`, `trace_tiled`]: traced batches, same
       plan, chunked on the batch axis by `_TRACE_CODE_BYTES_CAP`;
-    * past the plan: NotImplementedError naming the JAX engine
-      (`myers_chunked.blocked_distance_chunked` for unit and rDamerau
-      costs, `search_flat.flat_distance` for the others, the
+    * `myers_blocked_distance` [`myers_blocked_distance`]: untraced batches
+      past the plan under unit or restricted-Damerau costs: the exact
+      full-matrix bit-vector distance of pairs of any length
+      (ops/myers_chunked.py), `-1` above the capped threshold;
+    * past the plan otherwise: NotImplementedError naming the JAX engine
+      (`search_flat.flat_distance` for other costs, and for unit costs
+      under FORCE_PATH=band, as in the JAX package; the
       `band_scan.band_trace_batch` scan walk for traces).
     `mesh=` is not ported.
     """
@@ -365,6 +387,10 @@ def levenshtein_k_batch(
         band_plan,
         band_trace,
         prepare_band_tensors,
+    )
+    from .ops.myers_chunked import (
+        blocked_distance,
+        prepare_blocked_distance_inputs,
     )
     from .ops.myers_distance import (
         myers_distance,
@@ -496,12 +522,27 @@ def levenshtein_k_batch(
                     what + " with trace_on=True",
                     "ops/band_scan.py band_trace_batch (the chunked scan "
                     "walk)")
-            if ct in (_UNIT, _RDAMERAU):
+            if ct not in (_UNIT, _RDAMERAU) or forced_path() == "band":
                 raise _not_ported(
-                    what, "ops/pallas/myers_chunked.py "
-                    "blocked_distance_chunked")
-            raise _not_ported(
-                what, "ops/pallas/search_flat.py flat_distance")
+                    what, "ops/pallas/search_flat.py flat_distance")
+            # unit and rDamerau costs: the full-matrix bit-vector distance
+            # of any length (the reference's own headline call shape,
+            # levenshtein.rs:1397-1423 over its unbounded band)
+            DispatchDecision(
+                path="myers_blocked_distance",
+                cost_bucket=select_cost_bucket(max_k),
+                unit_k=uk_dev,
+                max_k=max_k,
+                padded_m=max_m,
+                padded_n=B,
+            ).log("levenshtein_k_batch")
+            bargs = prepare_blocked_distance_inputs(swapped_a, swapped_b,
+                                                    device=dev)
+            dist = blocked_distance(*bargs, damerau=ct == _RDAMERAU)
+            out = dist.cpu().numpy().astype(np.int64)
+            # empty-a pairs come back 0 from the kernel: D[0][n] = n gaps
+            out = np.where(m_len == 0, n_len, out)
+            return np.where(feasible & (out <= max_ks), out, -1)
         DispatchDecision(
             path="band_trace" if trace_on else "band",
             cost_bucket=select_cost_bucket(max_k),
@@ -781,9 +822,14 @@ def levenshtein_search_simd_with_opts(
     span, which is exact for every candidate with cost <= k.
 
     Ported: unit and restricted-Damerau costs, anchored or not, needles of
-    1..1280 chars.  A needle of a given length always takes the same
-    engine, on the CPU and on the card.
+    any length.  Needles of 1..1280 chars take the Myers search kernel
+    (ops/myers_search.py), longer ones the blocked one
+    (ops/myers_chunked.py, logged `myers_search_blocked`), which serves
+    both long-needle engines of the JAX package, `myers_search_blocked`
+    and `myers_search_chunked`, at any halo.  A needle of a given length
+    always takes the same engine, on the CPU and on the card.
     """
+    from .ops.myers_chunked import blocked_search, suggest_own_len_blocked
     from .ops.myers_search import (
         collect_hits,
         myers_search,
@@ -817,13 +863,7 @@ def levenshtein_search_simd_with_opts(
             "ops/pallas/search_kernel.py search_pallas and "
             "ops/pallas/search_flat.py flat_search",
         )
-    if myers_search_plan(m) is None:
-        raise _not_ported(
-            f"a search needle of {m} chars (the Myers search plan covers "
-            "<= 1280)",
-            "ops/pallas/search_myers.py blocked_search_pallas and "
-            "ops/pallas/myers_chunked.py blocked_search_chunked",
-        )
+    blocked = myers_search_plan(m) is None
 
     span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
     if anchored:
@@ -840,9 +880,14 @@ def levenshtein_search_simd_with_opts(
         # quantized like the JAX package's: a larger overlap is still
         # exact — every cost-<=k candidate's window is contained a fortiori
         halo = min(-(-span // 256) * 256, iter_len)
-        own_len = suggest_own_len(iter_len, halo)
+        own_len = (suggest_own_len_blocked if blocked else suggest_own_len)(
+            iter_len, halo)
+    if blocked:
+        path = "myers_search_blocked"
+    else:
+        path = "myers_search_rdamerau" if damerau else "myers_search"
     DispatchDecision(
-        path="myers_search_rdamerau" if damerau else "myers_search",
+        path=path,
         cost_bucket="u8",
         unit_k=halo,
         max_k=k,
@@ -857,8 +902,9 @@ def levenshtein_search_simd_with_opts(
         hay_np = hay_np.copy()
     hay_d = torch.from_numpy(hay_np).to(dev)
     needles_d = prepare_myers_needles([needle], m, device=dev)
-    dist = myers_search(hay_d, needles_d, own_len=own_len, halo=halo,
-                        anchored=anchored, damerau=damerau)
+    search = blocked_search if blocked else myers_search
+    dist = search(hay_d, needles_d, own_len=own_len, halo=halo,
+                  anchored=anchored, damerau=damerau)
     _, gpos, d_arr = collect_hits(dist, min(k, (1 << 31) - 1))
     del dist
     # segment 0 starts at byte 0 with a fresh state, so there is no
@@ -895,7 +941,7 @@ def levenshtein_search_simd_with_opts(
 def levenshtein_search_simd(needle: BytesLike, haystack: BytesLike, *,
                             device=None) -> List[Match]:
     """Default device search: k = ceil(len/2), Best, unit costs, unanchored
-    (reference levenshtein.rs:1866-1878)."""
+    (reference levenshtein.rs:1866-1878); needles of any length."""
     needle = to_bytes_array(needle)
     return levenshtein_search_simd_with_opts(
         needle,
@@ -910,7 +956,8 @@ def levenshtein_search_simd(needle: BytesLike, haystack: BytesLike, *,
 
 def levenshtein_search(needle: BytesLike, haystack: BytesLike, *,
                        device=None) -> List[Match]:
-    """Blessed search entry point (reference levenshtein.rs:2508-2510)."""
+    """Blessed search entry point (reference levenshtein.rs:2508-2510);
+    needles of any length."""
     return levenshtein_search_simd(needle, haystack, device=device)
 
 

@@ -80,10 +80,10 @@ def suggest_own_len(iter_len: int, halo: int) -> int:
 
 def prepare_myers_needles(needles: Sequence[np.ndarray], needle_len: int, *,
                           device) -> torch.Tensor:
-    """Stack same-length needles into uint8 [num, needle_len] on
-    `device`."""
-    if myers_search_plan(needle_len) is None:
-        raise ValueError(f"needle length {needle_len} outside [1, 1280]")
+    """Stack same-length needles into uint8 [num, needle_len] on `device`
+    (any length: the host prep of K2 and of K6, ops/myers_chunked.py)."""
+    if needle_len < 1:
+        raise ValueError("needle length must be >= 1")
     arr = np.zeros((len(needles), needle_len), dtype=np.uint8)
     for i, nd in enumerate(needles):
         nd = np.asarray(nd, dtype=np.uint8)
@@ -108,7 +108,8 @@ def from_reference_needles(nchar: np.ndarray, needle_len: int) -> np.ndarray:
     return chars.astype(np.uint8)
 
 
-def _check_inputs(hay, needles, own_len: int, halo: int) -> int:
+def _check_inputs(hay, needles, own_len: int, halo: int,
+                  anchored: bool) -> int:
     if hay.dtype != torch.uint8 or hay.dim() != 1:
         raise TypeError("hay must be uint8 [iter_len]")
     if needles.dtype != torch.uint8 or needles.dim() != 2:
@@ -116,11 +117,24 @@ def _check_inputs(hay, needles, own_len: int, halo: int) -> int:
     if needles.device != hay.device:
         raise ValueError("hay and needles lie on different devices")
     m = needles.shape[1]
-    if myers_search_plan(m) is None:
-        raise ValueError(f"needle length {m} outside [1, 1280]")
+    if m < 1:
+        raise ValueError("needle length must be >= 1")
     if own_len < 1 or halo < 0:
         raise ValueError("own_len must be >= 1 and halo >= 0")
+    if anchored and (halo != 0 or own_len < hay.shape[0]):
+        raise ValueError("an anchored search runs as ONE segment, halo 0")
     return m
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """`x` contiguous at a 16-byte aligned address (the kernels read it 16
+    bytes at a time): a copy where the given view is not."""
+    x = x.contiguous()
+    if x.data_ptr() % 16:
+        x = x.clone()  # a fresh allocation is aligned
+    if x.data_ptr() % 16:
+        raise ValueError("buffer must be 16-byte aligned")
+    return x
 
 
 def _peq_table(needles: torch.Tensor, nw32: int) -> torch.Tensor:
@@ -140,10 +154,11 @@ def _peq_table(needles: torch.Tensor, nw32: int) -> torch.Tensor:
 def myers_search_plain(hay: torch.Tensor, needles: torch.Tensor, *,
                        own_len: int, halo: int, anchored: bool = False,
                        damerau: bool = False) -> torch.Tensor:
-    """Plain PyTorch version of kernel K2: the same recurrence and the same
-    segmentation, vectorised over (needle, segment), a Python loop over the
-    halo + own_len columns of a segment.  int32 [num, iter_len + 1]."""
-    m = _check_inputs(hay, needles, own_len, halo)
+    """Plain PyTorch version of kernels K2 and K6 (any needle length): the
+    same recurrence and the same segmentation, vectorised over (needle,
+    segment), a Python loop over the halo + own_len columns of a segment,
+    from the first column any segment reads.  int32 [num, iter_len + 1]."""
+    m = _check_inputs(hay, needles, own_len, halo, anchored)
     dev = hay.device
     n = hay.shape[0]
     num = needles.shape[0]
@@ -163,7 +178,10 @@ def myers_search_plain(hay: torch.Tensor, needles: torch.Tensor, *,
     owned = torch.zeros((num, C, own_len), dtype=torch.int64, device=dev)
 
     steps = min(halo + own_len, halo + n) if n else 0
-    for t in range(1, steps + 1):
+    # the last segment reads from its column halo - own0 + 1 on; no
+    # segment reads before it (nor owns a column: owned ones are > halo)
+    first = max(1, halo - own_len * (C - 1) + 1)
+    for t in range(first, steps + 1):
         jb = own0 - halo + (t - 1)  # byte index read by local column t
         active = (jb >= 0) & (jb < n)
         ch = hay64[jb.clamp(0, n - 1)]
@@ -208,12 +226,14 @@ def myers_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
     count one launch in `myers_search.launches`; a build or launch failure
     raises.  CPU tensors — and only those — take the plain PyTorch version.
     An anchored search must run as one segment (own_len >= len(hay),
-    halo = 0).
+    halo = 0).  Needles of 1..1280 chars: the kernel's shared-memory table
+    stops there (ops/myers_chunked.py takes longer ones).
     """
-    m = _check_inputs(hay, needles, own_len, halo)
+    m = _check_inputs(hay, needles, own_len, halo, anchored)
+    if myers_search_plan(m) is None:
+        raise ValueError(f"needle length {m} outside [1, 1280]: "
+                         "myers_chunked.blocked_search takes any length")
     n = hay.shape[0]
-    if anchored and (halo != 0 or own_len < n):
-        raise ValueError("an anchored search runs as ONE segment, halo 0")
     if hay.device.type == "cpu":
         return myers_search_plain(hay, needles, own_len=own_len, halo=halo,
                                   anchored=anchored, damerau=damerau)
@@ -222,11 +242,7 @@ def myers_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
     from ..utils.build import check_launch, load_kernels
 
     lib = load_kernels()
-    hay = hay.contiguous()
-    if hay.data_ptr() % 16:
-        hay = hay.clone()  # a fresh allocation is aligned
-    if hay.data_ptr() % 16:
-        raise ValueError("haystack buffer must be 16-byte aligned")
+    hay = _aligned(hay)
     needles = needles.contiguous()
     num = needles.shape[0]
     # rows padded to a multiple of 4 ints: the kernel stores four columns
