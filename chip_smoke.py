@@ -151,6 +151,47 @@ K5_OPS_PER_COL = 3
 # function's).
 K6_OPS_PER_COL_WORD32 = K2_OPS_PER_COL_WORD32
 K6_OPS_PER_COL = K2_OPS_PER_COL
+# K7, general-cost search with match lengths, per DP cell (a needle row at
+# a haystack column), counted for the scalar core's column recurrence at
+# the card's best, with Hopper's fused add-min as one: the horizontal
+# chain's cost as an add and a fused add-min (2) and its length as a
+# compare, a max for the tie, a select and the add of one (4); the vertical
+# chain the same without that add (5); the substitution's character
+# compare, the predicated add of the mismatch cost and its length's add
+# (3); the cascade's two replacements, each a compare of costs, a compare
+# of lengths, their combination and two selects (10): 24.  With
+# transposition 6 more: two character compares (2), the add of its cost
+# (1), the <= (1) and two selects (2).  The halo a segment re-reads is the
+# kernel's overhead, not the function's.
+K7_OPS_PER_CELL = 24
+K7_OPS_TRANSPOSE = 6
+# K8 computes K7's function for needles of any length: K7's counts (its
+# row-wise prefix scan is the kernel's way, not the function's).
+K8_OPS_PER_CELL = K7_OPS_PER_CELL
+K8_OPS_TRANSPOSE = K7_OPS_TRANSPOSE
+# K9 computes K3's function, the general-cost distance without lengths,
+# over the cells of its band: K3's counts (BAND_OPS_*), through band_bound.
+K9_OPS_PER_CELL = BAND_OPS_PER_CELL
+K9_OPS_TRANSPOSE = BAND_OPS_TRANSPOSE
+# the general-cost phases (sizes of the full run): the search phase's
+# needle and haystack at k = 6 under two of benches/tpu_fuzz.py's general
+# cost models; a long needle over a cut of the long-needle haystack; long
+# pairs at an unbounded threshold
+GENERAL_COSTS = ((2, 1, 2, None), (3, 2, 1, 2))
+K_GENERAL = 6
+GENERAL_COPY_FREE = 1 << 20
+FLAT_HAY_MB, N_PLANTED_FLAT, FLAT_COPY_FREE = 16, 8, 256 << 10
+FLAT_DIST_PAIRS, FLAT_DIST_LEN, FLAT_DIST_EDIT_SHARE = 256, 20_000, 0.10
+FLAT_DIST_SAMPLE = 8
+# the plain versions at a cut: K7 over the haystack's first bytes (the
+# plain version pays a step a column of a segment), K8 over two segments,
+# K9 over the first pairs cut to their first bytes
+DIAG_PLAIN_BYTES, FLAT_PLAIN_SEGMENTS = 1 << 20, 2
+FLAT_DIST_PLAIN_PAIRS, FLAT_DIST_PLAIN_LEN = 8, 4000
+# the dense-hit route: a periodic needle over a periodic haystack, every
+# end position a hit, past the host replay budget
+DENSE_NEEDLE, DENSE_HAY, K_DENSE = b"ab" * 200, b"ab" * 600_000, 398
+FRONT_DOOR_GENERAL_LEN = 6000
 
 
 def emit(obj) -> None:
@@ -385,6 +426,16 @@ def k6_bound(iter_len: int, m: int, damerau: bool) -> dict:
     ops = iter_len * (-(-m // 32) * K6_OPS_PER_COL_WORD32[damerau]
                       + K6_OPS_PER_COL)
     return _bound(iter_len + 4 * (iter_len + 1) + m, ops)
+
+
+def search_lengths_bound(positions: int, m: int, transpose: bool,
+                         per_cell: int, per_trans: int) -> dict:
+    """The least time the card could take for K7 or K8 on one needle:
+    every haystack byte of `positions` read once and a distance and a
+    length written for each, the needle read, against the operations of
+    the positions' m cells (K7_OPS_* / K8_OPS_*)."""
+    ops = positions * m * (per_cell + (per_trans if transpose else 0))
+    return _bound(positions + 8 * (positions + 1) + m, ops)
 
 
 def _bound(bytes_moved: int, ops: int) -> dict:
@@ -707,6 +758,222 @@ def check_blocked_kernels(dev):
                             f"damerau={damerau} anchored={anchored}")
             s_cases += 1
     return (d_cases, worst), (s_cases, s_worst)
+
+
+# the cost models of benches/tpu_fuzz.py:22 (unit, rDamerau, affine, and
+# affine with weighted transpositions)
+FUZZ_COSTS = ((1, 1, 0, None), (1, 1, 0, 1), (2, 1, 2, None), (3, 2, 1, 2))
+# K7's checks: a needle length at each row count a lane (1, 2, 4, 8, 16
+# rows: up to 32, 64, 128, 256, 512 chars) over a 256 KiB haystack cut
+# into ragged segments (the plain version pays a step a column of a
+# segment, whatever the haystack's length)
+DIAG_CHECK_LENS = (24, 33, 100, 200, 512)
+DIAG_CHECK_BYTES, DIAG_CHECK_OWN = 1 << 18, 509
+# K8's checks: (needle length, cost models); segments of 2,500 owned
+# columns behind a halo of a window span: every segment spans three or
+# more of the kernel's 1,024-column strips
+FLAT_CHECKS = ((5, FUZZ_COSTS), (100, FUZZ_COSTS), (700, FUZZ_COSTS[2:]),
+               (LONG_NEEDLE_LEN, FUZZ_COSTS[3:]))
+FLAT_CHECK_BYTES, FLAT_CHECK_OWN = 1 << 17, 2500
+# K9's checks: pairs of up to FLAT_DIST_CHECK_LEN bytes (two of the
+# kernel's 4,096-column strips), full and banded at FLAT_DIST_CHECK_UK
+FLAT_DIST_CHECK_PAIRS, FLAT_DIST_CHECK_LEN, FLAT_DIST_CHECK_UK = 12, 5000, 64
+# the band-entry repro at the card's strip width: a path along the band's
+# edge (32 chars inserted at the front, unit_k 32) through a strip boundary
+BAND_ENTRY_LEN, BAND_ENTRY_UK = 5000, 32
+
+
+def fuzz_costs_t(c):
+    """The costs tuple of one entry of FUZZ_COSTS."""
+    from triple_accel_tpu_torch.types import EditCosts
+
+    return costs_tuple(EditCosts(*c))
+
+
+def search_check_input(rng, n: int, m: int, n_copies: int, n_subs: int):
+    """A haystack of `n` ACGT bytes starting with NUL bytes, an ACGT needle
+    of `m` bytes holding a NUL byte, and `n_copies` copies of the needle
+    planted with `n_subs` substitutions and one adjacent swap each (a
+    transposition), one at 0."""
+    hay = ACGT[rng.integers(0, 4, n)]
+    needle = ACGT[rng.integers(0, 4, m)]
+    needle[m // 2] = 0
+    for pos in [0] + rng.integers(0, n - m, n_copies - 1).tolist():
+        copy = needle.copy()
+        substitute_acgt(copy, rng.choice(m, min(n_subs, m), replace=False),
+                        rng)
+        if m > 3:
+            copy[1], copy[2] = copy[2], copy[1]
+        hay[pos: pos + m] = copy
+    hay[:3] = 0  # over the copy at 0
+    return hay, needle
+
+
+def _search_err(got, ref) -> int:
+    """Largest difference of two (dist, length) results: distances
+    everywhere, lengths where the distance is finite."""
+    from triple_accel_tpu_torch.ops.band_scan import INF
+
+    gd, gl = (x.to(torch.int64) for x in got)
+    rd, rl = (x.to(torch.int64) for x in ref)
+    err = int((gd - rd).abs().max()) if gd.numel() else 0
+    fin = rd < INF
+    if bool(fin.any()):
+        err = max(err, int((gl[fin] - rl[fin]).abs().max()))
+    return err
+
+
+def check_search_diag_kernel(dev):
+    """K7 against its plain version on the card, exactly: every needle
+    length of DIAG_CHECK_LENS (each row count a lane) under two of the four
+    cost models each, unanchored over ragged segments, then anchored;
+    NUL bytes in the needle and at the haystack's start; k at the end-0
+    candidate's cost m*gap + start_gap, so that candidate is in."""
+    from triple_accel_tpu_torch.ops import search_diag as sd
+    from triple_accel_tpu_torch.ops.search_common import window_span
+
+    rng = np.random.default_rng(7070)
+    cases, worst = 0, 0
+    for ci, m in enumerate(DIAG_CHECK_LENS):
+        hay, needle = search_check_input(rng, DIAG_CHECK_BYTES, m, 8,
+                                         max(1, m // 12))
+        nd = torch.from_numpy(needle).to(dev)
+        for c in (FUZZ_COSTS[ci % 4], FUZZ_COSTS[(ci + 1) % 4]):
+            ct = fuzz_costs_t(c)
+            k = m * ct[1] + ct[2]
+            for anchored in ((False, True) if ci in (0, 4) else (False,)):
+                if anchored:
+                    it = min(m + max(0, k - ct[2]) // ct[1], len(hay))
+                    halo, own = 0, it
+                else:
+                    it, own = len(hay), DIAG_CHECK_OWN
+                    halo = window_span(m, k, ct[1], ct[2])
+                hay_d = torch.from_numpy(hay[:it].copy()).to(dev)
+                kw = dict(own_len=own, halo=halo, costs_t=ct,
+                          anchored=anchored)
+                got = sd.search_diag(hay_d, nd, **kw)
+                torch.cuda.synchronize()
+                err = _search_err(got, sd.search_diag_plain(hay_d, nd, **kw))
+                worst = max(worst, err)
+                check(err == 0, f"search_diag != plain at m={m} costs={c} "
+                                f"anchored={anchored}")
+                cases += 1
+    return cases, worst
+
+
+def check_flat_search_kernel(dev):
+    """K8 against its plain version on the card, exactly: FLAT_CHECKS'
+    needle lengths and cost models over segments that span several of the
+    kernel's column strips (so every strip boundary carries edges, the
+    transpositions of the planted copies included), one run over a
+    selection of segments, and anchored runs (one segment of m + k
+    columns); NUL bytes in the needle and at the haystack's start."""
+    from triple_accel_tpu_torch.ops import search_flat as sf
+    from triple_accel_tpu_torch.ops.search_common import seg_count
+    from triple_accel_tpu_torch.ops.search_common import window_span
+
+    rng = np.random.default_rng(8080)
+    cases, worst = 0, 0
+    for m, costs_list in FLAT_CHECKS:
+        hay, needle = search_check_input(rng, FLAT_CHECK_BYTES, m, 6,
+                                         max(1, m // 20))
+        nd = torch.from_numpy(needle).to(dev)
+        for c in costs_list:
+            ct = fuzz_costs_t(c)
+            k = max(2, m // 10) * ct[0]
+            runs = [(False, None)]
+            if m == 100:
+                nseg = seg_count(len(hay), FLAT_CHECK_OWN)
+                runs += [(False, np.arange(1, nseg, 3)), (True, None)]
+            for anchored, segs in runs:
+                if anchored:
+                    it = min(m + max(0, k - ct[2]) // ct[1], len(hay))
+                    halo, own = 0, it
+                else:
+                    it, own = len(hay), FLAT_CHECK_OWN
+                    halo = window_span(m, k, ct[1], ct[2])
+                hay_d = torch.from_numpy(hay[:it].copy()).to(dev)
+                kw = dict(own_len=own, halo=halo, costs_t=ct,
+                          anchored=anchored,
+                          segments=None if segs is None
+                          else torch.from_numpy(segs).to(dev))
+                got = sf.flat_search(hay_d, nd, **kw)
+                torch.cuda.synchronize()
+                err = _search_err(got, sf.flat_search_plain(hay_d, nd, **kw))
+                worst = max(worst, err)
+                check(err == 0, f"flat_search != plain at m={m} costs={c} "
+                                f"anchored={anchored} selected="
+                                f"{segs is not None}")
+                cases += 1
+    return cases, worst
+
+
+def band_entry_pairs(length: int, burst: int, rng):
+    """Pairs whose best path runs along the band's edge: a = X^length
+    against b = Y^burst + X^length (the reference's band-entry repro,
+    ROADMAP.md Queue 3), and a random ACGT string against copies with a
+    burst of exactly `burst` inserted chars at the front and in the
+    middle."""
+    x = np.full(length, ord("X"), np.uint8)
+    a_list = [x, ACGT[rng.integers(0, 4, length)]]
+    a_list.append(a_list[1])
+    b_list = [np.concatenate([np.full(burst, ord("Y"), np.uint8), x])]
+    burst_chars = ACGT[rng.integers(0, 4, burst)]
+    b_list.append(np.concatenate([burst_chars, a_list[1]]))
+    b_list.append(np.insert(a_list[1], length // 2, burst_chars))
+    return a_list, b_list
+
+
+def check_flat_distance_kernel(dev):
+    """K9 against its plain version on the card, exactly, in both modes
+    (the full matrix, and banded at FLAT_DIST_CHECK_UK) under the four cost
+    models, on pairs of up to FLAT_DIST_CHECK_LEN bytes (two column strips)
+    with NUL bytes and empty strings; then the band-entry pairs at a strip
+    boundary, banded at exactly their burst, also against the compiled
+    scalar comparator."""
+    from triple_accel_tpu_torch.ops import search_flat as sf
+    from triple_accel_tpu_torch.types import EditCosts
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    rng = np.random.default_rng(9090)
+    a_list, b_list = make_long_pairs(FLAT_DIST_CHECK_PAIRS,
+                                     FLAT_DIST_CHECK_LEN, 0.004, seed=9091)
+    for p in range(FLAT_DIST_CHECK_PAIRS):
+        cut = int(rng.integers(1, FLAT_DIST_CHECK_LEN + 1))
+        a_list[p], b_list[p] = a_list[p][:cut].copy(), b_list[p][:cut + 20]
+        a_list[p][rng.integers(0, cut, 2)] = 0
+    a_list[0] = np.empty(0, np.uint8)
+    b_list[1] = np.empty(0, np.uint8)
+    t = sf.prepare_flat_distance_inputs(a_list, b_list, device=dev)
+    cases, worst = 0, 0
+    for c in FUZZ_COSTS:
+        ct = fuzz_costs_t(c)
+        for uk in (None, FLAT_DIST_CHECK_UK):
+            got = sf.flat_distance(*t, costs_t=ct, unit_k=uk)
+            torch.cuda.synchronize()
+            ref = sf.flat_distance_plain(*t, costs_t=ct, unit_k=uk)
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            worst = max(worst, err)
+            check(err == 0, f"flat_distance != plain at costs={c} "
+                            f"unit_k={uk}")
+            cases += 1
+    a_e, b_e = band_entry_pairs(BAND_ENTRY_LEN, BAND_ENTRY_UK, rng)
+    t = sf.prepare_flat_distance_inputs(a_e, b_e, device=dev)
+    for c in FUZZ_COSTS:
+        ct = fuzz_costs_t(c)
+        got = sf.flat_distance(*t, costs_t=ct, unit_k=BAND_ENTRY_UK)
+        torch.cuda.synchronize()
+        ref = sf.flat_distance_plain(*t, costs_t=ct, unit_k=BAND_ENTRY_UK)
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        exp = scalar_banded_batch_native(a_e, b_e, U32_MAX, EditCosts(*c))
+        check(err == 0 and got.cpu().numpy().tolist() == exp.tolist(),
+              f"flat_distance on the band-entry pairs at costs={c}: "
+              f"{got.cpu().numpy().tolist()}, plain {ref.cpu().tolist()}, "
+              f"scalar {exp.tolist()}")
+        worst = max(worst, err)
+        cases += 1
+    return cases, worst
 
 
 # ---------------------------------------------------------------------------
@@ -1697,6 +1964,422 @@ def run_blocked_search(dev, hay_mb: int, native_loaded: bool):
     return entries
 
 
+def copy_windows(planted: np.ndarray, m: int, span: int, n: int,
+                 free_start: int, free_len: int):
+    """Disjoint intervals around every planted copy (from one window span
+    before it to one after its end: every candidate that overlaps a copy
+    lies there with its whole window) and one copy-free stretch."""
+    starts = np.append(np.maximum(planted - span, 0), free_start)
+    ends = np.append(np.minimum(planted + m + span, n),
+                     min(free_start + free_len, n))
+    return merge_intervals(starts, ends)
+
+
+def copy_free_start(planted: np.ndarray, m: int, span: int, n: int,
+                    length: int) -> int:
+    """The start of a stretch of `length` bytes that no copy's window
+    reaches (the first gap between copies wide enough)."""
+    edges = np.concatenate([[0], np.sort(planted) + m + span, [n]])
+    starts = np.concatenate([[0], np.sort(planted) - span, [n]])
+    for lo, hi in zip(edges[:-1].tolist(), starts[1:].tolist()):
+        if hi - lo >= length:
+            return int(lo)
+    raise RuntimeError("chip_smoke: no copy-free stretch in the haystack")
+
+
+def check_all_mode(name: str, all_m, ref) -> None:
+    ref_e, ref_k, ref_l = ref
+    check([(mt.start, mt.end, mt.k) for mt in all_m]
+          == list(zip((ref_e - ref_l).tolist(), ref_e.tolist(),
+                      ref_k.tolist())),
+          f"{name}: All-mode matches != the compiled scalar search over the "
+          "copies' windows and the copy-free stretch")
+
+
+def check_best_mode(name: str, best, all_m) -> None:
+    by_end = {mt.end: mt for mt in all_m}
+    kmin = min((mt.k for mt in all_m), default=None)
+    check(bool(best) == bool(all_m) and all(mt.k == kmin for mt in best)
+          and all(mt.end in by_end for mt in best),
+          f"{name}: Best-mode matches are not the minimum-cost ones")
+
+
+def run_search_general(dev, needle, hay, planted, native_loaded: bool):
+    """General-cost search with a short needle (K7): the search phase's
+    haystack and planted copies at k = K_GENERAL under GENERAL_COSTS, Best
+    and All, then one anchored call at a planted copy; against the
+    compiled scalar search over the copies' windows and a copy-free
+    stretch (anchored: over the anchored window)."""
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.levenshtein import (
+        levenshtein_search_simd_with_opts)
+    from triple_accel_tpu_torch.ops import search_diag as sd
+    from triple_accel_tpu_torch.ops.search_common import window_span
+    from triple_accel_tpu_torch.types import EditCosts, SearchType
+    from triple_accel_tpu_torch.utils.native import (
+        search_all_native, search_intervals_native)
+
+    check(native_loaded, "the general-cost phases need the compiled "
+                         "comparators of native/")
+    t_phase = time.perf_counter()
+    n, m, k = len(hay), NEEDLE_LEN, K_GENERAL
+    dispatch_history(clear=True)
+    sd.search_diag.launches = 0  # 0 just before the path ...
+    results, e2e = {}, {}
+    for c in GENERAL_COSTS:
+        for st in (SearchType.Best, SearchType.All):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[(c, st)] = levenshtein_search_simd_with_opts(
+                needle, hay, k, st, EditCosts(*c), False)
+            torch.cuda.synchronize()
+            e2e[f"{c}_{st.name}"] = time.perf_counter() - t0
+    # anchored at a planted copy: the haystack from its first byte on
+    anch_costs = EditCosts(*GENERAL_COSTS[0])
+    anch_hay = hay[int(planted_alone(planted)[0]):]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    anchored = levenshtein_search_simd_with_opts(
+        needle, anch_hay, k, SearchType.All, anch_costs, True)
+    torch.cuda.synchronize()
+    e2e["anchored_All"] = time.perf_counter() - t0
+    launches = sd.search_diag.launches  # ... read just after it
+    paths = [d.path for _, d in dispatch_history()]
+    check(launches == 5, f"5 general-cost searches launched {launches}")
+    check(paths == ["search_diag"] * 5, f"general-cost search took {paths}")
+
+    for c in GENERAL_COSTS:
+        costs = EditCosts(*c)
+        span = window_span(m, k, costs.gap_cost, costs.start_gap_cost)
+        free = copy_free_start(planted, m, span, n, GENERAL_COPY_FREE)
+        starts, ends = copy_windows(planted, m, span, n, free,
+                                    GENERAL_COPY_FREE)
+        ref = search_intervals_native(needle, hay, starts, ends, k, costs)
+        all_m = results[(c, SearchType.All)]
+        check_all_mode(f"search_general {c}", all_m, ref)
+        found = {mt.end for mt in all_m}
+        alone = planted_alone(planted)
+        check(all(p + m in found or any(abs(e - p - m) <= span
+                                        for e in found) for p in alone),
+              f"search_general {c}: a planted copy was not found")
+        check_best_mode(f"search_general {c}",
+                        results[(c, SearchType.Best)], all_m)
+    ref_a = search_all_native(needle, anch_hay, k, anch_costs, anchored=True)
+    check_all_mode("search_general anchored", anchored, ref_a)
+    check(bool(anchored), "search_general: the anchored call at a planted "
+                          "copy found nothing")
+
+    # kernel only, at the tensors the main path gives it
+    from triple_accel_tpu_torch.levenshtein import _costs_tuple
+
+    hay_d = torch.from_numpy(hay).to(dev)
+    nd = torch.from_numpy(needle).to(dev)
+    times, bounds, plain_ms, worst = {}, {}, {}, 0
+    for c in GENERAL_COSTS:
+        costs = EditCosts(*c)
+        ct = _costs_tuple(costs)
+        halo = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost),
+                   n)
+        own_len = sd.suggest_own_len_diag(n, halo)
+        kw = dict(own_len=own_len, halo=halo, costs_t=ct)
+        times[c] = time_launches(lambda: sd.search_diag(hay_d, nd, **kw), 5)
+        bounds[c] = search_lengths_bound(n, m, bool(ct[4]), K7_OPS_PER_CELL,
+                                         K7_OPS_TRANSPOSE)
+        cut = hay_d[:DIAG_PLAIN_BYTES]
+        got = sd.search_diag(cut, nd, **kw)
+        ref = None
+
+        def run_plain():
+            nonlocal ref
+            ref = sd.search_diag_plain(cut, nd, **kw)
+
+        plain_ms[c] = time_once_ms(run_plain)
+        err = _search_err(got, ref)
+        worst = max(worst, err)
+        check(err == 0, f"search_diag != plain at the cut, costs {c}")
+    c0, c1 = GENERAL_COSTS
+    emit({"phase": "search_general", "haystack_bytes": n, "needle_len": m,
+          "k": k, "costs": [list(c) for c in GENERAL_COSTS],
+          "planted": N_PLANTED, "own_len": own_len,
+          "dispatch": "search_diag", "launches": launches,
+          "matches": {f"{c}_{st.name}": len(r)
+                      for (c, st), r in results.items()},
+          "anchored_matches": len(anchored),
+          "reference": "ta_search_intervals over the copies' windows and "
+                       f"{GENERAL_COPY_FREE} copy-free bytes; ta_search_all "
+                       "anchored",
+          "e2e_s": {k_: round(v, 4) for k_, v in e2e.items()},
+          "GBps_e2e": {k_: round(n / v / 1e9, 3) for k_, v in e2e.items()
+                       if not k_.startswith("anchored")},
+          "kernel_ms_median_min_max": {
+              str(c): [round(x, 4) for x in times[c]] for c in times},
+          "plain_cut_bytes": DIAG_PLAIN_BYTES,
+          "plain_ms": {str(c): round(v, 1) for c, v in plain_ms.items()},
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return {
+        "name": "search_diag", "route": "cuda",
+        "source": "triple_accel_tpu_torch/csrc/search_diag.cu",
+        "kernel": "search_diag_kernel<R, *>",
+        "replaces": "triple_accel_tpu/ops/pallas/search_kernel.py:51",
+        "launches": launches, "max_abs_err": worst,
+        "ms": times[c0][0], "ms_min": times[c0][1], "ms_max": times[c0][2],
+        "plain_ms": plain_ms[c0],
+        "plain_shape": f"the haystack's first {DIAG_PLAIN_BYTES} bytes",
+        **bounds[c0], "library_ms": None,
+        "costs": list(c0), "ms_transpose_costs": times[c1][0],
+        "bound_ms_transpose_costs": bounds[c1]["bound_ms"],
+    }
+
+
+def run_flat_search(dev, native_loaded: bool):
+    """General-cost search with a long needle (K8): a cut of the
+    long-needle haystack with its copies at k = 150 under GENERAL_COSTS,
+    Best and All, against the compiled scalar search over the copies'
+    windows and a copy-free stretch; then the dense-hit route of unit-cost
+    search (K2's hits past the host replay budget, their lengths from K8
+    over the hit-bearing segments) against the compiled scalar search."""
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.levenshtein import (
+        _costs_tuple, levenshtein_search_simd_with_opts)
+    from triple_accel_tpu_torch.ops import search_flat as sf
+    from triple_accel_tpu_torch.ops.search_common import window_span
+    from triple_accel_tpu_torch.types import (
+        EditCosts, LEVENSHTEIN_COSTS, SearchType)
+    from triple_accel_tpu_torch.utils.native import (
+        search_all_native, search_intervals_native)
+
+    check(native_loaded, "the general-cost phases need the compiled "
+                         "comparators of native/")
+    t_phase = t0 = time.perf_counter()
+    m, k = LONG_NEEDLE_LEN, K_LONG_NEEDLE
+    needle, hay, planted = make_long_haystack(
+        FLAT_HAY_MB << 20, m, N_PLANTED_FLAT, LONG_NEEDLE_SUBS, seed=4040)
+    gen_s = time.perf_counter() - t0
+    n = len(hay)
+    dispatch_history(clear=True)
+    sf.flat_search.launches = 0  # 0 just before the path ...
+    results, e2e = {}, {}
+    for c in GENERAL_COSTS:
+        for st in (SearchType.Best, SearchType.All):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            results[(c, st)] = levenshtein_search_simd_with_opts(
+                needle, hay, k, st, EditCosts(*c), False)
+            torch.cuda.synchronize()
+            e2e[f"{c}_{st.name}"] = time.perf_counter() - t0
+    launches = sf.flat_search.launches  # ... read just after it
+    paths = [d.path for _, d in dispatch_history()]
+    check(launches == 4, f"4 long-needle general searches launched "
+                         f"{launches}")
+    check(paths == ["flat_search"] * 4, f"long-needle dispatch took {paths}")
+
+    free = n - FLAT_COPY_FREE  # make_long_haystack's tail holds no copy
+    with ThreadPoolExecutor(len(GENERAL_COSTS)) as pool:
+        futures = {}
+        for c in GENERAL_COSTS:
+            costs = EditCosts(*c)
+            span = window_span(m, k, costs.gap_cost, costs.start_gap_cost)
+            starts, ends = copy_windows(planted, m, span, n, free,
+                                        FLAT_COPY_FREE)
+            futures[c] = pool.submit(search_intervals_native, needle, hay,
+                                     starts, ends, k, costs)
+        refs = {c: f.result() for c, f in futures.items()}
+    for c in GENERAL_COSTS:
+        all_m = results[(c, SearchType.All)]
+        check_all_mode(f"flat_search {c}", all_m, refs[c])
+        by_end = {mt.end: mt for mt in all_m}
+        for pos in planted.tolist():
+            mt = by_end.get(pos + m)
+            check(mt is not None and mt.k <= LONG_NEEDLE_SUBS * c[0],
+                  f"flat_search {c}: planted copy at {pos} not found")
+        check_best_mode(f"flat_search {c}", results[(c, SearchType.Best)],
+                        all_m)
+
+    # the dense-hit route of unit-cost search
+    dn = np.frombuffer(DENSE_NEEDLE, np.uint8)
+    dh = np.frombuffer(DENSE_HAY, np.uint8)
+    dispatch_history(clear=True)
+    sf.flat_search.launches = 0  # 0 just before the path ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = levenshtein_search_simd_with_opts(dn, dh, K_DENSE,
+                                              SearchType.All)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    launches_dense = sf.flat_search.launches  # ... read just after it
+    dense_paths = [d.path for _, d in dispatch_history()]
+    check(dense_paths == ["myers_search", "flat_resolve"]
+          and launches_dense >= 1,
+          f"the dense-hit route took {dense_paths}, {launches_dense} "
+          "flat_search launches")
+    check_all_mode("dense-hit route", dense,
+                   search_all_native(dn, dh, K_DENSE, LEVENSHTEIN_COSTS))
+
+    # kernel only, at the tensors the main path gives it
+    hay_d = torch.from_numpy(hay).to(dev)
+    nd = torch.from_numpy(needle).to(dev)
+    times, bounds = {}, {}
+    for c in GENERAL_COSTS:
+        costs = EditCosts(*c)
+        ct = _costs_tuple(costs)
+        halo = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost),
+                   n)
+        own_len = sf.suggest_own_len_flat(n, halo)
+        kw = dict(own_len=own_len, halo=halo, costs_t=ct)
+        times[c] = time_launches(lambda: sf.flat_search(hay_d, nd, **kw), 3)
+        bounds[c] = search_lengths_bound(n, m, bool(ct[4]), K8_OPS_PER_CELL,
+                                         K8_OPS_TRANSPOSE)
+    c0, c1 = GENERAL_COSTS
+    # the plain version over the first segments, at the first costs
+    kw["costs_t"] = _costs_tuple(EditCosts(*c0))
+    kw["halo"] = min(window_span(m, k, c0[1], c0[2]), n)
+    segs = torch.arange(FLAT_PLAIN_SEGMENTS, device=dev)
+    got = sf.flat_search(hay_d, nd, segments=segs, **kw)
+    ref = None
+
+    def run_plain():
+        nonlocal ref
+        ref = sf.flat_search_plain(hay_d, nd, segments=segs, **kw)
+
+    plain_ms = time_once_ms(run_plain)
+    worst = _search_err(got, ref)
+    check(worst == 0, "flat_search != plain over the first segments")
+    emit({"phase": "flat_search", "haystack_bytes": n,
+          "cut": f"{FLAT_HAY_MB} MiB of the long-needle haystack's "
+                 f"{FULL_HAY_MB} MiB, for run time",
+          "needle_len": m, "k": k, "costs": [list(c) for c in GENERAL_COSTS],
+          "planted": N_PLANTED_FLAT, "planted_subs": LONG_NEEDLE_SUBS,
+          "own_len": own_len, "segments": -(-n // own_len),
+          "dispatch": "flat_search", "launches": launches,
+          "matches": {f"{c}_{st.name}": len(r)
+                      for (c, st), r in results.items()},
+          "reference": "ta_search_intervals over the copies' windows and "
+                       f"the last {FLAT_COPY_FREE} bytes",
+          "datagen_s": round(gen_s, 3),
+          "e2e_s": {k_: round(v, 4) for k_, v in e2e.items()},
+          "MBps_e2e": {k_: round(n / v / 1e6, 3) for k_, v in e2e.items()},
+          "kernel_ms_median_min_max": {
+              str(c): [round(x, 4) for x in times[c]] for c in times},
+          "dense_route": {"needle_len": len(dn), "haystack_bytes": len(dh),
+                          "k": K_DENSE, "dispatch": dense_paths,
+                          "launches": launches_dense, "matches": len(dense),
+                          "e2e_s": round(dense_s, 4)},
+          "plain_segments": FLAT_PLAIN_SEGMENTS,
+          "plain_ms": round(plain_ms, 1),
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return {
+        "name": "flat_search", "route": "cuda",
+        "source": "triple_accel_tpu_torch/csrc/search_flat.cu",
+        "kernel": "flat_kernel<true, *>",
+        "replaces": "triple_accel_tpu/ops/pallas/search_flat.py:73",
+        "launches": launches, "launches_flat_resolve": launches_dense,
+        "max_abs_err": worst,
+        "ms": times[c0][0], "ms_min": times[c0][1], "ms_max": times[c0][2],
+        "plain_ms": plain_ms,
+        "plain_shape": f"the first {FLAT_PLAIN_SEGMENTS} segments",
+        **bounds[c0], "library_ms": None,
+        "costs": list(c0), "ms_transpose_costs": times[c1][0],
+        "bound_ms_transpose_costs": bounds[c1]["bound_ms"],
+    }
+
+
+def run_flat_distance(dev, scale: float, native_loaded: bool):
+    """General-cost distance past the band plan (K9): long ACGT pairs with
+    10% edits at an unbounded threshold under affine costs, so the band is
+    the whole length; against the compiled scalar distance on a sample."""
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.levenshtein import (
+        _costs_tuple, levenshtein_k_batch)
+    from triple_accel_tpu_torch.ops import search_flat as sf
+    from triple_accel_tpu_torch.types import EditCosts
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    check(native_loaded, "the general-cost phases need the compiled "
+                         "comparators of native/")
+    t_phase = t0 = time.perf_counter()
+    n_pairs = max(16, round(FLAT_DIST_PAIRS * scale))
+    a_list, b_list = make_long_pairs(n_pairs, FLAT_DIST_LEN,
+                                     FLAT_DIST_EDIT_SHARE, seed=5050)
+    gen_s = time.perf_counter() - t0
+    costs = EditCosts(*AFFINE)
+    ct = _costs_tuple(costs)
+    dispatch_history(clear=True)
+    sf.flat_distance.launches = 0  # 0 just before the path ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = levenshtein_k_batch(a_list, b_list, U32_MAX, costs)
+    torch.cuda.synchronize()
+    e2e = time.perf_counter() - t0
+    launches = sf.flat_distance.launches  # ... read just after it
+    decisions = [d for _, d in dispatch_history()]
+    check(launches >= 1 and [d.path for d in decisions] == ["flat_distance"],
+          f"the long general-cost batch took "
+          f"{[d.path for d in decisions]}, {launches} launches")
+    uk = decisions[0].unit_k
+    check(bool((out >= 0).all()), "an unbounded threshold left -1")
+    sample = np.random.default_rng(5151).choice(n_pairs, FLAT_DIST_SAMPLE,
+                                                replace=False)
+    with ThreadPoolExecutor(4) as pool:
+        parts = list(pool.map(
+            lambda p: scalar_banded_batch_native([a_list[p]], [b_list[p]],
+                                                 U32_MAX, costs)[0],
+            sample.tolist()))
+    check(out[sample].tolist() == parts,
+          f"flat_distance != the compiled scalar distance on {sample}")
+
+    # kernel only, at the tensors the main path gives it (m <= n)
+    swapped = [(a, b) if len(a) <= len(b) else (b, a)
+               for a, b in zip(a_list, b_list)]
+    sa, sb = [x for x, _ in swapped], [y for _, y in swapped]
+    t = sf.prepare_flat_distance_inputs(sa, sb, device=dev)
+    times = time_launches(lambda: sf.flat_distance(*t, costs_t=ct,
+                                                   unit_k=uk), 3)
+    m_arr = np.array([len(x) for x in sa], np.int64)
+    n_arr = np.array([len(y) for y in sb], np.int64)
+    bound = band_bound(m_arr, n_arr, uk, ct, False)
+    cut = sf.prepare_flat_distance_inputs(
+        [x[:FLAT_DIST_PLAIN_LEN] for x in sa[:FLAT_DIST_PLAIN_PAIRS]],
+        [y[:FLAT_DIST_PLAIN_LEN] for y in sb[:FLAT_DIST_PLAIN_PAIRS]],
+        device=dev)
+    got = sf.flat_distance(*cut, costs_t=ct, unit_k=uk)
+    ref = None
+
+    def run_plain():
+        nonlocal ref
+        ref = sf.flat_distance_plain(*cut, costs_t=ct, unit_k=uk)
+
+    plain_ms = time_once_ms(run_plain)
+    worst = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+    check(worst == 0, "flat_distance != plain at the cut")
+    emit({"phase": "flat_distance", "pairs": n_pairs,
+          "str_len": FLAT_DIST_LEN, "edit_share": FLAT_DIST_EDIT_SHARE,
+          "costs": list(AFFINE), "k": U32_MAX, "unit_k": uk,
+          "dispatch": "flat_distance", "launches": launches,
+          "reference": f"ta_scalar_banded_batch on {FLAT_DIST_SAMPLE} "
+                       "sampled pairs",
+          "datagen_s": round(gen_s, 3), "e2e_s": round(e2e, 4),
+          "pairs_per_s_e2e": round(n_pairs / e2e, 1),
+          "kernel_ms_median_min_max": [round(x, 4) for x in times],
+          "cells_per_s_kernel": round(bound["cells"]
+                                      / (times[0] * 1e-3), 1),
+          "plain_cut": [FLAT_DIST_PLAIN_PAIRS, FLAT_DIST_PLAIN_LEN],
+          "plain_ms": round(plain_ms, 1),
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return {
+        "name": "flat_distance", "route": "cuda",
+        "source": "triple_accel_tpu_torch/csrc/search_flat.cu",
+        "kernel": "flat_kernel<false, *>",
+        "replaces": "triple_accel_tpu/ops/pallas/search_flat.py:528",
+        "launches": launches, "max_abs_err": worst,
+        "ms": times[0], "ms_min": times[1], "ms_max": times[2],
+        "plain_ms": plain_ms,
+        "plain_shape": f"the first {FLAT_DIST_PLAIN_PAIRS} pairs cut to "
+                       f"{FLAT_DIST_PLAIN_LEN} bytes",
+        **bound, "library_ms": None,
+    }
+
+
 def front_door(dev):
     """Parity calls and misuse probes that the port carries."""
     import triple_accel_tpu_torch as tt
@@ -1772,6 +2455,21 @@ def front_door(dev):
                   and mt.k == min(ks.tolist()) for mt in found),
           f"levenshtein_search with a {FRONT_DOOR_NEEDLE}-byte needle gave "
           f"{found[:3]}")
+    # general costs: a short search, and a pair past the band plan
+    aff = tt.EditCosts(*AFFINE)
+    got = levenshtein_search_simd_with_opts(b"helllo", b"say hello world", 4,
+                                            tt.SearchType.All, aff)
+    from triple_accel_tpu_torch.oracle import (
+        levenshtein_search_naive_with_opts)
+    check(got == levenshtein_search_naive_with_opts(
+        b"helllo", b"say hello world", 4, tt.SearchType.All, aff),
+          f"general-cost search gave {got}")
+    (ga,), (gb,) = make_long_pairs(1, FRONT_DOOR_GENERAL_LEN, 0.05, seed=53)
+    got_g = levenshtein_simd_k_with_opts(ga, gb, U32_MAX, False, aff)
+    exp_g = int(scalar_banded_batch_native([ga], [gb], U32_MAX, aff)[0])
+    check(got_g == (exp_g, None),
+          f"general-cost distance on {FRONT_DOOR_GENERAL_LEN} bytes gave "
+          f"{got_g}, the compiled scalar distance {exp_g}")
     probes = 0
     for fn, exc in (
         (lambda: tt.EditCosts(0, 1, 0, None), ValueError),
@@ -1791,7 +2489,7 @@ def front_door(dev):
             probes += 1
         else:
             raise RuntimeError("a misuse probe raised nothing")
-    emit({"phase": "front_door", "parity_calls": 12, "misuse_probes": probes,
+    emit({"phase": "front_door", "parity_calls": 14, "misuse_probes": probes,
           "levenshtein_long_pair": {
               "str_len": FRONT_DOOR_LEN, "distance": d,
               "e2e_s": round(long_pair_s, 4),
@@ -1842,6 +2540,9 @@ def main() -> int:
     s_cases, s_err = check_search_kernel(dev)
     b_cases, b_err = check_band_kernels(dev)
     (bd_cases, bd_err), (bs_cases, bs_err) = check_blocked_kernels(dev)
+    sd_cases, sd_err = check_search_diag_kernel(dev)
+    fs_cases, fs_err = check_flat_search_kernel(dev)
+    fd_cases, fd_err = check_flat_distance_kernel(dev)
     emit({"phase": "kernel_checks", "tolerance": "exact (integers)",
           "myers_distance": {"cases": d_cases, "max_abs_err": d_err},
           "myers_search": {"cases": s_cases, "max_abs_err": s_err},
@@ -1850,6 +2551,9 @@ def main() -> int:
               "cases_widest_band": b_cases["wide"], "max_abs_err": b_err},
           "blocked_distance": {"cases": bd_cases, "max_abs_err": bd_err},
           "blocked_search": {"cases": bs_cases, "max_abs_err": bs_err},
+          "search_diag": {"cases": sd_cases, "max_abs_err": sd_err},
+          "flat_search": {"cases": fs_cases, "max_abs_err": fs_err},
+          "flat_distance": {"cases": fd_cases, "max_abs_err": fd_err},
           "seconds": round(time.perf_counter() - t0, 1)})
 
     n_pairs = int(os.environ.get("CHIP_SMOKE_PAIRS", FULL_PAIRS))
@@ -1895,14 +2599,23 @@ def main() -> int:
     for entry in (k6, k6_chunked):
         entry.update(cases=bs_cases, ok=True)
 
-    # 11. front door
+    # 11, 12, 13. general costs: search with short and long needles and
+    # the dense-hit route, distance past the band plan
+    k7 = run_search_general(dev, needle, hay, planted, native_loaded)
+    k7.update(cases=sd_cases, ok=True)
+    k8 = run_flat_search(dev, native_loaded)
+    k8.update(cases=fs_cases, ok=True)
+    k9 = run_flat_distance(dev, scale, native_loaded)
+    k9.update(cases=fd_cases, ok=True)
+
+    # 14. front door
     front_door(dev)
 
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_start, 1),
           "peak_device_MB": round(torch.cuda.max_memory_allocated() / 2**20)})
     emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k5, k6,
-                      k6_chunked]})
+                      k6_chunked, k7, k8, k9]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

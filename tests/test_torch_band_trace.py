@@ -273,9 +273,10 @@ def test_single_pair_trace_equals_jax_and_oracle(a, b):
     assert tl.levenshtein_simd_k_with_opts(b"", b"", 3, True, **CPU) == (0, [])
 
 
-# untraced unit and rDamerau batches past the plan have an engine, the
-# blocked Myers distance kernel (test_torch_blocked_distance.py); their
-# traces do not yet
+# untraced batches past the plan have engines: the blocked Myers distance
+# kernel for unit and rDamerau costs (test_torch_blocked_distance.py) and
+# the flat distance kernel for the others (test_torch_flat_distance.py);
+# their traces do not yet
 @pytest.mark.parametrize("c,trace,engine", [
     (COSTS[0], True, "band_trace_batch"),
     (COSTS[1], True, "band_trace_batch"),
@@ -283,8 +284,22 @@ def test_single_pair_trace_equals_jax_and_oracle(a, b):
     (COSTS[3], True, "band_trace_batch"),
 ], ids=["unit", "rdamerau", "affine", "traced"])
 def test_batches_past_the_band_plan_raise(c, trace, engine):
-    a = np.full(9000, 65, np.uint8)
-    b = np.full(9000, 66, np.uint8)  # unbounded k: the band is the length
+    """Traced batches past the plan raise naming the JAX engine; the
+    untraced `affine` case raised too until the flat distance kernel was
+    ported, and now takes it (with the shortest strings past the plan)."""
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    n = 9000 if trace else 4150
+    a = np.full(n, 65, np.uint8)
+    b = np.full(n, 66, np.uint8)  # unbounded k: the band is the length
+    if not trace:
+        got = tl.levenshtein_k_batch([a], [b], (1 << 32) - 1, EditCosts(*c),
+                                     **CPU)
+        assert last_dispatch().path == engine
+        assert got.tolist() == scalar_banded_batch_native(
+            [a], [b], (1 << 32) - 1, EditCosts(*c)).tolist()
+        return
     with pytest.raises(NotImplementedError, match=engine):
         tl.levenshtein_k_batch([a], [b], (1 << 32) - 1, EditCosts(*c), trace,
                                **CPU)

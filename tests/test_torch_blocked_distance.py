@@ -206,9 +206,11 @@ def test_single_pair_wrappers_past_band_plan_equal_jax():
 
 def test_force_path_band_keeps_the_jax_ladder(monkeypatch):
     """FORCE_PATH=band sends unit costs past the plan where the JAX package
-    sends them (its flat distance, not the blocked kernel)."""
+    sends them: its flat distance, not the blocked kernel; the result is
+    the oracle's (4200 substitutions and 100 insertions)."""
     monkeypatch.setenv("TRIPLE_ACCEL_TORCH_FORCE_PATH", "band")
-    with pytest.raises(NotImplementedError, match="flat_distance"):
-        tl.levenshtein(np.zeros(4200, np.uint8), np.ones(4300, np.uint8),
-                       **CPU)
+    dispatch_history(clear=True)
+    assert tl.levenshtein(np.zeros(4200, np.uint8), np.ones(4300, np.uint8),
+                          **CPU) == 4300
+    assert dispatch_history()[-1][1].path == "flat_distance"
 

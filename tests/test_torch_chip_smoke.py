@@ -237,3 +237,56 @@ def test_blocked_distance_cases_cross_the_plan_boundaries():
             assert {2048 * wpt, 2048 * wpt + 1} <= set(la)  # a strip
     assert {w for w, _ in plans} == {1, 2, 4, 6, 10}
     assert {(10, True), (2, True)} <= plans
+
+
+def test_general_search_inputs_and_windows():
+    """The K7 / K8 check inputs hold NUL bytes and copies with an adjacent
+    swap; the copies' windows and the copy-free stretch cover what the
+    search phases hold against the compiled scalar search."""
+    rng = np.random.default_rng(3)
+    hay, needle = cs.search_check_input(rng, 5000, 40, 4, 3)
+    assert hay[:3].tolist() == [0, 0, 0] and 0 in needle
+    assert len(hay) == 5000 and len(needle) == 40
+    assert (hay[3:40] != needle[3:]).sum() <= 3 + 2  # the copy at 0
+    planted = np.array([100, 5000, 5030, 90_000])
+    free = cs.copy_free_start(planted, 24, 30, 200_000, 20_000)
+    assert free == 5030 + 24 + 30  # the first gap wide enough
+    starts, ends = cs.copy_windows(planted, 24, 30, 200_000, free, 20_000)
+    assert starts.tolist() == [70, 4970, 89_970]  # touching ones merge
+    assert ends.tolist() == [154, free + 20_000, 90_054]
+    with pytest.raises(RuntimeError, match="copy-free"):
+        cs.copy_free_start(planted, 24, 30, 100_000, 90_000)
+
+
+def test_band_entry_pairs_run_along_the_band_edge():
+    rng = np.random.default_rng(4)
+    a_list, b_list = cs.band_entry_pairs(300, 16, rng)
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    assert [len(b) - len(a) for a, b in zip(a_list, b_list)] == [16] * 3
+    exact = scalar_banded_batch_native(a_list, b_list, 10**6,
+                                       LEVENSHTEIN_COSTS)
+    assert exact.tolist()[0] == 16 and (exact <= 16).all()
+    banded = scalar_banded_batch_native(a_list, b_list, 16,
+                                        LEVENSHTEIN_COSTS)
+    assert banded.tolist() == exact.tolist()
+
+
+def test_k7_k8_k9_bounds_count_bytes_and_operations():
+    b = cs.search_lengths_bound(1000, 24, False, cs.K7_OPS_PER_CELL,
+                                cs.K7_OPS_TRANSPOSE)
+    assert b["bound_operations_ms"] == pytest.approx(
+        1000 * 24 * 24 / cs.PEAK_INT32_OPS_PER_S * 1e3)
+    assert b["bound_bytes_ms"] == pytest.approx(
+        (1000 + 8 * 1001 + 24) / cs.PEAK_BYTES_PER_S * 1e3)
+    bt = cs.search_lengths_bound(1000, 24, True, cs.K8_OPS_PER_CELL,
+                                 cs.K8_OPS_TRANSPOSE)
+    assert bt["bound_operations_ms"] == pytest.approx(
+        b["bound_operations_ms"] * 30 / 24)
+    assert b["bound_by"] == "operations"
+    # K9 counts K3's function over the band's cells: the whole matrix here
+    m_arr, n_arr = np.array([300, 0]), np.array([310, 5])
+    k9 = cs.band_bound(m_arr, n_arr, 1 << 15, (2, 1, 2, 0, False), False)
+    assert k9["cells"] == 300 * 311
+    assert cs.K9_OPS_PER_CELL == cs.BAND_OPS_PER_CELL

@@ -1,10 +1,11 @@
 """The CUDA kernels' bodies, compiled for the host, against their plain
 PyTorch versions and the oracle.
 
-`csrc/myers_distance.cu`, `csrc/myers_search.cu`, `csrc/band_distance.cu` and
-`csrc/myers_blocked.cu` keep their per-pair, per-segment, per-row and
-per-lane code in plain functions that also compile with a host C++
-compiler (`-DTA_HOST_REHEARSAL`);
+`csrc/myers_distance.cu`, `csrc/myers_search.cu`, `csrc/band_distance.cu`,
+`csrc/myers_blocked.cu`, `csrc/search_diag.cu` and `csrc/search_flat.cu`
+keep their per-pair, per-segment, per-row and per-lane code in plain
+functions that also compile with a host C++ compiler
+(`-DTA_HOST_REHEARSAL`);
 `csrc/host_rehearsal.cpp` wraps them in a C interface that runs one
 "thread" at a time.  So the arithmetic the card
 runs is checked here, where no CUDA compiler exists: integer results, exact
@@ -28,6 +29,8 @@ from triple_accel_tpu_torch.ops import lev_band as lb
 from triple_accel_tpu_torch.ops import myers_chunked as mc
 from triple_accel_tpu_torch.ops import myers_distance as md
 from triple_accel_tpu_torch.ops import myers_search as ms
+from triple_accel_tpu_torch.ops import search_diag as sd
+from triple_accel_tpu_torch.ops import search_flat as sf
 from triple_accel_tpu_torch.ops.search_common import seg_count, window_span
 from triple_accel_tpu_torch.oracle import (
     levenshtein_naive_k_with_opts,
@@ -77,6 +80,18 @@ def lib(tmp_path_factory):
     lib.ta_rehearse_blocked_search.argtypes = [
         vp, i64, vp, i32, i32, vp, i32, i32, i64, i64, i64, i32, i32, vp,
         i64, vp, i64]
+    lib.ta_rehearse_search_diag.argtypes = [
+        vp, i64, vp, i32, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp,
+        vp]
+    lib.ta_rehearse_flat_search.argtypes = [
+        vp, i64, vp, i32, i64, i64, vp, i64, i32, i32, i32, i32, i32, i32,
+        vp, vp, vp, i32]
+    lib.ta_rehearse_flat_distance.argtypes = [
+        vp, vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp, vp,
+        i32]
+    for name in ("ta_rehearse_search_diag", "ta_rehearse_flat_search",
+                 "ta_rehearse_flat_distance"):
+        getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
@@ -405,3 +420,198 @@ def test_blocked_search_body_equals_plain_version_and_native(lib, damerau,
                if plain[i, j] <= k}
         assert got == dict(zip(ends.tolist(), ks.tolist()))
     assert int(plain[1].min()) <= 2  # the planted copy
+
+
+# the general-cost kernels: unit, rDamerau, affine, affine with weighted
+# transpositions, and a mismatch cheaper than a gap with a free gap start
+GENERAL_COSTS = [(1, 1, 0, None), (1, 1, 0, 1), (2, 1, 2, None),
+                 (3, 2, 1, 2), (1, 2, 0, None)]
+
+
+def _gct(c):
+    costs = EditCosts(*c)
+    return (costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
+            costs.transpose_cost_or_zero, costs.allow_transpose)
+
+
+def _general_search_case(rng, m, n):
+    """An ACGT-coded haystack starting with NUL bytes and a needle holding
+    one, with two planted copies (an adjacent swap in each)."""
+    needle = rng.integers(0, 4, m).astype(np.uint8)
+    needle[m // 2] = 0
+    hay = rng.integers(0, 4, n).astype(np.uint8)
+    hay[:2] = 0
+    for pos in (0, n // 2):
+        copy = needle.copy()
+        if m > 3:
+            copy[1], copy[2] = copy[2], copy[1]
+        hay[pos: pos + m] = copy[: n - pos]
+    return needle, hay
+
+
+def _geometry(m, k, ct, n, anchored, own):
+    if anchored:
+        it = min(m + max(0, k - ct[2]) // ct[1], n)
+        return it, 0, max(it, 1)
+    return n, min(window_span(m, k, ct[1], ct[2]), n), own
+
+
+@pytest.mark.parametrize("m,c,anchored", [
+    (24, 2, False), (33, 1, False), (70, 3, True), (130, 4, False),
+    (512, 0, False)],
+    ids=["m24_affine", "m33_rdamerau", "m70_transpose_anchored",
+         "m130_cheap_mismatch", "m512_unit"])
+def test_search_diag_body_equals_plain_version_and_oracle(lib, m, c,
+                                                          anchored):
+    """K7's lanes in turn: every row count a lane (1, 2, 4, 8, 16), ragged
+    segments (their tails need single stores), NUL bytes, and k at the
+    end-0 candidate's cost, so position 0 is a hit."""
+    rng = np.random.default_rng(900 + m)
+    ct = _gct(GENERAL_COSTS[c])
+    needle, hay = _general_search_case(rng, m, 700)
+    k = m * ct[1] + ct[2]
+    it, halo, own = _geometry(m, k, ct, len(hay), anchored, 131)
+    h = hay[:it].copy()
+    pd, pl = sd.search_diag_plain(torch.from_numpy(h),
+                                  torch.from_numpy(needle), own_len=own,
+                                  halo=halo, costs_t=ct, anchored=anchored)
+    od = np.full(it + 1, -7, np.int32)
+    ol = np.full(it + 1, -7, np.int32)
+    rc = lib.ta_rehearse_search_diag(
+        h.ctypes.data, it, needle.ctypes.data, m, own, halo,
+        seg_count(it, own), int(anchored), *ct[:4], int(ct[4]),
+        od.ctypes.data, ol.ctypes.data)
+    assert rc == 0
+    pd, pl = pd.numpy(), pl.numpy()
+    assert np.array_equal(od, pd)
+    fin = pd < bs.INF
+    assert np.array_equal(ol[fin], pl[fin])
+    costs = EditCosts(*GENERAL_COSTS[c])
+    exp = levenshtein_search_naive_with_opts(needle, hay, k, SearchType.All,
+                                             costs, anchored)
+    got = [(int(p - pl[p]), int(p), int(pd[p]))
+           for p in np.flatnonzero(pd <= k)]
+    assert got == [(mt.start, mt.end, mt.k) for mt in exp]
+    assert got[0][1] == 0  # the end-0 candidate
+
+
+@pytest.mark.parametrize("m,c,anchored,selected", [
+    (5, 0, False, False), (40, 3, False, False), (40, 1, False, True),
+    (300, 2, True, False)],
+    ids=["m5_unit", "m40_transpose", "m40_rdamerau_selected",
+         "m300_affine_anchored"])
+def test_flat_search_body_equals_plain_version_and_oracle(lib, m, c,
+                                                          anchored,
+                                                          selected):
+    """K8's threads in turn, 64 threads (256-column strips): every segment
+    spans several strips, so the edges of every row (its D and length at a
+    strip's last two columns and the prefix) cross strip boundaries, with
+    the planted copies' transpositions among them; a run over a selection
+    of segments; NUL bytes."""
+    rng = np.random.default_rng(950 + m)
+    ct = _gct(GENERAL_COSTS[c])
+    needle, hay = _general_search_case(rng, m, 1500)
+    k = max(2, m // 8) * ct[0]
+    it, halo, own = _geometry(m, k, ct, len(hay), anchored, 401)
+    h = hay[:it].copy()
+    nseg = seg_count(it, own)
+    segs = (np.arange(1, nseg, 2) if selected else np.arange(nseg)).astype(
+        np.int64)
+    pd, pl = sf.flat_search_plain(
+        torch.from_numpy(h), torch.from_numpy(needle), own_len=own,
+        halo=halo, costs_t=ct, anchored=anchored,
+        segments=torch.from_numpy(segs))
+    od = np.full((len(segs), own), -7, np.int32)
+    ol = np.full((len(segs), own), -7, np.int32)
+    edges = np.zeros((len(segs), m + 2, 8), np.int32)
+    rc = lib.ta_rehearse_flat_search(
+        h.ctypes.data, it, needle.ctypes.data, m, own, halo,
+        segs.ctypes.data, len(segs), int(anchored), *ct[:4], int(ct[4]),
+        od.ctypes.data, ol.ctypes.data, edges.ctypes.data, 64)
+    assert rc == 0
+    pd, pl = pd.numpy(), pl.numpy()
+    assert np.array_equal(od, pd)
+    fin = pd < bs.INF
+    assert np.array_equal(ol[fin], pl[fin])
+    if selected:
+        return
+    costs = EditCosts(*GENERAL_COSTS[c])
+    exp = levenshtein_search_naive_with_opts(needle, hay, k, SearchType.All,
+                                             costs, anchored)
+    flat = pd.reshape(-1)
+    got = [(int(p + 1 - pl.reshape(-1)[p]), int(p + 1), int(flat[p]))
+           for p in np.flatnonzero(flat <= k)]
+    assert got == [(mt.start, mt.end, mt.k) for mt in exp if mt.end > 0]
+    assert any(mt.end == len(hay) // 2 + m for mt in exp) or anchored
+
+
+def _flat_distance_rehearsal(lib, t, ct, unit_k, threads):
+    a, b, m, n = (x.numpy() for x in t)
+    out = np.full(len(m), -7, np.int32)
+    edges = np.zeros((len(m), a.shape[1] + 2, 4), np.int32)
+    rc = lib.ta_rehearse_flat_distance(
+        a.ctypes.data, b.ctypes.data, m.ctypes.data, n.ctypes.data, len(m),
+        a.shape[1], b.shape[1], -1 if unit_k is None else unit_k, *ct[:4],
+        int(ct[4]), out.ctypes.data, edges.ctypes.data, threads)
+    assert rc == 0
+    return out
+
+
+@pytest.mark.parametrize("c", range(4), ids=["unit", "rdamerau", "affine",
+                                              "affine_transpose"])
+def test_flat_distance_body_equals_plain_version_and_native(lib, c):
+    """K9's threads in turn, 64 threads (256-column strips), pairs of up
+    to 700 bytes (three strips), empty strings and NUL bytes, over the full
+    matrix and banded (rows entering and leaving each strip's window)."""
+    rng = np.random.default_rng(990 + c)
+    costs = EditCosts(*GENERAL_COSTS[c])
+    ct = _gct(GENERAL_COSTS[c])
+    a_list, b_list = [np.empty(0, np.uint8), b"abc"], [b"xyz", b""]
+    for ln in (40, 255, 256, 257, 600, 700):
+        a = rng.integers(0, 4, ln).astype(np.uint8)
+        a[: 2] = 0
+        b = a.copy()
+        b[rng.integers(0, ln, ln // 30 + 1)] = 1
+        b[ln // 3], b[ln // 3 + 1] = b[ln // 3 + 1], b[ln // 3]
+        b = np.insert(b, rng.integers(0, ln + 1, 9), 3).astype(np.uint8)
+        a_list.append(a)
+        b_list.append(b)
+    a_list = [np.frombuffer(x, np.uint8) if isinstance(x, bytes) else x
+              for x in a_list]
+    b_list = [np.frombuffer(x, np.uint8) if isinstance(x, bytes) else x
+              for x in b_list]
+    t = sf.prepare_flat_distance_inputs(a_list, b_list, device="cpu")
+    exp = scalar_banded_batch_native(a_list, b_list, 1 << 30, costs)
+    for uk in (None, 12, 40):
+        plain = sf.flat_distance_plain(*t, costs_t=ct, unit_k=uk,
+                                       rj=64 * sf.CELLS_PER_THREAD).numpy()
+        out = _flat_distance_rehearsal(lib, t, ct, uk, 64)
+        assert np.array_equal(out, plain), uk
+        thr = (uk or 1 << 20) * ct[1] + ct[2]
+        within = exp <= thr
+        assert np.array_equal(out[within], exp[within]), uk
+
+
+def test_flat_distance_body_keeps_the_band_entry_path(lib):
+    """The band-entry repro (a = X^500, b = Y^32 + X^500, unit_k = 32,
+    where the JAX package's banded kernel gives 33) at 64 threads, so two
+    strip boundaries fall on the path along the band's edge; and bursts of
+    exactly unit_k inserted chars at the front and in the middle, against
+    the compiled scalar distance."""
+    x = np.full(500, ord("X"), np.uint8)
+    rng = np.random.default_rng(999)
+    r = rng.integers(0, 4, 500).astype(np.uint8)
+    burst = rng.integers(0, 4, 32).astype(np.uint8)
+    a_list = [x, r, r]
+    b_list = [np.concatenate([np.full(32, ord("Y"), np.uint8), x]),
+              np.concatenate([burst, r]), np.insert(r, 250, burst)]
+    t = sf.prepare_flat_distance_inputs(a_list, b_list, device="cpu")
+    for c in range(4):
+        costs = EditCosts(*GENERAL_COSTS[c])
+        ct = _gct(GENERAL_COSTS[c])
+        out = _flat_distance_rehearsal(lib, t, ct, 32, 64)
+        exp = scalar_banded_batch_native(a_list, b_list, 1 << 30, costs)
+        assert out.tolist() == exp.tolist(), c
+        if c == 0:
+            assert out[0] == 32
+

@@ -4,8 +4,9 @@ Every public function the port carries is run with device="cpu" (so the
 kernels' plain PyTorch versions compute) and must equal, exactly, the
 same-named function of the JAX package on its default CPU path and the
 scalar oracle.  Also: the dispatch log names the engine, every route that
-is not ported raises NotImplementedError, and results do not depend on the
-native host library.  The general-cost and traced distance routes have
+is not ported raises NotImplementedError (and the four that raised until
+the general-cost engines were ported return the reference's results), and
+results do not depend on the native host library.  The general-cost and traced distance routes have
 their own files (test_torch_band_distance.py, test_torch_band_trace.py),
 Hamming has test_torch_hamming.py.
 """
@@ -33,6 +34,7 @@ from triple_accel_tpu_torch.types import (
     SearchType,
 )
 from triple_accel_tpu.types import (
+    EditCosts as JEditCosts,
     LEVENSHTEIN_COSTS as J_LEV,
     RDAMERAU_COSTS as J_RDAM,
     SearchType as JSearchType,
@@ -201,6 +203,69 @@ _LONG_A = np.full(9000, 65, np.uint8)
 _LONG_B = np.full(9000, 66, np.uint8)
 
 
+# Four routes raised here until the general-cost engines were ported (K7
+# search_diag, K8 flat_search, K9 flat_distance); their cases keep their
+# ids and now hold the route's result against a reference (engine None).
+def _affine_past_band_plan():
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    a, b = _LONG_A[:4150], _LONG_B[:4150]  # unit_k past the plan's 4096
+    costs = EditCosts(2, 1, 2, None)
+    dispatch_history(clear=True)
+    got = tl.levenshtein_k_batch([a], [b], 10**6, costs, **CPU)
+    assert dispatch_history()[-1][1].path == "flat_distance"
+    assert got.tolist() == scalar_banded_batch_native(
+        [a], [b], 10**6, costs).tolist() == [8300]
+
+
+def _search_general_costs():
+    costs = EditCosts(2, 1, 0, None)
+    for st in (SearchType.All, SearchType.Best):
+        got = tl.levenshtein_search_simd_with_opts(b"abc", b"xxabcxx", 1,
+                                                   st, costs, **CPU)
+        assert _as_tuples(got) == _as_tuples(
+            levenshtein_search_naive_with_opts(b"abc", b"xxabcxx", 1,
+                                               JSearchType[st.name],
+                                               JEditCosts(2, 1, 0, None)))
+    assert last_dispatch().path == "search_diag"
+
+
+def _search_long_needle():
+    from triple_accel_tpu_torch.utils.native import search_all_native
+
+    needle = b"a" * 1281  # past K2's 1280 chars and K7's 512
+    hay = b"b" * 10 + needle + b"b" * 10
+    costs = EditCosts(1, 2, 1, None)
+    got = tl.levenshtein_search_simd_with_opts(needle, hay, 3,
+                                               SearchType.All, costs, **CPU)
+    assert last_dispatch().path == "flat_search"
+    ends, ks, lens = search_all_native(needle, hay, 3, costs)
+    assert _as_tuples(got) == list(zip((ends - lens).tolist(),
+                                       ends.tolist(), ks.tolist()))
+    assert tl.levenshtein_search_simd_with_opts(
+        needle, hay, 3, SearchType.Best, costs, **CPU) == [Match(10, 1291, 0)]
+
+
+def _search_dense_hits():
+    from triple_accel_tpu_torch.utils.native import search_all_native
+
+    needle, hay = b"ab" * 20, b"ab" * 600
+    saved = tl._RESOLVE_CELLS_BUDGET
+    tl._RESOLVE_CELLS_BUDGET = 10_000  # shrunk with the case
+    try:
+        dispatch_history(clear=True)
+        got = tl.levenshtein_search_simd_with_opts(needle, hay, 38,
+                                                   SearchType.All, **CPU)
+    finally:
+        tl._RESOLVE_CELLS_BUDGET = saved
+    assert [d.path for _, d in dispatch_history()] == [
+        "myers_search", "flat_resolve"]
+    ends, ks, lens = search_all_native(needle, hay, 38, LEVENSHTEIN_COSTS)
+    assert _as_tuples(got) == list(zip((ends - lens).tolist(),
+                                       ends.tolist(), ks.tolist()))
+
+
 @pytest.mark.parametrize("call,engine", [
     (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, mesh=object(),
                                     **CPU), "sharded"),
@@ -214,22 +279,12 @@ _LONG_B = np.full(9000, 66, np.uint8)
     (lambda: tl.levenshtein_simd_k_with_opts(
         _LONG_A, _LONG_B, tl.U32_MAX, True, RDAMERAU_COSTS, **CPU),
      "band_scan"),
-    (lambda: tl.levenshtein_k_batch([_LONG_A], [_LONG_B], 10**6,
-                                    EditCosts(2, 1, 2, None), **CPU),
-     "search_flat"),
+    (_affine_past_band_plan, None),
     (lambda: tl.levenshtein_simd_k_with_opts(_LONG_A, _LONG_B, 10**6, True,
                                              **CPU), "band_scan"),
-    (lambda: tl.levenshtein_search_simd_with_opts(
-        b"abc", b"xxabcxx", 1, SearchType.All, EditCosts(2, 1, 0, None),
-        **CPU), "search_flat"),
-    # needles past 1280 chars have an engine for unit and rDamerau costs
-    # (test_torch_blocked_search.py), not for general costs
-    (lambda: tl.levenshtein_search_simd_with_opts(
-        b"a" * 1281, b"b" * 2000, 1, SearchType.Best,
-        EditCosts(1, 2, 1, None), **CPU), "search_flat"),
-    (lambda: tl.levenshtein_search_simd_with_opts(
-        b"ab" * 200, b"ab" * 600_000, 398, SearchType.All, **CPU),
-     "_resolve_hits_flat"),
+    (_search_general_costs, None),
+    (_search_long_needle, None),
+    (_search_dense_hits, None),
     (lambda: tl.levenshtein_search_many([b"ab"], b"abab", 1), "search_many"),
     (lambda: tl.PackedHaystack(b"abab"), "PackedHaystack"),
     (lambda: tl.levenshtein_search_sharded(b"ab", b"abab", 1), "sharded"),
@@ -242,6 +297,12 @@ _LONG_B = np.full(9000, 66, np.uint8)
     "hamming_search_sharded",
 ])
 def test_unported_routes_raise(call, engine):
+    """A route that is not ported raises NotImplementedError naming the JAX
+    engine; the cases with engine None are routes ported since, which
+    check their results instead."""
+    if engine is None:
+        call()
+        return
     with pytest.raises(NotImplementedError, match=engine):
         call()
 

@@ -29,7 +29,8 @@ def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
     mods = _submodules()
     assert "triple_accel_tpu_torch.ops.myers_distance" in mods
     for new in ("ops.band_scan", "ops.lev_band", "ops.hamming_ops",
-                "oracle.hamming", "hamming", "ops.myers_chunked"):
+                "oracle.hamming", "hamming", "ops.myers_chunked",
+                "ops.search_scan", "ops.search_diag", "ops.search_flat"):
         assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
@@ -83,6 +84,13 @@ def test_source_imports_no_jax(path):
     # past the band plan, and past K2's 1280-char needles
     lambda: tt.levenshtein(b"a" * 5000, b"b" * 5100),
     lambda: tt.levenshtein_search(b"ab" * 700, b"ab" * 2000),
+    # general costs: a search, and a long pair past the band plan
+    lambda: sys.modules["triple_accel_tpu_torch.levenshtein"]
+    .levenshtein_search_simd_with_opts(b"abc", b"xxabcxx", 1,
+                                       tt.SearchType.All,
+                                       tt.EditCosts(2, 1, 2, None)),
+    lambda: tt.levenshtein_k_batch([b"a" * 5000], [b"b" * 5100], 10**6,
+                                   tt.EditCosts(2, 1, 2, None)),
 ])
 def test_default_device_raises_without_a_card(call):
     if torch.cuda.is_available():
@@ -99,6 +107,15 @@ def test_cuda_tensors_never_take_the_plain_version():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError):
         tt.levenshtein_k_batch([b"abc"], [b"ab"], 2, device="cuda")
+    general = tt.EditCosts(3, 2, 1, 2)
+    with pytest.raises(RuntimeError):
+        sys.modules["triple_accel_tpu_torch.levenshtein"] \
+            .levenshtein_search_simd_with_opts(
+                b"abc", b"xxabcxx", 1, tt.SearchType.All, general,
+                device="cuda")
+    with pytest.raises(RuntimeError):
+        tt.levenshtein_k_batch([b"a" * 5000], [b"b" * 5100], 10**6, general,
+                               device="cuda")
     from triple_accel_tpu_torch.dispatch import resolve_device
 
     assert resolve_device("cpu").type == "cpu"
@@ -114,6 +131,8 @@ def test_cuda_tensors_never_take_the_plain_version():
     ("myers_search", ["myers_search"]),
     ("lev_band", ["band_distance", "band_trace"]),
     ("myers_chunked", ["blocked_distance", "blocked_search"]),
+    ("search_diag", ["search_diag"]),
+    ("search_flat", ["flat_search", "flat_distance"]),
 ])
 def test_wrappers_take_the_plain_version_for_cpu_tensors_only(module,
                                                               wrappers):
@@ -168,4 +187,4 @@ def test_build_raises_without_nvcc(monkeypatch):
     assert all(s.endswith(".cu") for s in build._sources())
     assert [os.path.basename(s) for s in build._sources()] == [
         "band_distance.cu", "myers_blocked.cu", "myers_distance.cu",
-        "myers_search.cu"]
+        "myers_search.cu", "search_diag.cu", "search_flat.cu"]

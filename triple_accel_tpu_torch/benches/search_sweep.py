@@ -1,7 +1,7 @@
-"""Sweep of kernels K2 (`myers_search`) and K6 (`blocked_search`) over the
-owned length per segment.
+"""Sweep of kernels K2 (`myers_search`), K6 (`blocked_search`) and K7
+(`search_diag`) over the owned length per segment.
 
-    python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128] [--blocked]
+    python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128] [--blocked | --diag]
 
 Times the search kernel alone (CUDA events, one warm-up, 9 launches:
 median, least and most) for unit and restricted-Damerau costs at several
@@ -9,7 +9,10 @@ median, least and most) for unit and restricted-Damerau costs at several
 the 256-byte halo of k = 3), the measurement behind `suggest_own_len`.
 K6 (`--blocked`): chip_smoke.py's long-needle input (a 3,000-byte ACGT
 needle, the 3,328-byte halo of k = 150), the measurement behind
-`suggest_own_len_blocked`.  Prints the card's name and power limit, then
+`suggest_own_len_blocked`.  K7 (`--diag`): the headline haystack and
+needle at k = 6 under the two general cost models of chip_smoke.py's
+`search_general` phase (halos 28 and 26), the measurement behind
+`suggest_own_len_diag`.  Prints the card's name and power limit, then
 one JSON line per point.  Needs one CUDA device and `nvcc`; there is no
 CPU mode.
 """
@@ -27,12 +30,16 @@ import torch
 
 from ..ops.myers_chunked import blocked_search
 from ..ops.myers_search import myers_search, prepare_myers_needles
+from ..ops.search_common import window_span
+from ..ops.search_diag import search_diag
 
 NEEDLE_LEN = 24
 HALO = 256
 OWN_LENS = (512, 1024, 2048, 4096, 8192, 16384)
 BLOCKED_NEEDLE_LEN, BLOCKED_HALO = 3000, 3328
 BLOCKED_OWN_LENS = (13_312, 26_624, 32_000, 65_536, 131_072)
+DIAG_K, DIAG_COSTS = 6, ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
+DIAG_OWN_LENS = (1024, 2048, 4096, 8192, 16384, 32768)
 
 
 def _time_ms(fn, reps: int = 9):
@@ -56,6 +63,8 @@ def main() -> int:
     ap.add_argument("--mb", type=int, default=128, help="haystack MiB")
     ap.add_argument("--blocked", action="store_true",
                     help="sweep K6 on a long needle instead of K2")
+    ap.add_argument("--diag", action="store_true",
+                    help="sweep K7 under general costs instead of K2")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("search_sweep needs a CUDA device", file=sys.stderr)
@@ -79,6 +88,20 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    if args.diag:
+        for ct in DIAG_COSTS:
+            halo = window_span(m, DIAG_K, ct[1], ct[2])
+            for own in DIAG_OWN_LENS:
+                print(json.dumps({
+                    "kernel": "search_diag", "haystack_bytes": n,
+                    "needle_len": m, "k": DIAG_K, "costs": list(ct),
+                    "halo": halo, "own_len": own,
+                    "segments": -(-n // own),
+                    "kernel_ms_median_min_max": _time_ms(
+                        lambda: search_diag(hay, nd[0], own_len=own,
+                                            halo=halo, costs_t=ct)),
+                }), flush=True)
+        return 0
     for damerau in (False, True):
         for own in own_lens:
             print(json.dumps({

@@ -1,6 +1,7 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
 // functions of myers_distance.cu and myers_search.cu, the row passes of
-// band_distance.cu and the per-lane wavefront steps of myers_blocked.cu,
+// band_distance.cu and search_flat.cu and the per-lane wavefront steps of
+// myers_blocked.cu and search_diag.cu,
 // compiled for the CPU and run one "thread" at a time, so their arithmetic
 // can be held against the plain PyTorch versions where there is no CUDA
 // compiler and no card.
@@ -18,6 +19,8 @@
 #include "myers_blocked.cu"
 #include "myers_distance.cu"
 #include "myers_search.cu"
+#include "search_diag.cu"
+#include "search_flat.cu"
 
 template <int NW>
 static void rehearse_distance(const uint8_t* a, const uint8_t* b,
@@ -295,4 +298,187 @@ extern "C" int ta_rehearse_blocked_search(
   g.scratch_stride = scratch_stride;
   return damerau ? rehearse_blocked<true>(g, wpt, nseg, num)
                  : rehearse_blocked<false>(g, wpt, nseg, num);
+}
+
+// One segment of search_diag.cu: the 32 lanes run each step in turn, and
+// what lane l returns at step s is what lane l + 1 takes at step s + 1.
+template <int R, bool TRANS>
+static void rehearse_sd_segment(const SdArgs& g, int64_t c) {
+  const SdSeg s = sd_seg(g, c);
+  const int lane_m = (g.m - 1) / R;
+  std::vector<SdLane<R>> L(SD_LANES);
+  std::vector<TaStream> txt(SD_LANES);
+  std::vector<SdSink> sink(SD_LANES);
+  for (int l = 0; l < SD_LANES; ++l) {
+    sd_reset<R>(L[l], g, l);
+    txt[l].start(g.hay, g.iter_len);
+  }
+  std::vector<SdMsg> in(SD_LANES, SdMsg{}), out(SD_LANES);
+  const int64_t steps = s.ncols + lane_m + 1;
+  for (int64_t step = 0; step < steps; ++step) {
+    for (int l = 0; l < SD_LANES; ++l)
+      out[l] = sd_step<R, TRANS>(g, s, L[l], txt[l], sink[l], l, lane_m,
+                                 step, in[l]);
+    in[0] = out[0];
+    for (int l = 1; l < SD_LANES; ++l) in[l] = out[l - 1];
+  }
+  sink[lane_m].flush(g, s);
+}
+
+template <bool TRANS>
+static int rehearse_sd(const SdArgs& g) {
+  for (int64_t c = 0; c < g.nseg; ++c) switch (sd_rows_per_lane(g.m)) {
+      case 1: rehearse_sd_segment<1, TRANS>(g, c); break;
+      case 2: rehearse_sd_segment<2, TRANS>(g, c); break;
+      case 4: rehearse_sd_segment<4, TRANS>(g, c); break;
+      case 8: rehearse_sd_segment<8, TRANS>(g, c); break;
+      case 16: rehearse_sd_segment<16, TRANS>(g, c); break;
+      default: return 1;
+    }
+  return 0;
+}
+
+// Same arguments as ta_search_diag, host pointers, no stream.
+extern "C" int ta_rehearse_search_diag(const void* hay, int64_t iter_len,
+                                       const void* needle, int m,
+                                       int64_t own_len, int64_t halo,
+                                       int64_t nseg, int anchored, int mc,
+                                       int gc, int sgc, int tc, int transpose,
+                                       void* out_d, void* out_l) {
+  if (m < 1 || m > SD_LANES * 16 || own_len < 1 || halo < 0 || nseg < 1)
+    return 1;
+  SdArgs g;
+  g.hay = (const uint8_t*)hay;
+  g.iter_len = iter_len;
+  g.needle = (const uint8_t*)needle;
+  g.m = m;
+  g.own_len = own_len;
+  g.halo = halo;
+  g.nseg = nseg;
+  g.anchored = anchored;
+  g.mc = mc;
+  g.gc = gc;
+  g.sgc = sgc;
+  g.tc = tc;
+  g.out_d = (int32_t*)out_d;
+  g.out_l = (int32_t*)out_l;
+  return transpose ? rehearse_sd<true>(g) : rehearse_sd<false>(g);
+}
+
+// One item of search_flat.cu: inside a row, the `threads` "threads" run
+// pass 1 in turn, then pass 2 in turn, each starting from the combine of
+// the row's prefix and the passes 1 before it (what the device gets from
+// its warp scan and the words of the warps).
+template <bool SEARCH, bool TRANS>
+static void rehearse_flat_item(const SfArgs& g, int64_t x, int T) {
+  const int RJ = T * SF_CPT;
+  SfItem it = sf_item<SEARCH>(g, x);
+  if (SEARCH) {
+    for (int64_t o = it.own_hi - it.own_lo + 1; o < g.own_len; ++o) {
+      it.out_d[o] = SF_INF;
+      it.out_l[o] = 0;
+    }
+  } else if (sf_trivial<SEARCH>(it, g)) {
+    return;
+  } else {
+    it.out_d[0] = SF_INF;
+  }
+  std::vector<int32_t> smem(sf_smem_ints(RJ, SEARCH));
+  SfPre* tot;
+  SfState S = sf_state<SEARCH>(smem.data(), RJ, &tot);
+  std::vector<SfPre> agg(T);
+  SfStrip st;
+  st.RJ = RJ;
+  st.i_hi_prev = 0;
+  for (st.j0 = 0; st.j0 < it.ncols; st.j0 += RJ) {
+    sf_window(it, st);
+    for (int t = 0; t < T; ++t)
+      sf_strip_init<SEARCH>(it, g, st, S, t * SF_CPT, (t + 1) * SF_CPT,
+                            t == 0);
+    SfEdge e1 = sf_old_edge<SEARCH>(it, g, st, st.i_lo - 1);
+    SfEdge e2 = sf_old_edge<SEARCH>(it, g, st, st.i_lo - 2);
+    for (int64_t i = st.i_lo; i <= st.i_hi; ++i) {
+      const SfRow R = sf_row_start(it, i, e1, e2);
+      const SfEdge ei = sf_old_edge<SEARCH>(it, g, st, i);
+      for (int t = 0; t < T; ++t)
+        agg[t] = sf_pass1<SEARCH, TRANS>(g, S, R, t * SF_CPT,
+                                         (t + 1) * SF_CPT);
+      SfPre run = ei.p;
+      for (int t = 0; t < T; ++t) {
+        sf_pass2<SEARCH, TRANS>(g, it, S, st, R, t * SF_CPT,
+                                (t + 1) * SF_CPT, run);
+        run = SEARCH ? sf_combine(run, agg[t])
+                     : SfPre{sf_min(run.g, agg[t].g), 0};
+      }
+      sf_rotate(S);
+      e2 = e1;
+      e1 = ei;
+    }
+    st.i_hi_prev = st.i_hi;
+  }
+}
+
+// Same arguments as ta_flat_search, host pointers, no stream.
+extern "C" int ta_rehearse_flat_search(
+    const void* hay, int64_t iter_len, const void* needle, int m,
+    int64_t own_len, int64_t halo, const void* segs, int64_t items,
+    int anchored, int mc, int gc, int sgc, int tc, int transpose, void* out_d,
+    void* out_l, void* edges, int threads) {
+  if (m < 1 || own_len < 1 || halo < 0 || threads < 64 ||
+      threads > SF_SEARCH_MAX_THREADS || (threads & 31))
+    return 1;
+  SfArgs g = {};
+  g.hay = (const uint8_t*)hay;
+  g.iter_len = iter_len;
+  g.needle = (const uint8_t*)needle;
+  g.m = m;
+  g.own_len = own_len;
+  g.halo = halo;
+  g.segs = (const int64_t*)segs;
+  g.anchored = anchored;
+  g.out_d = (int32_t*)out_d;
+  g.out_l = (int32_t*)out_l;
+  g.mc = mc;
+  g.gc = gc;
+  g.sgc = sgc;
+  g.tc = tc;
+  g.edges = (int32_t*)edges;
+  for (int64_t x = 0; x < items; ++x) {
+    if (transpose)
+      rehearse_flat_item<true, true>(g, x, threads);
+    else
+      rehearse_flat_item<true, false>(g, x, threads);
+  }
+  return 0;
+}
+
+// Same arguments as ta_flat_distance, host pointers, no stream.
+extern "C" int ta_rehearse_flat_distance(
+    const void* a, const void* b, const void* m, const void* n, int64_t B,
+    int64_t a_stride, int64_t b_stride, int unit_k, int mc, int gc, int sgc,
+    int tc, int transpose, void* out, void* edges, int threads) {
+  if (a_stride < 1 || b_stride < 1 || unit_k < -1 || threads < 64 ||
+      threads > 1024 || (threads & 31))
+    return 1;
+  SfArgs g = {};
+  g.a = (const uint8_t*)a;
+  g.b = (const uint8_t*)b;
+  g.m_arr = (const int32_t*)m;
+  g.n_arr = (const int32_t*)n;
+  g.a_stride = a_stride;
+  g.b_stride = b_stride;
+  g.unit_k = unit_k;
+  g.out = (int32_t*)out;
+  g.mc = mc;
+  g.gc = gc;
+  g.sgc = sgc;
+  g.tc = tc;
+  g.edges = (int32_t*)edges;
+  for (int64_t x = 0; x < B; ++x) {
+    if (transpose)
+      rehearse_flat_item<false, true>(g, x, threads);
+    else
+      rehearse_flat_item<false, false>(g, x, threads);
+  }
+  return 0;
 }

@@ -56,3 +56,39 @@ static TA_DEV uint64_t ta_low_mask(int nbits) {
   if (nbits >= 64) return ~0ull;
   return (1ull << nbits) - 1ull;
 }
+
+// Bytes [0, len) of a 16-byte aligned buffer read in order, one a call,
+// 16 at a time with the next 16 already requested.
+struct TaStream {
+  const uint8_t* base;
+  int64_t len;
+  int64_t q;  // chunk held in `cur`
+  uint4 cur, nxt;
+
+  TA_DEV void start(const uint8_t* b, int64_t l) {
+    base = b;
+    len = l;
+    q = -2;
+  }
+  TA_DEV uint4 load(int64_t c) const {
+    if (c * 16 + 16 <= len) return ta_load16(base + c * 16);
+    uint32_t wd[4] = {0u, 0u, 0u, 0u};
+    for (int r = 0; r < 16 && c * 16 + r < len; ++r)
+      wd[r >> 2] |= (uint32_t)base[c * 16 + r] << (8 * (r & 3));
+    uint4 v;
+    v.x = wd[0];
+    v.y = wd[1];
+    v.z = wd[2];
+    v.w = wd[3];
+    return v;
+  }
+  TA_DEV uint32_t at(int64_t idx) {
+    const int64_t c = idx >> 4;
+    if (c != q) {
+      cur = (c == q + 1) ? nxt : load(c);
+      q = c;
+      nxt = load(c + 1);
+    }
+    return ta_byte_of(cur, (int)(idx & 15));
+  }
+};

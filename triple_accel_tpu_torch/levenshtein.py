@@ -15,14 +15,23 @@ engines and every host step around them:
   with unit or restricted-Damerau costs, untraced: exact distances of
   pairs of any length (ops/myers_chunked.py, kernel K5), so `levenshtein`
   and `rdamerau` take strings of any length;
+* `flat_distance` — the same entry points past the band plan with any other
+  cost model (and unit costs under TRIPLE_ACCEL_TORCH_FORCE_PATH=band), untraced:
+  the row-oriented general-cost distance banded by the threshold
+  (ops/search_flat.py, kernel K9);
 * `myers_search` / `myers_search_rdamerau` — `levenshtein_search_simd_with_opts`
   and its wrappers, unit and restricted-Damerau costs, anchored or not,
   needles up to 1280 chars (ops/myers_search.py), and `myers_search_blocked`
   for longer needles (ops/myers_chunked.py, kernel K6), each followed by
-  the hit fetch and the All-mode length replay on the host.
+  the hit fetch and the All-mode length replay on the host, or, for a hit
+  stream past the replay budget, `flat_resolve`: kernel K8 over only the
+  segments that hold hits;
+* `search_diag` / `flat_search` — the same search entry points under any
+  other cost model: needles up to 512 chars on the diagonal kernel
+  (ops/search_diag.py, K7), longer ones on the row kernel
+  (ops/search_flat.py, K8), both with the match lengths on the device.
 
-Every other route of the JAX package (meshes, general costs or traces past
-the band plan, general-cost search, the dense-hit device resolution,
+Every other route of the JAX package (meshes, traces past the band plan,
 dictionary search, sharded search) raises `NotImplementedError` naming the
 JAX engine that is still to be ported.  Nothing falls back to the oracle, the plain
 PyTorch versions or the CPU: the same dispatch runs on both devices.
@@ -198,8 +207,9 @@ def levenshtein_simd_k_with_opts(
     only to spare compiles; `band_scan.decode_traceback` is its host walk,
     kept as the scalar check of the batched walk).  Untraced unit and
     restricted-Damerau thresholds past the band plan take the blocked
-    Myers distance kernel, so any string length resolves; a trace or
-    another cost model there raises NotImplementedError.
+    Myers distance kernel and other cost models the row-oriented flat
+    distance kernel, so any string length resolves; a trace there raises
+    NotImplementedError.
     """
     dev = resolve_device(device)
     a = to_bytes_array(a)
@@ -275,9 +285,9 @@ def levenshtein_exp_with_opts(
     device=None,
 ) -> Tuple[int, Optional[List[Edit]]]:
     """Exponential-search distance with options (reference levenshtein.rs:
-    1480-1494).  Untraced unit and restricted-Damerau costs resolve at any
-    length (past the band plan on the blocked Myers kernel); a traced or
-    general-cost search that outgrows the plan raises."""
+    1480-1494).  Untraced costs resolve at any length (past the band plan
+    on the blocked Myers kernel, or the flat distance kernel for general
+    costs); a traced search that outgrows the plan raises."""
     k = 30
     while True:
         res = levenshtein_simd_k_with_opts(a, b, k, trace_on, costs,
@@ -311,9 +321,10 @@ def levenshtein_exp_batch(
     """Batched exponential-search exact distance — the batched-first analog
     of `levenshtein_exp` (reference levenshtein.rs:1445-1454): all pairs
     start at k = 30; unresolved pairs retry together with k doubled, so a
-    batch dominated by similar pairs never pays for a wide band.  Unit and
-    restricted-Damerau rungs past the band plan take the blocked Myers
-    kernel, so pairs of any length resolve.
+    batch dominated by similar pairs never pays for a wide band.  Rungs
+    past the band plan take the blocked Myers kernel (unit and
+    restricted-Damerau costs) or the flat distance kernel (other costs),
+    so pairs of any length resolve.
 
     Returns int64 exact distances (always resolves; never -1).
     """
@@ -375,10 +386,17 @@ def levenshtein_k_batch(
       past the plan under unit or restricted-Damerau costs: the exact
       full-matrix bit-vector distance of pairs of any length
       (ops/myers_chunked.py), `-1` above the capped threshold;
-    * past the plan otherwise: NotImplementedError naming the JAX engine
-      (`search_flat.flat_distance` for other costs, and for unit costs
-      under FORCE_PATH=band, as in the JAX package; the
-      `band_scan.band_trace_batch` scan walk for traces).
+    * `flat_distance` [`flat_distance`]: untraced batches past the plan
+      under any other cost model, and unit costs under FORCE_PATH=band, as
+      in the JAX package: the row-oriented distance banded by the batch's
+      unit_k (ops/search_flat.py, kernel K9), a batch whose per-row edges
+      pass `search_flat.EDGE_BYTES_CAP` in several launches.  The JAX
+      package chose between this kernel and its banded `lax.scan` by time
+      models measured on a v5e (`_flat_beats_scan`); here that scan is
+      only the plain version, so there is nothing to choose between and
+      the guard is not ported;
+    * traced batches past the plan: NotImplementedError naming the JAX
+      engine (the `band_scan.band_trace_batch` scan walk).
     `mesh=` is not ported.
     """
     from .ops.band_scan import decode_walked_batch, walk_packed_traceback
@@ -397,6 +415,7 @@ def levenshtein_k_batch(
         myers_plan,
         prepare_myers_inputs,
     )
+    from .ops.search_flat import flat_distance, prepare_flat_distance_inputs
 
     dev = resolve_device(device)
     if mesh is not None:
@@ -523,8 +542,21 @@ def levenshtein_k_batch(
                     "ops/band_scan.py band_trace_batch (the chunked scan "
                     "walk)")
             if ct not in (_UNIT, _RDAMERAU) or forced_path() == "band":
-                raise _not_ported(
-                    what, "ops/pallas/search_flat.py flat_distance")
+                # any cost model: the row kernel, banded by the batch's
+                # unit_k (exact for every pair within its threshold)
+                DispatchDecision(
+                    path="flat_distance",
+                    cost_bucket=select_cost_bucket(max_k),
+                    unit_k=uk_dev,
+                    max_k=max_k,
+                    padded_m=max_m,
+                    padded_n=B,
+                ).log("levenshtein_k_batch")
+                fargs = prepare_flat_distance_inputs(swapped_a, swapped_b,
+                                                     device=dev)
+                dist = flat_distance(*fargs, costs_t=ct, unit_k=uk_dev)
+                out = dist.cpu().numpy().astype(np.int64)
+                return np.where(feasible & (out <= max_ks), out, -1)
             # unit and rDamerau costs: the full-matrix bit-vector distance
             # of any length (the reference's own headline call shape,
             # levenshtein.rs:1397-1423 over its unbounded band)
@@ -672,8 +704,8 @@ def _merge_hit_windows(gpos: np.ndarray, span: int):
 
 
 # host-time guard for the streaming replay: total DP cells (interval chars
-# x needle len) the batched C++ resolution may burn; past it the JAX
-# package recovers lengths on the device with its flat engine
+# x needle len) the batched C++ resolution may burn; past it the lengths
+# are recovered on the device by the flat search kernel
 _RESOLVE_CELLS_BUDGET = 300_000_000
 
 
@@ -770,6 +802,65 @@ def _resolve_hits_anchored(
     return _select_hit_candidates(ends, ks, lens, gpos)
 
 
+def _resolve_hits_flat(
+    needle: np.ndarray,
+    hay_d: torch.Tensor,
+    gpos: np.ndarray,
+    k: int,
+    costs: EditCosts,
+    span: int,
+) -> List[Tuple[int, int, int]]:
+    """Length resolution of a degenerate-dense hit stream ON THE DEVICE
+    (the JAX package's `_resolve_hits_flat`): the flat search kernel,
+    which tracks match lengths in its DP, reruns ONLY the segments that
+    hold hits, and 8 bytes a hit come back.  Work is proportional to the
+    hit-bearing part of the haystack and the host replay's cost never
+    applies.  `hay_d` is the haystack already on the device.  The end-0
+    candidate is (m*gap + start_gap, 0) by definition."""
+    from .ops.search_flat import (
+        flat_search,
+        prepare_flat_needle,
+        suggest_own_len_flat,
+    )
+
+    if gpos.size == 0:
+        return []
+    m = len(needle)
+    iter_len = hay_d.shape[0]
+    gpos = np.asarray(gpos, np.int64)
+    halo = min(span, iter_len)
+    own_len = suggest_own_len_flat(iter_len, halo)
+    pos = gpos[gpos > 0]
+    c_of = (pos - 1) // own_len
+    c_sel, x_of = np.unique(c_of, return_inverse=True)
+    DispatchDecision(
+        path="flat_resolve",
+        cost_bucket=select_cost_bucket(min(k, U32_MAX)),
+        unit_k=halo,
+        max_k=k,
+        padded_m=m,
+        padded_n=halo + own_len,
+    ).log("_resolve_hits_flat")
+    cands: List[Tuple[int, int, int]] = []
+    d0 = m * costs.gap_cost + costs.start_gap_cost
+    if gpos[0] == 0 and d0 <= k:
+        cands.append((0, d0, 0))
+    if pos.size:
+        needle_d = prepare_flat_needle(needle, device=hay_d.device)
+        dist, length = flat_search(
+            hay_d, needle_d, own_len=own_len, halo=halo,
+            costs_t=_costs_tuple(costs),
+            segments=torch.from_numpy(c_sel).to(hay_d.device))
+        x_d = torch.from_numpy(x_of).to(hay_d.device)
+        o_d = torch.from_numpy(pos - c_of * own_len - 1).to(hay_d.device)
+        dd = dist[x_d, o_d].cpu().numpy().astype(np.int64)
+        ll = length[x_d, o_d].cpu().numpy().astype(np.int64)
+        keep = dd <= k
+        cands.extend(zip(pos[keep].tolist(), dd[keep].tolist(),
+                         ll[keep].tolist()))
+    return cands
+
+
 def _resolve_cells(gpos: np.ndarray, span: int, m: int) -> int:
     """DP cells the batched replay would burn for these hits."""
     if gpos.size == 0:
@@ -821,13 +912,21 @@ def levenshtein_search_simd_with_opts(
     Long haystacks run as parallel segments with a halo of one window
     span, which is exact for every candidate with cost <= k.
 
-    Ported: unit and restricted-Damerau costs, anchored or not, needles of
-    any length.  Needles of 1..1280 chars take the Myers search kernel
-    (ops/myers_search.py), longer ones the blocked one
+    Unit and restricted-Damerau costs: needles of 1..1280 chars take the
+    Myers search kernel (ops/myers_search.py), longer ones the blocked one
     (ops/myers_chunked.py, logged `myers_search_blocked`), which serves
     both long-needle engines of the JAX package, `myers_search_blocked`
-    and `myers_search_chunked`, at any halo.  A needle of a given length
-    always takes the same engine, on the CPU and on the card.
+    and `myers_search_chunked`, at any halo.  A hit stream whose replay
+    would pass `_RESOLVE_CELLS_BUDGET` gets its lengths from the flat
+    search kernel over the hit-bearing segments (`flat_resolve`).
+
+    Any other cost model (the dispatch log's names, the JAX package's in
+    brackets): needles of 1..512 chars take the diagonal kernel, K7
+    (`search_diag` [`pallas`], ops/search_diag.py), longer ones the row
+    kernel, K8 (`flat_search` [`flat_search`], ops/search_flat.py),
+    anchored or not.  Both return the match lengths with the distances,
+    so only the hits come back and no replay runs.  A needle of a given
+    length always takes the same engine, on the CPU and on the card.
     """
     from .ops.myers_chunked import blocked_search, suggest_own_len_blocked
     from .ops.myers_search import (
@@ -858,11 +957,8 @@ def levenshtein_search_simd_with_opts(
     ct = _costs_tuple(costs)
     damerau = ct == _RDAMERAU
     if not (ct == _UNIT or damerau):
-        raise _not_ported(
-            f"levenshtein_search_simd_with_opts with costs {ct}",
-            "ops/pallas/search_kernel.py search_pallas and "
-            "ops/pallas/search_flat.py flat_search",
-        )
+        return _search_general(needle, haystack, k, search_type, costs,
+                               anchored, dev)
     blocked = myers_search_plan(m) is None
 
     span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
@@ -928,14 +1024,94 @@ def levenshtein_search_simd_with_opts(
     if not native_available():
         budget //= 100  # the Python replay is about 100x slower
     if _resolve_cells(gpos, span, m) > budget:
-        raise _not_ported(
-            "length resolution of a degenerate-dense hit stream (over the "
-            "host replay budget)",
-            "levenshtein._resolve_hits_flat over ops/pallas/search_flat.py "
-            "flat_search_gather_selected",
-        )
-    cands = _resolve_hits_batch(needle, haystack, gpos, k, costs, span)
+        # degenerate-dense hit stream: the lengths come from the flat
+        # kernel on the device, over the hit-bearing segments only
+        cands = _resolve_hits_flat(needle, hay_d, gpos, k, costs, span)
+    else:
+        cands = _resolve_hits_batch(needle, haystack, gpos, k, costs, span)
     return _postprocess_sparse(cands, k, search_type)
+
+
+def _search_general(needle: np.ndarray, haystack: np.ndarray, k: int,
+                    search_type: SearchType, costs: EditCosts,
+                    anchored: bool, dev: torch.device) -> List[Match]:
+    """Search under a cost model other than unit or restricted-Damerau
+    (the JAX package's `levenshtein.py:1838-1981`): K7 for needles of up
+    to `K7_MAX_NEEDLE` chars, K8 past it, each giving the distance AND the
+    match length of every owned end position, from one device copy of the
+    raw haystack.  The hits are picked on the device and only they come
+    back: segment 0 starts at byte 0, so no synthetic pad needs a replay,
+    and the end-0 candidate is K7's column 0, or added here for K8 (whose
+    column 0 is virtual)."""
+    from .ops.search_common import window_span
+    from .ops.search_diag import (
+        K7_MAX_NEEDLE,
+        search_diag,
+        suggest_own_len_diag,
+    )
+    from .ops.search_flat import (
+        flat_search,
+        prepare_flat_needle,
+        suggest_own_len_flat,
+    )
+
+    m, n = len(needle), len(haystack)
+    ct = _costs_tuple(costs)
+    span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
+    if anchored:
+        # ONE segment from the anchor: row 0 is the absolute prefix cost
+        iter_len = min(
+            m + max(0, k - costs.start_gap_cost) // costs.gap_cost, n)
+        halo = 0
+    else:
+        iter_len = n
+        halo = span
+    diag = m <= K7_MAX_NEEDLE
+    if anchored:
+        own_len = max(iter_len, 1)
+    elif diag:
+        own_len = suggest_own_len_diag(iter_len, halo)
+    else:
+        own_len = suggest_own_len_flat(iter_len, halo)
+    DispatchDecision(
+        path="search_diag" if diag else "flat_search",
+        cost_bucket=select_cost_bucket(min(k, U32_MAX)),
+        unit_k=halo,
+        max_k=k,
+        padded_m=m,
+        padded_n=halo + own_len,
+    ).log("levenshtein_search_simd_with_opts")
+    hay_np = np.ascontiguousarray(haystack[:iter_len])
+    if not hay_np.flags.writeable:  # torch refuses read-only buffers
+        hay_np = hay_np.copy()
+    hay_d = torch.from_numpy(hay_np).to(dev)
+    needle_d = prepare_flat_needle(needle, device=dev)
+    kk = min(k, (1 << 31) - 1)
+    if diag:
+        dist, length = search_diag(hay_d, needle_d, own_len=own_len,
+                                   halo=halo, costs_t=ct, anchored=anchored)
+        (pos_d,) = torch.nonzero(dist <= kk, as_tuple=True)
+        ends = pos_d.cpu().numpy().astype(np.int64)
+    else:
+        dist, length = flat_search(hay_d, needle_d, own_len=own_len,
+                                   halo=halo, costs_t=ct, anchored=anchored)
+        dist, length = dist.reshape(-1), length.reshape(-1)
+        (pos_d,) = torch.nonzero(dist <= kk, as_tuple=True)
+        ends = pos_d.cpu().numpy().astype(np.int64) + 1
+    dd = dist[pos_d].cpu().numpy().astype(np.int64)
+    ll = length[pos_d].cpu().numpy().astype(np.int64)
+    del dist, length
+    d0 = m * costs.gap_cost + costs.start_gap_cost
+    if not diag and d0 <= k:  # the end-0 candidate, K8's virtual column
+        ends = np.concatenate(([0], ends))
+        dd = np.concatenate(([d0], dd))
+        ll = np.concatenate(([0], ll))
+    if search_type == SearchType.Best and ends.size:
+        # only global-minimum-cost candidates can survive Best's filter
+        at_min = dd == dd.min()
+        ends, dd, ll = ends[at_min], dd[at_min], ll[at_min]
+    return _postprocess_sparse(
+        list(zip(ends.tolist(), dd.tolist(), ll.tolist())), k, search_type)
 
 
 def levenshtein_search_simd(needle: BytesLike, haystack: BytesLike, *,
