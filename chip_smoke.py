@@ -781,6 +781,11 @@ FLAT_DIST_CHECK_PAIRS, FLAT_DIST_CHECK_LEN, FLAT_DIST_CHECK_UK = 12, 5000, 64
 # the band-entry repro at the card's strip width: a path along the band's
 # edge (32 chars inserted at the front, unit_k 32) through a strip boundary
 BAND_ENTRY_LEN, BAND_ENTRY_UK = 5000, 32
+# K8 and K9 at their launch shape: needles and pair widths one off a
+# multiple of a warp's columns (32 x C) and of the strip, copies and
+# swaps whose transposition reads D[i-2][j-2] across a lane, a warp and a
+# strip boundary; K8 over FLAT_SHAPE_BYTES of haystack
+FLAT_SHAPE_BYTES = 1 << 15
 
 
 def fuzz_costs_t(c):
@@ -861,6 +866,35 @@ def check_search_diag_kernel(dev):
     return cases, worst
 
 
+def flat_boundary_columns(threads: int, cols: int):
+    """Columns (1-based, from the first column a block reads) whose
+    transposition reads D[i-2][j-2] across a lane boundary (j at a lane's
+    first column), across a warp boundary (a warp's first and second
+    columns) and across the first strip boundary, at `threads` threads of
+    `cols` columns a lane."""
+    warp, strip = 32 * cols, threads * cols
+    return [5 * cols + 1, warp + 1, warp + 2, 3 * warp + 1, strip + 1,
+            strip + 2]
+
+
+def plant_boundary_swaps(hay, needle, col0s, columns) -> int:
+    """Copies of the needle with its chars 1 and 2 swapped, so the swap's
+    transposition (needle row 3) falls on column c of the text that starts
+    at col0, for (col0, c) in turn, where the copy overlaps none planted
+    before; returns how many were planted."""
+    m, n = len(needle), len(hay)
+    copy = needle.copy()
+    copy[1], copy[2] = copy[2], copy[1]
+    taken = []
+    for col0, col in zip(col0s, columns):
+        p = col0 + col - 3
+        if p < 0 or p + m > n or any(p < e and b < p + m for b, e in taken):
+            continue
+        hay[p: p + m] = copy
+        taken.append((p, p + m))
+    return len(taken)
+
+
 def check_flat_search_kernel(dev):
     """K8 against its plain version on the card, exactly: FLAT_CHECKS'
     needle lengths and cost models over segments that span several of the
@@ -905,22 +939,54 @@ def check_flat_search_kernel(dev):
                                 f"anchored={anchored} selected="
                                 f"{segs is not None}")
                 cases += 1
+    # each kernel variant's launch shape: needles one off a warp's columns,
+    # segments one off the strip and a warp's columns, copies across the
+    # boundaries (rDamerau and affine with transpositions, affine without)
+    for c in (FUZZ_COSTS[1], FUZZ_COSTS[3], FUZZ_COSTS[2]):
+        ct = fuzz_costs_t(c)
+        threads, cols, _ = sf.SEARCH_SHAPES[bool(ct[4])]
+        warp, rj = 32 * cols, threads * cols
+        bcols = flat_boundary_columns(threads, cols)
+        for m in (warp - 1, warp + 1):
+            hay0, needle = search_check_input(rng, FLAT_SHAPE_BYTES, m, 3,
+                                              max(1, m // 20))
+            nd = torch.from_numpy(needle).to(dev)
+            k = max(2, m // 10) * ct[0]
+            halo = window_span(m, k, ct[1], ct[2])
+            for width in (rj - 1, rj + 1, 2 * rj + warp + 1):
+                own = width - halo  # a segment reads `width` columns
+                hay = hay0.copy()
+                planted = plant_boundary_swaps(
+                    hay, needle, [s * own - halo for s in range(1, 7)],
+                    bcols)
+                hay_d = torch.from_numpy(hay).to(dev)
+                kw = dict(own_len=own, halo=halo, costs_t=ct)
+                got = sf.flat_search(hay_d, nd, **kw)
+                torch.cuda.synchronize()
+                err = _search_err(got, sf.flat_search_plain(hay_d, nd, **kw))
+                worst = max(worst, err)
+                check(planted >= 3 and err == 0,
+                      f"flat_search != plain at the launch shape: m={m} "
+                      f"costs={c} segment width={width}, {planted} copies "
+                      "across boundaries")
+                cases += 1
     return cases, worst
 
 
-def band_entry_pairs(length: int, burst: int, rng):
+def band_entry_pairs(length: int, burst: int, rng, at=None):
     """Pairs whose best path runs along the band's edge: a = X^length
     against b = Y^burst + X^length (the reference's band-entry repro,
     ROADMAP.md Queue 3), and a random ACGT string against copies with a
     burst of exactly `burst` inserted chars at the front and in the
-    middle."""
+    middle (at byte `at`, by default length // 2)."""
     x = np.full(length, ord("X"), np.uint8)
     a_list = [x, ACGT[rng.integers(0, 4, length)]]
     a_list.append(a_list[1])
     b_list = [np.concatenate([np.full(burst, ord("Y"), np.uint8), x])]
     burst_chars = ACGT[rng.integers(0, 4, burst)]
     b_list.append(np.concatenate([burst_chars, a_list[1]]))
-    b_list.append(np.insert(a_list[1], length // 2, burst_chars))
+    b_list.append(np.insert(a_list[1], length // 2 if at is None else at,
+                            burst_chars))
     return a_list, b_list
 
 
@@ -958,21 +1024,56 @@ def check_flat_distance_kernel(dev):
             check(err == 0, f"flat_distance != plain at costs={c} "
                             f"unit_k={uk}")
             cases += 1
-    a_e, b_e = band_entry_pairs(BAND_ENTRY_LEN, BAND_ENTRY_UK, rng)
-    t = sf.prepare_flat_distance_inputs(a_e, b_e, device=dev)
+    # the launch shape: widths one off a multiple of a warp's columns and
+    # of the strip, swaps whose transposition reads across a lane, a warp
+    # and a strip boundary (the cell (j, j) of a swap of b[j-2], b[j-1])
+    warp = 32 * sf.DIST_COLS
+    rj = sf.DIST_MAX_THREADS * sf.DIST_COLS
+    bcols = flat_boundary_columns(sf.DIST_MAX_THREADS, sf.DIST_COLS)
+    a_s, b_s = [], []
+    for ln in (warp - 1, warp + 1, rj - 1, rj + 1, rj + warp + 1):
+        for shift in (0, 1):
+            a = ACGT[rng.integers(0, 4, ln)]
+            b = a.copy()
+            swapped = set()
+            for col in bcols:
+                p = col + shift - 2
+                if p + 1 < ln and not {p, p + 1} & swapped:
+                    b[p], b[p + 1] = b[p + 1], b[p]
+                    swapped |= {p, p + 1}
+            a_s.append(a)
+            b_s.append(edit_acgt(b, 2, rng) if shift else b)
+    t = sf.prepare_flat_distance_inputs(a_s, b_s, device=dev)
     for c in FUZZ_COSTS:
         ct = fuzz_costs_t(c)
-        got = sf.flat_distance(*t, costs_t=ct, unit_k=BAND_ENTRY_UK)
-        torch.cuda.synchronize()
-        ref = sf.flat_distance_plain(*t, costs_t=ct, unit_k=BAND_ENTRY_UK)
-        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
-        exp = scalar_banded_batch_native(a_e, b_e, U32_MAX, EditCosts(*c))
-        check(err == 0 and got.cpu().numpy().tolist() == exp.tolist(),
-              f"flat_distance on the band-entry pairs at costs={c}: "
-              f"{got.cpu().numpy().tolist()}, plain {ref.cpu().tolist()}, "
-              f"scalar {exp.tolist()}")
-        worst = max(worst, err)
-        cases += 1
+        for uk in (None, FLAT_DIST_CHECK_UK):
+            got = sf.flat_distance(*t, costs_t=ct, unit_k=uk)
+            torch.cuda.synchronize()
+            ref = sf.flat_distance_plain(*t, costs_t=ct, unit_k=uk)
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            worst = max(worst, err)
+            check(err == 0, f"flat_distance != plain at the launch shape, "
+                            f"costs={c} unit_k={uk}")
+            cases += 1
+    # the band-entry pairs: the burst at the middle, then at a warp
+    # boundary inside a strip
+    for at in (None, 5 * warp):
+        a_e, b_e = band_entry_pairs(BAND_ENTRY_LEN, BAND_ENTRY_UK, rng, at)
+        t = sf.prepare_flat_distance_inputs(a_e, b_e, device=dev)
+        for c in FUZZ_COSTS:
+            ct = fuzz_costs_t(c)
+            got = sf.flat_distance(*t, costs_t=ct, unit_k=BAND_ENTRY_UK)
+            torch.cuda.synchronize()
+            ref = sf.flat_distance_plain(*t, costs_t=ct,
+                                         unit_k=BAND_ENTRY_UK)
+            err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+            exp = scalar_banded_batch_native(a_e, b_e, U32_MAX, EditCosts(*c))
+            check(err == 0 and got.cpu().numpy().tolist() == exp.tolist(),
+                  f"flat_distance on the band-entry pairs (burst at {at}) at "
+                  f"costs={c}: {got.cpu().numpy().tolist()}, plain "
+                  f"{ref.cpu().tolist()}, scalar {exp.tolist()}")
+            worst = max(worst, err)
+            cases += 1
     return cases, worst
 
 
@@ -2218,14 +2319,15 @@ def run_flat_search(dev, native_loaded: bool):
     # kernel only, at the tensors the main path gives it
     hay_d = torch.from_numpy(hay).to(dev)
     nd = torch.from_numpy(needle).to(dev)
-    times, bounds = {}, {}
+    times, bounds, owns = {}, {}, {}
     for c in GENERAL_COSTS:
         costs = EditCosts(*c)
         ct = _costs_tuple(costs)
         halo = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost),
                    n)
-        own_len = sf.suggest_own_len_flat(n, halo)
-        kw = dict(own_len=own_len, halo=halo, costs_t=ct)
+        # each kernel variant's own launch shape and segments
+        owns[c] = sf.suggest_own_len_flat(n, halo, transpose=bool(ct[4]))
+        kw = dict(own_len=owns[c], halo=halo, costs_t=ct)
         times[c] = time_launches(lambda: sf.flat_search(hay_d, nd, **kw), 3)
         bounds[c] = search_lengths_bound(n, m, bool(ct[4]), K8_OPS_PER_CELL,
                                          K8_OPS_TRANSPOSE)
@@ -2233,6 +2335,7 @@ def run_flat_search(dev, native_loaded: bool):
     # the plain version over the first segments, at the first costs
     kw["costs_t"] = _costs_tuple(EditCosts(*c0))
     kw["halo"] = min(window_span(m, k, c0[1], c0[2]), n)
+    kw["own_len"] = owns[c0]
     segs = torch.arange(FLAT_PLAIN_SEGMENTS, device=dev)
     got = sf.flat_search(hay_d, nd, segments=segs, **kw)
     ref = None
@@ -2249,7 +2352,10 @@ def run_flat_search(dev, native_loaded: bool):
                  f"{FULL_HAY_MB} MiB, for run time",
           "needle_len": m, "k": k, "costs": [list(c) for c in GENERAL_COSTS],
           "planted": N_PLANTED_FLAT, "planted_subs": LONG_NEEDLE_SUBS,
-          "own_len": own_len, "segments": -(-n // own_len),
+          "own_len": {str(c): o for c, o in owns.items()},
+          "segments": {str(c): -(-n // o) for c, o in owns.items()},
+          "launch_shape": {str(c): sf.SEARCH_SHAPES[c[3] is not None]
+                           for c in GENERAL_COSTS},
           "dispatch": "flat_search", "launches": launches,
           "matches": {f"{c}_{st.name}": len(r)
                       for (c, st), r in results.items()},

@@ -187,9 +187,12 @@ def test_wrapper_rules():
         sf.flat_distance(*t, costs_t=(300, 1, 0, 0, False))
     assert sf.flat_distance(*t, costs_t=ct).tolist() == [3]  # 1 gap: 2 + 1
     assert sf.flat_distance.launches == 0  # the plain version counts none
-    assert sf.flat_threads(20_000) == 1024
-    assert sf.flat_threads(1) == 128
-    assert sf.flat_threads(3000) == 768
+    # a lane for every DIST_COLS columns, whole warps, 64 to the cap
+    assert sf.flat_threads(20_000) == sf.DIST_MAX_THREADS
+    assert sf.flat_threads(1) == 64
+    assert sf.flat_threads(32 * 3 * sf.DIST_COLS) == 96
+    assert sf.flat_threads(32 * 3 * sf.DIST_COLS + 1) == 128
+    assert sf.DIST_MAX_THREADS <= sf.max_threads(False, sf.DIST_COLS)
 
 
 def test_empty_strings_take_the_boundary():

@@ -207,15 +207,21 @@ def test_wrapper_rules_and_plans():
     with pytest.raises(ValueError, match="unsupported device"):
         sf.flat_search(h.to("meta"), nd.to("meta"), own_len=50, halo=0,
                        costs_t=ct)
+    with pytest.raises(ValueError, match="2..30 columns"):
+        sf.flat_search(h, nd, own_len=sf.MAX_ITEM_LEN, halo=3, costs_t=ct)
     d, ln = sf.flat_search(h, nd, own_len=64, halo=3, costs_t=ct)
     assert d.shape == ln.shape == (2, 64)
     assert bool((d[1, 36:] == INF).all())  # past the haystack
     assert sf.flat_search.launches == 0  # the plain version counts none
-    rj = sf.SEARCH_THREADS * sf.CELLS_PER_THREAD
-    own = sf.suggest_own_len_flat(16 << 20, 3148)
-    assert own % rj == 0 and own >= 8 * 3148
-    assert -(-(16 << 20) // own) <= 4 * 132 + 1
-    assert sf.suggest_own_len_flat(1000, 10) == rj
+    for transpose in (False, True):  # each kernel variant's own shape
+        threads, cols, per_sm = sf.SEARCH_SHAPES[transpose]
+        rj = threads * cols
+        assert threads <= sf.max_threads(True, cols)
+        own = sf.suggest_own_len_flat(16 << 20, 3148, transpose=transpose)
+        assert own % rj == 0 and own >= 8 * 3148
+        # one wave: at most the variant's blocks an SM on each of 132 SMs
+        assert -(-(16 << 20) // own) <= per_sm * 132
+        assert sf.suggest_own_len_flat(1000, 10, transpose=transpose) == rj
     assert torch.equal(sf.prepare_flat_needle(b"ab\x00", device="cpu"),
                        torch.tensor([97, 98, 0], dtype=torch.uint8))
 

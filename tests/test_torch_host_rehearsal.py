@@ -85,10 +85,10 @@ def lib(tmp_path_factory):
         vp]
     lib.ta_rehearse_flat_search.argtypes = [
         vp, i64, vp, i32, i64, i64, vp, i64, i32, i32, i32, i32, i32, i32,
-        vp, vp, vp, i32]
+        vp, vp, vp, i32, i32]
     lib.ta_rehearse_flat_distance.argtypes = [
         vp, vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp, vp,
-        i32]
+        i32, i32]
     for name in ("ta_rehearse_search_diag", "ta_rehearse_flat_search",
                  "ta_rehearse_flat_distance"):
         getattr(lib, name).restype = ctypes.c_int
@@ -495,6 +495,48 @@ def test_search_diag_body_equals_plain_version_and_oracle(lib, m, c,
     assert got[0][1] == 0  # the end-0 candidate
 
 
+# K8 / K9 launch shapes rehearsed: (threads, columns a lane), so 1, 2 and 3
+# warps and 4, 8 and (K9 only) 16 columns a lane; strips of 256 to 512
+SEARCH_SHAPES = [(32, 8), (64, 4), (96, 4), (64, 8)]
+SEARCH_SHAPE_IDS = ["w1_c8", "w2_c4", "w3_c4", "w2_c8"]
+DIST_SHAPES = [(32, 16), (64, 4), (96, 4), (64, 8)]
+DIST_SHAPE_IDS = ["w1_c16", "w2_c4", "w3_c4", "w2_c8"]
+
+
+def _swap_copy(needle):
+    copy = needle.copy()
+    copy[1], copy[2] = copy[2], copy[1]
+    return copy
+
+
+def _boundary_columns(threads, cols):
+    """Columns (1-based, from the first column a block reads) whose
+    transposition reads D[i-2][j-2] across a lane boundary (j at a lane's
+    first column), across a warp boundary (a warp's first and second
+    columns) and across the first strip boundary."""
+    warp, strip = 32 * cols, threads * cols
+    return [5 * cols + 1, warp + 1, warp + 2, strip + 1, strip + 2]
+
+
+def _plant_boundary_swaps(hay, needle, col0s, cols_list):
+    """Copies of the needle with its chars 1 and 2 swapped, the swap's
+    transposition (row 3) at column j of a segment's text: at column c of
+    the segment starting at col0, for (col0, c) in turn, where the copy
+    overlaps none planted before (the two of _general_search_case
+    included)."""
+    m, n = len(needle), len(hay)
+    taken = [(0, m), (n // 2, n // 2 + m)]
+    copy = _swap_copy(needle)
+    for col0, col in zip(col0s, cols_list):
+        p = col0 + col - 3
+        if p < 0 or p + m > n or any(p < e and s < p + m for s, e in taken):
+            continue
+        hay[p: p + m] = copy
+        taken.append((p, p + m))
+
+
+@pytest.mark.parametrize("threads,cols", SEARCH_SHAPES,
+                         ids=SEARCH_SHAPE_IDS)
 @pytest.mark.parametrize("m,c,anchored,selected", [
     (5, 0, False, False), (40, 3, False, False), (40, 1, False, True),
     (300, 2, True, False)],
@@ -502,17 +544,24 @@ def test_search_diag_body_equals_plain_version_and_oracle(lib, m, c,
          "m300_affine_anchored"])
 def test_flat_search_body_equals_plain_version_and_oracle(lib, m, c,
                                                           anchored,
-                                                          selected):
-    """K8's threads in turn, 64 threads (256-column strips): every segment
-    spans several strips, so the edges of every row (its D and length at a
-    strip's last two columns and the prefix) cross strip boundaries, with
-    the planted copies' transpositions among them; a run over a selection
-    of segments; NUL bytes."""
+                                                          selected, threads,
+                                                          cols):
+    """K8's warps in wavefront order and their lanes in turn, at several
+    warps and columns a lane: every segment (401 owned columns, no multiple
+    of a strip) spans strips, so the edges of every row (its D and length at
+    a strip's last two columns and the prefix) cross strip boundaries;
+    planted copies put a transposition across a lane, a warp and a strip
+    boundary; a run over a selection of segments; NUL bytes."""
     rng = np.random.default_rng(950 + m)
     ct = _gct(GENERAL_COSTS[c])
     needle, hay = _general_search_case(rng, m, 1500)
     k = max(2, m // 8) * ct[0]
     it, halo, own = _geometry(m, k, ct, len(hay), anchored, 401)
+    if not anchored:  # one boundary column in each of segments 1, 2, ...
+        bc = _boundary_columns(threads, cols)
+        _plant_boundary_swaps(hay, needle,
+                              [s * own - halo for s in range(1, 1 + len(bc))],
+                              bc)
     h = hay[:it].copy()
     nseg = seg_count(it, own)
     segs = (np.arange(1, nseg, 2) if selected else np.arange(nseg)).astype(
@@ -527,7 +576,7 @@ def test_flat_search_body_equals_plain_version_and_oracle(lib, m, c,
     rc = lib.ta_rehearse_flat_search(
         h.ctypes.data, it, needle.ctypes.data, m, own, halo,
         segs.ctypes.data, len(segs), int(anchored), *ct[:4], int(ct[4]),
-        od.ctypes.data, ol.ctypes.data, edges.ctypes.data, 64)
+        od.ctypes.data, ol.ctypes.data, edges.ctypes.data, threads, cols)
     assert rc == 0
     pd, pl = pd.numpy(), pl.numpy()
     assert np.array_equal(od, pd)
@@ -543,26 +592,38 @@ def test_flat_search_body_equals_plain_version_and_oracle(lib, m, c,
            for p in np.flatnonzero(flat <= k)]
     assert got == [(mt.start, mt.end, mt.k) for mt in exp if mt.end > 0]
     assert any(mt.end == len(hay) // 2 + m for mt in exp) or anchored
+    if m == 40:  # the copies across the boundaries are found, swap and all
+        ends = {mt.end: mt.k for mt in exp}
+        swap_cost = ct[3] if ct[4] else 2 * ct[0]
+        for s, col in enumerate(_boundary_columns(threads, cols), 1):
+            p = s * own - halo + col - 3
+            if np.array_equal(hay[p: p + m], _swap_copy(needle)):
+                assert ends.get(p + m, k + 1) <= swap_cost
 
 
-def _flat_distance_rehearsal(lib, t, ct, unit_k, threads):
+def _flat_distance_rehearsal(lib, t, ct, unit_k, threads, cols):
     a, b, m, n = (x.numpy() for x in t)
     out = np.full(len(m), -7, np.int32)
     edges = np.zeros((len(m), a.shape[1] + 2, 4), np.int32)
     rc = lib.ta_rehearse_flat_distance(
         a.ctypes.data, b.ctypes.data, m.ctypes.data, n.ctypes.data, len(m),
         a.shape[1], b.shape[1], -1 if unit_k is None else unit_k, *ct[:4],
-        int(ct[4]), out.ctypes.data, edges.ctypes.data, threads)
+        int(ct[4]), out.ctypes.data, edges.ctypes.data, threads, cols)
     assert rc == 0
     return out
 
 
+@pytest.mark.parametrize("threads,cols", DIST_SHAPES, ids=DIST_SHAPE_IDS)
 @pytest.mark.parametrize("c", range(4), ids=["unit", "rdamerau", "affine",
                                               "affine_transpose"])
-def test_flat_distance_body_equals_plain_version_and_native(lib, c):
-    """K9's threads in turn, 64 threads (256-column strips), pairs of up
-    to 700 bytes (three strips), empty strings and NUL bytes, over the full
-    matrix and banded (rows entering and leaving each strip's window)."""
+def test_flat_distance_body_equals_plain_version_and_native(lib, c, threads,
+                                                            cols):
+    """K9's warps in wavefront order and their lanes in turn, at several
+    warps and columns a lane: pairs of up to 700 bytes (two to three
+    strips, most no multiple of one), empty strings and NUL bytes, two
+    pairs whose adjacent swaps put a transposition across a lane, a warp
+    and a strip boundary, over the full matrix and banded (rows entering
+    and leaving each strip's window)."""
     rng = np.random.default_rng(990 + c)
     costs = EditCosts(*GENERAL_COSTS[c])
     ct = _gct(GENERAL_COSTS[c])
@@ -576,6 +637,17 @@ def test_flat_distance_body_equals_plain_version_and_native(lib, c):
         b = np.insert(b, rng.integers(0, ln + 1, 9), 3).astype(np.uint8)
         a_list.append(a)
         b_list.append(b)
+    # the cell (j, j) of a swap of b[j - 2] and b[j - 1] is a transposition
+    bcols = _boundary_columns(threads, cols)
+    for shift in (0, 1):
+        a = rng.integers(0, 4, threads * cols + 37).astype(np.uint8)
+        b = a.copy()
+        for col in bcols[shift::2]:
+            p = col + shift - 2
+            if p + 1 < len(b) and b[p] != b[p + 1]:
+                b[p], b[p + 1] = b[p + 1], b[p]
+        a_list.append(a)
+        b_list.append(b)
     a_list = [np.frombuffer(x, np.uint8) if isinstance(x, bytes) else x
               for x in a_list]
     b_list = [np.frombuffer(x, np.uint8) if isinstance(x, bytes) else x
@@ -584,18 +656,20 @@ def test_flat_distance_body_equals_plain_version_and_native(lib, c):
     exp = scalar_banded_batch_native(a_list, b_list, 1 << 30, costs)
     for uk in (None, 12, 40):
         plain = sf.flat_distance_plain(*t, costs_t=ct, unit_k=uk,
-                                       rj=64 * sf.CELLS_PER_THREAD).numpy()
-        out = _flat_distance_rehearsal(lib, t, ct, uk, 64)
+                                       rj=threads * cols).numpy()
+        out = _flat_distance_rehearsal(lib, t, ct, uk, threads, cols)
         assert np.array_equal(out, plain), uk
         thr = (uk or 1 << 20) * ct[1] + ct[2]
         within = exp <= thr
         assert np.array_equal(out[within], exp[within]), uk
 
 
-def test_flat_distance_body_keeps_the_band_entry_path(lib):
+@pytest.mark.parametrize("threads,cols", DIST_SHAPES, ids=DIST_SHAPE_IDS)
+def test_flat_distance_body_keeps_the_band_entry_path(lib, threads, cols):
     """The band-entry repro (a = X^500, b = Y^32 + X^500, unit_k = 32,
-    where the JAX package's banded kernel gives 33) at 64 threads, so two
-    strip boundaries fall on the path along the band's edge; and bursts of
+    where the JAX package's banded kernel gives 33) at several launch
+    shapes, so strip and warp boundaries fall on the path along the band's
+    edge; and bursts of
     exactly unit_k inserted chars at the front and in the middle, against
     the compiled scalar distance."""
     x = np.full(500, ord("X"), np.uint8)
@@ -609,7 +683,7 @@ def test_flat_distance_body_keeps_the_band_entry_path(lib):
     for c in range(4):
         costs = EditCosts(*GENERAL_COSTS[c])
         ct = _gct(GENERAL_COSTS[c])
-        out = _flat_distance_rehearsal(lib, t, ct, 32, 64)
+        out = _flat_distance_rehearsal(lib, t, ct, 32, threads, cols)
         exp = scalar_banded_batch_native(a_list, b_list, 1 << 30, costs)
         assert out.tolist() == exp.tolist(), c
         if c == 0:

@@ -1,7 +1,9 @@
 """Sweep of kernels K2 (`myers_search`), K6 (`blocked_search`) and K7
-(`search_diag`) over the owned length per segment.
+(`search_diag`) over the owned length per segment, and of K8
+(`flat_search`) and K9 (`flat_distance`) over their launch shape.
 
-    python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128] [--blocked | --diag]
+    python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128]
+        [--blocked | --diag | --flat]
 
 Times the search kernel alone (CUDA events, one warm-up, 9 launches:
 median, least and most) for unit and restricted-Damerau costs at several
@@ -12,9 +14,16 @@ needle, the 3,328-byte halo of k = 150), the measurement behind
 `suggest_own_len_blocked`.  K7 (`--diag`): the headline haystack and
 needle at k = 6 under the two general cost models of chip_smoke.py's
 `search_general` phase (halos 28 and 26), the measurement behind
-`suggest_own_len_diag`.  Prints the card's name and power limit, then
-one JSON line per point.  Needs one CUDA device and `nvcc`; there is no
-CPU mode.
+`suggest_own_len_diag`.  K8 and K9 (`--flat`): chip_smoke.py's
+`flat_search` and `flat_distance` shapes (a 3,000-byte ACGT needle over
+16 MiB at k = 150 under its two cost models; 256 pairs of 20,000 ACGT
+bytes with 10% substitutions under affine costs, the full matrix) over
+threads a block x columns a lane, and K8 over its owned length (1 to 4
+blocks an SM in one wave), 5 launches a point: the measurement behind
+`SEARCH_SHAPES` (one shape for each of K8's two kernel variants),
+`DIST_COLS` and `DIST_MAX_THREADS`.  Prints the card's name and power
+limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
+there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 from ..ops.myers_chunked import blocked_search
 from ..ops.myers_search import myers_search, prepare_myers_needles
 from ..ops.search_common import window_span
+from ..ops import search_flat as sf
 from ..ops.search_diag import search_diag
 
 NEEDLE_LEN = 24
@@ -40,6 +50,18 @@ BLOCKED_NEEDLE_LEN, BLOCKED_HALO = 3000, 3328
 BLOCKED_OWN_LENS = (13_312, 26_624, 32_000, 65_536, 131_072)
 DIAG_K, DIAG_COSTS = 6, ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
 DIAG_OWN_LENS = (1024, 2048, 4096, 8192, 16384, 32768)
+FLAT_MB, FLAT_NEEDLE_LEN, FLAT_K = 16, 3000, 150
+FLAT_COSTS = ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
+FLAT_PAIRS, FLAT_PAIR_LEN, FLAT_SUB_SHARE = 256, 20_000, 0.1
+FLAT_THREADS, FLAT_COLS = (128, 256, 512), (4, 8, 16)
+FLAT_BLOCKS_PER_SM = (1, 2, 3, 4)
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
 
 
 def _time_ms(fn, reps: int = 9):
@@ -58,6 +80,60 @@ def _time_ms(fn, reps: int = 9):
             round(max(times), 4)]
 
 
+def flat_sweep(dev, rng) -> None:
+    """K8 and K9 over threads x columns a lane (those the kernel takes),
+    K8 also over the blocks an SM its segments ask for, each cost model
+    on its own kernel variant's shape."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n = FLAT_MB << 20
+    hay = torch.from_numpy(acgt[rng.integers(0, 4, n)]).to(dev)
+    nd = torch.from_numpy(acgt[rng.integers(0, 4, FLAT_NEEDLE_LEN)]).to(dev)
+    a = acgt[rng.integers(0, 4, (FLAT_PAIRS, FLAT_PAIR_LEN))]
+    b = a.copy()
+    hit = rng.random(b.shape) < FLAT_SUB_SHARE
+    b[hit] = acgt[(rng.integers(1, 4, int(hit.sum()))
+                   + np.searchsorted(acgt, b[hit])) % 4]
+    pairs = sf.prepare_flat_distance_inputs(list(a), list(b), device=dev)
+    saved = (dict(sf.SEARCH_SHAPES), sf.DIST_COLS, sf.DIST_MAX_THREADS)
+    try:
+        for cols in FLAT_COLS:
+            for threads in FLAT_THREADS:
+                if threads <= sf.max_threads(False, cols):
+                    sf.DIST_COLS, sf.DIST_MAX_THREADS = cols, threads
+                    print(json.dumps({
+                        "kernel": "flat_distance", "pairs": FLAT_PAIRS,
+                        "str_len": FLAT_PAIR_LEN, "costs": list(FLAT_COSTS[0]),
+                        "threads": threads, "cols": cols,
+                        "strip": threads * cols,
+                        "kernel_ms_median_min_max": _time_ms(
+                            lambda: sf.flat_distance(
+                                *pairs, costs_t=FLAT_COSTS[0]), 5),
+                    }), flush=True)
+                if threads > sf.max_threads(True, cols):
+                    continue
+                for ct in FLAT_COSTS:
+                    halo = window_span(FLAT_NEEDLE_LEN, FLAT_K, ct[1], ct[2])
+                    for per_sm in FLAT_BLOCKS_PER_SM:
+                        sf.SEARCH_SHAPES[ct[4]] = (threads, cols, per_sm)
+                        own = sf.suggest_own_len_flat(n, halo,
+                                                      transpose=ct[4])
+                        print(json.dumps({
+                            "kernel": "flat_search", "haystack_bytes": n,
+                            "needle_len": FLAT_NEEDLE_LEN, "k": FLAT_K,
+                            "costs": list(ct), "halo": halo,
+                            "threads": threads, "cols": cols,
+                            "blocks_per_sm": per_sm, "own_len": own,
+                            "segments": -(-n // own),
+                            "kernel_ms_median_min_max": _time_ms(
+                                lambda: sf.flat_search(
+                                    hay, nd, own_len=own, halo=halo,
+                                    costs_t=ct), 5),
+                        }), flush=True)
+    finally:
+        shapes, sf.DIST_COLS, sf.DIST_MAX_THREADS = saved
+        sf.SEARCH_SHAPES.update(shapes)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=128, help="haystack MiB")
@@ -65,6 +141,8 @@ def main() -> int:
                     help="sweep K6 on a long needle instead of K2")
     ap.add_argument("--diag", action="store_true",
                     help="sweep K7 under general costs instead of K2")
+    ap.add_argument("--flat", action="store_true",
+                    help="sweep K8 and K9 over their launch shape instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("search_sweep needs a CUDA device", file=sys.stderr)
@@ -72,6 +150,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     n = args.mb << 20
     rng = np.random.default_rng(1234)
+    if args.flat:
+        print(_smi(), flush=True)
+        flat_sweep(dev, rng)
+        return 0
     if args.blocked:
         acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
         m, halo, own_lens, search = (BLOCKED_NEEDLE_LEN, BLOCKED_HALO,
@@ -84,10 +166,7 @@ def main() -> int:
         hay = torch.from_numpy(rng.integers(65, 91, n).astype(np.uint8))
     hay = hay.to(dev)
     nd = prepare_myers_needles([needle], m, device=dev)
-    print(subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip(), flush=True)
+    print(_smi(), flush=True)
     if args.diag:
         for ct in DIAG_COSTS:
             halo = window_span(m, DIAG_K, ct[1], ct[2])

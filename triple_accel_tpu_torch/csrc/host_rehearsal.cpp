@@ -1,7 +1,7 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
 // functions of myers_distance.cu and myers_search.cu, the row passes of
-// band_distance.cu and search_flat.cu and the per-lane wavefront steps of
-// myers_blocked.cu and search_diag.cu,
+// band_distance.cu, the per-lane wavefront steps of myers_blocked.cu and
+// search_diag.cu and the lanes and warps of search_flat.cu,
 // compiled for the CPU and run one "thread" at a time, so their arithmetic
 // can be held against the plain PyTorch versions where there is no CUDA
 // compiler and no card.
@@ -365,57 +365,106 @@ extern "C" int ta_rehearse_search_diag(const void* hay, int64_t iter_len,
   return transpose ? rehearse_sd<true>(g) : rehearse_sd<false>(g);
 }
 
-// One item of search_flat.cu: inside a row, the `threads` "threads" run
-// pass 1 in turn, then pass 2 in turn, each starting from the combine of
-// the row's prefix and the passes 1 before it (what the device gets from
-// its warp scan and the words of the warps).
-template <bool SEARCH, bool TRANS>
-static void rehearse_flat_item(const SfArgs& g, int64_t x, int T) {
-  const int RJ = T * SF_CPT;
-  SfItem it = sf_item<SEARCH>(g, x);
-  if (SEARCH) {
-    for (int64_t o = it.own_hi - it.own_lo + 1; o < g.own_len; ++o) {
-      it.out_d[o] = SF_INF;
-      it.out_l[o] = 0;
-    }
-  } else if (sf_trivial<SEARCH>(it, g)) {
-    return;
-  } else {
-    it.out_d[0] = SF_INF;
-  }
-  std::vector<int32_t> smem(sf_smem_ints(RJ, SEARCH));
-  SfPre* tot;
-  SfState S = sf_state<SEARCH>(smem.data(), RJ, &tot);
-  std::vector<SfPre> agg(T);
+// One item of search_flat.cu: the warps of the block run each row in
+// wavefront order (warp w after warp w - 1), and inside a warp the lanes
+// run pass 1 in turn, then pass 2 in turn.  What the device gets from
+// __shfl_up_sync (the left values, the warp scan) comes from arrays, the
+// hand-over ring between warps is the same ring as a plain array, and the
+// scan is a sequential one (the combine is a minimum under a total order,
+// so every order gives the same prefix).
+template <bool SEARCH, bool TRANS, int C>
+static void rehearse_flat_item(const SfArgs& g, int64_t x, int W) {
+  const SfItem it = sf_item<SEARCH>(g, x);
+  for (int t = 0; t < 32 * W; ++t)
+    if (sf_item_start<SEARCH>(it, g, t, 32 * W)) return;
+  std::vector<SfLane<SEARCH, TRANS, C>> lanes(32 * W);
+  std::vector<SfEdge> e1(W), e2(W);
+  std::vector<SfSlot> ring((size_t)W * SF_RING);
+  SfLeft in[32];
+  SfPre inc[32];
   SfStrip st;
-  st.RJ = RJ;
+  st.RJ = 32 * W * C;
   st.i_hi_prev = 0;
-  for (st.j0 = 0; st.j0 < it.ncols; st.j0 += RJ) {
+  int tick = 0;
+  for (st.j0 = 0; st.j0 < it.ncols; st.j0 += st.RJ) {
     sf_window(it, st);
-    for (int t = 0; t < T; ++t)
-      sf_strip_init<SEARCH>(it, g, st, S, t * SF_CPT, (t + 1) * SF_CPT,
-                            t == 0);
-    SfEdge e1 = sf_old_edge<SEARCH>(it, g, st, st.i_lo - 1);
-    SfEdge e2 = sf_old_edge<SEARCH>(it, g, st, st.i_lo - 2);
-    for (int64_t i = st.i_lo; i <= st.i_hi; ++i) {
-      const SfRow R = sf_row_start(it, i, e1, e2);
-      const SfEdge ei = sf_old_edge<SEARCH>(it, g, st, i);
-      for (int t = 0; t < T; ++t)
-        agg[t] = sf_pass1<SEARCH, TRANS>(g, S, R, t * SF_CPT,
-                                         (t + 1) * SF_CPT);
-      SfPre run = ei.p;
-      for (int t = 0; t < T; ++t) {
-        sf_pass2<SEARCH, TRANS>(g, it, S, st, R, t * SF_CPT,
-                                (t + 1) * SF_CPT, run);
-        run = SEARCH ? sf_combine(run, agg[t])
-                     : SfPre{sf_min(run.g, agg[t].g), 0};
+    // warps past the text sit out the item's last strip
+    int nw = 0;
+    while (nw < W && st.j0 + nw * 32 * C < it.ncols) ++nw;
+    const bool to_next = st.j0 + st.RJ < it.ncols;
+    for (int w = 0; w < nw; ++w) {
+      const int32_t jl = st.j0 + w * 32 * C;
+      for (int l = 0; l < 32; ++l)
+        sf_lane_init(lanes[w * 32 + l], it, g, st, jl + 1 + l * C);
+      e1[w] = w == 0 ? sf_old_edge<SEARCH>(it, g, st, st.i_lo - 1)
+                     : sf_inner_edge(it, g, jl, st.i_lo - 1);
+      e2[w] = w == 0 ? sf_old_edge<SEARCH>(it, g, st, st.i_lo - 2)
+                     : sf_inner_edge(it, g, jl, st.i_lo - 2);
+    }
+    for (int32_t i = st.i_lo; i <= st.i_hi; ++i, ++tick) {
+      const SfRow R = sf_row(it, i);
+      for (int w = 0; w < nw; ++w) {
+        SfLane<SEARCH, TRANS, C>* L = &lanes[w * 32];
+        const bool last = w == nw - 1;
+        SfEdge ei = {};
+        SfPre cin;
+        if (w == 0) {
+          ei = sf_old_edge<SEARCH>(it, g, st, i);
+          cin = ei.p;
+        } else {  // warp w-1's slot of this row: the carry, the edge of i-1
+          const SfSlot& in_slot = ring[(w - 1) * SF_RING + tick % SF_RING];
+          cin = in_slot.carry;
+          if (i > st.i_lo) {
+            e2[w] = e1[w];
+            e1[w] = sf_slot_edge(in_slot);
+          }
+        }
+        in[0] = sf_left_of(e1[w], e2[w]);
+        for (int l = 1; l < 32; ++l) in[l] = sf_lane_right(L[l - 1]);
+        for (int l = 0; l < 32; ++l) {
+          inc[l] = sf_pass1(L[l], g, R, in[l]);
+          if (l > 0) inc[l] = sf_join<SEARCH>(inc[l - 1], inc[l]);
+        }
+        if (!last) {
+          SfSlot& out_slot = ring[w * SF_RING + tick % SF_RING];
+          out_slot.carry = sf_join<SEARCH>(cin, inc[31]);
+          sf_slot_put_edge(out_slot, L[31]);
+        }
+        SfPre run = cin;
+        for (int l = 0; l < 32; ++l) {
+          run = sf_pass2(L[l], g,
+                         l == 0 ? cin : sf_join<SEARCH>(cin, inc[l - 1]),
+                         in[l].l1);
+          if (i == it.m) sf_emit(L[l], it);
+        }
+        if (last && w == W - 1 && to_next)
+          sf_write_edge(L[31], g, it, st, i, run);
+        if (w == 0) {
+          e2[0] = e1[0];
+          e1[0] = ei;
+        }
       }
-      sf_rotate(S);
-      e2 = e1;
-      e1 = ei;
     }
     st.i_hi_prev = st.i_hi;
   }
+}
+
+template <bool SEARCH, bool TRANS>
+static int rehearse_flat(const SfArgs& g, int64_t items, int threads,
+                         int cols) {
+  if (threads < 32 || threads > 32 * SF_MAX_WARPS || (threads & 31))
+    return 1;
+  const int W = threads / 32;
+  for (int64_t x = 0; x < items; ++x) switch (cols) {
+      case 4: rehearse_flat_item<SEARCH, TRANS, 4>(g, x, W); break;
+      case 8: rehearse_flat_item<SEARCH, TRANS, 8>(g, x, W); break;
+      case 16:  // K9 only, as on the device
+        if (SEARCH) return 1;
+        rehearse_flat_item<false, TRANS, 16>(g, x, W);
+        break;
+      default: return 1;
+    }
+  return 0;
 }
 
 // Same arguments as ta_flat_search, host pointers, no stream.
@@ -423,9 +472,9 @@ extern "C" int ta_rehearse_flat_search(
     const void* hay, int64_t iter_len, const void* needle, int m,
     int64_t own_len, int64_t halo, const void* segs, int64_t items,
     int anchored, int mc, int gc, int sgc, int tc, int transpose, void* out_d,
-    void* out_l, void* edges, int threads) {
-  if (m < 1 || own_len < 1 || halo < 0 || threads < 64 ||
-      threads > SF_SEARCH_MAX_THREADS || (threads & 31))
+    void* out_l, void* edges, int threads, int cols) {
+  if (m < 1 || m > SF_MAX_LEN || own_len < 1 || halo < 0 ||
+      own_len + halo > SF_MAX_LEN)
     return 1;
   SfArgs g = {};
   g.hay = (const uint8_t*)hay;
@@ -443,22 +492,17 @@ extern "C" int ta_rehearse_flat_search(
   g.sgc = sgc;
   g.tc = tc;
   g.edges = (int32_t*)edges;
-  for (int64_t x = 0; x < items; ++x) {
-    if (transpose)
-      rehearse_flat_item<true, true>(g, x, threads);
-    else
-      rehearse_flat_item<true, false>(g, x, threads);
-  }
-  return 0;
+  return transpose ? rehearse_flat<true, true>(g, items, threads, cols)
+                   : rehearse_flat<true, false>(g, items, threads, cols);
 }
 
 // Same arguments as ta_flat_distance, host pointers, no stream.
 extern "C" int ta_rehearse_flat_distance(
     const void* a, const void* b, const void* m, const void* n, int64_t B,
     int64_t a_stride, int64_t b_stride, int unit_k, int mc, int gc, int sgc,
-    int tc, int transpose, void* out, void* edges, int threads) {
-  if (a_stride < 1 || b_stride < 1 || unit_k < -1 || threads < 64 ||
-      threads > 1024 || (threads & 31))
+    int tc, int transpose, void* out, void* edges, int threads, int cols) {
+  if (a_stride < 1 || b_stride < 1 || a_stride > SF_MAX_LEN ||
+      b_stride > SF_MAX_LEN || unit_k < -1)
     return 1;
   SfArgs g = {};
   g.a = (const uint8_t*)a;
@@ -474,11 +518,6 @@ extern "C" int ta_rehearse_flat_distance(
   g.sgc = sgc;
   g.tc = tc;
   g.edges = (int32_t*)edges;
-  for (int64_t x = 0; x < B; ++x) {
-    if (transpose)
-      rehearse_flat_item<false, true>(g, x, threads);
-    else
-      rehearse_flat_item<false, false>(g, x, threads);
-  }
-  return 0;
+  return transpose ? rehearse_flat<false, true>(g, B, threads, cols)
+                   : rehearse_flat<false, false>(g, B, threads, cols);
 }

@@ -829,7 +829,8 @@ def _resolve_hits_flat(
     iter_len = hay_d.shape[0]
     gpos = np.asarray(gpos, np.int64)
     halo = min(span, iter_len)
-    own_len = suggest_own_len_flat(iter_len, halo)
+    own_len = suggest_own_len_flat(iter_len, halo,
+                                   transpose=costs.allow_transpose)
     pos = gpos[gpos > 0]
     c_of = (pos - 1) // own_len
     c_sel, x_of = np.unique(c_of, return_inverse=True)
@@ -1072,7 +1073,8 @@ def _search_general(needle: np.ndarray, haystack: np.ndarray, k: int,
     elif diag:
         own_len = suggest_own_len_diag(iter_len, halo)
     else:
-        own_len = suggest_own_len_flat(iter_len, halo)
+        own_len = suggest_own_len_flat(iter_len, halo,
+                                       transpose=costs.allow_transpose)
     DispatchDecision(
         path="search_diag" if diag else "flat_search",
         cost_bucket=select_cost_bucket(min(k, U32_MAX)),

@@ -58,7 +58,10 @@ from .myers_search import _aligned
 from .search_common import seg_count
 
 __all__ = [
-    "CELLS_PER_THREAD",
+    "SEARCH_SHAPES",
+    "DIST_COLS",
+    "DIST_MAX_THREADS",
+    "max_threads",
     "flat_threads",
     "suggest_own_len_flat",
     "prepare_flat_needle",
@@ -71,11 +74,21 @@ __all__ = [
 
 CostsT = Tuple[int, int, int, int, bool]
 
-# A block runs one segment or pair, CELLS_PER_THREAD columns a thread: a
-# strip of threads * CELLS_PER_THREAD columns in shared memory, the rows
-# in a loop.
-CELLS_PER_THREAD = 4
-SEARCH_THREADS = 256
+# A block runs one segment or pair: its warps run a strip of 32 x warps x
+# C columns as a wavefront, C columns a lane (K8: 4 or 8; K9: 4, 8 or 16),
+# the rows in a loop.  The launch shapes are measured ones
+# (benches/search_sweep.py --flat, PERF.md).  K8, by kernel variant
+# (False: lengths, True: lengths and transpositions, whose registers leave
+# fewer blocks resident): threads a block, columns a lane, and the blocks
+# an SM that its segments ask for, so a large haystack runs in one wave.
+SEARCH_SHAPES = {False: (256, 8, 2), True: (512, 4, 1)}
+# K9: columns a lane, and threads a block at most.
+DIST_COLS = 16
+DIST_MAX_THREADS = 256
+_SMS = 132  # the H100's SMs
+# Rows and columns of one item (segment or pair): the kernel keeps them in
+# int32 and refuses more.
+MAX_ITEM_LEN = 1 << 30
 # The per-row edges one launch keeps in device memory: a larger batch
 # runs in several launches.
 EDGE_BYTES_CAP = 1 << 30
@@ -83,19 +96,32 @@ _SEARCH_EDGE_INTS = 8  # D, L at the last column, D, L one before, G, A
 _DIST_EDGE_INTS = 4  # D at the last column, D one before, G
 
 
+def max_threads(search: bool, cols: int) -> int:
+    """Threads a block the kernel takes at most for `cols` columns a lane
+    (csrc/search_flat.cu: sf_max_threads); 0 where it takes none (K8 at 16
+    columns a lane)."""
+    if search:
+        return {4: 512, 8: 256}.get(cols, 0)
+    return {4: 512, 8: 512, 16: 256}.get(cols, 0)
+
+
 def flat_threads(max_cols: int) -> int:
-    """Threads of a K9 block: one a CELLS_PER_THREAD columns of the widest
-    pair, in whole warps, 128 to 1024."""
-    t = -(-max(max_cols, 1) // CELLS_PER_THREAD)
-    return min(1024, max(128, -(-t // 32) * 32))
+    """Threads of a K9 block: a lane for every DIST_COLS columns of the
+    widest pair, in whole warps, 64 to DIST_MAX_THREADS."""
+    t = -(-max(max_cols, 1) // DIST_COLS)
+    return min(DIST_MAX_THREADS, max(64, -(-t // 32) * 32))
 
 
-def suggest_own_len_flat(iter_len: int, halo: int) -> int:
-    """Owned end positions per K8 segment: the halo re-read under an
-    eighth of the owned length, and about four blocks for each of the
-    card's 132 SMs on a large haystack; a multiple of the strip width."""
-    rj = SEARCH_THREADS * CELLS_PER_THREAD
-    own = max(8 * halo, -(-max(iter_len, 1) // (4 * 132)), rj)
+def suggest_own_len_flat(iter_len: int, halo: int,
+                         transpose: bool = False) -> int:
+    """Owned end positions per K8 segment, for the kernel variant with or
+    without transpositions: the halo re-read under an eighth of the owned
+    length, and at most the variant's blocks an SM for each of the card's
+    132 SMs, so a large haystack runs in one wave; a multiple of the
+    variant's strip width."""
+    threads, cols, per_sm = SEARCH_SHAPES[bool(transpose)]
+    rj = threads * cols
+    own = max(8 * halo, -(-max(iter_len, 1) // (per_sm * _SMS)), rj)
     return -(-own // rj) * rj
 
 
@@ -188,6 +214,9 @@ def _check_search(hay, needle, own_len: int, halo: int, costs_t: CostsT,
         raise ValueError("needle length must be >= 1")
     if own_len < 1 or halo < 0:
         raise ValueError("own_len must be >= 1 and halo >= 0")
+    if m > MAX_ITEM_LEN or own_len + halo > MAX_ITEM_LEN:
+        raise ValueError("a segment reads at most 2**30 columns (own_len + "
+                         "halo) of a needle of at most 2**30 bytes")
     if anchored and (halo != 0 or own_len < hay.shape[0]):
         raise ValueError("an anchored search runs as ONE segment, halo 0")
     _check_costs(costs_t)
@@ -328,6 +357,7 @@ def flat_search(hay: torch.Tensor, needle: torch.Tensor, *, own_len: int,
     edges = torch.empty((min(step, max(S, 1)), m + 2, _SEARCH_EDGE_INTS),
                         dtype=torch.int32, device=hay.device)
     mc, gc, sgc, tc, allow_transpose = costs_t
+    threads, cols, _ = SEARCH_SHAPES[bool(allow_transpose)]
     with torch.cuda.device(hay.device):
         stream = torch.cuda.current_stream().cuda_stream
         for lo in range(0, S, step):
@@ -337,7 +367,7 @@ def flat_search(hay: torch.Tensor, needle: torch.Tensor, *, own_len: int,
                 halo, segs[lo:hi].data_ptr(), hi - lo, int(anchored),
                 mc, gc, sgc, tc, int(bool(allow_transpose)),
                 dist[lo:hi].data_ptr(), length[lo:hi].data_ptr(),
-                edges.data_ptr(), SEARCH_THREADS, stream)
+                edges.data_ptr(), threads, cols, stream)
             check_launch(lib, code, "flat_search")
             flat_search.launches += 1
     return dist, length
@@ -354,6 +384,8 @@ def _check_distance(a_t, b_t, m, n, costs_t: CostsT,
         raise ValueError("a_t and b_t must be [B, len] with the same B")
     if a_t.shape[1] < 1 or b_t.shape[1] < 1:
         raise ValueError("rows must be at least 1 wide")
+    if max(a_t.shape[1], b_t.shape[1]) > MAX_ITEM_LEN:
+        raise ValueError("strings of at most 2**30 bytes")
     B = a_t.shape[0]
     for t in (m, n):
         if t.dtype != torch.int32 or t.shape != (B,):
@@ -371,16 +403,16 @@ def flat_distance_plain(a_t: torch.Tensor, b_t: torch.Tensor,
                         unit_k: Optional[int] = None,
                         rj: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of K9: the same column strips of `rj` columns
-    (default: the kernel's, from `flat_threads`) and the same row window a
-    strip meets, vectorised over the pairs, Python loops over strips and
-    rows.  int32 [B]."""
+    (default: the kernel's, from `flat_threads` and DIST_COLS) and the
+    same row window a strip meets, vectorised over the pairs, Python loops
+    over strips and rows.  int32 [B]."""
     mc, gc, sgc, tc, allow_transpose = costs_t
     dev = a_t.device
     i32 = torch.int32
     B, max_m = a_t.shape
     max_n = b_t.shape[1]
     if rj is None:
-        rj = flat_threads(max_n) * CELLS_PER_THREAD
+        rj = flat_threads(max_n) * DIST_COLS
     m64, n64 = m.to(torch.int64), n.to(torch.int64)
     qa = torch.arange(max_m, device=dev)[None, :]
     a_ch = torch.where(qa < m64[:, None], a_t.to(i32), -1)
@@ -509,7 +541,7 @@ def flat_distance(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
                 m[lo:hi].data_ptr(), n[lo:hi].data_ptr(), hi - lo, max_m,
                 max_n, -1 if unit_k is None else unit_k, mc, gc, sgc, tc,
                 int(bool(allow_transpose)), out[lo:hi].data_ptr(),
-                edges.data_ptr(), threads, stream)
+                edges.data_ptr(), threads, DIST_COLS, stream)
             check_launch(lib, code, "flat_distance")
             flat_distance.launches += 1
     return out

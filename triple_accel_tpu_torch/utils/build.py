@@ -157,12 +157,12 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     lib.ta_flat_search.restype = ctypes.c_int
     lib.ta_flat_search.argtypes = [
         vp, i64, vp, i32, i64, i64, vp, i64, i32, i32, i32, i32, i32, i32,
-        vp, vp, vp, i32, vp,
+        vp, vp, vp, i32, i32, vp,
     ]
     lib.ta_flat_distance.restype = ctypes.c_int
     lib.ta_flat_distance.argtypes = [
         vp, vp, vp, vp, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp, vp,
-        i32, vp,
+        i32, i32, vp,
     ]
     lib.ta_cuda_error_string.restype = ctypes.c_char_p
     lib.ta_cuda_error_string.argtypes = [ctypes.c_int]
