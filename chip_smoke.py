@@ -574,6 +574,60 @@ def band_cases(rng, n_pairs: int, max_m: int, unit_k: int):
     return a_list, b_list
 
 
+def lane_edge_pairs(rng, unit_k: int, cells: int, max_m: int):
+    """Copies with an adjacent swap on a diagonal at a lane edge of the
+    band kernel's warp regime: b starts with d filler bytes, so the path
+    runs at band cell unit_k + d, for the d that put it on a lane's first
+    cell (cells * l) or on the last cell of the lane before; up to 8 pairs,
+    len(a) in [6, max_m]."""
+    a_list, b_list = [], []
+    for e in range(cells, 2 * unit_k + 1, cells):
+        for d in (e - unit_k - 1, e - unit_k):
+            if not 0 <= d <= unit_k or len(a_list) >= 8:
+                continue
+            m = int(rng.integers(6, max_m + 1))
+            a = rng.integers(65, 69, m).astype(np.uint8)
+            b = a.copy()
+            q = int(rng.integers(1, m - 2))
+            b[q], b[q + 1] = b[q + 1], b[q]
+            a_list.append(a)
+            b_list.append(np.concatenate(
+                [rng.integers(65, 69, d).astype(np.uint8), b]))
+    return a_list, b_list
+
+
+def band_lane_cases():
+    """(band W, cells a lane, lanes a pair) for the warp regime of the band
+    kernel: every lane map at its group's edge (the largest odd W it
+    holds), one cell past the 16-lane edge and past the 32-lane edge, and
+    the maps the plan picks for the bands `levenshtein_k_batch` runs (2^k +
+    1 cells) at a one-pair and at a full batch."""
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    cases = []
+    for c in lb.WARP_CELLS:
+        for g in lb.WARP_LANES:
+            cases.append((g * c - 1 + (g * c) % 2, c, g))
+        cases.append((16 * c + 1, c, 32))  # one cell into lane 16
+    for c, c_next in zip(lb.WARP_CELLS, lb.WARP_CELLS[1:]):
+        cases.append((32 * c + 1, c_next, 32))  # one cell past 32 lanes
+    for W in (9, 65, 129, 513):
+        for batch in (1, None):
+            plan = lb.band_plan(8, (W - 1) // 2, batch=batch)
+            cases.append((W, plan["cells_per_lane"], plan["lanes_per_pair"]))
+    return sorted(set(cases))
+
+
+def lane_plan(max_m: int, unit_k: int, cells: int, lanes: int,
+              threads: int) -> dict:
+    """A warp-regime plan of the band kernel at a given lane map."""
+    from triple_accel_tpu_torch.ops.lev_band import band_plan
+
+    return dict(band_plan(max_m, unit_k), regime="warp",
+                cells_per_lane=cells, lanes_per_pair=lanes, threads=threads,
+                pairs_per_block=threads // lanes)
+
+
 def costs_tuple(costs):
     return (costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
             costs.transpose_cost_or_zero, costs.allow_transpose)
@@ -603,10 +657,13 @@ def band_errors(got_d, got_codes, ref_d, ref_codes, t, unit_k: int,
 
 def check_band_kernels(dev):
     """The band kernels over a seeded grid of cost models, band widths and
-    lengths: the short regime, the long one (rows >= 16384, band 513) and
-    the widest band the plan takes (unit_k 4096, 200 KB of dynamic shared
-    memory a block).  Distances, codes and walked edit streams equal the
-    plain version's exactly."""
+    lengths: the short regime, the long one (rows >= 16384, band 513), the
+    wide regime (bands 1025 and 8193, the widest the plan takes: 200 KB of
+    dynamic shared memory a block), and every lane map of the warp regime
+    at its lane and group edges (`band_lane_cases`), at a batch that
+    leaves its last warp part empty and at a full one, with swaps on the
+    diagonals of the lane edges.  Distances, codes and walked edit streams
+    equal the plain version's exactly."""
     from triple_accel_tpu_torch.ops.band_scan import band_scan_distance
     from triple_accel_tpu_torch.ops.lev_band import (
         MAX_UNIT_K, band_distance, band_trace, prepare_band_tensors)
@@ -644,6 +701,37 @@ def check_band_kernels(dev):
                                 f"unit_k={unit_k} max_m={max_m}")
                 cases[regime] += 2  # the untraced and the traced kernel
                 del got_codes, ref_codes
+    cases["lane_edges"] = 0
+    for q, (W, cells, lanes) in enumerate(band_lane_cases()):
+        unit_k, max_m = (W - 1) // 2, 60
+        per_warp = 32 // lanes
+        # with and without transpositions at each batch, in turns across
+        # the cases; the walk at the small batch (it is a host loop)
+        costs_pair = (RDAMERAU_COSTS, EditCosts(*AFFINE))[::1 - 2 * (q % 2)]
+        for costs, n_pairs, threads in (
+                (costs_pair[0], max(per_warp - 1, 2), 32),
+                (costs_pair[1], 64 * per_warp + 1, 256)):
+            ct = costs_tuple(costs)
+            a_list, b_list = band_cases(rng, n_pairs, max_m, unit_k)
+            a_e, b_e = lane_edge_pairs(rng, unit_k, cells, max_m)
+            t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k,
+                                     max_m, device=dev)
+            plan = lane_plan(max_m, unit_k, cells, lanes, threads)
+            got_d = band_distance(*t, unit_k=unit_k, costs_t=ct, plan=plan)
+            got_dt, got_codes = band_trace(*t, unit_k=unit_k, costs_t=ct,
+                                           plan=plan)
+            torch.cuda.synchronize()
+            ref_d, ref_codes = band_scan_distance(
+                *t, unit_k=unit_k, costs_t=ct, trace_on=True)
+            err = max(
+                band_errors(got_d, None, ref_d, None, t, unit_k, False),
+                band_errors(got_dt, got_codes, ref_d, ref_codes, t,
+                            unit_k, walk=threads == 32))
+            worst = max(worst, err)
+            check(err == 0, f"band kernels != plain at costs={ct} W={W} "
+                            f"lanes {lanes} x cells {cells}, "
+                            f"{len(a_list) + len(a_e)} pairs")
+            cases["lane_edges"] += 2
     return cases, worst
 
 
@@ -1416,7 +1504,11 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
     m_arr = t[2].cpu().numpy().astype(np.int64)
     n_arr = t[3].cpu().numpy().astype(np.int64)
     bound = band_bound(m_arr, n_arr, unit_k, ct, traced)
+    plan = lb.band_plan(rows, unit_k, traced, batch=len(a_list))
     entry = {
+        "kernel": (f"band_kernel<*, {str(traced).lower()}, "
+                   f"{plan['cells_per_lane']}>" if plan["regime"] == "warp"
+                   else f"band_wide_kernel<*, {str(traced).lower()}>"),
         "max_abs_err": err, "ms": times[0], "ms_min": times[1],
         "ms_max": times[2], "plain_ms": plain_ms, "library_ms": None,
         **{k_: bound[k_] for k_ in ("bound_ms", "bound_by", "bound_bytes_ms",
@@ -1424,7 +1516,9 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
     }
     phase = {
         "unit_k": unit_k, "band_cells": 2 * unit_k + 1, "rows": rows,
-        "threads": lb.band_plan(rows, unit_k, traced)["threads"],
+        "band_regime": plan["regime"],
+        **{k_: plan[k_] for k_ in ("cells_per_lane", "lanes_per_pair",
+                                   "warps_per_pair", "threads")},
         "host_prep_and_upload_s": round(prep_s, 4),
         "kernel_ms": round(times[0], 4),
         "kernel_ms_min_max": [round(times[1], 4), round(times[2], 4)],
@@ -1440,7 +1534,6 @@ def band_entry(name: str, regime: str, traced: bool, replaces: str,
     return {
         "name": name, "route": "cuda",
         "source": "triple_accel_tpu_torch/csrc/band_distance.cu",
-        "kernel": f"band_kernel<*, {'true' if traced else 'false'}>",
         "regime": regime,
         "replaces": f"triple_accel_tpu/ops/pallas/lev_band.py:{replaces}",
         "launches": launches, **numbers,
@@ -2654,7 +2747,9 @@ def main() -> int:
           "myers_search": {"cases": s_cases, "max_abs_err": s_err},
           "band_distance_and_band_trace": {
               "cases_short": b_cases["short"], "cases_long": b_cases["long"],
-              "cases_widest_band": b_cases["wide"], "max_abs_err": b_err},
+              "cases_widest_band": b_cases["wide"],
+              "cases_lane_edges": b_cases["lane_edges"],
+              "max_abs_err": b_err},
           "blocked_distance": {"cases": bd_cases, "max_abs_err": bd_err},
           "blocked_search": {"cases": bs_cases, "max_abs_err": bs_err},
           "search_diag": {"cases": sd_cases, "max_abs_err": sd_err},

@@ -182,14 +182,31 @@ def test_select_band_dtype_equals_jax_over_a_grid():
         ("int32", INF)
 
 
+def _covers_and_fits(plan, W):
+    """The plan holds the band and fits one block of the card."""
+    assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
+    assert plan["lanes_per_pair"] * plan["cells_per_lane"] >= W
+    assert plan["smem_bytes"] <= tlb.SMEM_BYTES_PER_BLOCK
+    if plan["regime"] == "warp":
+        assert W <= tlb.MAX_WARP_BAND and plan["warps_per_pair"] == 1
+        assert plan["cells_per_lane"] in tlb.WARP_CELLS
+        assert plan["lanes_per_pair"] in tlb.WARP_LANES
+        assert plan["threads"] <= tlb.WARP_MAX_THREADS
+        assert plan["pairs_per_block"] * plan["lanes_per_pair"] \
+            == plan["threads"] and plan["smem_bytes"] == 0
+    else:
+        assert plan["regime"] == "wide" and W > tlb.MAX_WARP_BAND
+        assert plan["lanes_per_pair"] == plan["threads"] \
+            == 32 * plan["warps_per_pair"] and plan["pairs_per_block"] == 1
+        assert 6 * W * 4 < plan["smem_bytes"]
+
+
 @pytest.mark.parametrize("unit_k", [4, 8, 32, 64, 256, 512, 2048, 4096])
 def test_band_plan_fits_one_block(unit_k):
     W = 2 * unit_k + 1
     for trace in (False, True):
         plan = tlb.band_plan(1000, unit_k, trace)
-        assert plan["threads"] % 32 == 0 and 32 <= plan["threads"] <= 1024
-        assert plan["threads"] * plan["cells_per_thread"] >= W
-        assert 6 * W * 4 < plan["smem_bytes"] <= tlb.SMEM_BYTES_PER_BLOCK
+        _covers_and_fits(plan, W)
         assert plan["code_words"] == (tbs.code_words(W) if trace else 0)
         assert plan["code_bytes_per_pair"] == (
             1000 * tbs.code_words(W) * 4 if trace else 0)
@@ -197,6 +214,36 @@ def test_band_plan_fits_one_block(unit_k):
     assert tlb.band_plan(10**7, unit_k) is not None
     assert tlb.band_plan(8, 2 * tlb.MAX_UNIT_K) is None
     assert tlb.MAX_UNIT_K == 4096
+
+
+def test_band_plan_takes_the_batch():
+    # the old signature: no batch is a batch that fills the card
+    assert tlb.band_plan(1000, 32, True) == tlb.band_plan(
+        1000, 32, trace=True, batch=None)
+    assert tlb.band_plan(1000, 256)["regime"] == "warp"
+    for unit_k in range(tlb.MAX_UNIT_K + 1):
+        W = 2 * unit_k + 1
+        plans = [tlb.band_plan(64, unit_k, batch=b)
+                 for b in (1, 256, 8192, None)]
+        for plan in plans:
+            _covers_and_fits(plan, W)
+        # a smaller batch never packs more pairs into a warp (it spreads
+        # over the card: as many lanes a pair or more)
+        lanes = [p["lanes_per_pair"] for p in plans]
+        assert lanes == sorted(lanes, reverse=True), (unit_k, lanes)
+    # a plan handed to a wrapper must be one the kernel takes
+    t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
+                                 [np.zeros(5, np.uint8)], 4, 8, **CPU)
+    ct = (1, 1, 0, 0, False)
+    good = tlb.band_plan(8, 4)
+    for bad in (dict(good, cells_per_lane=4), dict(good, lanes_per_pair=4),
+                dict(good, threads=512), dict(good, cells_per_lane=3,
+                                              lanes_per_pair=2)):
+        with pytest.raises(ValueError, match="plan"):
+            tlb.band_distance(*t, unit_k=4, costs_t=ct, plan=bad)
+    assert tlb.band_trace(*t, unit_k=4, costs_t=ct,
+                          plan=dict(good, lanes_per_pair=32))[0].tolist() \
+        == [2]
 
 
 # ---------------------------------------------------------------------------

@@ -40,6 +40,16 @@ def test_band_cases_satisfy_the_kernel_contract(unit_k, max_m):
     assert (la == max_m).any()
     assert any((a == 0).any() for a in a_list)  # NUL bytes
     assert all(x.dtype == np.uint8 for x in a_list + b_list)
+    # the pairs with swaps on the diagonals of the warp regime's lane edges
+    for cells in (3, 5, 9, 17):
+        a_e, b_e = cs.lane_edge_pairs(rng, unit_k, cells, max_m)
+        la = np.array([len(a) for a in a_e])
+        lb = np.array([len(b) for b in b_e])
+        assert ((la <= lb) & (lb - la <= unit_k) & (la <= max_m)).all()
+        edges = {d + unit_k for d in (lb - la).tolist()}
+        assert all(e % cells in (0, cells - 1) for e in edges)
+        assert len(a_e) == min(8, len(edges)) and (cells > 2 * unit_k
+                                                   or a_e)
 
 
 def test_edited_pairs_keep_their_length_rules():

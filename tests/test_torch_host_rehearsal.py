@@ -24,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
 from triple_accel_tpu_torch.ops import band_scan as bs
 from triple_accel_tpu_torch.ops import lev_band as lb
 from triple_accel_tpu_torch.ops import myers_chunked as mc
@@ -72,7 +73,7 @@ def lib(tmp_path_factory):
         vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64]
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
-        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 6)
+        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
     lib.ta_rehearse_blocked_distance.restype = ctypes.c_int
     lib.ta_rehearse_blocked_distance.argtypes = (
         [vp] * 5 + [i32, i32, vp, i64, i64, i64, vp, i64, i32])
@@ -247,18 +248,11 @@ def _band_pairs(rng, n_pairs, max_m, unit_k):
     return a_list, b_list
 
 
-# band half-widths around the 16-codes-a-word and the threads-a-block steps;
-# thread counts that leave threads idle, cut runs unevenly, or span warps
-@pytest.mark.parametrize("unit_k,max_m,threads", [
-    (0, 20, 32), (4, 40, 32), (7, 40, 32), (8, 40, 64), (32, 70, 32),
-    (64, 40, 96), (100, 30, 1024),
-])
-@pytest.mark.parametrize("costs", BAND_COSTS,
-                         ids=["unit", "rdamerau", "affine", "affine_transpose"])
-def test_band_rows_equal_plain_version_and_oracle(lib, unit_k, max_m, threads,
-                                                  costs):
-    rng = np.random.default_rng(31 * unit_k + max_m + costs[0])
-    a_list, b_list = _band_pairs(rng, 40, max_m, unit_k)
+def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
+                lanes, oracle=True):
+    """The rehearsal (untraced and traced) at one launch plan against the
+    plain version (distances, codes of rows 1..m, walked streams) and, with
+    `oracle`, the oracle wherever the costs stay inside the band."""
     B = len(a_list)
     ct = (costs[0], costs[1], costs[2], costs[3] or 0, costs[3] is not None)
     t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m, device="cpu")
@@ -273,9 +267,10 @@ def test_band_rows_equal_plain_version_and_oracle(lib, unit_k, max_m, threads,
         rc = lib.ta_rehearse_band(
             *[x.ctypes.data for x in arrs], out.ctypes.data,
             codes.ctypes.data if traced else None, B, arrs[0].shape[1],
-            arrs[1].shape[1], unit_k, rows, *ct[:4], int(ct[4]), threads)
+            arrs[1].shape[1], unit_k, rows, *ct[:4], int(ct[4]), threads,
+            cells, lanes)
         assert rc == 0
-        assert np.array_equal(out, plain_d.numpy())
+        assert np.array_equal(out, plain_d.numpy()), costs
         if traced:
             # rows past a pair's m are not written by the kernel body and
             # not read by the walk: compare the walked streams
@@ -285,7 +280,9 @@ def test_band_rows_equal_plain_version_and_oracle(lib, unit_k, max_m, threads,
             for p in range(B):
                 mp = len(a_list[p])
                 assert np.array_equal(codes[p, :mp],
-                                      plain_codes[p, :mp].numpy())
+                                      plain_codes[p, :mp].numpy()), (costs, p)
+    if not oracle:
+        return
     kband = unit_k * ct[1] + ct[2]  # costs up to this stay inside the band
     decoded = bs.decode_walked_batch(plain_seq.numpy(), [False] * B)
     for p, (a, b) in enumerate(zip(a_list, b_list)):
@@ -295,17 +292,66 @@ def test_band_rows_equal_plain_version_and_oracle(lib, unit_k, max_m, threads,
             assert int(plain_d[p]) == ref[0] and decoded[p] == ref[1]
 
 
+# The wide regime (one pair a block, cells in shared memory): band
+# half-widths around the 16-codes-a-word and the threads-a-block steps;
+# thread counts that leave threads idle, cut runs unevenly, or span warps
+@pytest.mark.parametrize("unit_k,max_m,threads", [
+    (0, 20, 32), (4, 40, 32), (7, 40, 32), (8, 40, 64), (32, 70, 32),
+    (64, 40, 96), (100, 30, 1024),
+])
+@pytest.mark.parametrize("costs", BAND_COSTS,
+                         ids=["unit", "rdamerau", "affine", "affine_transpose"])
+def test_band_rows_equal_plain_version_and_oracle(lib, unit_k, max_m, threads,
+                                                  costs):
+    rng = np.random.default_rng(31 * unit_k + max_m + costs[0])
+    a_list, b_list = _band_pairs(rng, 40, max_m, unit_k)
+    _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, 0, 0)
+
+
+LANE_CASES = cs.band_lane_cases()
+
+
+# The warp regime: a group of lanes a pair, cells in registers.  Each case
+# runs a batch that leaves part of its last warp empty and one of several
+# warps, with pairs at the band's edge (n - m == unit_k), m == 0, NUL bytes
+# (the pads are 0 too), adjacent swaps anywhere and swaps on the diagonals
+# of the lane edges, under the four cost models.
+@pytest.mark.parametrize("W,cells,lanes", LANE_CASES,
+                         ids=[f"W{w}-{g}x{c}" for w, c, g in LANE_CASES])
+def test_band_lanes_equal_plain_version_and_oracle(lib, W, cells, lanes):
+    unit_k = (W - 1) // 2
+    rng = np.random.default_rng(W * 97 + cells * 7 + lanes)
+    per_warp = 32 // lanes
+    for k, costs in enumerate(BAND_COSTS):
+        max_m = int(rng.integers(12, 30))
+        n_pairs = per_warp - 1 if k % 2 else 2 * per_warp + 1
+        a_list, b_list = _band_pairs(rng, max(n_pairs, 2), max_m, unit_k)
+        a_e, b_e = cs.lane_edge_pairs(rng, unit_k, cells, max_m)
+        _band_check(lib, a_list + a_e, b_list + b_e, unit_k, max_m, costs,
+                    32 * (1 + k % 2), cells, lanes, oracle=W < 200)
+
+
 def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
     z = np.zeros(64, np.uint8)
     i0 = np.zeros(1, np.int32)
     out = np.zeros(1, np.int32)
     args = [z.ctypes.data, z.ctypes.data, i0.ctypes.data, i0.ctypes.data,
             out.ctypes.data, None, 1, 16, 25]
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32) == 0
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0, 0) == 0
     assert out[0] == 0
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 48) == 1
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 2048) == 1
-    assert lib.ta_rehearse_band(*args, 8192, 16, 1, 1, 0, 0, 0, 32) == 1
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 48, 0, 0) == 1
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 2048, 0, 0) == 1
+    assert lib.ta_rehearse_band(*args, 8192, 16, 1, 1, 0, 0, 0, 32, 0, 0) == 1
+    # the warp regime: a known lane map that holds the band, <= 256 threads
+    out[0] = -7
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8) == 0
+    assert out[0] == 0
+    for cells, lanes, threads in ((4, 8, 32), (3, 4, 32), (3, 64, 32),
+                                  (3, 8, 512)):
+        assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, threads,
+                                    cells, lanes) == 1
+    assert lib.ta_rehearse_band(*args, 12, 16, 1, 1, 0, 0, 0, 32, 3,
+                                8) == 1  # 24 cells < W = 25
 
 
 def _blocked_distance_rehearsal(lib, t, wpt, damerau):

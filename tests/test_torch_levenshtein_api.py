@@ -100,6 +100,29 @@ def test_k_batch_small_and_empty():
         tl.levenshtein_k_batch([b"a"], [], 3, **CPU)
 
 
+def test_negative_threshold_answers_like_jax_and_oracle():
+    got = tl.levenshtein_k_batch([b"abc", b""], [b"abd", b"q"], -1, **CPU)
+    assert last_dispatch().path == "myers"
+    assert got.tolist() == [-1, -1] == np.asarray(
+        jl.levenshtein_k_batch([b"abc", b""], [b"abd", b"q"], -1)).tolist()
+    assert tl.levenshtein_simd_k(b"abc", b"abc", -1, **CPU) is None
+    assert jl.levenshtein_simd_k(b"abc", b"abc", -1) is None
+    assert levenshtein_naive_k(b"abc", b"abc", -1) is None
+    # a mixed batch (equal, empty, one-off and infeasible pairs) under every
+    # cost model, traced and not: -1 / None everywhere, as in the reference
+    a_list, b_list = _mixed_batch(np.random.default_rng(3), 40)
+    for costs, jcosts in ((LEVENSHTEIN_COSTS, J_LEV), (RDAMERAU_COSTS, J_RDAM),
+                          (EditCosts(2, 1, 2), JEditCosts(2, 1, 2))):
+        for trace in (False, True):
+            got = tl.levenshtein_k_batch(a_list, b_list, -1, costs, trace,
+                                         **CPU)
+            ref = jl.levenshtein_k_batch(a_list, b_list, -1, jcosts, trace)
+            if trace:
+                assert got[1] == [None] * 40 and list(ref[1]) == [None] * 40
+                got, ref = got[0], ref[0]
+            assert got.tolist() == [-1] * 40 == np.asarray(ref).tolist()
+
+
 @pytest.mark.parametrize("a,b", [
     (b"abc", b"ab"), (b"", b""), (b"", b"abc"), (b"kitten", b"sitting"),
     (b"abcdefghijklmnopqrstuvwxyz" * 3, b"zyx" * 20),

@@ -1,16 +1,21 @@
-"""Sweep of the band kernels K3 / K4 over the band cells a thread walks.
+"""Sweep of the band kernels K3 / K4 over their launch plan.
 
-    python3 -m triple_accel_tpu_torch.benches.band_sweep
+    python3 -m triple_accel_tpu_torch.benches.band_sweep [--chosen]
 
 Times `band_distance` and `band_trace` alone (CUDA events, one warm-up, 5
 launches: median, least and most) at the four shapes `chip_smoke.py`
-drives (short and long regime of each), once for every value of
-`lev_band.CELLS_PER_THREAD` in `CELLS`; `band_plan` turns the value into
-the block's thread count.  This is the measurement behind that constant.
-Pairs are random bytes with every 50th character replaced, equal lengths:
-the kernel's work does not depend on the data.  Prints the card's name and
-power limit, then one JSON line per point.  Needs one CUDA device and
-`nvcc`; there is no CPU mode.
+drives (short and long regime of each) and at a small untraced batch (256
+pairs, band 129), for every lane map of the warp regime that holds the band
+(`lev_band.WARP_CELLS` cells a lane x `WARP_LANES` lanes a pair) at each of
+`THREADS` threads a block; the point `band_plan` picks for the shape is
+marked `"chosen": true`.  This is the measurement behind `lev_band`'s
+`_warp_map`, `FULL_THREADS` and `SMALL_BATCH_WARPS`.  With `--chosen`, only
+the chosen points (the kernel's times for an A/B between two versions in
+one call).  Pairs are random bytes with every 50th character replaced,
+equal lengths: the kernel's work does not depend on the data.  Every point
+must give the first point's distances.  Prints the card's name and power
+limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
+there is no CPU mode.
 """
 
 from __future__ import annotations
@@ -24,7 +29,7 @@ import torch
 
 from ..ops import lev_band as lb
 
-CELLS = (1, 2, 4, 8, 16)
+THREADS = (32, 64, 128, 256)
 RDAMERAU_T = (1, 1, 0, 1, True)
 AFFINE_T = (2, 1, 2, 0, False)
 # (name, traced, pairs, string length, unit_k, costs)
@@ -33,6 +38,7 @@ SHAPES = (
     ("band_distance_long", False, 4096, 20_000, 256, AFFINE_T),
     ("band_trace", True, 8192, 1000, 32, RDAMERAU_T),
     ("band_trace_long", True, 256, 3000, 64, RDAMERAU_T),
+    ("band_distance_small", False, 256, 3000, 64, AFFINE_T),
 )
 
 
@@ -66,7 +72,29 @@ def _make_batch(dev, pairs: int, length: int, unit_k: int):
     return a_t, b_t, m, m.clone()
 
 
-def main() -> int:
+def _plans(rows: int, unit_k: int, traced: bool, pairs: int, only_chosen):
+    """The chosen plan first, then every other warp-regime plan."""
+    chosen = lb.band_plan(rows, unit_k, traced, batch=pairs)
+    out = [chosen]
+    if only_chosen or chosen["regime"] != "warp":
+        return out
+    W = 2 * unit_k + 1
+    for cells in lb.WARP_CELLS:
+        for lanes in lb.WARP_LANES:
+            for threads in THREADS:
+                if cells * lanes < W:
+                    continue
+                plan = dict(chosen, cells_per_lane=cells,
+                            lanes_per_pair=lanes, threads=threads,
+                            pairs_per_block=threads // lanes)
+                if plan != chosen:
+                    out.append(plan)
+    return out
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only_chosen = "--chosen" in argv
     if not torch.cuda.is_available():
         print("band_sweep needs a CUDA device", file=sys.stderr)
         return 2
@@ -75,33 +103,30 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    chosen = lb.CELLS_PER_THREAD
-    try:
-        for name, traced, pairs, length, unit_k, costs_t in SHAPES:
-            tensors = _make_batch(dev, pairs, length, unit_k)
-            fn = lb.band_trace if traced else lb.band_distance
-            first = None
-            for cells in CELLS:
-                lb.CELLS_PER_THREAD = cells
-                plan = lb.band_plan(tensors[0].shape[1], unit_k, traced)
-                res = fn(*tensors, unit_k=unit_k, costs_t=costs_t)
-                dist = (res[0] if traced else res).cpu()
-                if first is None:
-                    first = dist
-                print(json.dumps({
-                    "kernel": name, "pairs": pairs, "str_len": length,
-                    "band": 2 * unit_k + 1, "cells_per_thread_asked": cells,
-                    "threads": plan["threads"],
-                    "cells_per_thread": plan["cells_per_thread"],
-                    "same_distances": bool(torch.equal(dist, first)),
-                    "kernel_ms_median_min_max": _time_ms(lambda: fn(
-                        *tensors, unit_k=unit_k, costs_t=costs_t)),
-                }), flush=True)
-                del res
-            del tensors
-            torch.cuda.empty_cache()
-    finally:
-        lb.CELLS_PER_THREAD = chosen
+    for name, traced, pairs, length, unit_k, costs_t in SHAPES:
+        tensors = _make_batch(dev, pairs, length, unit_k)
+        fn = lb.band_trace if traced else lb.band_distance
+        first = None
+        for k, plan in enumerate(_plans(tensors[0].shape[1], unit_k, traced,
+                                        pairs, only_chosen)):
+            res = fn(*tensors, unit_k=unit_k, costs_t=costs_t, plan=plan)
+            dist = (res[0] if traced else res).cpu()
+            if first is None:
+                first = dist
+            print(json.dumps({
+                "kernel": name, "pairs": pairs, "str_len": length,
+                "band": 2 * unit_k + 1, "chosen": k == 0,
+                "regime": plan["regime"],
+                "cells_per_lane": plan["cells_per_lane"],
+                "lanes_per_pair": plan["lanes_per_pair"],
+                "threads": plan["threads"],
+                "same_distances": bool(torch.equal(dist, first)),
+                "kernel_ms_median_min_max": _time_ms(lambda: fn(
+                    *tensors, unit_k=unit_k, costs_t=costs_t, plan=plan)),
+            }), flush=True)
+            del res
+        del tensors
+        torch.cuda.empty_cache()
     return 0
 
 

@@ -1,15 +1,14 @@
 // K3 band_distance / K4 band_trace: banded general-cost edit distance
 // (mismatch, affine gap, transposition costs), without and with the argmin
-// codes a traceback needs.  One pair per thread block, the band in shared
-// memory, the rows walked in a loop with the pair's own trip count.
+// codes a traceback needs.
 //
 // Replaces the four TPU kernels of triple_accel_tpu/ops/pallas/lev_band.py:
 // _make_kernel and _make_tiled_kernel (band_distance_pallas[_tiled]) become
-// band_kernel<*, false>, _make_trace_kernel and _make_tiled_trace_kernel
-// (band_trace_pallas[_tiled]) become band_kernel<*, true>.  The TPU split
-// "untiled / row-strip tiled" existed because its fast memory had to hold
-// the strings; here the characters stream from global memory row by row, so
-// a pair of any length runs through the same kernel.
+// the untraced kernels below, _make_trace_kernel and
+// _make_tiled_trace_kernel (band_trace_pallas[_tiled]) the traced ones.
+// The TPU split "untiled / row-strip tiled" existed because its fast memory
+// had to hold the strings; here the characters stream from global memory
+// row by row, so a pair of any length runs through the same kernel.
 //
 // The function (the same the plain version ops/band_scan.py computes): DP
 // cell (i, j) over a (rows, m) x b (columns, n), m <= n, restricted to the
@@ -25,27 +24,45 @@
 // validity 0 <= j <= n or meets an infinite predecessor.
 //
 // What bounds it on an H100: integer operations, not bytes.  A cell needs
-// about 14 operations at the card's best (20 with transposition, 6 or 7
-// more for the code; chip_smoke.py lists them) against 2 / W bytes of
+// 7 operations at the card's best (10 with transposition, 6 or 7 more for
+// the code; chip_smoke.py's BAND_OPS_* list them) against 2 / W bytes of
 // strings, and the traced kernel writes 2 bits per cell.
-// The design (first version: right and simple, not yet fast):
-//   * one pair per block, T threads (a multiple of 32, chosen by the
-//     wrapper from W), each thread a contiguous run of ceil(W / T) cells;
-//   * band state in shared memory: three rotating rows of D (two rows back,
-//     previous, current), two of the vertical-gap state, one scratch row
-//     for the transposition candidate: 6 * W ints, so W <= 8193 fits the
-//     227 KB a block may use;
-//   * a row is two passes with two block barriers: pass 1 forms sub, the
-//     vertical gap, the transposition and each thread's min of
-//     dprime - c*gap; a warp scan plus one word per warp turns those into
-//     each thread's exclusive prefix; pass 2 runs the chain and the
-//     cascade serially inside the thread's run;
-//   * codes leave as 16 two-bit codes per 32-bit word, packed with shifts
-//     and ORs from a byte row in shared memory, pair-major
-//     codes[(p * rows + i - 1) * words_per_row + c / 16].
-// The row passes are plain functions over [c_lo, c_hi) so that the host
+//
+// Two regimes, one function:
+//   * band_kernel<TRANS, TRACE, C>, every band up to 32 * 17 = 544 cells
+//     (all of chip_smoke.py's phases: 65, 129 and 513 cells).  A group of
+//     G = 8, 16 or 32 lanes of one warp owns one pair (32 / G pairs a
+//     warp), lane l the C consecutive cells [l*C, (l+1)*C) (C = 3, 5, 9 or
+//     17, a template constant; cells past W are "ghosts", held at INF).  A
+//     lane keeps D of rows i-1 and i-2 (i-2 only with transpositions), the
+//     vertical-gap state and b's bytes of its cells in registers across the
+//     row loop; the row loop has no block barrier and touches no shared
+//     memory.  A row: the lane to the right hands over its first cell of
+//     row i-1 (D and gap state, __shfl_down_sync within the group's width);
+//     pass 1 forms sub, the vertical gap, the transposition and dprime and
+//     runs the horizontal chain over the lane's own cells; a shuffle scan
+//     over the group (log2 G steps) gives each lane the chain that enters
+//     it; pass 2 runs the chain with that carry and the cascade.  The chain
+//     is kept as F[c] = min over c' < c of dprime[c'] + (c - 1 - c')*gap,
+//     F[c+1] = min(F[c] + gap, dprime[c]): one fused add-min a cell, and
+//     e[c] = F[c] + gap + start.  The band's window moves one byte right a
+//     row: a lane's new last byte is the first byte of the lane to its
+//     right (__shfl_down_sync), the group's last lane streams it from b, the
+//     byte left of its first cell is its old first byte.  Lane 0 of the
+//     group streams a.  Codes: a lane packs its C two-bit codes into one
+//     word and the group's lanes join them into the row's 32-bit words by
+//     shuffles (cell c at bits 2 * (c % 16) of word c / 16, the layout of
+//     the plain version), lane w writing word w: one coalesced row.
+//   * band_wide_kernel<TRANS, TRACE>, wider bands (up to 8193 cells): one
+//     pair a block, the band in shared memory (6 rows of W ints), each
+//     thread a contiguous run of cells, two block barriers a row.  No main
+//     path runs it.
+// Every cascade is selects on non-short-circuit compares (a branch makes
+// the lanes of a warp diverge), and the min chains use Hopper's DPX
+// (__viaddmin_s32 for min(a + b, c), __vimin3_s32).  The per-lane passes
+// and the wide regime's row passes are plain functions, so the host
 // rehearsal (host_rehearsal.cpp, -DTA_HOST_REHEARSAL) runs exactly this
-// arithmetic one "thread" at a time.
+// arithmetic, lanes or threads one at a time, the shuffles as arrays.
 
 #include <stddef.h>
 
@@ -54,13 +71,304 @@
 namespace {
 
 constexpr int32_t TA_BAND_INF = 1 << 30;
+// transposition candidate of a cell without one: loses every compare
+constexpr int32_t TA_BAND_NONE = 0x7fffffff;
 constexpr int TA_CODES_PER_WORD = 16;
+// the warp regime: threads a block at most, and cells a lane at most
+constexpr int TA_BAND_WARP_THREADS = 256;
+constexpr int TA_BAND_MAX_CELLS = 17;
 
 static TA_DEV int32_t ta_min32(int32_t x, int32_t y) { return x < y ? x : y; }
+
+#ifdef TA_HOST_REHEARSAL
+static inline int32_t bd_addmin(int32_t a, int32_t b, int32_t c) {
+  return ta_min32(a + b, c);
+}
+static inline int32_t bd_min3(int32_t a, int32_t b, int32_t c) {
+  return ta_min32(ta_min32(a, b), c);
+}
+#else
+// Hopper's DPX: min(a + b, c) and min(a, b, c), one instruction each
+static __device__ __forceinline__ int32_t bd_addmin(int32_t a, int32_t b,
+                                                    int32_t c) {
+  return __viaddmin_s32(a, b, c);
+}
+static __device__ __forceinline__ int32_t bd_min3(int32_t a, int32_t b,
+                                                  int32_t c) {
+  return __vimin3_s32(a, b, c);
+}
+#endif
 
 struct BandCosts {
   int32_t mc, gc, sgc, tc;
 };
+
+static TA_DEV int32_t band_final_cell(int32_t m, int32_t n, int32_t unit_k,
+                                      int32_t W) {
+  int32_t c = n - m + unit_k;
+  if (c < 0) c = 0;
+  if (c > W - 1) c = W - 1;
+  return c;
+}
+
+// ---------------------------------------------------------------------------
+// the warp regime: one lane's C cells
+// ---------------------------------------------------------------------------
+
+// The lane's two-bit codes of a row: 2 * C bits.
+template <int C>
+struct BandBits {
+  typedef uint32_t T;
+};
+template <>
+struct BandBits<17> {
+  typedef uint64_t T;
+};
+
+template <bool TRANS, bool TRACE, int C>
+struct BandLane {
+  static_assert(C >= 1 && C <= TA_BAND_MAX_CELLS, "cells a lane");
+  int32_t dp1[C];  // D of row i-1 (row i after pass 2)
+  int32_t dp0[C];  // D of row i-2 (transpositions only)
+  int32_t bg[C];   // vertical-gap state of row i-1 (row i after pass 1)
+  int32_t h[C];    // b[j-1] of the lane's cells at row i
+  int32_t hl;      // the byte left of h[0]: b[j-2] of the lane's first cell
+  // pass 1 -> pass 2: dprime (masked to INF outside the matrix where the
+  // codes need it), and for the cascade of the codes sub and the
+  // transposition candidate
+  int32_t dpr[C];
+  int32_t sub[TRACE ? C : 1], trn[TRACE ? C : 1];
+};
+
+// What a row needs besides the registers.
+struct BandRow {
+  int32_t ach, apv;  // a[i-1], and a[i-2] (-1 at row 1: no transposition)
+  int32_t vhi;       // the lane's last cell inside the matrix and the band:
+                     // min(n + unit_k - i, W - 1) - l*C (may be < 0)
+  int32_t tlo;       // the lane's first cell with j > 1: 2 + unit_k - i - l*C
+};
+
+static TA_DEV BandRow band_row(int32_t i, int32_t ach, int32_t apv,
+                               int32_t n, int32_t unit_k, int32_t W,
+                               int32_t c0) {
+  BandRow R;
+  R.ach = ach;
+  R.apv = apv;
+  const int32_t last = n + unit_k - i;
+  R.vhi = (last < W - 1 ? last : W - 1) - c0;
+  R.tlo = 2 + unit_k - i - c0;
+  return R;
+}
+
+// What the lane hands to the lane on its left: D and the gap state of its
+// first cell (row i-1), the vertical predecessors of that lane's last cell.
+struct BandUp {
+  int32_t d, g;
+};
+
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV BandUp band_lane_up(const BandLane<TRANS, TRACE, C>& L) {
+  return BandUp{L.dp1[0], L.bg[0]};
+}
+
+// The group's last lane has nothing on its right: cell W (or a ghost).
+static TA_DEV BandUp band_up_in(BandUp from_right, bool last_lane) {
+  return last_lane ? BandUp{TA_BAND_INF, TA_BAND_INF} : from_right;
+}
+
+// Row 0 and the empty history; b_row is the pair's b row (its b at byte
+// offset unit_k), b_len its length: cell c reads byte i - 1 + c.
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV void band_lane_init(BandLane<TRANS, TRACE, C>& L,
+                                  const uint8_t* b_row, int64_t b_len,
+                                  int32_t n, int32_t unit_k, int32_t W,
+                                  int32_t c0, const BandCosts& k) {
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int32_t cg = c0 + c;
+    const int32_t j0 = cg - unit_k;
+    const bool in = cg < W && j0 >= 0 && j0 <= n;
+    L.dp1[c] = in ? ta_min32(j0 * k.gc + (j0 > 0 ? k.sgc : 0), TA_BAND_INF)
+                  : TA_BAND_INF;
+    L.dp0[c] = TA_BAND_INF;
+    L.bg[c] = TA_BAND_INF;
+    L.h[c] = cg < b_len ? (int32_t)b_row[cg] : 0;
+  }
+  L.hl = c0 >= 1 && c0 - 1 < b_len ? (int32_t)b_row[c0 - 1] : 0;
+}
+
+// Pass 1 of a row: sub, the vertical gap (stored as the row's gap state),
+// the transposition and dprime of each cell, and the horizontal chain over
+// the lane's own cells from INF.  Returns F after the lane's last cell.
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV int32_t band_lane_pass1(BandLane<TRANS, TRACE, C>& L,
+                                      const BandCosts& k, const BandRow& R,
+                                      BandUp up) {
+  int32_t f = TA_BAND_INF;
+  const int32_t vnew = k.sgc + k.gc;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int32_t d_up = c + 1 < C ? L.dp1[c + 1] : up.d;
+    const int32_t g_up = c + 1 < C ? L.bg[c + 1] : up.g;
+    const int32_t sub = L.dp1[c] + (L.h[c] == R.ach ? 0 : k.mc);
+    // clamped before it is carried, so saturated cells do not creep
+    const int32_t bgap =
+        bd_addmin(d_up, vnew, bd_addmin(g_up, k.gc, TA_BAND_INF));
+    int32_t trn = TA_BAND_NONE;
+    if (TRANS) {
+      // b[j-2] is the byte left of b[j-1]; i > 1 is apv != -1, j > 1 tlo
+      const int32_t hj2 = c == 0 ? L.hl : L.h[c - 1];
+      const bool t = (hj2 == R.ach) & (L.h[c] == R.apv) & (c >= R.tlo);
+      trn = t ? L.dp0[c] + k.tc : TA_BAND_NONE;
+      L.dp0[c] = L.dp1[c];
+    }
+    // bgap <= INF, so dprime needs no clamp
+    int32_t dpr = TRANS ? bd_min3(sub, bgap, trn) : ta_min32(sub, bgap);
+    // the chain into a cell inside the matrix only meets cells inside it
+    // or left of column 0 (INF by construction); the codes of the cells
+    // past column n need the plain version's masked chain
+    if (TRACE) dpr = c <= R.vhi ? dpr : TA_BAND_INF;
+    L.bg[c] = bgap;
+    L.dpr[c] = dpr;
+    if (TRACE) {
+      L.sub[c] = sub;
+      L.trn[c] = trn;
+    }
+    f = bd_addmin(f, k.gc, dpr);
+  }
+  return f;
+}
+
+// The scan's element of lane l: F after the lane, less its offset, so that
+// the chain across lanes is a plain min-scan.
+static TA_DEV int32_t band_lane_key(int32_t f_out, int32_t l, int32_t C,
+                                    int32_t gc) {
+  return f_out - (l + 1) * C * gc;
+}
+
+// F entering lane l from the exclusive min-scan of the keys (lane 0: none).
+static TA_DEV int32_t band_lane_carry(int32_t ex, int32_t l, int32_t C,
+                                      int32_t gc) {
+  return l == 0 ? TA_BAND_INF : ex + l * C * gc;
+}
+
+// Pass 2: the chain from `f` (F at the lane's first cell), the cascade,
+// the new row of D (INF outside the matrix and the band); returns the
+// cells' two-bit codes (traced), cell c at bits 2c.
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV typename BandBits<C>::T band_lane_pass2(
+    BandLane<TRANS, TRACE, C>& L, const BandCosts& k, const BandRow& R,
+    int32_t f) {
+  typedef typename BandBits<C>::T Bits;
+  Bits bits = 0;
+  const int32_t hs = k.gc + k.sgc;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int32_t dpr = L.dpr[c];
+    int32_t d;
+    if (TRACE) {
+      const int32_t e = bd_addmin(f, hs, TA_BAND_INF);
+      const int32_t sub = L.sub[c];
+      const int32_t bgap = L.bg[c];
+      const bool te = e < sub;
+      int32_t v = ta_min32(e, sub);
+      const bool tb = bgap < v;
+      v = ta_min32(v, bgap);
+      const bool tt = TRANS & (L.trn[c] <= v);
+      d = TRANS ? ta_min32(v, L.trn[c]) : v;
+      uint32_t code = tb ? 2u : (uint32_t)te;
+      code = tt ? 3u : code;
+      bits |= (Bits)code << (2 * c);
+    } else {
+      // min(e, dprime), e = min(F + gap + start, INF), dprime <= INF
+      d = bd_addmin(f, hs, dpr);
+    }
+    L.dp1[c] = c <= R.vhi ? d : TA_BAND_INF;
+    f = bd_addmin(f, k.gc, dpr);
+  }
+  return bits;
+}
+
+// The byte the lane hands to the lane on its left as the window moves.
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV int32_t band_lane_char_out(const BandLane<TRANS, TRACE, C>& L) {
+  return L.h[0];
+}
+
+// The window moves one byte right: `in` is b's byte of the lane's new last
+// cell.
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV void band_lane_slide(BandLane<TRANS, TRACE, C>& L, int32_t in) {
+  L.hl = L.h[0];
+#pragma unroll
+  for (int c = 0; c + 1 < C; ++c) L.h[c] = L.h[c + 1];
+  L.h[C - 1] = in;
+}
+
+// D of the lane's cell `cell_in_lane` (INF where the lane has no such
+// cell).
+template <bool TRANS, bool TRACE, int C>
+static TA_DEV int32_t band_lane_pick(const BandLane<TRANS, TRACE, C>& L,
+                                     int32_t cell_in_lane) {
+  int32_t r = TA_BAND_INF;
+#pragma unroll
+  for (int c = 0; c < C; ++c) r = c == cell_in_lane ? L.dp1[c] : r;
+  return r;
+}
+
+// Codes of the lane's cells that lie in the band (ghost cells write 0, as
+// the plain version's padding does).
+template <int C>
+static TA_DEV typename BandBits<C>::T band_lane_code_mask(int32_t c0,
+                                                          int32_t W) {
+  typedef typename BandBits<C>::T Bits;
+  int32_t live = W - c0;
+  live = live < 0 ? 0 : (live > C ? C : live);
+  return live >= (int32_t)(4 * sizeof(Bits)) ? ~(Bits)0
+                                             : (((Bits)1 << (2 * live)) - 1);
+}
+
+// Rounds of words a lane writes a row: word w = l + r*G, r < this.
+template <int C>
+static TA_DEV constexpr int band_word_rounds() {
+  return (C + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
+}
+
+// Word w of a row (cells 16w .. 16w + 15) from the group's lanes' code
+// bits; get(src) returns lane src's bits (the device: a shuffle every lane
+// makes, the same number of times; a src past the group is masked here).
+template <int C, class Get>
+static TA_DEV uint32_t band_word(int32_t w, int32_t G, Get get) {
+  typedef typename BandBits<C>::T Bits;
+  constexpr int Q = (TA_CODES_PER_WORD - 1) / C + 2;  // lanes a word spans
+  const int32_t lo = (TA_CODES_PER_WORD * w) / C;
+  uint32_t word = 0u;
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int32_t src = lo + q;
+    const Bits v = get(src);
+    const int32_t s = 2 * src * C - 32 * w;  // the lane's bit 0 in the word
+    const Bits part = s >= 0 ? (s < 32 ? (Bits)(v << s) : (Bits)0) : (v >> -s);
+    word |= src < G ? (uint32_t)part : 0u;
+  }
+  return word;
+}
+
+// Bytes [0, len) of a buffer at any address read in order, one a call:
+// TaStream over the 16-byte aligned address at or below it.
+struct BandStream {
+  TaStream s;
+  int32_t off;
+  TA_DEV void start(const uint8_t* p, int64_t len) {
+    off = (int32_t)((size_t)p & 15u);
+    s.start(p - off, len + off);
+  }
+  TA_DEV int32_t at(int64_t idx) { return (int32_t)s.at(idx + off); }
+};
+
+// ---------------------------------------------------------------------------
+// the wide regime: one pair a block, the band in shared memory
+// ---------------------------------------------------------------------------
 
 struct BandPair {
   const uint8_t* a;  // m chars
@@ -227,31 +535,122 @@ static TA_DEV void band_rotate(BandState& S) {
   S.bgcur = t;
 }
 
-static TA_DEV int32_t band_final_cell(const BandPair& P) {
-  int32_t c = P.n - P.m + P.unit_k;
-  if (c < 0) c = 0;
-  if (c > P.W - 1) c = P.W - 1;
-  return c;
-}
-
 // ints of band state per pair (6 rows of W) and the bytes that follow them
 static inline size_t band_state_bytes(int W) {
   return (size_t)(6 * W + 32) * sizeof(int32_t) + (size_t)((W + 3) & ~3);
+}
+
+// The warp regime's lane maps: cells a lane, lanes a pair.
+static inline bool band_warp_map_ok(int cells, int lanes, int W) {
+  return (cells == 3 || cells == 5 || cells == 9 || cells == 17) &&
+         (lanes == 8 || lanes == 16 || lanes == 32) && cells * lanes >= W;
 }
 
 }  // namespace
 
 #ifndef TA_HOST_REHEARSAL
 
+namespace {
+
+constexpr unsigned TA_BAND_FULL = 0xffffffffu;
+
+template <class T>
+static __device__ __forceinline__ T band_shfl(T v, int src, int G) {
+  return __shfl_sync(TA_BAND_FULL, v, src, G);
+}
+
+}  // namespace
+
+template <bool TRANS, bool TRACE, int C>
+__global__ void __launch_bounds__(TA_BAND_WARP_THREADS)
+    band_kernel(const uint8_t* __restrict__ a, const uint8_t* __restrict__ b,
+                const int32_t* __restrict__ m, const int32_t* __restrict__ n,
+                int32_t* __restrict__ out, uint32_t* __restrict__ codes,
+                int64_t B, int64_t a_stride, int64_t b_stride, int unit_k,
+                int64_t code_rows, BandCosts k, int G) {
+  typedef typename BandBits<C>::T Bits;
+  const int lane = threadIdx.x & 31;
+  const int gl = lane & (G - 1);  // lane in the pair's group
+  const int64_t warp = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int64_t p0 = warp * (32 / G);
+  if (p0 >= B) return;  // the whole warp: no shuffle partner is left behind
+  const int64_t p = p0 + lane / G;
+  const bool live = p < B;
+  const int32_t W = 2 * unit_k + 1;
+  const int32_t c0 = gl * C;
+  // the wrapper's contract is m <= the a row's length (the lengths live on
+  // the device, so it cannot check them without a sync): a larger m is cut
+  // here so that no row is read, and no code row written, past its end
+  const int32_t mm = live ? min(m[p], (int32_t)a_stride) : 0;
+  const int32_t nn = live ? n[p] : 0;
+  const uint8_t* a_row = a + (live ? p : 0) * a_stride;
+  const uint8_t* b_row = b + (live ? p : 0) * b_stride;
+  const int32_t cfin = band_final_cell(mm, nn, unit_k, W) - c0;
+  const bool owns_fin = live && cfin >= 0 && cfin < C;
+
+  BandLane<TRANS, TRACE, C> L;
+  band_lane_init(L, b_row, b_stride, nn, unit_k, W, c0, k);
+  if (owns_fin && mm == 0) out[p] = band_lane_pick(L, cfin);
+  const int32_t rows = __reduce_max_sync(TA_BAND_FULL, mm);
+  const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
+  uint32_t* code_out = TRACE ? codes + (live ? p : 0) * code_rows * wpr
+                             : nullptr;
+  const Bits cmask = band_lane_code_mask<C>(c0, W);
+  // the group's last lane streams b (its new last byte each row), the
+  // others a (lane 0's byte is the row's character)
+  const bool b_lane = gl == G - 1;
+  BandStream S;
+  S.start(b_lane ? b_row : a_row, b_lane ? b_stride : a_stride);
+  const int64_t b_next = (int64_t)G * C - 1;  // + i: the byte row i+1 needs
+  int32_t ach = a_row[0], apv = -1;
+  for (int32_t i = 1; i <= rows; ++i) {
+    const BandRow R = band_row(i, ach, apv, nn, unit_k, W, c0);
+    const BandUp own = band_lane_up(L);
+    BandUp up;
+    up.d = __shfl_down_sync(TA_BAND_FULL, own.d, 1, G);
+    up.g = __shfl_down_sync(TA_BAND_FULL, own.g, 1, G);
+    up = band_up_in(up, b_lane);
+    const int32_t f_out = band_lane_pass1(L, k, R, up);
+    // inclusive min-scan of the keys over the group (a lane below `off`
+    // meets its own value), then exclusive
+    int32_t inc = band_lane_key(f_out, gl, C, k.gc);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      if (off < G) inc = min(inc, __shfl_up_sync(TA_BAND_FULL, inc, off, G));
+    const int32_t ex = __shfl_up_sync(TA_BAND_FULL, inc, 1, G);
+    Bits bits = band_lane_pass2(L, k, R, band_lane_carry(ex, gl, C, k.gc));
+    if (TRACE) {
+      bits &= cmask;
+#pragma unroll
+      for (int r = 0; r < band_word_rounds<C>(); ++r) {
+        const int32_t w = gl + r * G;
+        const uint32_t word =
+            band_word<C>(w, G, [&](int32_t src) { return band_shfl(bits, src, G); });
+        if (live && i <= mm && w < wpr)
+          code_out[(int64_t)(i - 1) * wpr + w] = word;
+      }
+    }
+    if (owns_fin && i == mm) out[p] = band_lane_pick(L, cfin);
+    // the next row's bytes
+    const int32_t from_right =
+        __shfl_down_sync(TA_BAND_FULL, band_lane_char_out(L), 1, G);
+    const int32_t v = S.at(b_lane ? i + b_next : i);
+    band_lane_slide(L, b_lane ? v : from_right);
+    apv = ach;
+    ach = band_shfl(v, 0, G);
+  }
+}
+
 template <bool TRANS, bool TRACE>
-__global__ void band_kernel(const uint8_t* __restrict__ a,
-                            const uint8_t* __restrict__ b,
-                            const int32_t* __restrict__ m,
-                            const int32_t* __restrict__ n,
-                            int32_t* __restrict__ out,
-                            uint32_t* __restrict__ codes, int64_t a_stride,
-                            int64_t b_stride, int unit_k, int64_t code_rows,
-                            BandCosts costs) {
+__global__ void band_wide_kernel(const uint8_t* __restrict__ a,
+                                 const uint8_t* __restrict__ b,
+                                 const int32_t* __restrict__ m,
+                                 const int32_t* __restrict__ n,
+                                 int32_t* __restrict__ out,
+                                 uint32_t* __restrict__ codes,
+                                 int64_t a_stride, int64_t b_stride,
+                                 int unit_k, int64_t code_rows,
+                                 BandCosts costs) {
   extern __shared__ int32_t ta_band_smem[];
   const int W = 2 * unit_k + 1;
   const int T = blockDim.x, t = threadIdx.x;
@@ -273,9 +672,7 @@ __global__ void band_kernel(const uint8_t* __restrict__ a,
   BandPair P;
   P.a = a + p * a_stride;
   P.b = b + p * b_stride;
-  // the wrapper's contract is m <= the a row's length (the lengths live on
-  // the device, so it cannot check them without a sync): a larger m is
-  // cut here so that no row is read, and no code row written, past its end
+  // m is cut to the a row's length, as in band_kernel
   P.m = min(m[p], (int32_t)a_stride);
   P.n = n[p];
   P.unit_k = unit_k;
@@ -310,68 +707,107 @@ __global__ void band_kernel(const uint8_t* __restrict__ a,
     }
     band_rotate(S);
   }
-  if (t == 0) out[p] = S.dp1[band_final_cell(P)];
+  if (t == 0) out[p] = S.dp1[band_final_cell(P.m, P.n, P.unit_k, P.W)];
+}
+
+namespace {
+
+struct BandLaunch {
+  const uint8_t* a;
+  const uint8_t* b;
+  const int32_t* m;
+  const int32_t* n;
+  int32_t* out;
+  uint32_t* codes;
+  int64_t B, a_stride, b_stride;
+  int unit_k;
+  int64_t code_rows;
+  BandCosts costs;
+  int threads, cells, lanes;
+  cudaStream_t stream;
+};
+
+template <bool TRANS, bool TRACE, int C>
+static int launch_warp_c(const BandLaunch& g) {
+  const int64_t warps = (g.B * g.lanes + 31) / 32;
+  const int64_t blocks = (warps * 32 + g.threads - 1) / g.threads;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  band_kernel<TRANS, TRACE, C><<<(unsigned)blocks, g.threads, 0, g.stream>>>(
+      g.a, g.b, g.m, g.n, g.out, g.codes, g.B, g.a_stride, g.b_stride,
+      g.unit_k, g.code_rows, g.costs, g.lanes);
+  return (int)cudaGetLastError();
 }
 
 template <bool TRANS, bool TRACE>
-static int launch_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
-                       const int32_t* n, int32_t* out, uint32_t* codes,
-                       int64_t B, int64_t a_stride, int64_t b_stride,
-                       int unit_k, int64_t code_rows, BandCosts costs,
-                       int threads, size_t smem, cudaStream_t stream) {
+static int launch_band(const BandLaunch& g) {
+  switch (g.cells) {
+    case 3: return launch_warp_c<TRANS, TRACE, 3>(g);
+    case 5: return launch_warp_c<TRANS, TRACE, 5>(g);
+    case 9: return launch_warp_c<TRANS, TRACE, 9>(g);
+    case 17: return launch_warp_c<TRANS, TRACE, 17>(g);
+    default: break;
+  }
+  const size_t smem = band_state_bytes(2 * g.unit_k + 1);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        band_kernel<TRANS, TRACE>,
+        band_wide_kernel<TRANS, TRACE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  band_kernel<TRANS, TRACE><<<(unsigned)B, threads, smem, stream>>>(
-      a, b, m, n, out, codes, a_stride, b_stride, unit_k, code_rows, costs);
+  band_wide_kernel<TRANS, TRACE>
+      <<<(unsigned)g.B, g.threads, smem, g.stream>>>(
+          g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride,
+          g.unit_k, g.code_rows, g.costs);
   return (int)cudaGetLastError();
 }
+
+}  // namespace
 
 // Plain C entry point.  All pointers are device pointers; nothing is
 // allocated or synchronised here.  `codes` null: distances only; else
 // uint32 [B, code_rows, ceil(W / 16)] receives the packed argmin codes of
-// rows 1..m of every pair (rows past m are left as they were).  Returns
-// the cudaError_t of the launch.
+// rows 1..m of every pair (rows past m are left as they were).  `cells`:
+// cells a lane of the warp regime (3, 5, 9 or 17, with `lanes` 8, 16 or 32
+// lanes a pair, cells * lanes >= W, `threads` a multiple of 32 up to 256),
+// or 0 for the wide regime (one pair a block of `threads` threads, a
+// multiple of 32 up to 1024).  Returns the cudaError_t of the launch.
 extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
                                 const void* n, void* out, void* codes,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
                                 int unit_k, int64_t code_rows, int mc, int gc,
                                 int sgc, int tc, int transpose, int threads,
-                                void* stream) {
+                                int cells, int lanes, void* stream) {
   if (B <= 0) return 0;
   if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31) ||
-      B > 0x7fffffffLL)
+      B > 0x7fffffffLL || a_stride < 1 || b_stride < a_stride)
     return (int)cudaErrorInvalidValue;
   const int W = 2 * unit_k + 1;
-  const size_t smem = band_state_bytes(W);
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const uint8_t* ap = (const uint8_t*)a;
-  const uint8_t* bp = (const uint8_t*)b;
-  const int32_t* mp = (const int32_t*)m;
-  const int32_t* np_ = (const int32_t*)n;
-  int32_t* op = (int32_t*)out;
-  uint32_t* cp = (uint32_t*)codes;
-  const BandCosts costs{mc, gc, sgc, tc};
-  cudaStream_t st = (cudaStream_t)stream;
-  if (cp == nullptr) {
-    return transpose
-               ? launch_band<true, false>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                          b_stride, unit_k, code_rows, costs,
-                                          threads, smem, st)
-               : launch_band<false, false>(ap, bp, mp, np_, op, cp, B,
-                                           a_stride, b_stride, unit_k,
-                                           code_rows, costs, threads, smem, st);
+  if (cells != 0) {
+    if (!band_warp_map_ok(cells, lanes, W) || threads > TA_BAND_WARP_THREADS)
+      return (int)cudaErrorInvalidValue;
+  } else if (band_state_bytes(W) > 232448) {
+    return (int)cudaErrorInvalidValue;
   }
-  return transpose
-             ? launch_band<true, true>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                       b_stride, unit_k, code_rows, costs,
-                                       threads, smem, st)
-             : launch_band<false, true>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                        b_stride, unit_k, code_rows, costs,
-                                        threads, smem, st);
+  BandLaunch g;
+  g.a = (const uint8_t*)a;
+  g.b = (const uint8_t*)b;
+  g.m = (const int32_t*)m;
+  g.n = (const int32_t*)n;
+  g.out = (int32_t*)out;
+  g.codes = (uint32_t*)codes;
+  g.B = B;
+  g.a_stride = a_stride;
+  g.b_stride = b_stride;
+  g.unit_k = unit_k;
+  g.code_rows = code_rows;
+  g.costs = BandCosts{mc, gc, sgc, tc};
+  g.threads = threads;
+  g.cells = cells;
+  g.lanes = lanes;
+  g.stream = (cudaStream_t)stream;
+  if (g.codes == nullptr)
+    return transpose ? launch_band<true, false>(g) : launch_band<false, false>(g);
+  return transpose ? launch_band<true, true>(g) : launch_band<false, true>(g);
 }
 
 #endif  // TA_HOST_REHEARSAL

@@ -1,7 +1,8 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
-// functions of myers_distance.cu and myers_search.cu, the row passes of
-// band_distance.cu, the per-lane wavefront steps of myers_blocked.cu and
-// search_diag.cu and the lanes and warps of search_flat.cu,
+// functions of myers_distance.cu and myers_search.cu, the lanes of
+// band_distance.cu's warp regime and the row passes of its wide regime,
+// the per-lane wavefront steps of myers_blocked.cu and search_diag.cu and
+// the lanes and warps of search_flat.cu,
 // compiled for the CPU and run one "thread" at a time, so their arithmetic
 // can be held against the plain PyTorch versions where there is no CUDA
 // compiler and no card.
@@ -98,15 +99,17 @@ extern "C" int ta_rehearse_search(const void* hay, int64_t iter_len,
   return 0;
 }
 
-// One pair after the other; inside a pair, `threads` "threads" take their
-// runs of band cells in turn, pass 1, then the exclusive prefix over the
-// threads' mins that the device gets from a warp scan, then pass 2.
+// The wide regime: one pair after the other; inside a pair, `threads`
+// "threads" take their runs of band cells in turn, pass 1, then the
+// exclusive prefix over the threads' mins that the device gets from a warp
+// scan, then pass 2.
 template <bool TRANS, bool TRACE>
-static void rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
-                          const int32_t* n, int32_t* out, uint32_t* codes,
-                          int64_t B, int64_t a_stride, int64_t b_stride,
-                          int unit_k, int64_t code_rows, BandCosts costs,
-                          int threads) {
+static void rehearse_band_wide(const uint8_t* a, const uint8_t* b,
+                               const int32_t* m, const int32_t* n,
+                               int32_t* out, uint32_t* codes, int64_t B,
+                               int64_t a_stride, int64_t b_stride, int unit_k,
+                               int64_t code_rows, BandCosts costs,
+                               int threads) {
   const int W = 2 * unit_k + 1;
   const int T = threads;
   const int cpt = (W + T - 1) / T;
@@ -126,7 +129,7 @@ static void rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
     BandPair P;
     P.a = a + p * a_stride;
     P.b = b + p * b_stride;
-    P.m = m[p];
+    P.m = m[p] < a_stride ? m[p] : (int32_t)a_stride;
     P.n = n[p];
     P.unit_k = unit_k;
     P.W = W;
@@ -148,41 +151,176 @@ static void rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
               band_pack_word(S.code, w, W);
       band_rotate(S);
     }
-    out[p] = S.dp1[band_final_cell(P)];
+    out[p] = S.dp1[band_final_cell(P.m, P.n, P.unit_k, P.W)];
   }
 }
 
-// Same arguments as ta_band_distance, host pointers, no stream.
+// The warp regime: one warp after the other (32 / G pairs, one group of G
+// lanes each), the lanes of a warp running each step of a row in turn.
+// What the device gets from a shuffle comes from an array of the lanes'
+// values, with the device's rules: __shfl_down_sync / __shfl_up_sync by
+// `off` inside a group return the caller's own value where the source lies
+// outside the group, __shfl_sync reads lane src % G of the group.
+template <bool TRANS, bool TRACE, int C>
+static void rehearse_band_warp(const uint8_t* a, const uint8_t* b,
+                               const int32_t* m, const int32_t* n,
+                               int32_t* out, uint32_t* codes, int64_t B,
+                               int64_t a_stride, int64_t b_stride, int unit_k,
+                               int64_t code_rows, BandCosts k, int G) {
+  typedef typename BandBits<C>::T Bits;
+  const int32_t W = 2 * unit_k + 1;
+  const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
+  const int64_t b_next = (int64_t)G * C - 1;
+  std::vector<BandLane<TRANS, TRACE, C>> L(32);
+  std::vector<BandStream> S(32);
+  int32_t mm[32], nn[32], cfin[32], ach[32], apv[32], f_out[32], inc[32];
+  int32_t tmp[32], v[32], chr[32];
+  bool live[32];
+  int64_t pp[32];
+  BandUp own[32];
+  Bits bits[32], cmask[32];
+  // group lane of l, the lane `off` to the right / left inside l's group
+  auto gl_of = [&](int l) { return l % G; };
+  auto down = [&](int l, int off) { return gl_of(l) + off < G ? l + off : l; };
+  auto upl = [&](int l, int off) { return gl_of(l) >= off ? l - off : l; };
+  for (int64_t p0 = 0; p0 < B; p0 += 32 / G) {
+    int32_t rows = 0;
+    for (int l = 0; l < 32; ++l) {
+      const int gl = gl_of(l);
+      const int32_t c0 = gl * C;
+      pp[l] = p0 + l / G;
+      live[l] = pp[l] < B;
+      const int64_t p = live[l] ? pp[l] : 0;
+      mm[l] = live[l] ? (m[p] < a_stride ? m[p] : (int32_t)a_stride) : 0;
+      nn[l] = live[l] ? n[p] : 0;
+      cfin[l] = band_final_cell(mm[l], nn[l], unit_k, W) - c0;
+      band_lane_init(L[l], b + p * b_stride, b_stride, nn[l], unit_k, W, c0,
+                     k);
+      if (live[l] && cfin[l] >= 0 && cfin[l] < C && mm[l] == 0)
+        out[pp[l]] = band_lane_pick(L[l], cfin[l]);
+      rows = rows > mm[l] ? rows : mm[l];
+      cmask[l] = band_lane_code_mask<C>(c0, W);
+      const bool b_lane = gl == G - 1;
+      S[l].start(b_lane ? b + p * b_stride : a + p * a_stride,
+                 b_lane ? b_stride : a_stride);
+      ach[l] = a[p * a_stride];
+      apv[l] = -1;
+    }
+    for (int32_t i = 1; i <= rows; ++i) {
+      BandRow R[32];
+      for (int l = 0; l < 32; ++l) {
+        R[l] = band_row(i, ach[l], apv[l], nn[l], unit_k, W, gl_of(l) * C);
+        own[l] = band_lane_up(L[l]);
+      }
+      for (int l = 0; l < 32; ++l) {
+        const BandUp up = band_up_in(own[down(l, 1)], gl_of(l) == G - 1);
+        f_out[l] = band_lane_pass1(L[l], k, R[l], up);
+        inc[l] = band_lane_key(f_out[l], gl_of(l), C, k.gc);
+      }
+      for (int off = 1; off < G; off <<= 1) {
+        for (int l = 0; l < 32; ++l) tmp[l] = inc[upl(l, off)];
+        for (int l = 0; l < 32; ++l) inc[l] = ta_min32(inc[l], tmp[l]);
+      }
+      for (int l = 0; l < 32; ++l) {
+        const int32_t ex = inc[upl(l, 1)];
+        bits[l] = band_lane_pass2(L[l], k, R[l],
+                                  band_lane_carry(ex, gl_of(l), C, k.gc));
+        bits[l] &= cmask[l];
+      }
+      if (TRACE)
+        for (int l = 0; l < 32; ++l)
+          for (int r = 0; r < band_word_rounds<C>(); ++r) {
+            const int32_t w = gl_of(l) + r * G;
+            const int base = l - gl_of(l);
+            const uint32_t word = band_word<C>(
+                w, G, [&](int32_t src) { return bits[base + src % G]; });
+            if (live[l] && i <= mm[l] && w < wpr)
+              codes[(pp[l] * code_rows + (i - 1)) * wpr + w] = word;
+          }
+      for (int l = 0; l < 32; ++l) {
+        if (live[l] && cfin[l] >= 0 && cfin[l] < C && i == mm[l])
+          out[pp[l]] = band_lane_pick(L[l], cfin[l]);
+        chr[l] = band_lane_char_out(L[l]);
+        v[l] = S[l].at(gl_of(l) == G - 1 ? i + b_next : i);
+      }
+      for (int l = 0; l < 32; ++l) {
+        band_lane_slide(L[l], gl_of(l) == G - 1 ? v[l] : chr[down(l, 1)]);
+        apv[l] = ach[l];
+        ach[l] = v[l - gl_of(l)];
+      }
+    }
+  }
+}
+
+template <bool TRANS, bool TRACE>
+static int rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
+                         const int32_t* n, int32_t* out, uint32_t* codes,
+                         int64_t B, int64_t a_stride, int64_t b_stride,
+                         int unit_k, int64_t code_rows, BandCosts k,
+                         int threads, int cells, int lanes) {
+  switch (cells) {
+#define TA_BAND_CASE(CC)                                                  \
+  case CC:                                                                \
+    rehearse_band_warp<TRANS, TRACE, CC>(a, b, m, n, out, codes, B,       \
+                                         a_stride, b_stride, unit_k,      \
+                                         code_rows, k, lanes);            \
+    return 0;
+    TA_BAND_CASE(3)
+    TA_BAND_CASE(5)
+    TA_BAND_CASE(9)
+    TA_BAND_CASE(17)
+#undef TA_BAND_CASE
+    default:
+      rehearse_band_wide<TRANS, TRACE>(a, b, m, n, out, codes, B, a_stride,
+                                       b_stride, unit_k, code_rows, k,
+                                       threads);
+      return 0;
+  }
+}
+
+// Same arguments as ta_band_distance, host pointers, no stream; refuses
+// what the launcher refuses.
 extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                 const void* n, void* out, void* codes,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
                                 int unit_k, int64_t code_rows, int mc, int gc,
-                                int sgc, int tc, int transpose, int threads) {
-  if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31)) return 1;
-  if (band_state_bytes(2 * unit_k + 1) > 232448) return 1;
+                                int sgc, int tc, int transpose, int threads,
+                                int cells, int lanes) {
+  if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31) ||
+      a_stride < 1 || b_stride < a_stride)
+    return 1;
+  const int W = 2 * unit_k + 1;
+  if (cells != 0) {
+    if (!band_warp_map_ok(cells, lanes, W) || threads > TA_BAND_WARP_THREADS)
+      return 1;
+  } else if (band_state_bytes(W) > 232448) {
+    return 1;
+  }
+  if (B <= 0) return 0;
   const uint8_t* ap = (const uint8_t*)a;
   const uint8_t* bp = (const uint8_t*)b;
   const int32_t* mp = (const int32_t*)m;
   const int32_t* np_ = (const int32_t*)n;
   int32_t* op = (int32_t*)out;
   uint32_t* cp = (uint32_t*)codes;
-  const BandCosts costs{mc, gc, sgc, tc};
-  if (cp == nullptr) {
-    if (transpose)
-      rehearse_band<true, false>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                 b_stride, unit_k, code_rows, costs, threads);
-    else
-      rehearse_band<false, false>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                  b_stride, unit_k, code_rows, costs, threads);
-  } else {
-    if (transpose)
-      rehearse_band<true, true>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                b_stride, unit_k, code_rows, costs, threads);
-    else
-      rehearse_band<false, true>(ap, bp, mp, np_, op, cp, B, a_stride,
-                                 b_stride, unit_k, code_rows, costs, threads);
-  }
-  return 0;
+  const BandCosts k{mc, gc, sgc, tc};
+  if (cp == nullptr)
+    return transpose ? rehearse_band<true, false>(ap, bp, mp, np_, op, cp, B,
+                                                  a_stride, b_stride, unit_k,
+                                                  code_rows, k, threads, cells,
+                                                  lanes)
+                     : rehearse_band<false, false>(ap, bp, mp, np_, op, cp, B,
+                                                   a_stride, b_stride, unit_k,
+                                                   code_rows, k, threads,
+                                                   cells, lanes);
+  return transpose ? rehearse_band<true, true>(ap, bp, mp, np_, op, cp, B,
+                                               a_stride, b_stride, unit_k,
+                                               code_rows, k, threads, cells,
+                                               lanes)
+                   : rehearse_band<false, true>(ap, bp, mp, np_, op, cp, B,
+                                                a_stride, b_stride, unit_k,
+                                                code_rows, k, threads, cells,
+                                                lanes);
 }
 
 // One work item of myers_blocked.cu: the 32 lanes of the warp run each

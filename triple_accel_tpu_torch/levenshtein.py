@@ -449,7 +449,9 @@ def levenshtein_k_batch(
         k, max_ks + (n_len - m_len) * gc_ + np.where(n_len == m_len, 0, sgc_)
     )
     uks = np.minimum(np.maximum(max_ks - sgc_, 0) // gc_, n_len)
-    feasible = (n_len - m_len) <= uks
+    # a negative threshold admits no pair (max_ks < 0): the reference's
+    # -1 / None, and no negative per-pair k reaches a kernel
+    feasible = ((n_len - m_len) <= uks) & (max_ks >= 0)
     uks = np.where(feasible, uks, 0)
     unit_k = int(uks.max(initial=0))
     swaps: List[bool] = swaps_arr.tolist()

@@ -15,9 +15,13 @@ restricted to the band |j - i| <= unit_k, W = 2*unit_k + 1 cells a row;
 {0 sub, 1 consume-b, 2 consume-a, 3 transpose}, which
 `band_scan.walk_packed_traceback` walks back on the device.
 
-One kernel serves the two regimes the TPU split into an untiled and a
-row-strip tiled kernel: the strings stream from global memory, so length is
-unbounded, and the band lives in the block's shared memory, which bounds W.
+One kernel source serves the two regimes the TPU split into an untiled and
+a row-strip tiled kernel: the strings stream from global memory, so length
+is unbounded.  The band bounds the kernel's regime: up to
+`MAX_WARP_BAND` cells a group of lanes of one warp holds a pair's band in
+registers (`band_plan` picks the cells a lane, the lanes a pair and the
+threads a block from the band and the batch); wider bands, up to
+`MAX_UNIT_K`, run one pair a block with the band in shared memory.
 
 Layout (the port's own, pair order): `a_t` uint8 [B, max_m], `b_t` uint8
 [B, max_m + W] with each pair's b at byte offset unit_k and 0 pads (a pad
@@ -36,6 +40,7 @@ from .band_scan import INF, band_scan_distance, code_words
 
 __all__ = [
     "MAX_UNIT_K",
+    "MAX_WARP_BAND",
     "band_plan",
     "select_band_dtype",
     "prepare_band_tensors",
@@ -49,15 +54,33 @@ CostsT = Tuple[int, int, int, int, bool]
 # what one thread block of an H100 may use (227 KB of the SM's 256 KB)
 SMEM_BYTES_PER_BLOCK = 232_448
 MAX_THREADS = 1024
-# Band cells a thread walks serially when the block is not yet full.  One
-# value for every band and batch, a middle point of
-# `benches/band_sweep.py` (H100 80GB HBM3, 700 W): at band 65 one warp a
-# pair (4 or more) is best, 72.7 ms against 108.1 at 2; a full card of long
-# pairs wants more cells a thread (band 513: 198.4 ms at 4, 108.3 at 16);
-# a batch too small to fill the card wants fewer (256 pairs, band 129:
-# 3.02 ms at 4, 2.49 at 2).  A rule that looks at the batch is not written
-# yet.
-CELLS_PER_THREAD = 4
+SM_COUNT = 132  # the H100 SXM's SMs: what "fills the card" is counted in
+# The warp regime (csrc/band_distance.cu band_kernel<TRANS, TRACE, C>):
+# cells a lane (the kernel's instantiations), lanes a pair (one group of a
+# warp), threads a block at most.
+WARP_CELLS = (3, 5, 9, 17)
+WARP_LANES = (8, 16, 32)
+WARP_MAX_THREADS = 256
+MAX_WARP_BAND = max(WARP_LANES) * max(WARP_CELLS)  # 544 cells
+# The lane map the plan takes, from `benches/band_sweep.py` (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md).  A batch that fills the card takes the
+# map with the fewest cells at or above the band (ties: fewer lanes, so
+# longer runs a lane) in blocks of FULL_THREADS: band 65, 196,608 pairs:
+# 8 lanes x 9 cells 16.89 ms against 22.60 at 16 x 5 and 36.15 at 32 x 3;
+# band 513: 32 x 17 at 256 threads 37.55 ms, 39.11 at 128; the threads
+# move 0-5% elsewhere.  A batch whose warps at that map stay under
+# SMALL_BATCH_WARPS takes 32 lanes a pair and the fewest cells a lane that
+# hold the band (the shortest chain a row) in blocks of SMALL_THREADS, so
+# that its few warps spread over the SMs: 256 pairs at band 129 (traced)
+# 1.79 ms at 32 x 5 and 64 threads, 1.97 at 16 x 9, 2.94 at 8 x 17, 2.20
+# at 32 x 5 and 256 threads.
+FULL_THREADS = 256
+SMALL_THREADS = 64
+SMALL_BATCH_WARPS = 4 * SM_COUNT
+# The wide regime (band_wide_kernel): band cells a thread walks serially,
+# threads rounded up to whole warps, at most 1024 (not swept past 544
+# cells).
+WIDE_CELLS_PER_THREAD = 4
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -65,9 +88,9 @@ def _round_up(x: int, mult: int) -> int:
 
 
 def _smem_bytes(W: int) -> int:
-    """Shared memory of one pair's block: 6 rows of W ints (three of D, two
-    of the vertical-gap state, one transposition scratch), one word per
-    warp for the scan, one code byte a cell."""
+    """Shared memory of one pair's block in the wide regime: 6 rows of W
+    ints (three of D, two of the vertical-gap state, one transposition
+    scratch), one word per warp for the scan, one code byte a cell."""
     return (6 * W + 32) * 4 + ((W + 3) & ~3)
 
 
@@ -81,34 +104,74 @@ def _max_unit_k() -> int:
 MAX_UNIT_K = _max_unit_k()  # 4096: W = 8193, 6 * W ints = 192 KB
 
 
-def band_plan(max_m: int, unit_k: int, trace: bool = False) -> Optional[dict]:
-    """How the band kernel runs a batch, or None when it cannot.
+def _warp_map(W: int, batch: Optional[int]) -> Tuple[int, int, int]:
+    """(cells a lane, lanes a pair, threads a block) of the warp regime."""
+    maps = [(g * c, g, c) for c in WARP_CELLS for g in WARP_LANES
+            if g * c >= W]
+    _, lanes, cells = min(maps)
+    if batch is not None and batch * lanes < SMALL_BATCH_WARPS * 32:
+        lanes = max(WARP_LANES)
+        cells = min(c for c in WARP_CELLS if lanes * c >= W)
+        return cells, lanes, SMALL_THREADS
+    return cells, lanes, FULL_THREADS
 
-    The limit is Hopper's shared memory, not string length: the band state
-    of one pair (6 * W ints) must fit the 227 KB a block may use, so
-    unit_k <= 4096; the strings stream from global memory, so `max_m` does
-    not bound the plan (it sizes the traced kernel's code rows only).
-    Threads: one for every CELLS_PER_THREAD band cells, rounded up to whole
-    warps, at most 1024; a thread then walks ceil(W / threads) cells of
-    each row in registers and the rest of the row exchange goes through
-    shared memory and one warp scan.
+
+def band_plan(max_m: int, unit_k: int, trace: bool = False,
+              batch: Optional[int] = None) -> Optional[dict]:
+    """How the band kernel runs a batch of `batch` pairs (None: a batch
+    that fills the card), or None when it cannot.
+
+    The limit is the band, not string length: the strings stream from
+    global memory, so `max_m` does not bound the plan (it sizes the traced
+    kernel's code rows only).  Up to MAX_WARP_BAND cells the warp regime
+    runs (`regime` "warp"): `lanes_per_pair` lanes of one warp hold a
+    pair's band in registers, `cells_per_lane` consecutive cells a lane,
+    `threads` threads a block.  Past it the wide regime (`regime` "wide"):
+    one pair a block of `threads` threads, `cells_per_lane` cells a thread,
+    the band state (6 * W ints) in the block's shared memory, which must
+    fit the 227 KB a block may use: unit_k <= MAX_UNIT_K.
     """
     if unit_k < 0 or max_m < 0:
         return None
     W = 2 * unit_k + 1
-    smem = _smem_bytes(W)
-    if smem > SMEM_BYTES_PER_BLOCK:
-        return None
-    threads = min(MAX_THREADS,
-                  _round_up(-(-W // CELLS_PER_THREAD), 32))
-    return {
-        "threads": threads,
-        "cells_per_thread": -(-W // threads),
-        "smem_bytes": smem,
-        "code_words": code_words(W) if trace else 0,
-        "code_bytes_per_pair": max(max_m, 1) * code_words(W) * 4
-        if trace else 0,
-    }
+    if W <= MAX_WARP_BAND:
+        cells, lanes, threads = _warp_map(W, batch)
+        plan = {"regime": "warp", "cells_per_lane": cells,
+                "lanes_per_pair": lanes, "warps_per_pair": 1,
+                "threads": threads, "pairs_per_block": threads // lanes,
+                "smem_bytes": 0}
+    else:
+        smem = _smem_bytes(W)
+        if smem > SMEM_BYTES_PER_BLOCK:
+            return None
+        threads = min(MAX_THREADS,
+                      _round_up(-(-W // WIDE_CELLS_PER_THREAD), 32))
+        plan = {"regime": "wide", "cells_per_lane": -(-W // threads),
+                "lanes_per_pair": threads, "warps_per_pair": threads // 32,
+                "threads": threads, "pairs_per_block": 1,
+                "smem_bytes": smem}
+    plan["code_words"] = code_words(W) if trace else 0
+    plan["code_bytes_per_pair"] = (max(max_m, 1) * code_words(W) * 4
+                                   if trace else 0)
+    return plan
+
+
+def _check_plan(plan: dict, W: int) -> None:
+    """A plan handed to a wrapper (band_plan's, or one a sweep made) is one
+    the kernel takes."""
+    threads = plan["threads"]
+    if plan["regime"] == "warp":
+        ok = (plan["cells_per_lane"] in WARP_CELLS
+              and plan["lanes_per_pair"] in WARP_LANES
+              and plan["cells_per_lane"] * plan["lanes_per_pair"] >= W
+              and threads % 32 == 0 and 32 <= threads <= WARP_MAX_THREADS)
+    else:
+        ok = (plan["regime"] == "wide" and threads % 32 == 0
+              and 32 <= threads <= MAX_THREADS
+              and _smem_bytes(W) <= SMEM_BYTES_PER_BLOCK)
+    if not ok:
+        raise ValueError(f"the band kernel does not take the plan {plan} "
+                         f"at band {W}")
 
 
 def select_band_dtype(
@@ -218,7 +281,7 @@ def from_reference_batch(a_t: np.ndarray, b_t: np.ndarray, m: np.ndarray,
 
 
 def _check_inputs(a_t, b_t, m, n, unit_k: int, costs_t: CostsT) -> int:
-    if band_plan(a_t.shape[1] if a_t.dim() == 2 else 0, unit_k) is None:
+    if band_plan(0, unit_k) is None:
         raise ValueError(
             f"unit_k={unit_k} exceeds the band plan (unit_k <= {MAX_UNIT_K})")
     W = 2 * unit_k + 1
@@ -242,7 +305,16 @@ def _check_inputs(a_t, b_t, m, n, unit_k: int, costs_t: CostsT) -> int:
     return W
 
 
-def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool):
+def _plan_for(a_t, unit_k: int, trace: bool, plan: Optional[dict]) -> dict:
+    B, rows = a_t.shape
+    if plan is None:
+        return band_plan(rows, unit_k, trace, batch=B)
+    _check_plan(plan, 2 * unit_k + 1)
+    return plan
+
+
+def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool,
+            plan: dict):
     """Launch the CUDA band kernel; (dist, codes or None)."""
     from ..utils.build import check_launch, load_kernels
 
@@ -250,11 +322,10 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool):
     W = 2 * unit_k + 1
     tensors = [t.contiguous() for t in (a_t, b_t, m, n)]
     B, rows = a_t.shape
-    plan = band_plan(rows, unit_k, trace)
     out = torch.empty(B, dtype=torch.int32, device=a_t.device)
     codes = None
     if trace:
-        codes = torch.empty((B, rows, plan["code_words"]), dtype=torch.int32,
+        codes = torch.empty((B, rows, code_words(W)), dtype=torch.int32,
                             device=a_t.device)
     mc, gc, sgc, tc, allow_transpose = costs_t
     with torch.cuda.device(a_t.device):
@@ -264,31 +335,35 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool):
             codes.data_ptr() if trace and B else None, B,
             tensors[0].shape[1], tensors[1].shape[1], unit_k, rows,
             mc, gc, sgc, tc, int(bool(allow_transpose)),
-            plan["threads"], stream,
+            plan["threads"],
+            plan["cells_per_lane"] if plan["regime"] == "warp" else 0,
+            plan["lanes_per_pair"], stream,
         )
     check_launch(lib, code, "band_trace" if trace else "band_distance")
     return out, codes
 
 
 def band_distance(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
-                  n: torch.Tensor, *, unit_k: int,
-                  costs_t: CostsT) -> torch.Tensor:
+                  n: torch.Tensor, *, unit_k: int, costs_t: CostsT,
+                  plan: Optional[dict] = None) -> torch.Tensor:
     """Banded general-cost distances, int32 [B] in pair order; >= INF where
     the pair's final cell lies outside what the band reaches.
 
     CUDA tensors launch the hand-written kernel (built at first use) and
     count one launch in `band_distance.launches`; a build or launch
     failure raises.  Every m must be <= max_m (the kernel walks m rows of
-    its pair and does not look at max_m).  CPU tensors — and only those —
-    take the plain PyTorch version.
+    its pair and does not look at max_m).  `plan`: `band_plan`'s for this
+    batch when None; a sweep or a check may hand another one the kernel
+    takes.  CPU tensors — and only those — take the plain PyTorch version.
     """
     _check_inputs(a_t, b_t, m, n, unit_k, costs_t)
+    plan = _plan_for(a_t, unit_k, False, plan)
     if a_t.device.type == "cpu":
         return band_scan_distance(a_t, b_t, m, n, unit_k=unit_k,
                                   costs_t=costs_t, trace_on=False)[0]
     if a_t.device.type != "cuda":
         raise ValueError(f"unsupported device {a_t.device}")
-    out, _ = _launch(a_t, b_t, m, n, unit_k, costs_t, False)
+    out, _ = _launch(a_t, b_t, m, n, unit_k, costs_t, False, plan)
     if a_t.shape[0]:
         band_distance.launches += 1
     return out
@@ -298,23 +373,25 @@ band_distance.launches = 0
 
 
 def band_trace(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
-               n: torch.Tensor, *, unit_k: int, costs_t: CostsT):
+               n: torch.Tensor, *, unit_k: int, costs_t: CostsT,
+               plan: Optional[dict] = None):
     """Banded distances and packed argmin codes: (dist int32 [B], codes
     int32 [B, max_m, ceil(W / 16)]).  Only code rows 0..m-1 of a pair are
     defined.  The codes stay on the device for
     `band_scan.walk_packed_traceback`.
 
     CUDA tensors launch the hand-written kernel and count one launch in
-    `band_trace.launches`; CPU tensors — and only those — take the plain
-    PyTorch version.
+    `band_trace.launches`; `plan` as in `band_distance`.  CPU tensors — and
+    only those — take the plain PyTorch version.
     """
     _check_inputs(a_t, b_t, m, n, unit_k, costs_t)
+    plan = _plan_for(a_t, unit_k, True, plan)
     if a_t.device.type == "cpu":
         return band_scan_distance(a_t, b_t, m, n, unit_k=unit_k,
                                   costs_t=costs_t, trace_on=True)
     if a_t.device.type != "cuda":
         raise ValueError(f"unsupported device {a_t.device}")
-    out, codes = _launch(a_t, b_t, m, n, unit_k, costs_t, True)
+    out, codes = _launch(a_t, b_t, m, n, unit_k, costs_t, True, plan)
     if a_t.shape[0]:
         band_trace.launches += 1
     return out, codes
