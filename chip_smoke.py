@@ -737,34 +737,88 @@ def check_band_kernels(dev):
 
 # the blocked distance kernel's checks: (largest needle, one full-byte
 # needle in the batch): the word count a lane the plan picks at each of
-# 1, 2, 4, 6, 10, two strips at 10, three strips at 2 (full byte)
-BLOCKED_CHECKS = ((2000, False), (4000, False), (8000, False),
+# 1, 2, 3, 4, 6, 8, 12, 20, two strips at 20, two strips at 6 (full byte)
+BLOCKED_CHECKS = ((1000, False), (2000, False), (3000, False),
+                  (4000, False), (6000, False), (8000, False),
                   (12_000, False), (20_000, False), (40_000, False),
                   (9000, True))
 BLOCKED_CHECK_PAIRS, BLOCKED_CHECK_COLS = 24, 1000
 # the blocked search kernel's checks: (needle length, a full-byte needle
 # beside the ACGT one, the (damerau, anchored) modes): the main path's
-# needle in every mode, and two strips at two words a lane with the
+# needle in every mode, and two strips at 32 lanes x 6 words with the
 # restricted-Damerau seeds crossing them
 BLOCKED_SEARCH_CHECKS = (
     (LONG_NEEDLE_LEN, False,
      ((False, False), (False, True), (True, False), (True, True))),
-    (4200, True, ((True, False),)))
+    (7000, True, ((True, False),)))
+# K6's lane maps (blocked_map_cases): a haystack of BLOCKED_MAP_BYTES cut
+# into BLOCKED_MAP_SEGS segments behind a ragged halo, BLOCKED_MAP_WARPS
+# warps a block, so the last block holds one segment: the last warp of a
+# block empty (32 lanes) or a warp's groups all but one empty (fewer)
+BLOCKED_MAP_BYTES, BLOCKED_MAP_SEGS = 700, 9
+BLOCKED_MAP_HALO, BLOCKED_MAP_WARPS = 37, 2
+
+
+def blocked_map_cases():
+    """(words a lane, lanes a segment, needle length) for every lane map of
+    the blocked kernel's search mode at its edges: one word under a
+    group's share (one strip, the top lane a word short) and one word over
+    a strip (two strips, the second holding one word of its lane 0); at 4
+    lanes also one word under and over a lane's share."""
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+
+    cases = []
+    for w in mc.WPT_CHOICES:
+        for g in mc.LANE_CHOICES:
+            words = {g * w - 1, g * w + 1}
+            if g == mc.LANE_CHOICES[0]:
+                words |= {w - 1, w + 1}
+            cases += [(w, g, 32 * nw - 3 * (nw % 3)) for nw in sorted(words)
+                      if nw >= 1]
+    return cases
+
+
+def blocked_map_input(rng, m: int, wpt: int, lanes: int, n: int):
+    """Two needles of m bytes (ACGT; a NUL byte in the first) and an ACGT
+    haystack of n bytes starting with NUL: windows of the first needle's
+    copy around adjacent swaps at its first word edge, its first lane edge
+    and its first strip edge (each swap a transposition whose seeds cross
+    that edge), planted one after the other, the whole copy when it fits."""
+    needles = ACGT[rng.integers(0, 4, (2, m))]
+    needles[0, m // 2] = 0
+    hay = ACGT[rng.integers(0, 4, n)]
+    copy = needles[0].copy()
+    edges = [e for e in (31, 32 * wpt - 1, 32 * wpt * lanes - 1)
+             if e + 1 < m]
+    for e in edges:
+        copy[e], copy[e + 1] = copy[e + 1], copy[e]
+    if m + 10 <= n:
+        hay[5: 5 + m] = copy
+    else:
+        pos = 5
+        for e in sorted(set(edges)):
+            lo = max(e - 40, 0)
+            win = copy[lo: e + 40][: max(n - pos, 0)]
+            hay[pos: pos + len(win)] = win
+            pos += len(win) + 7
+    hay[0] = 0
+    return needles, hay
 
 
 def blocked_distance_cases(rng, n_pairs: int, max_m: int, full_byte: bool):
     """Pairs for K5 against its plain version.  Needle lengths on both
-    sides of a 64-bit word, of a lane's words and of a strip at the word
+    sides of a 32-bit word, of a lane's words and of a strip at the word
     count a lane the plan picks for `max_m`, up to `max_m`; texts of at
     most BLOCKED_CHECK_COLS bytes (the plain version pays one step a
     column), edited copies of the needle's start, so long needles meet
     short texts; NUL bytes; an empty needle; with `full_byte`, one needle
     over all 256 byte values.  Needles may be longer than their texts."""
-    from triple_accel_tpu_torch.ops.myers_chunked import LANES, blocked_plan
+    from triple_accel_tpu_torch.ops.myers_chunked import (
+        LANES, WORD, blocked_plan)
 
-    wpt, _ = blocked_plan(max_m, 257 if full_byte else 6)
-    lane, strip = 64 * wpt, 64 * wpt * LANES
-    edges = [1, 63, 64, 65, lane - 1, lane, lane + 1, strip - 1, strip,
+    wpt = blocked_plan(max_m, 257 if full_byte else 6)["words_per_lane"]
+    lane, strip = WORD * wpt, WORD * wpt * LANES
+    edges = [1, 31, 32, 33, lane - 1, lane, lane + 1, strip - 1, strip,
              strip + 1, max_m]
     lengths = sorted({x for x in edges if 0 < x <= max_m})
     lengths += rng.integers(1, max_m + 1,
@@ -785,11 +839,14 @@ def blocked_distance_cases(rng, n_pairs: int, max_m: int, full_byte: bool):
 def check_blocked_kernels(dev):
     """K5 and K6 against their plain versions on the card, exactly.  K5:
     the batches of BLOCKED_CHECKS under unit and rDamerau costs.  K6: a
-    3,000-byte ACGT needle, and a 4,200-byte one beside a full-byte needle
-    (two strips at two words a lane), over a 1 MiB haystack with NUL bytes
+    3,000-byte ACGT needle, and a 7,000-byte one beside a full-byte needle
+    (two strips at 6 words a lane), over a 1 MiB haystack with NUL bytes
     and planted copies, unit and rDamerau, anchored and not, unanchored
     over segments whose owned length is not a multiple of 4
-    (BLOCKED_SEARCH_CHECKS: the plain version pays a step a column)."""
+    (BLOCKED_SEARCH_CHECKS: the plain version pays a step a column); then
+    every lane map at its edges (blocked_map_cases), both cost models in
+    turn, every fifth case anchored, over segments that leave the last
+    block of BLOCKED_MAP_WARPS warps partly empty."""
     from triple_accel_tpu_torch.ops import myers_chunked as mc
     from triple_accel_tpu_torch.ops.myers_search import prepare_myers_needles
     from triple_accel_tpu_torch.ops.search_common import window_span
@@ -845,17 +902,42 @@ def check_blocked_kernels(dev):
             check(err == 0, f"blocked_search != plain at m={m} "
                             f"damerau={damerau} anchored={anchored}")
             s_cases += 1
+    n = BLOCKED_MAP_BYTES
+    for q, (wpt, lanes, m) in enumerate(blocked_map_cases()):
+        needles, hay = blocked_map_input(rng, m, wpt, lanes, n)
+        nd = prepare_myers_needles(list(needles), m, device=dev)
+        anchored = q % 5 == 4
+        own = n if anchored else -(-n // BLOCKED_MAP_SEGS)
+        kw = dict(own_len=own, halo=0 if anchored else BLOCKED_MAP_HALO,
+                  anchored=anchored, damerau=q % 2 == 1)
+        hay_d = torch.from_numpy(hay).to(dev)
+        plan = {"words_per_lane": wpt, "lanes": lanes,
+                "warps": BLOCKED_MAP_WARPS}
+        got = mc.blocked_search(hay_d, nd, plan=plan, **kw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64)
+                   - mc.blocked_search_plain(hay_d, nd, **kw)
+                   .to(torch.int64)).abs().max())
+        s_worst = max(s_worst, err)
+        check(err == 0, f"blocked_search != plain at the map {lanes} lanes "
+                        f"x {wpt} words, m={m}, {kw}")
+        s_cases += 1
     return (d_cases, worst), (s_cases, s_worst)
 
 
 # the cost models of benches/tpu_fuzz.py:22 (unit, rDamerau, affine, and
 # affine with weighted transpositions)
 FUZZ_COSTS = ((1, 1, 0, None), (1, 1, 0, 1), (2, 1, 2, None), (3, 2, 1, 2))
-# K7's checks: a needle length at each row count a lane (1, 2, 4, 8, 16
-# rows: up to 32, 64, 128, 256, 512 chars) over a 256 KiB haystack cut
-# into ragged segments (the plain version pays a step a column of a
-# segment, whatever the haystack's length)
-DIAG_CHECK_LENS = (24, 33, 100, 200, 512)
+# K7's checks: needle lengths on both sides of the plan's map edges (24 /
+# 25: 4 lanes x 6 / x 8 rows; 33; 48 / 49: 4 x 12 / 4 x 16; 96 / 97: 8 x 12
+# / 8 x 16; 200: 16 x 16; 385 and 512: 32 x 16, the cap) over a 256 KiB
+# haystack cut into ragged segments (the plain version pays a step a
+# column of a segment, whatever the haystack's length); then every lane
+# map at its edges
+# (diag_map_cases) over DIAG_MAP_BYTES in DIAG_MAP_SEGS segments,
+# DIAG_MAP_WARPS warps a block, so the last block holds one segment
+DIAG_CHECK_LENS = (24, 25, 33, 48, 49, 96, 97, 200, 385, 512)
+DIAG_MAP_BYTES, DIAG_MAP_SEGS, DIAG_MAP_WARPS = 800, 9, 2
 DIAG_CHECK_BYTES, DIAG_CHECK_OWN = 1 << 18, 509
 # K8's checks: (needle length, cost models); segments of 2,500 owned
 # columns behind a halo of a window span: every segment spans three or
@@ -916,12 +998,51 @@ def _search_err(got, ref) -> int:
     return err
 
 
+def diag_map_cases():
+    """(rows a lane, lanes a segment, needle length) for every lane map of
+    K7 at its edges: the group's top lane full (G * R rows) and holding one
+    row ((G - 1) * R + 1); at 4 lanes also one row under and over a
+    lane's share; lengths up to K7_MAX_NEEDLE and only where G is the
+    fewest lanes that hold them at R (the plan's rule)."""
+    from triple_accel_tpu_torch.ops import search_diag as sd
+
+    cases = []
+    for r in sd.ROW_CHOICES:
+        for g in sd.LANE_CHOICES:
+            lens = {g * r, (g - 1) * r + 1}
+            if g == sd.LANE_CHOICES[0]:
+                lens |= {r - 1, r + 1}
+            cases += [(r, g, m) for m in sorted(lens)
+                      if 1 <= m <= sd.K7_MAX_NEEDLE
+                      and g == next(x for x in sd.LANE_CHOICES if x * r >= m)]
+    return cases
+
+
+def diag_map_input(rng, m: int, rows: int, lanes: int, n: int):
+    """An ACGT needle of m bytes (a NUL byte in it) and an ACGT haystack of
+    n bytes starting with NUL bytes, holding copies of the needle with
+    adjacent swaps across the first lane edge (rows R, R + 1) and the top
+    lane's first edge (rows (G - 1) * R, (G - 1) * R + 1): each swap a
+    transposition that reads row j - 2 from the lane below."""
+    hay, needle = search_check_input(rng, n, m, 3, max(1, m // 16))
+    copy = needle.copy()
+    for e in {rows - 1, (lanes - 1) * rows - 1}:
+        if 0 <= e and e + 1 < m:
+            copy[e], copy[e + 1] = copy[e + 1], copy[e]
+    for pos in (n // 3, (2 * n) // 3):
+        if pos + m <= n:
+            hay[pos: pos + m] = copy
+    return hay, needle
+
+
 def check_search_diag_kernel(dev):
     """K7 against its plain version on the card, exactly: every needle
-    length of DIAG_CHECK_LENS (each row count a lane) under two of the four
-    cost models each, unanchored over ragged segments, then anchored;
-    NUL bytes in the needle and at the haystack's start; k at the end-0
-    candidate's cost m*gap + start_gap, so that candidate is in."""
+    length of DIAG_CHECK_LENS under two of the four cost models each,
+    unanchored over ragged segments, then anchored; NUL bytes in the needle
+    and at the haystack's start; k at the end-0 candidate's cost m*gap +
+    start_gap, so that candidate is in.  Then every lane map at its edges
+    (diag_map_cases), the four cost models in turn, every fifth case
+    anchored."""
     from triple_accel_tpu_torch.ops import search_diag as sd
     from triple_accel_tpu_torch.ops.search_common import window_span
 
@@ -934,7 +1055,7 @@ def check_search_diag_kernel(dev):
         for c in (FUZZ_COSTS[ci % 4], FUZZ_COSTS[(ci + 1) % 4]):
             ct = fuzz_costs_t(c)
             k = m * ct[1] + ct[2]
-            for anchored in ((False, True) if ci in (0, 4) else (False,)):
+            for anchored in ((False, True) if ci in (0, 9) else (False,)):
                 if anchored:
                     it = min(m + max(0, k - ct[2]) // ct[1], len(hay))
                     halo, own = 0, it
@@ -951,6 +1072,30 @@ def check_search_diag_kernel(dev):
                 check(err == 0, f"search_diag != plain at m={m} costs={c} "
                                 f"anchored={anchored}")
                 cases += 1
+    n = DIAG_MAP_BYTES
+    for q, (rows, lanes, m) in enumerate(diag_map_cases()):
+        hay, needle = diag_map_input(rng, m, rows, lanes, n)
+        ct = fuzz_costs_t(FUZZ_COSTS[q % 4])
+        k = m * ct[1] + ct[2]
+        anchored = q % 5 == 4
+        if anchored:
+            it = min(m + max(0, k - ct[2]) // ct[1], n)
+            kw = dict(own_len=it, halo=0, costs_t=ct, anchored=True)
+        else:
+            it = n
+            kw = dict(own_len=-(-n // DIAG_MAP_SEGS),
+                      halo=window_span(m, k, ct[1], ct[2]), costs_t=ct)
+        hay_d = torch.from_numpy(hay[:it].copy()).to(dev)
+        nd = torch.from_numpy(needle).to(dev)
+        plan = {"rows_per_lane": rows, "lanes": lanes,
+                "warps": DIAG_MAP_WARPS}
+        got = sd.search_diag(hay_d, nd, plan=plan, **kw)
+        torch.cuda.synchronize()
+        err = _search_err(got, sd.search_diag_plain(hay_d, nd, **kw))
+        worst = max(worst, err)
+        check(err == 0, f"search_diag != plain at the map {lanes} lanes x "
+                        f"{rows} rows, m={m}, {kw}")
+        cases += 1
     return cases, worst
 
 
@@ -1944,7 +2089,8 @@ def run_blocked_distance(dev, scale: float, native_loaded: bool):
     return {
         "name": "blocked_distance", "route": "cuda",
         "source": "triple_accel_tpu_torch/csrc/myers_blocked.cu",
-        "kernel": "blocked_kernel<WPT, *>, distance mode",
+        "kernel": "blocked_kernel<W, *, false>, distance mode",
+        "map": mc.blocked_plan(BLOCKED_LEN, len(ACGT) + 1),
         "replaces": "triple_accel_tpu/ops/pallas/myers_chunked.py:69",
         "launches": launches_u + launches_r, "max_abs_err": worst,
         "ms": times[False][0], "ms_min": times[False][1],
@@ -2104,10 +2250,13 @@ def run_blocked_search(dev, hay_mb: int, native_loaded: bool):
     bound = k6_bound(n, m, False)
     bound_r = k6_bound(n, m, True)
     bound_a = k6_bound(it_a, m, False)
+    plan_rows = len(set(needle.tolist())) + 1
+    plan = mc.blocked_plan(m, plan_rows, search=True,
+                           segments=-(-n // own_len))
     emit({"phase": "blocked_search", "haystack_bytes": n, "needle_len": m,
           "k": k, "planted": N_PLANTED_LONG,
           "planted_subs": LONG_NEEDLE_SUBS, "halo": halo,
-          "own_len": own_len, "segments": -(-n // own_len),
+          "own_len": own_len, "segments": -(-n // own_len), "map": plan,
           "dispatch": "myers_search_blocked", "launches": launches,
           "matches": {f"{c}_{st.name}": len(r)
                       for (c, st), r in results.items()},
@@ -2136,7 +2285,8 @@ def run_blocked_search(dev, hay_mb: int, native_loaded: bool):
     source = "triple_accel_tpu_torch/csrc/myers_blocked.cu"
     entries = [{
         "name": "blocked_search", "route": "cuda", "source": source,
-        "kernel": "blocked_kernel<WPT, *>, search mode", "regime": "blocked",
+        "kernel": "blocked_kernel<W, *, true>, search mode",
+        "regime": "blocked", "map": plan,
         "replaces": "triple_accel_tpu/ops/pallas/search_myers.py:938",
         "launches": launches, "max_abs_err": worst,
         "ms": times[False][0], "ms_min": times[False][1],
@@ -2148,7 +2298,8 @@ def run_blocked_search(dev, hay_mb: int, native_loaded: bool):
         "bound_ms_rdamerau": bound_r["bound_ms"],
     }, {
         "name": "blocked_search_chunked", "route": "cuda", "source": source,
-        "kernel": "blocked_kernel<WPT, *>, search mode",
+        "kernel": "blocked_kernel<W, *, true>, search mode",
+        "map": mc.blocked_plan(m, plan_rows, search=True, segments=1),
         "regime": f"chunked (anchored, {it_a} columns)",
         "replaces": "triple_accel_tpu/ops/pallas/myers_chunked.py:386",
         "launches": launches_a, "max_abs_err": err_a,
@@ -2294,7 +2445,7 @@ def run_search_general(dev, needle, hay, planted, native_loaded: bool):
     c0, c1 = GENERAL_COSTS
     emit({"phase": "search_general", "haystack_bytes": n, "needle_len": m,
           "k": k, "costs": [list(c) for c in GENERAL_COSTS],
-          "planted": N_PLANTED, "own_len": own_len,
+          "planted": N_PLANTED, "own_len": own_len, "map": sd.diag_plan(m),
           "dispatch": "search_diag", "launches": launches,
           "matches": {f"{c}_{st.name}": len(r)
                       for (c, st), r in results.items()},
@@ -2313,7 +2464,7 @@ def run_search_general(dev, needle, hay, planted, native_loaded: bool):
     return {
         "name": "search_diag", "route": "cuda",
         "source": "triple_accel_tpu_torch/csrc/search_diag.cu",
-        "kernel": "search_diag_kernel<R, *>",
+        "kernel": "search_diag_kernel<R, *>", "map": sd.diag_plan(m),
         "replaces": "triple_accel_tpu/ops/pallas/search_kernel.py:51",
         "launches": launches, "max_abs_err": worst,
         "ms": times[c0][0], "ms_min": times[c0][1], "ms_max": times[c0][2],

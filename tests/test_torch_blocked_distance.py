@@ -68,15 +68,20 @@ def _edited(rng, a, n_edits, alphabet=4, swaps=0):
 
 
 def test_plan_alphabet_and_prep():
+    def wpt_strips(m, rows):
+        pl = mc.blocked_plan(m, rows)
+        assert pl["lanes"] == 32 and pl["warps"] == 1  # a pair: a warp
+        return pl["words_per_lane"], pl["strips"]
+
     assert mc.blocked_plan(0) is None
-    # the main path's 20,000-char pairs: one strip of 10 words a lane
-    assert mc.blocked_plan(20_000, 5) == (10, 1)
-    assert mc.blocked_plan(64, 5) == (1, 1)
-    assert mc.blocked_plan(2049, 5) == (2, 1)
-    assert mc.blocked_plan(50_000, 5) == (10, 3)
-    # a full-byte needle: the table of 257 rows allows 2 words a lane
-    assert mc.blocked_plan(20_000, 257) == (2, 5)
-    assert mc.blocked_plan(3000, 257) == (2, 1)
+    # the main path's 20,000-char pairs: one strip of 20 words a lane
+    assert wpt_strips(20_000, 5) == (20, 1)
+    assert wpt_strips(64, 5) == (1, 1)
+    assert wpt_strips(2049, 5) == (3, 1)
+    assert wpt_strips(50_000, 5) == (20, 3)
+    # a full-byte needle: the table of 257 rows allows 6 words a lane
+    assert wpt_strips(20_000, 257) == (6, 4)
+    assert wpt_strips(3000, 257) == (3, 1)
     rows = np.zeros((3, 40), np.uint8)
     rows[0, :5] = [7, 0, 7, 255, 3]
     rows[1, :3] = [9, 9, 9]

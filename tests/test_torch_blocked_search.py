@@ -158,3 +158,58 @@ def test_long_needle_search_equals_jax_and_native(damerau, anchored):
                                                anchored=anchored)
             assert _as_tuples(got) == list(zip((ends - lens).tolist(),
                                                ends.tolist(), ks.tolist()))
+
+
+def test_blocked_plan_covers_every_word_once():
+    """K6's and K5's plans for needles of 1 to 4,200 chars (4 and 257
+    table rows): every 32-bit word of the needle lies in one slot (strip,
+    lane, word of the lane) and no two words in one; a search's group
+    holds no lane the needle does not need (halving it would not hold the
+    needle at its words a lane) and no map of fewer slots exists; a pair
+    takes the whole warp; the table fits a block.  A plan= override is
+    refused when the kernel is not built for it, when it would leave lanes
+    beyond the needle, or when its table passes a block's shared memory;
+    the main path's needle takes a map with no idle lane, at 32 lanes when
+    it runs as one segment."""
+    for rows in (5, 257):
+        fits = [w for w in mc.WPT_CHOICES
+                if mc._smem_bytes(rows, w) <= mc.SMEM_BYTES]
+        for m in range(1, 4201):
+            nw = -(-m // 32)
+            for search in (False, True):
+                pl = mc.blocked_plan(m, rows, search=search)
+                w, g, ns = pl["words_per_lane"], pl["lanes"], pl["strips"]
+                assert w in fits and g in mc.LANE_CHOICES
+                slots = {(x // (g * w), x % (g * w) // w, x % w)
+                         for x in range(nw)}
+                assert len(slots) == nw and ns == -(-nw // (g * w))
+                assert all(st < ns and ln < g for st, ln, _ in slots)
+                if not search:
+                    assert g == 32 and pl["warps"] == 1
+                elif ns == 1:
+                    assert g == 4 or (g // 2) * w < nw
+                    assert g * w == min(
+                        x * y for x in mc.LANE_CHOICES for y in fits
+                        if x * y >= nw and (x == 4 or (x // 2) * y < nw))
+                    assert 1 <= pl["warps"] <= mc.MAX_WARPS
+    main = mc.blocked_plan(3000, 5, search=True)
+    assert main["lanes"] * main["words_per_lane"] == 96  # 94 words
+    assert -(-94 // main["words_per_lane"]) == main["lanes"]
+    # a lone segment (the anchored search) is latency-bound: most lanes
+    lone = mc.blocked_plan(3000, 5, search=True, segments=1)
+    assert (lone["lanes"], lone["words_per_lane"], lone["warps"]) == (32, 3, 1)
+    ok = {"words_per_lane": 3, "lanes": 32, "warps": 2}
+    assert mc.blocked_plan(3000, 5, search=True, plan=ok)["strips"] == 1
+    for bad in ({"words_per_lane": 5, "lanes": 32, "warps": 1},
+                {"words_per_lane": 3, "lanes": 64, "warps": 1},
+                {"words_per_lane": 3, "lanes": 32, "warps": 9},
+                {"words_per_lane": 20, "lanes": 32, "warps": 1}):
+        with pytest.raises(ValueError, match="does not take"):
+            mc.blocked_plan(3000, 5, search=True, plan=bad)
+    with pytest.raises(ValueError, match="does not take"):  # 257 x 8 words
+        mc.blocked_plan(3000, 257, search=True,
+                        plan={"words_per_lane": 8, "lanes": 16, "warps": 1})
+    with pytest.raises(ValueError, match="does not take"):  # a pair: a warp
+        mc.blocked_plan(3000, 5, plan={"words_per_lane": 12, "lanes": 8,
+                                       "warps": 1})
+

@@ -224,7 +224,7 @@ def test_k5_and_k6_bounds_count_bytes_and_operations():
 
 def test_blocked_distance_cases_cross_the_plan_boundaries():
     """Every batch of the K5 checks: each word count a lane the kernel is
-    built for, strips at 10 and at 2 words a lane; both sides of a lane's
+    built for, strips at 20 and at 6 words a lane; both sides of a lane's
     words and of a strip; short texts; NUL bytes; one full-byte needle."""
     from triple_accel_tpu_torch.ops.myers_chunked import blocked_plan
 
@@ -240,13 +240,14 @@ def test_blocked_distance_cases_cross_the_plan_boundaries():
         assert all((a == 0).any() for a in a_list[1:])  # NUL bytes
         distinct = max(len(set(a.tolist())) for a in a_list)
         assert (distinct == 256) == full_byte
-        wpt, strips = blocked_plan(max_m, distinct + 1)
+        pl = blocked_plan(max_m, distinct + 1)
+        wpt, strips = pl["words_per_lane"], pl["strips"]
         plans.add((wpt, strips > 1))
-        assert {64 * wpt, 64 * wpt + 1} <= set(la)  # a lane's words
+        assert {32 * wpt, 32 * wpt + 1} <= set(la)  # a lane's words
         if strips > 1:
-            assert {2048 * wpt, 2048 * wpt + 1} <= set(la)  # a strip
-    assert {w for w, _ in plans} == {1, 2, 4, 6, 10}
-    assert {(10, True), (2, True)} <= plans
+            assert {1024 * wpt, 1024 * wpt + 1} <= set(la)  # a strip
+    assert {w for w, _ in plans} == {1, 2, 3, 4, 6, 8, 12, 20}
+    assert {(20, True), (6, True)} <= plans
 
 
 def test_general_search_inputs_and_windows():

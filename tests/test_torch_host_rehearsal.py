@@ -79,11 +79,11 @@ def lib(tmp_path_factory):
         [vp] * 5 + [i32, i32, vp, i64, i64, i64, vp, i64, i32])
     lib.ta_rehearse_blocked_search.restype = ctypes.c_int
     lib.ta_rehearse_blocked_search.argtypes = [
-        vp, i64, vp, i32, i32, vp, i32, i32, i64, i64, i64, i32, i32, vp,
-        i64, vp, i64]
+        vp, i64, vp, i32, i32, vp, i32, i32, i32, i32, i64, i64, i64, i32,
+        i32, vp, i64, vp, i64]
     lib.ta_rehearse_search_diag.argtypes = [
-        vp, i64, vp, i32, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp,
-        vp]
+        vp, i64, vp, i32, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32,
+        i32, i32, vp, vp]
     lib.ta_rehearse_flat_search.argtypes = [
         vp, i64, vp, i32, i64, i64, vp, i64, i32, i32, i32, i32, i32, i32,
         vp, vp, vp, i32, i32]
@@ -372,14 +372,14 @@ def _blocked_distance_rehearsal(lib, t, wpt, damerau):
 
 @pytest.mark.parametrize("damerau", [False, True], ids=["unit", "rdamerau"])
 def test_blocked_distance_body_equals_plain_version_and_native(lib, damerau):
-    """Needle lengths on both sides of the word (64 chars), of a lane's
-    words at every built word count (64 * {1, 2, 4, 6, 10}) and of a strip
-    at one word a lane (2048), edited copies with adjacent swaps, NUL
-    bytes, an empty a, and one full-byte needle (its 257-row table allows
-    at most 2 words a lane: the rest run without it)."""
+    """Needle lengths on both sides of the word (32 chars), of a lane's
+    words at every built word count (32 * {1, 2, 3, 4, 6, 8, 12, 20}) and
+    of a strip at one word a lane (1024), edited copies with adjacent
+    swaps, NUL bytes, an empty a, and one full-byte needle (its 257-row
+    table allows at most 6 words a lane: the rest run without it)."""
     rng = np.random.default_rng(77 + damerau)
-    lengths = [1, 63, 64, 65, 127, 129, 255, 257, 383, 385, 639, 641, 2047,
-               2048, 2049, 2100]
+    lengths = [1, 31, 32, 33, 63, 65, 95, 97, 127, 129, 191, 193, 255, 257,
+               383, 385, 639, 641, 1023, 1024, 1025, 1100]
     a_list, b_list = [np.empty(0, np.uint8)], [
         rng.integers(0, 4, 9).astype(np.uint8)]
     for ln in lengths:
@@ -402,15 +402,37 @@ def test_blocked_distance_body_equals_plain_version_and_native(lib, damerau):
            else myers_distance_batch_native(a_list, b_list, 1 << 30))
     assert np.array_equal(np.where(t[2].numpy() == 0, t[3].numpy(), plain),
                           exp)
-    for wpt in (1, 2):
+    for wpt in (1, 2, 3, 4, 6):
         rc, out = _blocked_distance_rehearsal(lib, t, wpt, damerau)
         assert rc == 0 and np.array_equal(out, plain), wpt
-    rc, _ = _blocked_distance_rehearsal(lib, t, 4, damerau)
-    assert rc == 1  # 257 rows x 4 words a lane pass a block's shared memory
+    rc, _ = _blocked_distance_rehearsal(lib, t, 8, damerau)
+    assert rc == 1  # 257 rows x 8 words a lane pass a block's shared memory
     t4 = [x[:-1] for x in t]  # without the full-byte needle
-    for wpt in (4, 6, 10):
+    for wpt in (8, 12, 20):
         rc, out = _blocked_distance_rehearsal(lib, t4, wpt, damerau)
         assert rc == 0 and np.array_equal(out, plain[:-1]), wpt
+
+
+def _blocked_search_rehearsal(lib, hay, needles, m, plan, own, halo,
+                              anchored, damerau):
+    """The K6 body over one launch at the lane map `plan` (words a lane,
+    lanes a segment, warps a block), uint8 hay [it] and needles [num, m];
+    returns rc and the rows [num, it + 1] (pad columns checked unwritten)."""
+    it, num = len(hay), needles.shape[0]
+    codes, rows = mc.alphabet_codes(torch.from_numpy(needles),
+                                    torch.full((num,), m))
+    codes = codes.numpy()
+    nseg = seg_count(it, own)
+    stride = -(-(it + 1) // 4) * 4
+    sstride = -(-(halo + own + 15) // 16) * 16
+    out = np.full((num, stride), -7, np.int32)
+    scratch = np.zeros((num * nseg, sstride), np.uint8)
+    rc = lib.ta_rehearse_blocked_search(
+        hay.ctypes.data, it, needles.ctypes.data, num, m, codes.ctypes.data,
+        rows, plan[0], plan[1], plan[2], own, halo, nseg, int(anchored),
+        int(damerau), out.ctypes.data, stride, scratch.ctypes.data, sstride)
+    assert (out[:, it + 1:] == -7).all()  # pad columns stay unwritten
+    return rc, out[:, : it + 1]
 
 
 @pytest.mark.parametrize("anchored", [False, True],
@@ -420,9 +442,11 @@ def test_blocked_search_body_equals_plain_version_and_native(lib, damerau,
                                                              anchored):
     """Two 2100-char needles in one call, one of them over all 256 bytes
     (NUL included), against a haystack that holds NUL bytes and a planted
-    copy with an adjacent swap: two strips at one word a lane, one at two;
-    unanchored over segments of an owned length that is not a multiple of
-    4 (the scalar edges of the four-column stores)."""
+    copy with an adjacent swap: three strips at 32 lanes x 1 word, two at
+    32 x 2, at 16 x 3 (2 warps a block) and at 8 x 6 (4 warps: the block's
+    last warps hold no segment); unanchored over segments of an
+    owned length that is not a multiple of 4 (the scalar edges of the
+    four-column stores)."""
     rng = np.random.default_rng(5 + 2 * damerau + anchored)
     costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
     m, n, k = 2100, 2600, 30
@@ -443,22 +467,11 @@ def test_blocked_search_body_equals_plain_version_and_native(lib, damerau,
     plain = ms.myers_search_plain(
         torch.from_numpy(h), torch.from_numpy(needles), own_len=own,
         halo=halo, anchored=anchored, damerau=damerau).numpy()
-    codes, rows = mc.alphabet_codes(torch.from_numpy(needles),
-                                    torch.full((2,), m))
-    codes = codes.numpy()
-    nseg = seg_count(it, own)
-    stride = -(-(it + 1) // 4) * 4
-    sstride = -(-(halo + own) // 16) * 16
-    for wpt in (1, 2):
-        out = np.full((2, stride), -7, np.int32)
-        scratch = np.zeros((2 * nseg, sstride), np.uint8)
-        rc = lib.ta_rehearse_blocked_search(
-            h.ctypes.data, it, needles.ctypes.data, 2, m, codes.ctypes.data,
-            rows, wpt, own, halo, nseg, int(anchored), int(damerau),
-            out.ctypes.data, stride, scratch.ctypes.data, sstride)
+    for plan in ((1, 32, 1), (2, 32, 1), (3, 16, 2), (6, 8, 4)):
+        rc, out = _blocked_search_rehearsal(lib, h, needles, m, plan, own,
+                                            halo, anchored, damerau)
         assert rc == 0
-        assert np.array_equal(out[:, : it + 1], plain), wpt
-        assert (out[:, it + 1:] == -7).all()  # pad columns stay unwritten
+        assert np.array_equal(out, plain), plan
     for i in range(2):
         ends, ks, _ = search_all_native(needles[i], hay, k, costs,
                                         anchored=anchored)
@@ -466,6 +479,38 @@ def test_blocked_search_body_equals_plain_version_and_native(lib, damerau,
                if plain[i, j] <= k}
         assert got == dict(zip(ends.tolist(), ks.tolist()))
     assert int(plain[1].min()) <= 2  # the planted copy
+
+
+BLOCKED_MAPS = cs.blocked_map_cases()
+
+
+@pytest.mark.parametrize("wpt", mc.WPT_CHOICES,
+                         ids=[f"w{w}" for w in mc.WPT_CHOICES])
+def test_blocked_lane_maps_equal_plain_version(lib, wpt):
+    """Every lane map of K6 at `wpt` words a lane (4 to 32 lanes a
+    segment), its lanes in turn and its warps in order, at the map's edges
+    (chip_smoke.blocked_map_cases: a group's share one word short, a strip
+    one word over, a lane's share one word under and over): swaps across a
+    word, a lane and a strip edge, segments that leave a block's last warp
+    or a warp's last groups empty, unit and rDamerau, every fifth case
+    anchored; exact against the plain version."""
+    rng = np.random.default_rng(300 + wpt)
+    n = cs.BLOCKED_MAP_BYTES
+    for q, (w, lanes, m) in enumerate(BLOCKED_MAPS):
+        if w != wpt:
+            continue
+        needles, hay = cs.blocked_map_input(rng, m, w, lanes, n)
+        anchored, damerau = q % 5 == 4, q % 2 == 1
+        own = n if anchored else -(-n // cs.BLOCKED_MAP_SEGS)
+        halo = 0 if anchored else cs.BLOCKED_MAP_HALO
+        plain = ms.myers_search_plain(
+            torch.from_numpy(hay), torch.from_numpy(needles), own_len=own,
+            halo=halo, anchored=anchored, damerau=damerau).numpy()
+        rc, out = _blocked_search_rehearsal(
+            lib, hay, needles, m, (w, lanes, cs.BLOCKED_MAP_WARPS), own,
+            halo, anchored, damerau)
+        assert rc == 0
+        assert np.array_equal(out, plain), (lanes, w, m, anchored, damerau)
 
 
 # the general-cost kernels: unit, rDamerau, affine, affine with weighted
@@ -502,6 +547,25 @@ def _geometry(m, k, ct, n, anchored, own):
     return n, min(window_span(m, k, ct[1], ct[2]), n), own
 
 
+def _sd_rehearsal(lib, h, needle, own, halo, anchored, ct, plan):
+    """The K7 body over one launch at the lane map `plan` (rows a lane,
+    lanes a segment, warps a block); (rc, dist, length)."""
+    it, m = len(h), len(needle)
+    od = np.full(it + 1, -7, np.int32)
+    ol = np.full(it + 1, -7, np.int32)
+    rc = lib.ta_rehearse_search_diag(
+        h.ctypes.data, it, needle.ctypes.data, m, own, halo,
+        seg_count(it, own), int(anchored), *ct[:4], int(ct[4]), *plan,
+        od.ctypes.data, ol.ctypes.data)
+    return rc, od, ol
+
+
+def _sd_equal(od, ol, pd, pl):
+    """Distances equal everywhere, lengths where the distance is finite."""
+    fin = pd < bs.INF
+    return np.array_equal(od, pd) and np.array_equal(ol[fin], pl[fin])
+
+
 @pytest.mark.parametrize("m,c,anchored", [
     (24, 2, False), (33, 1, False), (70, 3, True), (130, 4, False),
     (512, 0, False)],
@@ -509,9 +573,10 @@ def _geometry(m, k, ct, n, anchored, own):
          "m130_cheap_mismatch", "m512_unit"])
 def test_search_diag_body_equals_plain_version_and_oracle(lib, m, c,
                                                           anchored):
-    """K7's lanes in turn: every row count a lane (1, 2, 4, 8, 16), ragged
-    segments (their tails need single stores), NUL bytes, and k at the
-    end-0 candidate's cost, so position 0 is a hit."""
+    """K7's lanes in turn at the plan's map (4 lanes x 6 rows, 4 x 12, 8 x
+    12, 16 x 12, 32 x 16; 8 warps a block), ragged segments (their tails
+    need single stores), NUL bytes, and k at the end-0 candidate's cost,
+    so position 0 is a hit."""
     rng = np.random.default_rng(900 + m)
     ct = _gct(GENERAL_COSTS[c])
     needle, hay = _general_search_case(rng, m, 700)
@@ -521,17 +586,13 @@ def test_search_diag_body_equals_plain_version_and_oracle(lib, m, c,
     pd, pl = sd.search_diag_plain(torch.from_numpy(h),
                                   torch.from_numpy(needle), own_len=own,
                                   halo=halo, costs_t=ct, anchored=anchored)
-    od = np.full(it + 1, -7, np.int32)
-    ol = np.full(it + 1, -7, np.int32)
-    rc = lib.ta_rehearse_search_diag(
-        h.ctypes.data, it, needle.ctypes.data, m, own, halo,
-        seg_count(it, own), int(anchored), *ct[:4], int(ct[4]),
-        od.ctypes.data, ol.ctypes.data)
+    pl_ = sd.diag_plan(m)
+    rc, od, ol = _sd_rehearsal(lib, h, needle, own, halo, anchored, ct,
+                               (pl_["rows_per_lane"], pl_["lanes"],
+                                pl_["warps"]))
     assert rc == 0
     pd, pl = pd.numpy(), pl.numpy()
-    assert np.array_equal(od, pd)
-    fin = pd < bs.INF
-    assert np.array_equal(ol[fin], pl[fin])
+    assert _sd_equal(od, ol, pd, pl)
     costs = EditCosts(*GENERAL_COSTS[c])
     exp = levenshtein_search_naive_with_opts(needle, hay, k, SearchType.All,
                                              costs, anchored)
@@ -539,6 +600,45 @@ def test_search_diag_body_equals_plain_version_and_oracle(lib, m, c,
            for p in np.flatnonzero(pd <= k)]
     assert got == [(mt.start, mt.end, mt.k) for mt in exp]
     assert got[0][1] == 0  # the end-0 candidate
+
+
+DIAG_MAPS = cs.diag_map_cases()
+
+
+@pytest.mark.parametrize("rows", sd.ROW_CHOICES,
+                         ids=[f"r{r}" for r in sd.ROW_CHOICES])
+def test_search_diag_lane_maps_equal_plain_version(lib, rows):
+    """Every lane map of K7 at `rows` rows a lane (4 to 32 lanes a
+    segment), its lanes in turn and its warps in order, at the map's edges
+    (chip_smoke.diag_map_cases: the top lane full or holding one row, a
+    lane's share one row under and over): transpositions across the first
+    lane edge and the top lane's, segments that leave a block's last warp
+    or a warp's last groups empty, the four cost models in turn, every
+    fifth case anchored; exact against the plain version."""
+    rng = np.random.default_rng(400 + rows)
+    n = cs.DIAG_MAP_BYTES
+    for q, (r, lanes, m) in enumerate(DIAG_MAPS):
+        if r != rows:
+            continue
+        hay, needle = cs.diag_map_input(rng, m, r, lanes, n)
+        ct = _gct(cs.FUZZ_COSTS[q % 4])
+        k = m * ct[1] + ct[2]
+        anchored = q % 5 == 4
+        if anchored:
+            it = min(m + max(0, k - ct[2]) // ct[1], n)
+            own, halo = it, 0
+        else:
+            it, own = n, -(-n // cs.DIAG_MAP_SEGS)
+            halo = window_span(m, k, ct[1], ct[2])
+        h = hay[:it].copy()
+        pd, pl = sd.search_diag_plain(torch.from_numpy(h),
+                                      torch.from_numpy(needle), own_len=own,
+                                      halo=halo, costs_t=ct,
+                                      anchored=anchored)
+        rc, od, ol = _sd_rehearsal(lib, h, needle, own, halo, anchored, ct,
+                                   (r, lanes, cs.DIAG_MAP_WARPS))
+        assert rc == 0
+        assert _sd_equal(od, ol, pd.numpy(), pl.numpy()), (lanes, r, m, q)
 
 
 # K8 / K9 launch shapes rehearsed: (threads, columns a lane), so 1, 2 and 3

@@ -232,3 +232,43 @@ def test_a_needle_length_takes_one_engine():
         assert _as_tuples(got) == _as_tuples(
             levenshtein_search_naive_with_opts(needle, hay, 4,
                                                SearchType.All, costs))
+
+
+def test_diag_plan_covers_every_row_once():
+    """K7's plan for needles of 1 to 512 chars: every needle row lies in
+    one slot (lane, row of the lane) of the group and no two rows in one;
+    the group holds no lane the needle does not need (halving it would not
+    hold the needle), no map of fewer slots exists, and of those the
+    plan's leaves the fewest lanes without a row (the main path's 24 chars:
+    none).  A plan= override is refused when the kernel is not built for
+    it or when it would leave lanes beyond the needle."""
+    for m in range(1, sd.K7_MAX_NEEDLE + 1):
+        pl = sd.diag_plan(m)
+        r, g = pl["rows_per_lane"], pl["lanes"]
+        assert r in sd.ROW_CHOICES and g in sd.LANE_CHOICES
+        slots = {(j // r, j % r) for j in range(m)}
+        assert len(slots) == m and all(ln < g for ln, _ in slots)
+        assert g == 4 or (g // 2) * r < m
+        best = min(x * y for x in sd.LANE_CHOICES for y in sd.ROW_CHOICES
+                   if x * y >= m and (x == 4 or (x // 2) * y < m))
+        assert g * r == best
+        idle = min(x - -(-m // y) for x in sd.LANE_CHOICES
+                   for y in sd.ROW_CHOICES
+                   if x * y == best and (x == 4 or (x // 2) * y < m))
+        assert g - -(-m // r) == idle
+    main = sd.diag_plan(24)
+    assert main["lanes"] * main["rows_per_lane"] == 24
+    ok = {"rows_per_lane": 1, "lanes": 32, "warps": 1}
+    assert sd.diag_plan(24, ok) == ok
+    for bad in ({"rows_per_lane": 5, "lanes": 8, "warps": 4},
+                {"rows_per_lane": 3, "lanes": 16, "warps": 4},
+                {"rows_per_lane": 1, "lanes": 16, "warps": 4},
+                {"rows_per_lane": 3, "lanes": 8, "warps": 0}):
+        with pytest.raises(ValueError, match="does not take"):
+            sd.diag_plan(24, bad)
+    with pytest.raises(ValueError, match="does not take"):
+        sd.search_diag(torch.zeros(64, dtype=torch.uint8),
+                       torch.ones(24, dtype=torch.uint8), own_len=64,
+                       halo=0, costs_t=_ct(GENERAL[0]),
+                       plan={"rows_per_lane": 16, "lanes": 32, "warps": 1})
+

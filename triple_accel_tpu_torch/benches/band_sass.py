@@ -1,21 +1,30 @@
-"""Registers, spills and the row loop's instructions of the band kernels.
+"""Registers, spills and the hot loop's instructions of the wavefront
+kernels.
 
-    python3 -m triple_accel_tpu_torch.benches.band_sass
+    python3 -m triple_accel_tpu_torch.benches.band_sass [--kernel band
+        blocked diag]
 
 Builds the kernels (`utils/build.py`), reads what `-Xptxas -v` reports for
-every band kernel instantiation (registers, spill bytes, barriers) and,
-from `cuobjdump -sass` of the library, the row loop of each
-`band_kernel<TRANS, TRACE, C>`: the code between its one backward branch
-and that branch's target.  Per loop: its instructions (static count, so
-rarely taken paths count too), the DPX min instructions, the shuffles, and
-every conditional forward branch inside it, by what the code it skips
-holds: a store, a load, a shuffle, or none of these ("arithmetic": a
-branch in the cells' passes would show here).  One JSON line per
-instantiation.  Needs the CUDA toolkit (`nvcc`, `cuobjdump`); no device.
+every instantiation of the kernels named (registers, stack frame and
+spill bytes, barriers) and, from `cuobjdump -sass` of the library, its hot loop:
+`band` (the default): the row loop of each `band_kernel<TRANS, TRACE, C>`,
+the code between its one backward branch and that branch's target;
+`blocked` (`blocked_kernel<W, DAMERAU, SEARCH>`, K5 / K6) and `diag`
+(`search_diag_kernel<R, TRANS>`, K7): the column loops, every innermost
+loop (a backward branch's range holding no other) that shuffles, with the
+steps it runs (its shuffles over the shuffles a step: 1 in K6, 5 or 7 in
+K7).  Per loop: its instructions (static count, so rarely taken paths
+count too), the DPX min instructions, the shuffles, the add-with-carry
+instructions (IADD3.X), and every conditional forward branch inside it,
+by what the code it skips holds: a store, a load, a shuffle, or none of
+these ("arithmetic": a branch in the cells' or words' arithmetic would
+show here).  One JSON line per instantiation (per loop for the column
+loops).  Needs the CUDA toolkit (`nvcc`, `cuobjdump`); no device.
 """
 
 from __future__ import annotations
 
+import argparse
 import collections
 import json
 import os
@@ -30,7 +39,8 @@ _INSN = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
 
 
 def _ptxas(log: str) -> dict:
-    """Mangled entry name -> registers, spill bytes, barriers."""
+    """Mangled entry name -> registers, stack frame and spill bytes,
+    barriers."""
     out, cur = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -39,6 +49,7 @@ def _ptxas(log: str) -> dict:
             out[cur] = {}
         elif cur and "spill stores" in line:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[cur]["stack_frame_bytes"] = nums[0]
             out[cur]["spill_store_bytes"] = nums[1]
             out[cur]["spill_load_bytes"] = nums[2]
         elif cur and "Used" in line and "registers" in line:
@@ -49,7 +60,9 @@ def _ptxas(log: str) -> dict:
     return out
 
 
-def _row_loop(body: str) -> dict:
+def _ops(body: str):
+    """(address, opcode, branch target or None, predicated) per
+    instruction."""
     ops = []
     for line in body.splitlines():
         m = _INSN.match(line)
@@ -58,11 +71,11 @@ def _row_loop(body: str) -> dict:
             ops.append((int(m.group(1), 16), m.group(3),
                         int(tgt.group(1), 16) if tgt else None,
                         m.group(2) is not None))
-    backs = [(tgt, a) for a, op, tgt, _ in ops
-             if op.startswith("BRA") and tgt is not None and tgt < a]
-    if len(backs) != 1:
-        return {"row_loop": f"{len(backs)} backward branches"}
-    lo, hi = backs[0]
+    return ops
+
+
+def _loop_counts(ops, lo: int, hi: int) -> dict:
+    """The counts of the loop [lo, hi) (hi: its backward branch)."""
     loop = [x for x in ops if lo <= x[0] < hi]
     kinds = collections.Counter(x[1].split(".")[0] for x in loop)
     branches = collections.Counter()
@@ -74,30 +87,93 @@ def _row_loop(body: str) -> dict:
                 else "shuffle" if "SHFL" in skipped else "arithmetic")
         branches[kind] += 1
     return {
-        "row_loop_instructions": len(loop),
+        "instructions": len(loop),
         "dpx_min": kinds["VIADDMNMX"] + kinds["VIMNMX"] + kinds["VIMNMX3"],
         "shuffles": kinds["SHFL"], "bssy": kinds["BSSY"],
+        "add_with_carry": sum(1 for x in loop if x[1].startswith("IADD3.X")),
         "forward_branches": dict(branches),
     }
 
 
-def main() -> int:
+def _row_loop(body: str) -> dict:
+    ops = _ops(body)
+    backs = [(tgt, a) for a, op, tgt, _ in ops
+             if op.startswith("BRA") and tgt is not None and tgt < a]
+    if len(backs) != 1:
+        return {"row_loop": f"{len(backs)} backward branches"}
+    c = _loop_counts(ops, *backs[0])
+    return {"row_loop_instructions": c.pop("instructions"), **c}
+
+
+def _column_loops(body: str, shuffles_a_step: int) -> list:
+    """Every innermost loop that shuffles: its counts, the steps it runs
+    and its instructions a step."""
+    ops = _ops(body)
+    backs = [(tgt, a) for a, op, tgt, _ in ops
+             if op.startswith("BRA") and tgt is not None and tgt < a]
+    inner = [(lo, hi) for lo, hi in backs
+             if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                        for l2, h2 in backs)]
+    out = []
+    for lo, hi in sorted(inner):
+        c = _loop_counts(ops, lo, hi)
+        if c["shuffles"] == 0:
+            continue
+        steps = c["shuffles"] // shuffles_a_step
+        out.append({"steps": steps, **c,
+                    "instructions_a_step": round(c["instructions"]
+                                                 / max(steps, 1), 1)})
+    return out
+
+
+# the kernel each --kernel choice names (its mangled names hold it)
+_KERNELS = {"band": "band_kernel", "blocked": "blocked_kernel",
+            "diag": "search_diag_kernel"}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--kernel", nargs="+", default=["band"],
+                    choices=sorted(_KERNELS))
+    ap.add_argument("--dump", metavar="DIR",
+                    help="also write each instantiation's SASS and the "
+                         "compiler's report there")
+    args = ap.parse_args(argv)
     build.load_kernels(rebuild=True)
     info = build.build_info()
     regs = _ptxas(info["compiler_output"])
     tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
                           text=True, check=True).stdout
+    if args.dump:
+        os.makedirs(args.dump, exist_ok=True)
+        with open(os.path.join(args.dump, "ptxas.txt"), "w") as fh:
+            fh.write(info["compiler_output"])
     for part in re.split(r"\n\s+Function : ", sass)[1:]:
         name = part.split("\n", 1)[0].strip()
-        if "band_kernel" not in name and "band_wide_kernel" not in name:
-            continue
         demangled = subprocess.run(["c++filt", name], capture_output=True,
                                    text=True).stdout.strip().split("(")[0]
-        rec = {"kernel": demangled, **regs.get(name, {})}
-        if "band_kernel" in name and "wide" not in name:
-            rec.update(_row_loop(part))
-        print(json.dumps(rec), flush=True)
+        for kind in args.kernel:
+            if kind == "band":
+                if "band_kernel" not in name and "band_wide_kernel" not in name:
+                    continue
+                rec = {"kernel": demangled, **regs.get(name, {})}
+                if "band_kernel" in name and "wide" not in name:
+                    rec.update(_row_loop(part))
+            elif _KERNELS[kind] in name:
+                per_step = 1  # K6: one word handed up a step
+                if kind == "diag":  # <R, TRANS>: 7 shuffles with TRANS
+                    per_step = 7 if demangled.rstrip(">").endswith("true") \
+                        else 5
+                rec = {"kernel": demangled, **regs.get(name, {}),
+                       "column_loops": _column_loops(part, per_step)}
+            else:
+                continue
+            if args.dump:
+                fname = re.sub(r"[^A-Za-z0-9_]+", "_", demangled).strip("_")
+                with open(os.path.join(args.dump, fname + ".sass"), "w") as fh:
+                    fh.write(part)
+            print(json.dumps(rec), flush=True)
     return 0
 
 

@@ -1,0 +1,103 @@
+"""Kernel-only times of K5, K6 and K7 at the shapes chip_smoke.py's
+phases give them, for comparing two versions of the port in one call.
+
+    python3 -m triple_accel_tpu_torch.benches.kernel_ab [--tag NAME]
+
+Run from the root of a checkout (it imports that checkout's package and
+`chip_smoke.py` input generators, and only calls the wrappers' arguments
+every version of them takes), so a copy of an older commit unpacked
+beside this one is timed by the same script:
+
+* K5 `blocked_distance`: 1,024 pairs of 20,000 ACGT bytes with 10% edits,
+  unit costs, then the restricted-Damerau costs on the pairs with 1%
+  adjacent swaps (the `blocked_distance` phase);
+* K6 `blocked_search`: the 3,000-byte needle over the 128 MiB ACGT
+  haystack of the `blocked_search` phase at k = 150 (halo 3,328, the
+  version's own `suggest_own_len_blocked`), unit and restricted-Damerau;
+  anchored, one segment of 4,000 columns;
+* K7 `search_diag`: the 24-byte needle over the 128 MiB headline haystack
+  at k = 6 under the phase's two general cost models (the version's own
+  `suggest_own_len_diag`).
+
+CUDA events, one warm-up, the median (least, most) of 7 launches, 9 for
+the anchored one.  Prints the card's name and power limit, then one JSON
+line.  Needs one CUDA device and `nvcc`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tag", default="", help="a name for the JSON line")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab needs a CUDA device", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops import search_diag as sd
+    from triple_accel_tpu_torch.ops.myers_search import prepare_myers_needles
+    from triple_accel_tpu_torch.ops.search_common import window_span
+
+    dev = torch.device("cuda", 0)
+    print(cs.smi_line(), flush=True)
+    out = {"tag": args.tag}
+
+    def ms(fn, reps=7):
+        return [round(x, 4) for x in cs.time_launches(fn, reps)]
+
+    a_l, b_l = cs.make_long_pairs(cs.BLOCKED_PAIRS, cs.BLOCKED_LEN,
+                                  cs.BLOCKED_EDIT_SHARE, seed=2024)
+    b_sw = cs.swap_adjacent_list(b_l, cs.BLOCKED_SWAP_SHARE,
+                                 np.random.default_rng(2025))
+    for damerau, b_rows in ((False, b_l), (True, b_sw)):
+        a_s = [a if len(a) <= len(b) else b for a, b in zip(a_l, b_rows)]
+        b_s = [b if len(a) <= len(b) else a for a, b in zip(a_l, b_rows)]
+        t = mc.prepare_blocked_distance_inputs(a_s, b_s, device=dev)
+        out[f"K5_{'rdamerau' if damerau else 'unit'}"] = ms(
+            lambda: mc.blocked_distance(*t, damerau=damerau))
+        del t
+    m, k = cs.LONG_NEEDLE_LEN, cs.K_LONG_NEEDLE
+    needle, hay, _ = cs.make_long_haystack(
+        cs.FULL_HAY_MB << 20, m, cs.N_PLANTED_LONG, cs.LONG_NEEDLE_SUBS,
+        seed=3030)
+    n = len(hay)
+    halo = min(-(-window_span(m, k, 1, 0) // 256) * 256, n)
+    own = mc.suggest_own_len_blocked(n, halo)
+    hay_d = torch.from_numpy(hay).to(dev)
+    nd = prepare_myers_needles([needle], m, device=dev)
+    for damerau in (False, True):
+        out[f"K6_{'rdamerau' if damerau else 'unit'}"] = ms(
+            lambda: mc.blocked_search(hay_d, nd, own_len=own, halo=halo,
+                                      damerau=damerau))
+    cols = min(m + cs.K_ANCHORED_LONG, n)
+    hay_a = hay_d[:cols]
+    out["K6_anchored"] = ms(lambda: mc.blocked_search(
+        hay_a, nd, own_len=cols, halo=0, anchored=True), 9)
+    out["K6_own_len"] = own
+    del hay_d, hay_a
+    needle, hay, _ = cs.make_haystack(cs.FULL_HAY_MB << 20)
+    hay_d = torch.from_numpy(hay).to(dev)
+    nd = torch.from_numpy(needle).to(dev)
+    for c in cs.GENERAL_COSTS:
+        ct = cs.fuzz_costs_t(c)
+        halo = min(window_span(len(needle), cs.K_GENERAL, ct[1], ct[2]),
+                   len(hay))
+        own = sd.suggest_own_len_diag(len(hay), halo)
+        out[f"K7_{c}"] = ms(lambda: sd.search_diag(
+            hay_d, nd, own_len=own, halo=halo, costs_t=ct))
+        out[f"K7_{c}_own_len"] = own
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

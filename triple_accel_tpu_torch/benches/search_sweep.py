@@ -1,20 +1,30 @@
 """Sweep of kernels K2 (`myers_search`), K6 (`blocked_search`) and K7
-(`search_diag`) over the owned length per segment, and of K8
-(`flat_search`) and K9 (`flat_distance`) over their launch shape.
+(`search_diag`) over the owned length per segment and their lane maps,
+and of K8 (`flat_search`) and K9 (`flat_distance`) over their launch
+shape.
 
     python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128]
-        [--blocked | --diag | --flat]
+        [--blocked | --diag | --cap | --flat]
 
 Times the search kernel alone (CUDA events, one warm-up, 9 launches:
 median, least and most) for unit and restricted-Damerau costs at several
 `own_len`.  K2: the headline haystack (upper-case noise, 24-byte needle,
 the 256-byte halo of k = 3), the measurement behind `suggest_own_len`.
 K6 (`--blocked`): chip_smoke.py's long-needle input (a 3,000-byte ACGT
-needle, the 3,328-byte halo of k = 150), the measurement behind
+needle at k = 150 and k = 1000: halos 3,328 and 4,096) over the lane maps
+that hold its 94 words (32 lanes x 3 words, 16 x 6, 8 x 12) x warps a
+block x `own_len`, unit and restricted-Damerau, 5 launches a point, then
+anchored (one segment of 4,000 columns) at each map: the measurement
+behind `blocked_plan`'s SEARCH_LANES_ORDER and SEARCH_WARPS and
 `suggest_own_len_blocked`.  K7 (`--diag`): the headline haystack and
-needle at k = 6 under the two general cost models of chip_smoke.py's
-`search_general` phase (halos 28 and 26), the measurement behind
-`suggest_own_len_diag`.  K8 and K9 (`--flat`): chip_smoke.py's
+needle at k = 6 and k = 30 under the two general cost models of
+chip_smoke.py's `search_general` phase (halos 28 / 26 and 52 / 38) over
+the lane maps of 24 rows (8 lanes x 3 rows, 4 x 6, 16 x 2, 32 x 1) x
+warps a block x `own_len`: the measurement behind `diag_plan`'s
+LANES_ORDER and WARPS and `suggest_own_len_diag`.  `--cap`: K7 at its plan
+and at 32 lanes (8, 12, 16 rows) against K8 for needles of 256, 384 and
+512 chars over a 16 MiB ACGT haystack at k = m / 8, both cost models: the
+measurement behind `K7_MAX_NEEDLE`.  K8 and K9 (`--flat`): chip_smoke.py's
 `flat_search` and `flat_distance` shapes (a 3,000-byte ACGT needle over
 16 MiB at k = 150 under its two cost models; 256 pairs of 20,000 ACGT
 bytes with 10% substitutions under affine costs, the full matrix) over
@@ -41,15 +51,21 @@ from ..ops.myers_chunked import blocked_search
 from ..ops.myers_search import myers_search, prepare_myers_needles
 from ..ops.search_common import window_span
 from ..ops import search_flat as sf
-from ..ops.search_diag import search_diag
+from ..ops.search_diag import ROW_CHOICES, diag_plan, search_diag
 
 NEEDLE_LEN = 24
 HALO = 256
 OWN_LENS = (512, 1024, 2048, 4096, 8192, 16384)
-BLOCKED_NEEDLE_LEN, BLOCKED_HALO = 3000, 3328
-BLOCKED_OWN_LENS = (13_312, 26_624, 32_000, 65_536, 131_072)
-DIAG_K, DIAG_COSTS = 6, ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
-DIAG_OWN_LENS = (1024, 2048, 4096, 8192, 16384, 32768)
+BLOCKED_NEEDLE_LEN, BLOCKED_KS = 3000, (150, 1000)
+BLOCKED_MAPS = ((32, 3), (16, 6), (8, 12))  # lanes, words a lane: 94 words
+BLOCKED_WARPS = (2, 4, 8)
+BLOCKED_OWN_HALOS = (4, 8, 16)  # owned length in halos
+BLOCKED_ANCHORED_COLS = 4000
+DIAG_KS, DIAG_COSTS = (6, 30), ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
+DIAG_MAPS = ((8, 3), (4, 6), (16, 2), (32, 1))  # lanes, rows a lane
+DIAG_WARPS = (2, 4, 8)
+DIAG_OWN_LENS = (1024, 2048, 4096, 8192)
+CAP_MB, CAP_LENS = 16, (256, 384, 512)
 FLAT_MB, FLAT_NEEDLE_LEN, FLAT_K = 16, 3000, 150
 FLAT_COSTS = ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
 FLAT_PAIRS, FLAT_PAIR_LEN, FLAT_SUB_SHARE = 256, 20_000, 0.1
@@ -134,6 +150,106 @@ def flat_sweep(dev, rng) -> None:
         sf.SEARCH_SHAPES.update(shapes)
 
 
+def blocked_sweep(dev, rng, n: int) -> None:
+    """K6 over lane maps x warps a block x owned length at two halos, unit
+    and restricted-Damerau; then anchored at each map."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    m = BLOCKED_NEEDLE_LEN
+    needle = acgt[rng.integers(0, 4, m)]
+    hay = torch.from_numpy(acgt[rng.integers(0, 4, n, dtype=np.uint8)])
+    hay = hay.to(dev)
+    nd = prepare_myers_needles([needle], m, device=dev)
+    for k in BLOCKED_KS:
+        halo = -(-window_span(m, k, 1, 0) // 256) * 256
+        for lanes, wpt in BLOCKED_MAPS:
+            for warps in BLOCKED_WARPS:
+                plan = {"words_per_lane": wpt, "lanes": lanes,
+                        "warps": warps}
+                for per in BLOCKED_OWN_HALOS:
+                    own = per * halo
+                    for damerau in (False, True):
+                        print(json.dumps({
+                            "kernel": "blocked_search", "haystack_bytes": n,
+                            "needle_len": m, "k": k, "halo": halo,
+                            "lanes": lanes, "words_per_lane": wpt,
+                            "warps": warps, "own_len": own,
+                            "segments": -(-n // own), "damerau": damerau,
+                            "kernel_ms_median_min_max": _time_ms(
+                                lambda: blocked_search(
+                                    hay, nd, own_len=own, halo=halo,
+                                    damerau=damerau, plan=plan), 5),
+                        }), flush=True)
+    cols = BLOCKED_ANCHORED_COLS
+    for lanes, wpt in BLOCKED_MAPS:
+        plan = {"words_per_lane": wpt, "lanes": lanes, "warps": 1}
+        print(json.dumps({
+            "kernel": "blocked_search", "anchored": True, "columns": cols,
+            "needle_len": m, "lanes": lanes, "words_per_lane": wpt,
+            "kernel_ms_median_min_max": _time_ms(
+                lambda: blocked_search(hay[:cols], nd, own_len=cols, halo=0,
+                                       anchored=True, plan=plan)),
+        }), flush=True)
+
+
+def diag_sweep(hay, nd) -> None:
+    """K7 over lane maps x warps a block x owned length at two halos a cost
+    model."""
+    m = nd.shape[0]
+    for ct in DIAG_COSTS:
+        for k in DIAG_KS:
+            halo = window_span(m, k, ct[1], ct[2])
+            for lanes, rows in DIAG_MAPS:
+                for warps in DIAG_WARPS:
+                    plan = {"rows_per_lane": rows, "lanes": lanes,
+                            "warps": warps}
+                    for own in DIAG_OWN_LENS:
+                        print(json.dumps({
+                            "kernel": "search_diag", "haystack_bytes":
+                                hay.shape[0], "needle_len": m, "k": k,
+                            "costs": list(ct), "halo": halo, "lanes": lanes,
+                            "rows_per_lane": rows, "warps": warps,
+                            "own_len": own,
+                            "segments": -(-hay.shape[0] // own),
+                            "kernel_ms_median_min_max": _time_ms(
+                                lambda: search_diag(hay, nd, own_len=own,
+                                                    halo=halo, costs_t=ct,
+                                                    plan=plan), 5),
+                        }), flush=True)
+
+
+def cap_sweep(dev, rng) -> None:
+    """K7 (its plan, and 32 lanes at the fewest rows that hold the needle)
+    against K8 for needles of CAP_LENS chars on one haystack, both cost
+    models."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n = CAP_MB << 20
+    hay = torch.from_numpy(acgt[rng.integers(0, 4, n)]).to(dev)
+    for m in CAP_LENS:
+        nd = torch.from_numpy(acgt[rng.integers(0, 4, m)]).to(dev)
+        k = m // 8
+        for ct in DIAG_COSTS:
+            halo = window_span(m, k, ct[1], ct[2])
+            own7 = max(16 * (halo + 32), 2048)
+            own8 = sf.suggest_own_len_flat(n, halo, transpose=ct[4])
+            runs = {"flat_search": lambda: sf.flat_search(
+                hay, nd, own_len=own8, halo=halo, costs_t=ct)}
+            wide = {"rows_per_lane": next(r for r in ROW_CHOICES
+                                          if 32 * r >= m),
+                    "lanes": 32, "warps": diag_plan(m)["warps"]}
+            for plan in [diag_plan(m)] + [wide] * (wide != diag_plan(m)):
+                runs[f"search_diag {plan['lanes']}x{plan['rows_per_lane']}"
+                     ] = (lambda plan=plan: search_diag(
+                         hay, nd, own_len=own7, halo=halo, costs_t=ct,
+                         plan=plan))
+            for name, fn in runs.items():
+                print(json.dumps({
+                    "kernel": name, "haystack_bytes": n, "needle_len": m,
+                    "k": k, "costs": list(ct), "halo": halo,
+                    "own_len": own8 if name == "flat_search" else own7,
+                    "kernel_ms_median_min_max": _time_ms(fn, 5),
+                }), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=128, help="haystack MiB")
@@ -141,6 +257,8 @@ def main() -> int:
                     help="sweep K6 on a long needle instead of K2")
     ap.add_argument("--diag", action="store_true",
                     help="sweep K7 under general costs instead of K2")
+    ap.add_argument("--cap", action="store_true",
+                    help="time K7 against K8 at 256 to 512 chars instead")
     ap.add_argument("--flat", action="store_true",
                     help="sweep K8 and K9 over their launch shape instead")
     args = ap.parse_args()
@@ -150,44 +268,30 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     n = args.mb << 20
     rng = np.random.default_rng(1234)
+    print(_smi(), flush=True)
     if args.flat:
-        print(_smi(), flush=True)
         flat_sweep(dev, rng)
         return 0
     if args.blocked:
-        acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
-        m, halo, own_lens, search = (BLOCKED_NEEDLE_LEN, BLOCKED_HALO,
-                                     BLOCKED_OWN_LENS, blocked_search)
-        needle = acgt[rng.integers(0, 4, m)]
-        hay = torch.from_numpy(acgt[rng.integers(0, 4, n, dtype=np.uint8)])
-    else:
-        m, halo, own_lens, search = NEEDLE_LEN, HALO, OWN_LENS, myers_search
-        needle = rng.integers(97, 123, m).astype(np.uint8)
-        hay = torch.from_numpy(rng.integers(65, 91, n).astype(np.uint8))
-    hay = hay.to(dev)
+        blocked_sweep(dev, rng, n)
+        return 0
+    if args.cap:
+        cap_sweep(dev, rng)
+        return 0
+    m, halo, own_lens = NEEDLE_LEN, HALO, OWN_LENS
+    needle = rng.integers(97, 123, m).astype(np.uint8)
+    hay = torch.from_numpy(rng.integers(65, 91, n).astype(np.uint8)).to(dev)
     nd = prepare_myers_needles([needle], m, device=dev)
-    print(_smi(), flush=True)
     if args.diag:
-        for ct in DIAG_COSTS:
-            halo = window_span(m, DIAG_K, ct[1], ct[2])
-            for own in DIAG_OWN_LENS:
-                print(json.dumps({
-                    "kernel": "search_diag", "haystack_bytes": n,
-                    "needle_len": m, "k": DIAG_K, "costs": list(ct),
-                    "halo": halo, "own_len": own,
-                    "segments": -(-n // own),
-                    "kernel_ms_median_min_max": _time_ms(
-                        lambda: search_diag(hay, nd[0], own_len=own,
-                                            halo=halo, costs_t=ct)),
-                }), flush=True)
+        diag_sweep(hay, nd[0])
         return 0
     for damerau in (False, True):
         for own in own_lens:
             print(json.dumps({
-                "kernel": search.__name__, "haystack_bytes": n,
+                "kernel": "myers_search", "haystack_bytes": n,
                 "needle_len": m, "halo": halo, "damerau": damerau,
                 "own_len": own, "segments": -(-n // own),
-                "kernel_ms_median_min_max": _time_ms(lambda: search(
+                "kernel_ms_median_min_max": _time_ms(lambda: myers_search(
                     hay, nd, own_len=own, halo=halo, damerau=damerau)),
             }), flush=True)
     return 0

@@ -1,8 +1,9 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
 // functions of myers_distance.cu and myers_search.cu, the lanes of
 // band_distance.cu's warp regime and the row passes of its wide regime,
-// the per-lane wavefront steps of myers_blocked.cu and search_diag.cu and
-// the lanes and warps of search_flat.cu,
+// the per-lane wavefront steps of myers_blocked.cu and search_diag.cu (the
+// lanes of a group in turn, the warps of a block in order) and the lanes
+// and warps of search_flat.cu,
 // compiled for the CPU and run one "thread" at a time, so their arithmetic
 // can be held against the plain PyTorch versions where there is no CUDA
 // compiler and no card.
@@ -323,61 +324,136 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                                 lanes);
 }
 
-// One work item of myers_blocked.cu: the 32 lanes of the warp run each
-// wavefront step in turn, and what lane l returns at step s is what lane
-// l + 1 takes at step s + 1 (the device's __shfl_up_sync).
-template <int WPT, bool DAM>
-static void rehearse_blocked_item(const BlkArgs& g, int64_t x, int64_t y) {
-  const BlkItem it = blk_item(g, x, y);
-  if (it.m == 0) {
-    g.out[x] = 0;
-    return;
+// One block of myers_blocked.cu: its warps one after the other on each
+// strip (the table built first, as between the block's two barriers), and
+// inside a warp the 32 lanes running each step in turn.  What lane l
+// returns at step s is what lane l + 1 takes at step s + 1 when both lie
+// in one group of G lanes (the device's __shfl_up_sync of width G; group
+// lane 0 makes its own input).
+template <int W, bool DAM, bool SEARCH, bool LAST>
+static void rehearse_blocked_warp(const BlkItem* it, const BlkStrip& sp,
+                                  BlkLane<W, DAM>* L, const int64_t* row0,
+                                  int32_t steps) {
+  const int G = sp.G;
+  BlkIo io[BLK_LANES];
+  uint32_t up[BLK_LANES] = {}, out[BLK_LANES];
+  for (int l = 0; l < BLK_LANES; ++l) {
+    io[l].txt.start(it[l].text, it[l].text_len);
+    if (!sp.first)
+      io[l].bits.start(it[l].scratch, it[l].scratch ? sp.scratch_len : 0);
   }
-  if (g.search && x == 0) it.out_row[0] = it.m;
-  std::vector<uint64_t> tab((size_t)g.rows * WPT * BLK_LANES);
-  std::vector<BlkLane<WPT, DAM>> L(BLK_LANES);
-  std::vector<BlkStream> txt(BLK_LANES), bits(BLK_LANES);
-  std::vector<BlkSink> sink(BLK_LANES);
-  BlkStrip sp;
-  sp.tab = tab.data();
-  sp.geo = blk_geom<WPT>(it.m);
-  for (int64_t strip = 0; strip < sp.geo.ns; ++strip) {
-    sp.first = strip == 0;
-    sp.last = strip == sp.geo.ns - 1;
+  for (int32_t s0 = 0; s0 < steps; s0 += BLK_CHUNK) {
     for (int l = 0; l < BLK_LANES; ++l) {
-      blk_build<WPT>(tab.data(), g.rows, it, strip, l);
-      blk_reset(L[l], it.m);
-      txt[l].start(it.text, it.text_len);
-      bits[l].start(it.scratch, it.ncols);
+      io[l].txt.advance();
+      if (!sp.first) io[l].bits.advance();
     }
-    const int64_t steps = blk_steps(it, sp);
-    uint32_t in[BLK_LANES] = {}, out[BLK_LANES];
-    for (int64_t s = 0; s < steps; ++s) {
+    for (int k = 0; k < BLK_CHUNK; ++k) {
       for (int l = 0; l < BLK_LANES; ++l)
-        out[l] = blk_step<WPT, DAM>(g, it, sp, L[l], txt[l], bits[l],
-                                    sink[l], l, s, in[l]);
-      in[0] = out[0];
-      for (int l = 1; l < BLK_LANES; ++l) in[l] = out[l - 1];
+        out[l] = blk_step<W, DAM, SEARCH, LAST>(it[l], sp, L[l], io[l],
+                                                l & (G - 1), l, row0[l],
+                                                s0 + k, k, k & 3, up[l]);
+      for (int l = 0; l < BLK_LANES; ++l)
+        up[l] = (l & (G - 1)) ? out[l - 1] : out[l];
     }
   }
-  const int ls = sp.geo.lane_S;
-  if (g.search)
-    sink[ls].flush(it);
-  else
-    g.out[x] = L[ls].S;
 }
 
-template <bool DAM>
+template <int W, bool DAM, bool SEARCH>
+static void rehearse_blocked_block(const BlkArgs& g, int64_t bx, int64_t y,
+                                   int warps) {
+  const int G = SEARCH ? g.lanes : BLK_LANES;
+  const int T = (SEARCH ? warps : 1) * BLK_LANES;
+  std::vector<BlkItem> it(T);
+  std::vector<int64_t> xs(T), row0(T);
+  for (int tid = 0; tid < T; ++tid) {
+    xs[tid] = SEARCH ? bx * (T / G) + tid / G : bx;
+    it[tid] = blk_item<SEARCH>(g, xs[tid], y);
+  }
+  if (!SEARCH && it[0].m == 0) {
+    g.out[bx] = 0;
+    return;
+  }
+  std::vector<int32_t> map(BLK_CODES);
+  std::vector<uint32_t> tab((size_t)g.rows * W * BLK_LANES);
+  for (int e = 0; e < BLK_CODES; ++e)
+    map[e] = it[0].codes[e] * (W * BLK_ROW_WORD_BYTES);
+  for (int tid = 0; tid < T; ++tid)
+    if (SEARCH && xs[tid] == 0 && (tid & (G - 1)) == 0)
+      it[tid].out_row[0] = it[tid].m;
+  const BlkGeom geo = blk_geom(it[0].m, W, G);
+  BlkStrip sp;
+  sp.map = map.data();
+  sp.tab = tab.data();
+  sp.G = G;
+  sp.row0 = g.anchored || !SEARCH ? BLK_PH : 0u;
+  sp.lane_S = geo.lane_S;
+  sp.i_S = geo.i_S;
+  sp.offS = geo.offS;
+  sp.phase = (geo.lane_S + 2) & 3;
+  sp.scratch_len = g.scratch_stride;
+  std::vector<BlkLane<W, DAM>> L(T);
+  std::vector<int32_t> span(T / BLK_LANES, 0);
+  for (int tid = 0; tid < T; ++tid) {
+    L[tid].S = it[tid].m;
+    L[tid].acc = 0;
+    L[tid].sb[0] = L[tid].sb[1] = L[tid].sb[2] = L[tid].sb[3] = 0;
+    const int32_t v = it[tid].d + it[tid].ncols;
+    span[tid / BLK_LANES] = span[tid / BLK_LANES] > v ? span[tid / BLK_LANES]
+                                                      : v;
+  }
+  for (int32_t strip = 0; strip < geo.ns; ++strip) {
+    const bool last = strip == geo.ns - 1;
+    sp.first = strip == 0;
+    for (int e = 0; e < W * BLK_LANES; ++e)
+      blk_build_slot<W>(tab.data(), g.rows, it[0], strip, G, e / BLK_LANES,
+                        e % BLK_LANES);
+    for (int tid = 0; tid < T; ++tid) {
+      blk_reset(L[tid]);
+      row0[tid] = ((int64_t)strip * G + (tid & (G - 1))) * W * 32;
+      if (!SEARCH && it[tid].ncols == 0)
+        L[tid].acc += blk_vsum(L[tid], it[tid].m, row0[tid]);
+    }
+    for (int w = 0; w < T / BLK_LANES; ++w) {
+      const int32_t steps = blk_steps(span[w], sp, last);
+      const int o = w * BLK_LANES;
+      if (last)
+        rehearse_blocked_warp<W, DAM, SEARCH, true>(&it[o], sp, &L[o],
+                                                    &row0[o], steps);
+      else
+        rehearse_blocked_warp<W, DAM, SEARCH, false>(&it[o], sp, &L[o],
+                                                     &row0[o], steps);
+    }
+  }
+  if (SEARCH) {
+    for (int tid = 0; tid < T; ++tid)
+      if ((tid & (G - 1)) == geo.lane_S) blk_flush(it[tid], L[tid], geo.lane_S);
+  } else {
+    int32_t v = 0;
+    for (int tid = 0; tid < T; ++tid) v += L[tid].acc;
+    g.out[bx] = it[0].ncols + v;
+  }
+}
+
+template <bool DAM, bool SEARCH>
 static int rehearse_blocked(const BlkArgs& g, int wpt, int64_t nx,
-                            int64_t ny) {
+                            int64_t ny, int warps) {
   for (int64_t y = 0; y < ny; ++y)
     for (int64_t x = 0; x < nx; ++x) switch (wpt) {
-        case 1: rehearse_blocked_item<1, DAM>(g, x, y); break;
-        case 2: rehearse_blocked_item<2, DAM>(g, x, y); break;
-        case 4: rehearse_blocked_item<4, DAM>(g, x, y); break;
-        case 6: rehearse_blocked_item<6, DAM>(g, x, y); break;
-        case 10: rehearse_blocked_item<10, DAM>(g, x, y); break;
-        default: return 1;
+#define TA_BLK_REH(WW)                                         \
+  case WW:                                                     \
+    rehearse_blocked_block<WW, DAM, SEARCH>(g, x, y, warps);   \
+    break;
+        TA_BLK_REH(1)
+        TA_BLK_REH(2)
+        TA_BLK_REH(3)
+        TA_BLK_REH(4)
+        TA_BLK_REH(6)
+        TA_BLK_REH(8)
+        TA_BLK_REH(12)
+        TA_BLK_REH(20)
+#undef TA_BLK_REH
+        default:
+          return 1;
       }
   return 0;
 }
@@ -388,7 +464,8 @@ extern "C" int ta_rehearse_blocked_distance(
     const void* codes, int rows, int wpt, void* out, int64_t B,
     int64_t a_stride, int64_t b_stride, void* scratch,
     int64_t scratch_stride, int damerau) {
-  if (!blk_plan_ok(rows, wpt) || (b_stride & 15) || (scratch_stride & 15))
+  if (!blk_plan_ok(rows, wpt, BLK_LANES, 1) || (b_stride & 15) ||
+      (scratch_stride & 15))
     return 1;
   BlkArgs g = {};
   g.needles = (const uint8_t*)a;
@@ -400,22 +477,23 @@ extern "C" int ta_rehearse_blocked_distance(
   g.text_stride = b_stride;
   g.n_arr = (const int32_t*)n;
   g.anchored = 1;
+  g.lanes = BLK_LANES;
   g.out = (int32_t*)out;
   g.scratch = (uint8_t*)scratch;
   g.scratch_stride = scratch_stride;
-  return damerau ? rehearse_blocked<true>(g, wpt, B, 1)
-                 : rehearse_blocked<false>(g, wpt, B, 1);
+  return damerau ? rehearse_blocked<true, false>(g, wpt, B, 1, 1)
+                 : rehearse_blocked<false, false>(g, wpt, B, 1, 1);
 }
 
 // Same arguments as ta_blocked_search, host pointers, no stream.
 extern "C" int ta_rehearse_blocked_search(
     const void* hay, int64_t iter_len, const void* needles, int num, int m,
-    const void* codes, int rows, int wpt, int64_t own_len, int64_t halo,
-    int64_t nseg, int anchored, int damerau, void* out, int64_t out_stride,
-    void* scratch, int64_t scratch_stride) {
-  if (!blk_plan_ok(rows, wpt) || m < 1 || own_len < 1 || halo < 0 ||
-      nseg < 1 || out_stride < iter_len + 1 || (out_stride & 3) ||
-      (scratch_stride & 15))
+    const void* codes, int rows, int wpt, int lanes, int warps,
+    int64_t own_len, int64_t halo, int64_t nseg, int anchored, int damerau,
+    void* out, int64_t out_stride, void* scratch, int64_t scratch_stride) {
+  if (!blk_plan_ok(rows, wpt, lanes, warps) || m < 1 || own_len < 1 ||
+      halo < 0 || own_len + halo > 2147483647LL - 16 || nseg < 1 ||
+      out_stride < iter_len + 1 || (out_stride & 3) || (scratch_stride & 15))
     return 1;
   BlkArgs g = {};
   g.needles = (const uint8_t*)needles;
@@ -429,49 +507,80 @@ extern "C" int ta_rehearse_blocked_search(
   g.halo = halo;
   g.nseg = nseg;
   g.anchored = anchored;
-  g.search = 1;
+  g.lanes = lanes;
   g.out = (int32_t*)out;
   g.out_stride = out_stride;
   g.scratch = (uint8_t*)scratch;
   g.scratch_stride = scratch_stride;
-  return damerau ? rehearse_blocked<true>(g, wpt, nseg, num)
-                 : rehearse_blocked<false>(g, wpt, nseg, num);
+  const int64_t per_block = (int64_t)warps * (BLK_LANES / lanes);
+  const int64_t gx = (nseg + per_block - 1) / per_block;
+  return damerau ? rehearse_blocked<true, true>(g, wpt, gx, num, warps)
+                 : rehearse_blocked<false, true>(g, wpt, gx, num, warps);
 }
 
-// One segment of search_diag.cu: the 32 lanes run each step in turn, and
-// what lane l returns at step s is what lane l + 1 takes at step s + 1.
+// One block of search_diag.cu: its warps one after the other, and inside
+// a warp the 32 lanes running each step in turn; what lane l returns at
+// step s is what lane l + 1 takes at step s + 1 inside a group of G lanes.
 template <int R, bool TRANS>
-static void rehearse_sd_segment(const SdArgs& g, int64_t c) {
-  const SdSeg s = sd_seg(g, c);
-  const int lane_m = (g.m - 1) / R;
-  std::vector<SdLane<R>> L(SD_LANES);
-  std::vector<TaStream> txt(SD_LANES);
-  std::vector<SdSink> sink(SD_LANES);
-  for (int l = 0; l < SD_LANES; ++l) {
-    sd_reset<R>(L[l], g, l);
-    txt[l].start(g.hay, g.iter_len);
-  }
-  std::vector<SdMsg> in(SD_LANES, SdMsg{}), out(SD_LANES);
-  const int64_t steps = s.ncols + lane_m + 1;
-  for (int64_t step = 0; step < steps; ++step) {
+static void rehearse_sd_block(const SdArgs& g, int64_t bx, int warps) {
+  const SdPlan p = sd_plan(g, R);
+  const int T = warps * SD_LANES;
+  for (int w = 0; w < warps; ++w) {
+    SdSeg s[SD_LANES];
+    std::vector<SdLane<R, TRANS>> L(SD_LANES);
+    TaChunks txt[SD_LANES];
+    SdMsg up[SD_LANES], out[SD_LANES];
+    int32_t span = 0;
+    for (int l = 0; l < SD_LANES; ++l) {
+      const int tid = w * SD_LANES + l;
+      s[l] = sd_seg(g, bx * (T / p.G) + tid / p.G);
+      sd_reset(L[l], g, s[l], l & (p.G - 1));
+      txt[l].start(s[l].text, s[l].text_len);
+      up[l] = sd_inf_msg();
+      span = span > s[l].ncols + s[l].e ? span : s[l].ncols + s[l].e;
+    }
+    const int32_t steps = sd_steps(span, p);
+    for (int32_t s0 = 0; s0 < steps; s0 += SD_CHUNK) {
+      if (s0 > 0)
+        for (int l = 0; l < SD_LANES; ++l) txt[l].advance();
+      for (int k = 0; k < SD_CHUNK; ++k) {
+        for (int l = 0; l < SD_LANES; ++l) {
+          out[l] = sd_step<R, TRANS>(g, s[l], p, L[l], txt[l].cur,
+                                     l & (p.G - 1), s0 + k, k, k & 3, up[l]);
+          if (!TRANS) {  // the device does not hand these over
+            out[l].d2 = SD_INF;
+            out[l].l2 = 0;
+          }
+        }
+        for (int l = 0; l < SD_LANES; ++l)
+          up[l] = (l & (p.G - 1)) ? out[l - 1] : out[l];
+      }
+    }
     for (int l = 0; l < SD_LANES; ++l)
-      out[l] = sd_step<R, TRANS>(g, s, L[l], txt[l], sink[l], l, lane_m,
-                                 step, in[l]);
-    in[0] = out[0];
-    for (int l = 1; l < SD_LANES; ++l) in[l] = out[l - 1];
+      if ((l & (p.G - 1)) == p.lane_m) sd_flush(s[l], p, L[l]);
   }
-  sink[lane_m].flush(g, s);
 }
 
 template <bool TRANS>
-static int rehearse_sd(const SdArgs& g) {
-  for (int64_t c = 0; c < g.nseg; ++c) switch (sd_rows_per_lane(g.m)) {
-      case 1: rehearse_sd_segment<1, TRANS>(g, c); break;
-      case 2: rehearse_sd_segment<2, TRANS>(g, c); break;
-      case 4: rehearse_sd_segment<4, TRANS>(g, c); break;
-      case 8: rehearse_sd_segment<8, TRANS>(g, c); break;
-      case 16: rehearse_sd_segment<16, TRANS>(g, c); break;
-      default: return 1;
+static int rehearse_sd(const SdArgs& g, int rows, int warps) {
+  const int64_t per_block = (int64_t)warps * (SD_LANES / g.lanes);
+  const int64_t blocks = (g.nseg + per_block - 1) / per_block;
+  for (int64_t b = 0; b < blocks; ++b) switch (rows) {
+#define TA_SD_REH(RR)                                  \
+  case RR:                                             \
+    rehearse_sd_block<RR, TRANS>(g, b, warps);         \
+    break;
+      TA_SD_REH(1)
+      TA_SD_REH(2)
+      TA_SD_REH(3)
+      TA_SD_REH(4)
+      TA_SD_REH(6)
+      TA_SD_REH(8)
+      TA_SD_REH(12)
+      TA_SD_REH(16)
+#undef TA_SD_REH
+      default:
+        return 1;
     }
   return 0;
 }
@@ -482,8 +591,10 @@ extern "C" int ta_rehearse_search_diag(const void* hay, int64_t iter_len,
                                        int64_t own_len, int64_t halo,
                                        int64_t nseg, int anchored, int mc,
                                        int gc, int sgc, int tc, int transpose,
+                                       int rows, int lanes, int warps,
                                        void* out_d, void* out_l) {
-  if (m < 1 || m > SD_LANES * 16 || own_len < 1 || halo < 0 || nseg < 1)
+  if (!sd_plan_ok(m, rows, lanes, warps, own_len, halo) ||
+      m > SD_LANES * SD_MAX_ROWS || nseg < 1 || iter_len < 0)
     return 1;
   SdArgs g;
   g.hay = (const uint8_t*)hay;
@@ -498,9 +609,11 @@ extern "C" int ta_rehearse_search_diag(const void* hay, int64_t iter_len,
   g.gc = gc;
   g.sgc = sgc;
   g.tc = tc;
+  g.lanes = lanes;
   g.out_d = (int32_t*)out_d;
   g.out_l = (int32_t*)out_l;
-  return transpose ? rehearse_sd<true>(g) : rehearse_sd<false>(g);
+  return transpose ? rehearse_sd<true>(g, rows, warps)
+                   : rehearse_sd<false>(g, rows, warps);
 }
 
 // One item of search_flat.cu: the warps of the block run each row in

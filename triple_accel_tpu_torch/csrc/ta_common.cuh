@@ -50,12 +50,104 @@ static TA_DEV void ta_store4(int32_t* p, const int32_t* v) {
 #endif
 }
 
+// four ints given one by one to a 16-byte aligned address in one store
+static TA_DEV void ta_store4v(int32_t* p, int32_t a, int32_t b, int32_t c,
+                              int32_t d) {
+  const int32_t v[4] = {a, b, c, d};
+  ta_store4(p, v);
+}
+
 // low `nbits` bits set, nbits clipped to [0, 64]
 static TA_DEV uint64_t ta_low_mask(int nbits) {
   if (nbits <= 0) return 0ull;
   if (nbits >= 64) return ~0ull;
   return (1ull << nbits) - 1ull;
 }
+
+// 32-bit words of multi-word bit vectors (the blocked Myers kernel).
+//   ta_fshl1(lo, hi): (hi << 1) | (lo >> 31), one funnel shift: a word
+//     shifted left by one with the top bit of the word below it;
+//   ta_add_chain<N>(s, x, y, cw): s = x + y + carry over N words, low word
+//     first, the carry-in being bit 31 of cw; returns the carry out (0 or
+//     1).  On the card a PTX add.cc / addc.cc chain: one instruction a
+//     word, the carry in the condition code (CC.CF), as multi-precision
+//     libraries chain it: a CC-writing instruction is one of these asm
+//     statements only, and volatile keeps them in order.
+#ifdef TA_HOST_REHEARSAL
+static inline uint32_t ta_fshl1(uint32_t lo, uint32_t hi) {
+  return (hi << 1) | (lo >> 31);
+}
+static inline int ta_popc32(uint32_t x) { return __builtin_popcount(x); }
+template <int N>
+static inline uint32_t ta_add_chain(uint32_t* s, const uint32_t* x,
+                                    const uint32_t* y, uint32_t cw) {
+  uint64_t c = cw >> 31;
+  for (int i = 0; i < N; ++i) {
+    const uint64_t v = (uint64_t)x[i] + y[i] + c;
+    s[i] = (uint32_t)v;
+    c = v >> 32;
+  }
+  return (uint32_t)c;
+}
+#else
+static __device__ __forceinline__ uint32_t ta_fshl1(uint32_t lo,
+                                                    uint32_t hi) {
+  return __funnelshift_l(lo, hi, 1);
+}
+static __device__ __forceinline__ int ta_popc32(uint32_t x) {
+  return __popc(x);
+}
+template <int N>
+static __device__ __forceinline__ uint32_t ta_add_chain(uint32_t* s,
+                                                        const uint32_t* x,
+                                                        const uint32_t* y,
+                                                        uint32_t cw) {
+  uint32_t dummy, cout;
+  // CC.CF = bit 31 of cw: cw + 2^31 overflows exactly when it is set
+  asm volatile("add.cc.u32 %0, %1, 0x80000000;" : "=r"(dummy) : "r"(cw));
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+    asm volatile("addc.cc.u32 %0, %1, %2;"
+                 : "=r"(s[i])
+                 : "r"(x[i]), "r"(y[i]));
+  asm volatile("addc.u32 %0, 0, 0;" : "=r"(cout));
+  return cout;
+}
+#endif
+
+// 16-byte chunks of a buffer [0, len), advanced one chunk a call, the next
+// chunk already requested; bytes at or past `len` read as 0.
+struct TaChunks {
+  const uint8_t* base;
+  int64_t len;
+  int64_t c;  // chunk held in `cur`
+  uint4 cur, nxt;
+
+  TA_DEV uint4 load(int64_t q) const {
+    if (q * 16 + 16 <= len) return ta_load16(base + q * 16);
+    uint32_t wd[4] = {0u, 0u, 0u, 0u};
+    for (int r = 0; r < 16 && q * 16 + r < len; ++r)
+      wd[r >> 2] |= (uint32_t)base[q * 16 + r] << (8 * (r & 3));
+    uint4 v;
+    v.x = wd[0];
+    v.y = wd[1];
+    v.z = wd[2];
+    v.w = wd[3];
+    return v;
+  }
+  TA_DEV void start(const uint8_t* b, int64_t l) {
+    base = b;
+    len = l;
+    c = -1;
+    cur.x = cur.y = cur.z = cur.w = 0u;
+    nxt = load(0);
+  }
+  TA_DEV void advance() {
+    cur = nxt;
+    ++c;
+    nxt = load(c + 1);
+  }
+};
 
 // Bytes [0, len) of a 16-byte aligned buffer read in order, one a call,
 // 16 at a time with the next 16 already requested.

@@ -24,12 +24,15 @@ The functions (the same the TPU kernels compute):
 
 The plan is Hopper's, not the TPU's: the 1280-char strips, 1024-column
 chunks and the blocked / chunked choice sized to VMEM have no counterpart.
-A warp runs one work item (pair or segment) as a wavefront over its 32
-lanes, each lane holding WPT 64-bit words, and a needle longer than 32 *
-WPT words runs as strips chained through a byte row of boundary bits a
-column.  The match table is per needle over a compact alphabet, so its
-size, and with it the WPT that fits a block's shared memory, depends on
-how many distinct bytes the needle holds.
+A group of G lanes of a warp runs one work item (pair or segment) as a
+wavefront, each lane holding W 32-bit words (`blocked_plan`: the map whose
+G * W words cover the needle with the least left over; a pair always takes
+the whole warp), and a needle longer than a strip of G * W words runs as
+strips chained through a byte row of boundary bits a column.  In search
+mode a block of several warps runs consecutive segments of one needle and
+shares one match table.  The table is per needle over a compact alphabet,
+so its size, and with it the W that fits a block's shared memory, depends
+on how many distinct bytes the needle holds.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ __all__ = [
     "WORD",
     "LANES",
     "WPT_CHOICES",
+    "LANE_CHOICES",
     "blocked_plan",
     "suggest_own_len_blocked",
     "alphabet_codes",
@@ -59,15 +63,27 @@ __all__ = [
     "blocked_search_plain",
 ]
 
-WORD = 64
-LANES = 32  # one warp a work item
-WPT_CHOICES = (1, 2, 4, 6, 10)  # words a lane the kernel is built for
+WORD = 32  # bits a word of the kernel
+LANES = 32  # a warp
+WPT_CHOICES = (1, 2, 3, 4, 6, 8, 12, 20)  # words a lane the kernel is built for
+LANE_CHOICES = (4, 8, 16, 32)  # lanes a work item (search mode)
+MAX_WARPS = 8  # warps a block (search mode)
 CODES = 256
 SMEM_BYTES = 232_448  # shared memory one block may use on an H100
 
-# one warp a block, and an SM holds at most 32 resident blocks: segments
-# wanted in flight on a large haystack
-_TARGET_SEGMENTS = 132 * 32
+_SMS = 132  # SMs of an H100 SXM
+# segments wanted in flight on a large haystack
+_TARGET_SEGMENTS = _SMS * 32
+
+# The search plan's choices, from benches/search_sweep.py --blocked
+# (NVIDIA H100 80GB HBM3, 700 W; 128 MiB, needle 3,000 = 94 words, halos
+# 3,328 and 4,096): among maps of equally few slots, lanes a segment in
+# this order (8 x 12 at 32,000 owned columns 16.86 ms unit, 21.59
+# rDamerau; at their best owned length 16 x 6 17.20 / 23.07, 32 x 3
+# 20.25 / 25.56), and the warps a block (2 and 4 within 3% of each other, 8
+# 17-26% slower at 13,312 and 26,624 owned columns, halo 3,328).
+SEARCH_LANES_ORDER = (8, 16, 32, 4)
+SEARCH_WARPS = 4
 
 # needle chars a strip of the JAX package's long-needle layouts (64 words
 # of 20 bits)
@@ -78,34 +94,94 @@ blocked_search_plain = myers_search_plain
 
 
 def _smem_bytes(rows: int, wpt: int) -> int:
-    """Shared memory of one block: the byte -> code map and the table of
-    `rows` codes x (LANES * wpt) words."""
-    return 2 * CODES + rows * wpt * LANES * 8
+    """Shared memory of one block: the byte -> table-row map and the
+    table of `rows` codes x (LANES * wpt) 32-bit words."""
+    return 4 * CODES + rows * wpt * LANES * 4
 
 
-def blocked_plan(needle_len: int,
-                 rows: int = CODES + 1) -> Optional[Tuple[int, int]]:
-    """(words a lane, strips) for a needle of `needle_len` chars whose
-    match table has `rows` rows (distinct bytes + 1): the fewest words a
-    lane that hold the needle in one strip, else the most that fit a
-    block's shared memory, in strips.  None for an empty needle."""
+def _least_lanes(nw: int, wpt: int) -> int:
+    """The fewest lanes of LANE_CHOICES whose `wpt` words a lane hold `nw`
+    words (32 when none does: strips)."""
+    return next((g for g in LANE_CHOICES if g * wpt >= nw), LANES)
+
+
+def _check_plan(plan: dict, nw: int, rows: int, search: bool) -> None:
+    """A plan handed to a wrapper (blocked_plan's, or one a sweep made) is
+    one the kernel takes: a built word count, a lane count of
+    LANE_CHOICES (32 for pairs), 1..MAX_WARPS warps (1 for pairs), a table
+    that fits a block's shared memory, and, for a one-strip map, no lane
+    beyond the needle's: the fewest lanes that hold it at that word
+    count."""
+    w, g, warps = plan["words_per_lane"], plan["lanes"], plan["warps"]
+    ok = (w in WPT_CHOICES and g in LANE_CHOICES
+          and 1 <= warps <= MAX_WARPS
+          and _smem_bytes(rows, w) <= SMEM_BYTES
+          and (search or (g == LANES and warps == 1))
+          and (g * w < nw or g == _least_lanes(nw, w)))
+    if not ok:
+        raise ValueError(f"the blocked kernel does not take the plan {plan} "
+                         f"for {nw} words and {rows} table rows")
+
+
+def blocked_plan(needle_len: int, rows: int = CODES + 1, *,
+                 search: bool = False, segments: Optional[int] = None,
+                 plan: Optional[dict] = None) -> Optional[dict]:
+    """How the blocked kernel runs a needle of `needle_len` chars whose
+    match table has `rows` rows (distinct bytes + 1); None for an empty
+    needle.  {"words_per_lane": W, "lanes": G, "warps": warps a block,
+    "strips": strips}.
+
+    A pair (distance mode) takes the whole warp: the fewest words a lane
+    that hold the needle in one strip, else the most that fit a block's
+    shared memory, in strips.  A search takes, of the maps (G, W) whose
+    G * W words hold the needle in one strip, one with the fewest words
+    (ties: the fewest lanes holding no word, then SEARCH_LANES_ORDER, or,
+    for a launch of fewer `segments` than the card has SMs, the most
+    lanes: a lone segment is latency-bound, and fewer words a lane make a
+    shorter step), and SEARCH_WARPS warps a block (fewer when the
+    segments do not fill them); a needle no map holds runs in strips at
+    32 lanes and the most words that fit.
+    `plan`: a map to take instead (a sweep's), checked; its strips are
+    recomputed."""
     if needle_len < 1:
         return None
     nw = -(-needle_len // WORD)
+    if plan is not None:
+        _check_plan(plan, nw, rows, search)
+        w, g = plan["words_per_lane"], plan["lanes"]
+        return {"words_per_lane": w, "lanes": g, "warps": plan["warps"],
+                "strips": -(-nw // (g * w))}
     fits = [w for w in WPT_CHOICES if _smem_bytes(rows, w) <= SMEM_BYTES]
-    wpt = next((w for w in fits if LANES * w >= nw), fits[-1])
-    return wpt, -(-nw // (LANES * wpt))
+    if search:
+        # fewest words, then fewest lanes without a word, then the order
+        few = segments is not None and segments < _SMS
+        maps = [(g * w, g - -(-nw // w),
+                 -g if few else SEARCH_LANES_ORDER.index(g), g, w)
+                for g in LANE_CHOICES for w in fits
+                if g * w >= nw and g == _least_lanes(nw, w)]
+        g, w = min(maps)[3:] if maps else (LANES, fits[-1])
+        warps = SEARCH_WARPS
+        if segments is not None:  # no warp a block without a segment
+            warps = max(1, min(warps, -(-segments * g // LANES)))
+    else:
+        g, warps = LANES, 1
+        w = next((w for w in fits if LANES * w >= nw), fits[-1])
+    return {"words_per_lane": w, "lanes": g, "warps": warps,
+            "strips": -(-nw // (g * w))}
 
 
 def suggest_own_len_blocked(iter_len: int, halo: int) -> int:
-    """Owned end positions per segment for K6: one resident warp a segment
-    on every SM of the card for a large haystack, while the halo re-read
-    stays at most an eighth of a segment's owned length; a multiple of
-    256, at least 1024.  Measured at ONE halo only: on an H100 at a
-    3,328-byte halo (needle 3,000, k = 150) over 128 MiB, the 32,000 owned
-    columns this picks (4,195 segments, one wave) timed best in
-    benches/search_sweep.py --blocked (41.71 ms; 26,624: 43.01 ms; 65,536:
-    45.33 ms); for every other halo it is an extrapolation."""
+    """Owned end positions per segment for K6: about 4,224 segments (132
+    SMs x 32) for a large haystack, i.e. at the plan's 8 lanes a segment
+    about 8 warps an SM in one wave, while the halo re-read stays at most
+    an eighth of a segment's owned length; a multiple of 256, at least
+    1024.  Measured by benches/search_sweep.py --blocked on an NVIDIA H100
+    80GB HBM3 at 700 W over 128 MiB (needle 3,000) at two halos, 8 lanes x
+    12 words, 4 warps a block: halo 3,328, the 32,000 this picks 16.86 /
+    21.59 ms unit / rDamerau (kernel_ab), 13,312: 18.28 / 24.22 (1.2
+    waves), 26,624: 20.70 / 26.74, 53,248: 26.28 / 33.22 (too few warps);
+    halo 4,096, the 32,768 this picks 17.07 / 22.20, 16,384: 18.64 /
+    23.61, 65,536: 18.97 / 22.42."""
     per_target = -(-max(iter_len, 1) // _TARGET_SEGMENTS)
     own = max(per_target, 8 * halo, 1024)
     return -(-own // 256) * 256
@@ -305,15 +381,16 @@ def blocked_distance(a: torch.Tensor, b: torch.Tensor, m: torch.Tensor,
     a, b = a.contiguous(), _aligned(b)
     m, n = m.contiguous(), n.contiguous()
     codes, rows = alphabet_codes(a, m)
-    wpt, n_strips = blocked_plan(max(int(m.max()) if B else 1, 1), rows)
-    scratch, sstride = _scratch(B, int(n.max()) if B else 0, n_strips,
+    pl = blocked_plan(max(int(m.max()) if B else 1, 1), rows)
+    scratch, sstride = _scratch(B, int(n.max()) if B else 0, pl["strips"],
                                 a.device)
     out = torch.empty(B, dtype=torch.int32, device=a.device)
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ta_blocked_distance(
             a.data_ptr(), b.data_ptr(), m.data_ptr(), n.data_ptr(),
-            codes.data_ptr(), rows, wpt, out.data_ptr(), B, a.stride(0),
+            codes.data_ptr(), rows, pl["words_per_lane"], out.data_ptr(), B,
+            a.stride(0),
             b.stride(0), 0 if scratch is None else scratch.data_ptr(),
             sstride, int(damerau), stream,
         )
@@ -327,8 +404,8 @@ blocked_distance.launches = 0
 
 
 def blocked_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
-                   halo: int, anchored: bool = False,
-                   damerau: bool = False) -> torch.Tensor:
+                   halo: int, anchored: bool = False, damerau: bool = False,
+                   plan: Optional[dict] = None) -> torch.Tensor:
     """`myers_search` for needles of any length: D[m][j] for every end
     position j in [0, len(hay)] of every needle, int32 [num, len(hay) + 1],
     the same segments, halo and layout.
@@ -337,7 +414,8 @@ def blocked_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
     count one launch in `blocked_search.launches`; a build or launch
     failure raises.  CPU tensors, and only those, take the plain PyTorch
     version.  An anchored search must run as one segment (own_len >=
-    len(hay), halo = 0).
+    len(hay), halo = 0).  `plan`: a map for `blocked_plan` to check and
+    take (`search=True`).
     """
     m = _check_inputs(hay, needles, own_len, halo, anchored)
     if hay.device.type == "cpu":
@@ -354,10 +432,11 @@ def blocked_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
     num = needles.shape[0]
     codes, rows = alphabet_codes(
         needles, torch.full((num,), m, dtype=torch.int64, device=hay.device))
-    wpt, n_strips = blocked_plan(m, rows)
     nseg = seg_count(n, own_len)
-    scratch, sstride = _scratch(num * nseg, halo + own_len, n_strips,
-                                hay.device)
+    pl = blocked_plan(m, rows, search=True, segments=num * nseg, plan=plan)
+    # a segment's boundary bits sit at its byte's place in a 16-byte chunk
+    scratch, sstride = _scratch(num * nseg, halo + own_len + 15,
+                                pl["strips"], hay.device)
     # rows padded to a multiple of 4 ints: four columns leave in one
     # 16-byte store; the pad columns are never written
     stride = -(-(n + 1) // 4) * 4
@@ -366,7 +445,8 @@ def blocked_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ta_blocked_search(
             hay.data_ptr(), n, needles.data_ptr(), num, m, codes.data_ptr(),
-            rows, wpt, own_len, halo, nseg, int(anchored), int(damerau),
+            rows, pl["words_per_lane"], pl["lanes"], pl["warps"], own_len,
+            halo, nseg, int(anchored), int(damerau),
             out.data_ptr(), stride,
             0 if scratch is None else scratch.data_ptr(), sstride, stream,
         )

@@ -146,13 +146,13 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     ]
     lib.ta_blocked_search.restype = ctypes.c_int
     lib.ta_blocked_search.argtypes = [
-        vp, i64, vp, i32, i32, vp, i32, i32, i64, i64, i64, i32, i32, vp,
-        i64, vp, i64, vp,
+        vp, i64, vp, i32, i32, vp, i32, i32, i32, i32, i64, i64, i64, i32,
+        i32, vp, i64, vp, i64, vp,
     ]
     lib.ta_search_diag.restype = ctypes.c_int
     lib.ta_search_diag.argtypes = [
-        vp, i64, vp, i32, i64, i64, i64, i32, i32, i32, i32, i32, i32, vp,
-        vp, vp,
+        vp, i64, vp, i32, i64, i64, i64, i32, i32, i32, i32, i32, i32, i32,
+        i32, i32, vp, vp, vp,
     ]
     lib.ta_flat_search.restype = ctypes.c_int
     lib.ta_flat_search.argtypes = [
