@@ -8,10 +8,11 @@ building every CUDA kernel from the sources in this checkout and holding
 each against its plain PyTorch version on the card:
 
 * `distance`: `levenshtein_k_batch` on 196,608 pairs of 1000 bytes at
-  k = 32, unit costs (kernel `myers_distance`);
+  k = 32, unit costs (kernel `myers_distance`), and where its end-to-end
+  time goes (`e2e_split_s`);
 * `search`: `levenshtein_search_simd_with_opts` with a 24-byte needle at
   k = 3 over a 128 MiB haystack, unit costs and the restricted-Damerau
-  preset (kernel `myers_search`);
+  preset (kernel `myers_search`), and the same split of each call;
 * `band_distance`: the same 196,608 pairs with adjacent swaps added, at
   k = 32 under the restricted-Damerau costs, then 4,096 pairs of 20,000
   bytes at k = 256 under affine costs (2, 1, 2): the general band kernel in
@@ -469,40 +470,146 @@ def distance_cases(rng, n_pairs: int, max_m: int, k: int):
     return a_list, b_list
 
 
+# K1's edges: thresholds at the 32-bit word edges of its window (Wp = 64,
+# 128, 192 bits: 2, 4, 6 words; k = 31 and 32 share the main path's two
+# words), pair lengths at its 16-row chunk edges and 0
+DIST_EDGE_KS = (31, 32, 63, 64, 95, 127, 128, 191)
+DIST_EDGE_LENS = (0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 255)
+
+
+def distance_edge_cases(rng, k: int):
+    """Pairs on K1's head / body split: for every length of
+    DIST_EDGE_LENS, one pair at ukL = 0 (k_pair = delta), one at ukL = 1
+    and one at the largest ukL (delta 0, k_pair = k: ukL = k // 2, the
+    most virtual-column rows), each b a copy of a with a few
+    substitutions and delta inserted bytes.  Returns (a_list, b_list, ks,
+    max_m)."""
+    a_list, b_list, ks = [], [], []
+    for m in DIST_EDGE_LENS:
+        for ukl in (0, 1, k // 2):
+            delta = 0 if ukl == k // 2 else int(rng.integers(0, k - 2 * ukl + 1))
+            kp = delta + 2 * ukl
+            a = rng.integers(65, 69, m).astype(np.uint8)
+            b = a.copy()
+            if m:
+                b[rng.integers(0, m, int(rng.integers(0, 4)))] = 68
+            b = np.insert(b, rng.integers(0, m + 1, delta),
+                          rng.integers(65, 69, delta).astype(np.uint8))
+            a_list.append(a)
+            b_list.append(b)
+            ks.append(kp)
+    return a_list, b_list, np.asarray(ks, np.int64), max(DIST_EDGE_LENS)
+
+
 def check_distance_kernel(dev):
     from triple_accel_tpu_torch.ops.myers_distance import (
         myers_distance, myers_distance_plain, prepare_myers_inputs)
 
     rng = np.random.default_rng(2024)
     cases, worst = 0, 0
+
+    def run(a_list, b_list, k, max_m, ks, what):
+        nonlocal cases, worst
+        t = prepare_myers_inputs(a_list, b_list, k, max_m, ks=ks, device=dev)
+        got = myers_distance(*t, k=k)
+        torch.cuda.synchronize()
+        ref = myers_distance_plain(*t, k=k)
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"myers_distance != plain at k={k} max_m={max_m} "
+                        f"{what}")
+        cases += 1
+
     for max_m in (64, 1024):
         for k in (4, 32, 63, 64, 159):
             a_list, b_list = distance_cases(rng, CHECK_PAIRS, max_m, k)
             ks = np.maximum(rng.integers(0, k + 1, len(a_list)),
                             [len(b) - len(a) for a, b in zip(a_list, b_list)])
             for per_pair in (None, ks):
-                t = prepare_myers_inputs(a_list, b_list, k, max_m,
-                                         ks=per_pair, device=dev)
-                got = myers_distance(*t, k=k)
-                torch.cuda.synchronize()
-                ref = myers_distance_plain(*t, k=k)
-                err = int((got.to(torch.int64) - ref.to(torch.int64))
-                          .abs().max())
-                worst = max(worst, err)
-                check(err == 0, f"myers_distance != plain at k={k} "
-                                f"max_m={max_m} per_pair={per_pair is not None}")
-                cases += 1
+                run(a_list, b_list, k, max_m, per_pair,
+                    f"per_pair={per_pair is not None}")
+    for k in DIST_EDGE_KS:
+        a_list, b_list, ks, max_m = distance_edge_cases(rng, k)
+        # the edge pairs among a random batch, so their warps mix lengths
+        a_r, b_r = distance_cases(rng, 256, max_m, k)
+        ks_r = np.maximum(rng.integers(0, k + 1, len(a_r)),
+                          [len(b) - len(a) for a, b in zip(a_r, b_r)])
+        run(a_list + a_r, b_list + b_r, k, max_m,
+            np.concatenate([ks, ks_r]), "edge pairs")
     return cases, worst
+
+
+# K2's edges, one launch each with two needles: (needle chars, haystack
+# bytes, own_len, halo, anchored, damerau, warps a block).  Needles at the
+# built word counts' edges (32-bit words 1, 2, 3, 4, 6, 8, 12, 16, 24, 40);
+# haystacks one under and one over a multiple of 4, 16 and 32, so the last
+# segment is short and ends inside a 16-byte piece; owned lengths that are
+# multiples of 32 (the plan's: every segment on a sector), of 16 only, and
+# of neither (segments staggered in their first two chunks); halos past
+# the first segments' start (they start at byte 0); blocks of 1 to 8 warps
+# whose last warp is partly empty; anchored runs (one segment).
+SEARCH_EDGE_CASES = (
+    (24, 4127, 32, 32, False, False, 8),
+    (24, 4129, 64, 32, False, True, 1),
+    (5, 3001, 13, 16, False, False, 3),
+    (32, 2051, 48, 48, False, True, 2),
+    (33, 2047, 100, 80, False, False, 4),
+    (64, 1985, 96, 96, False, True, 8),
+    (65, 1023, 96, 112, False, False, 5),
+    (96, 2017, 160, 128, False, True, 8),
+    (97, 999, 128, 144, False, False, 7),
+    (160, 1503, 256, 176, False, True, 8),
+    (193, 2049, 224, 224, False, False, 2),
+    (300, 1601, 320, 336, False, True, 8),
+    (400, 1711, 416, 432, False, False, 6),
+    (769, 2333, 800, 800, False, True, 8),
+    (1280, 2911, 1312, 1312, False, False, 8),
+    (24, 27, 27, 0, True, False, 8),
+    (65, 68, 68, 0, True, True, 1),
+    (1280, 1285, 1285, 0, True, True, 8),
+)
+
+
+def search_edge_input(rng, m: int, n: int):
+    """Two needles of m chars over n haystack bytes (alphabet ACGT plus
+    NUL): needle 1 holds a NUL byte, the haystack starts with NUL bytes,
+    and copies of needle 0 with one adjacent swap lie every 40 + m bytes,
+    so copies end in every piece and segment position."""
+    needles = np.stack([ACGT[rng.integers(0, 4, m)] for _ in range(2)])
+    needles[1, rng.integers(0, m)] = 0
+    hay = ACGT[rng.integers(0, 4, n)]
+    hay[:2] = 0
+    for pos in range(1, n - m, 40 + m):
+        hay[pos: pos + m] = needles[0]
+        if m > 4:
+            q = pos + int(rng.integers(0, m - 1))
+            hay[q], hay[q + 1] = hay[q + 1], hay[q]
+    return needles, hay
 
 
 def check_search_kernel(dev):
     from triple_accel_tpu_torch.ops.myers_search import (
         myers_search, myers_search_plain, prepare_myers_needles,
-        suggest_own_len)
+        search_halo, suggest_own_len)
     from triple_accel_tpu_torch.ops.search_common import window_span
 
     rng = np.random.default_rng(4048)
     cases, worst = 0, 0
+
+    def run(hay, nd, own_len, halo, anchored, damerau, warps, what):
+        nonlocal cases, worst
+        hay_d = torch.from_numpy(hay).to(dev)
+        got = myers_search(hay_d, nd, own_len=own_len, halo=halo,
+                           anchored=anchored, damerau=damerau, warps=warps)
+        torch.cuda.synchronize()
+        ref = myers_search_plain(hay_d, nd, own_len=own_len, halo=halo,
+                                 anchored=anchored, damerau=damerau)
+        err = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
+        worst = max(worst, err)
+        check(err == 0, f"myers_search != plain: {what} damerau={damerau} "
+                        f"anchored={anchored}")
+        cases += 1
+
     k = 3
     for m in (1, 24, 64, 65, 700, 1280):
         n = CHECK_HAY_BYTES[0] if m <= 65 else CHECK_HAY_BYTES[1]
@@ -522,22 +629,16 @@ def check_search_kernel(dev):
                     own_len = iter_len
                 else:
                     iter_len = n
-                    halo = min(-(-window_span(m, k, 1, 0) // 256) * 256, n)
+                    halo = search_halo(window_span(m, k, 1, 0), n)
                     # the tail segment is shorter than own_len (n is odd)
                     own_len = min(suggest_own_len(iter_len, halo), 4096)
-                hay_d = torch.from_numpy(hay[:iter_len].copy()).to(dev)
-                got = myers_search(hay_d, nd, own_len=own_len, halo=halo,
-                                   anchored=anchored, damerau=damerau)
-                torch.cuda.synchronize()
-                ref = myers_search_plain(hay_d, nd, own_len=own_len,
-                                         halo=halo, anchored=anchored,
-                                         damerau=damerau)
-                err = int((got.to(torch.int64) - ref.to(torch.int64))
-                          .abs().max())
-                worst = max(worst, err)
-                check(err == 0, f"myers_search != plain at m={m} "
-                                f"damerau={damerau} anchored={anchored}")
-                cases += 1
+                run(hay[:iter_len].copy(), nd, own_len, halo, anchored,
+                    damerau, None, f"m={m}")
+    for m, n, own, halo, anchored, damerau, warps in SEARCH_EDGE_CASES:
+        needles, hay = search_edge_input(rng, m, n)
+        nd = prepare_myers_needles(list(needles), m, device=dev)
+        run(hay, nd, own, halo, anchored, damerau, warps,
+            f"edge m={m} n={n} own_len={own} halo={halo} warps={warps}")
     return cases, worst
 
 
@@ -1314,6 +1415,122 @@ def check_flat_distance_kernel(dev):
 # phases 4 and 5: the main paths
 # ---------------------------------------------------------------------------
 
+def _timed(seconds: dict, name: str, fn):
+    """`fn` with the card synchronised before and after each call, its
+    wall time added to seconds[name] (a kernel's launch and run, a
+    transfer's copy)."""
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        seconds[name] = seconds.get(name, 0.0) + time.perf_counter() - t0
+        return res
+    return run
+
+
+def _patched(module, **fns):
+    """Set module attributes for the length of a `with` block.  A kernel
+    wrapper counts its launches on the module's attribute of its name, so
+    a replacement carries the count while it stands in, and hands it back."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = {n: getattr(module, n) for n in fns}
+        for n, fn in fns.items():
+            if hasattr(saved[n], "launches"):
+                fn.launches = saved[n].launches
+            setattr(module, n, fn)
+        try:
+            yield
+        finally:
+            for n, fn in saved.items():
+                if hasattr(fn, "launches"):
+                    fn.launches = getattr(module, n).launches
+                setattr(module, n, fn)
+    return ctx()
+
+
+def distance_split(a_list, b_list, out) -> dict:
+    """Where the `distance` phase's end-to-end time goes: one more call of
+    `levenshtein_k_batch` with K1's host prep (packing the strings, then
+    the upload of its tensors) and kernel wrapper timed where the entry
+    point calls them, then the fetch of the result and the final
+    `np.where` timed on the same arrays.  The entry point is unchanged;
+    its result is checked."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.ops import myers_distance as md
+
+    secs, keep = {}, {}
+    prep, kernel = md.prepare_myers_inputs, md.myers_distance
+
+    def timed_prep(*args, device, **kwargs):
+        host = _timed(secs, "host_prep_s", prep)(*args, device="cpu",
+                                                 **kwargs)
+        return _timed(secs, "upload_s",
+                      lambda: tuple(x.to(device) for x in host))()
+
+    def timed_kernel(*args, **kwargs):
+        keep["dist"] = _timed(secs, "kernel_s", kernel)(*args, **kwargs)
+        return keep["dist"]
+
+    with _patched(md, prepare_myers_inputs=timed_prep,
+                  myers_distance=timed_kernel):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = tt.levenshtein_k_batch(a_list, b_list, K_DIST)
+        e2e = time.perf_counter() - t0
+    check(np.array_equal(again, out), "timed distance rerun != main path")
+    t0 = time.perf_counter()
+    fetched = keep["dist"].cpu().numpy().astype(np.int64)
+    secs["fetch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    np.where(fetched <= K_DIST, fetched, -1)
+    secs["np_where_s"] = time.perf_counter() - t0
+    secs["lists_and_dispatch_math_s"] = e2e - sum(secs.values())
+    return {"e2e_s": round(e2e, 4),
+            **{k_: round(v, 4) for k_, v in secs.items()}}
+
+
+def search_split(needle, hay, costs, st) -> dict:
+    """Where one `search` call's end-to-end time goes: the call again
+    with K2's wrapper, the hit collection (`torch.nonzero` and the fetch
+    of the hits), the length replay and `_postprocess_sparse` timed where
+    the entry point calls them; what precedes the kernel is the haystack's
+    upload and the needle's prep."""
+    import importlib
+
+    from triple_accel_tpu_torch.ops import myers_search as ms_mod
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    secs, first = {}, {}
+    kernel = _timed(secs, "kernel_s", ms_mod.myers_search)
+
+    def marked_kernel(*args, **kwargs):
+        first.setdefault("at", time.perf_counter())
+        return kernel(*args, **kwargs)
+
+    with _patched(ms_mod, myers_search=marked_kernel,
+                  collect_hits=_timed(secs, "collect_hits_s",
+                                      ms_mod.collect_hits)), \
+            _patched(lev, _resolve_hits_batch=_timed(
+                secs, "replay_s", lev._resolve_hits_batch),
+                _resolve_hits_flat=_timed(
+                    secs, "replay_s", lev._resolve_hits_flat),
+                _postprocess_sparse=_timed(
+                    secs, "postprocess_s", lev._postprocess_sparse)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lev.levenshtein_search_simd_with_opts(needle, hay, K_SEARCH, st,
+                                              costs, False)
+        e2e = time.perf_counter() - t0
+    secs["upload_and_needle_prep_s"] = first["at"] - t0
+    secs["rest_s"] = e2e - sum(secs.values())
+    return {"e2e_s": round(e2e, 4),
+            **{k_: round(v, 4) for k_, v in secs.items()}}
+
+
 def run_distance(dev, a_list, b_list, gen_s: float, native_loaded: bool):
     import triple_accel_tpu_torch as tt
     from triple_accel_tpu_torch.dispatch import (
@@ -1354,6 +1571,8 @@ def run_distance(dev, a_list, b_list, gen_s: float, native_loaded: bool):
         check(exp is not None and int(out[p]) == exp,
               f"pair {p}: {int(out[p])} != oracle {exp}")
 
+    split = distance_split(a_list, b_list, out)
+
     # kernel only, at the tensors the main path gives it
     t0 = time.perf_counter()
     margs = md.prepare_myers_inputs(
@@ -1391,6 +1610,7 @@ def run_distance(dev, a_list, b_list, gen_s: float, native_loaded: bool):
         "datagen_s": round(gen_s, 3), "e2e_s": round(e2e_s, 4),
         "pairs_per_s_e2e": round(n_pairs / e2e_s, 1),
         "host_prep_and_upload_s": round(prep_s, 4),
+        "e2e_split_s": split,
         "kernel_ms": round(ms, 4),
         "kernel_ms_min_max": [round(ms_min, 4), round(ms_max, 4)],
         "pairs_per_s_kernel": round(n_pairs / (ms * 1e-3), 1),
@@ -1478,8 +1698,13 @@ def run_search(dev, needle, hay, planted, gen_s: float, native_loaded: bool):
         check([(mt.start, mt.end, mt.k) for mt in got] == exp,
               f"{cname}: All-mode matches on the prefix != reference")
 
+    split = {f"{c}_{st.name}": search_split(needle, hay, costs, st)
+             for c, costs in (("unit", LEVENSHTEIN_COSTS),
+                              ("rdamerau", RDAMERAU_COSTS))
+             for st in (SearchType.Best, SearchType.All)}
+
     # kernel only, at the tensors the main path gives it
-    halo = min(-(-window_span(NEEDLE_LEN, K_SEARCH, 1, 0) // 256) * 256, n)
+    halo = ms_mod.search_halo(window_span(NEEDLE_LEN, K_SEARCH, 1, 0), n)
     own_len = ms_mod.suggest_own_len(n, halo)
     hay_d = torch.from_numpy(hay).to(dev)
     nd = ms_mod.prepare_myers_needles([needle], NEEDLE_LEN, device=dev)
@@ -1523,6 +1748,7 @@ def run_search(dev, needle, hay, planted, gen_s: float, native_loaded: bool):
         "datagen_s": round(gen_s, 3),
         "e2e_s": {k_: round(v, 4) for k_, v in e2e.items()},
         "GBps_e2e": {k_: round(n / v / 1e9, 3) for k_, v in e2e.items()},
+        "e2e_split_s": split,
         "kernel_ms_median_min_max": {
             "unit": [round(t, 4) for t in kernel_ms[False]],
             "rdamerau": [round(t, 4) for t in kernel_ms[True]]},
@@ -2481,8 +2707,9 @@ def run_flat_search(dev, native_loaded: bool):
     long-needle haystack with its copies at k = 150 under GENERAL_COSTS,
     Best and All, against the compiled scalar search over the copies'
     windows and a copy-free stretch; then the dense-hit route of unit-cost
-    search (K2's hits past the host replay budget, their lengths from K8
-    over the hit-bearing segments) against the compiled scalar search."""
+    search (the 400-char needle's hits, from K6: K2's route stops short
+    of 400 chars, past the host replay budget, their lengths from K8 over
+    the hit-bearing segments) against the compiled scalar search."""
     from triple_accel_tpu_torch.dispatch import dispatch_history
     from triple_accel_tpu_torch.levenshtein import (
         _costs_tuple, levenshtein_search_simd_with_opts)
@@ -2553,7 +2780,7 @@ def run_flat_search(dev, native_loaded: bool):
     dense_s = time.perf_counter() - t0
     launches_dense = sf.flat_search.launches  # ... read just after it
     dense_paths = [d.path for _, d in dispatch_history()]
-    check(dense_paths == ["myers_search", "flat_resolve"]
+    check(dense_paths == ["myers_search_blocked", "flat_resolve"]
           and launches_dense >= 1,
           f"the dense-hit route took {dense_paths}, {launches_dense} "
           "flat_search launches")

@@ -70,7 +70,7 @@ def lib(tmp_path_factory):
     lib.ta_rehearse_distance.argtypes = [vp] * 6 + [i64, i64, i64, i32]
     lib.ta_rehearse_search.restype = ctypes.c_int
     lib.ta_rehearse_search.argtypes = [
-        vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64]
+        vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64, i32]
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
@@ -193,7 +193,7 @@ def test_search_body_equals_plain_version_and_oracle(lib, m, damerau,
         rc = lib.ta_rehearse_search(
             h.ctypes.data, it, needles.ctypes.data, 2, m, own, halo,
             seg_count(it, own), int(anchored), int(damerau),
-            out.ctypes.data, stride)
+            out.ctypes.data, stride, ms.myers_search_plan(m)[0])
         assert rc == 0
         assert np.array_equal(out[:, : it + 1], plain)
         assert (out[:, it + 1:] == -7).all()  # pad columns stay unwritten
@@ -203,6 +203,70 @@ def test_search_body_equals_plain_version_and_oracle(lib, m, damerau,
             got = {j: int(out[i, j]) for j in range(it + 1)
                    if out[i, j] <= k}
             assert got == ref
+
+
+@pytest.mark.parametrize("k", cs.DIST_EDGE_KS,
+                         ids=[f"k{k}" for k in cs.DIST_EDGE_KS])
+def test_distance_edges_equal_plain_version_and_oracle(lib, k):
+    """K1's head / body split and word edges (chip_smoke.distance_edge_cases:
+    ukL 0, 1 and k // 2, lengths 0 and one under, at and over multiples of
+    16), per-pair thresholds and the batch threshold; exact against the
+    plain version, the band contract against the oracle."""
+    rng = np.random.default_rng(4000 + k)
+    a_list, b_list, ks, max_m = cs.distance_edge_cases(rng, k)
+    exp = [levenshtein_naive_k_with_opts(a, b, 10**9, False)[0]
+           for a, b in zip(a_list, b_list)]
+    for per_pair in (ks, None):
+        t = md.prepare_myers_inputs(a_list, b_list, k, max_m, ks=per_pair,
+                                    device="cpu")
+        plain = md.myers_distance_plain(*t, k=k).numpy()
+        arrs = [x.numpy() for x in t]
+        out = np.full(len(a_list), -7, np.int32)
+        rc = lib.ta_rehearse_distance(
+            *[x.ctypes.data for x in arrs], out.ctypes.data, len(a_list),
+            arrs[0].shape[1], arrs[1].shape[1], md.myers_plan(k)[0])
+        assert rc == 0
+        assert np.array_equal(out, plain)
+        for p, (g, e) in enumerate(zip(out, exp)):
+            kp = k if per_pair is None else int(per_pair[p])
+            assert (g == e) if e <= kp else (g > kp), (p, g, e, kp)
+
+
+@pytest.mark.parametrize(
+    "case", cs.SEARCH_EDGE_CASES,
+    ids=[f"m{c[0]}-n{c[1]}-own{c[2]}-halo{c[3]}"
+         f"{'-anchored' if c[4] else ''}{'-rdamerau' if c[5] else ''}"
+         for c in cs.SEARCH_EDGE_CASES])
+def test_search_edges_equal_plain_version_and_oracle(lib, case):
+    """K2's lanes, chunks and staged stores at their edges
+    (chip_smoke.SEARCH_EDGE_CASES: every built word count's edge,
+    haystacks one under and over multiples of 4, 16 and 32, owned lengths
+    on and off the 16-byte chunk, halos reaching byte 0, two needles,
+    anchored runs, both cost models): the lanes of a warp in turn, the
+    staging area an array; exact against the plain version, pad columns
+    unwritten, hits within k = 3 equal to the oracle's."""
+    m, n, own, halo, anchored, damerau, _warps = case
+    rng = np.random.default_rng(m * 7 + n)
+    needles, hay = cs.search_edge_input(rng, m, n)
+    plain = ms.myers_search_plain(
+        torch.from_numpy(hay), torch.from_numpy(needles), own_len=own,
+        halo=halo, anchored=anchored, damerau=damerau).numpy()
+    stride = -(-(n + 1) // 4) * 4
+    out = np.full((2, stride), -7, np.int32)
+    rc = lib.ta_rehearse_search(
+        hay.ctypes.data, n, needles.ctypes.data, 2, m, own, halo,
+        seg_count(n, own), int(anchored), int(damerau), out.ctypes.data,
+        stride, ms.myers_search_plan(m)[0])
+    assert rc == 0
+    assert np.array_equal(out[:, : n + 1], plain)
+    assert (out[:, n + 1:] == -7).all()
+    if m <= 100:
+        costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
+        for i in range(2):
+            ref = {mt.end: mt.k for mt in levenshtein_search_naive_with_opts(
+                needles[i], hay, 3, SearchType.All, costs, anchored)}
+            assert {j: int(out[i, j]) for j in range(n + 1)
+                    if out[i, j] <= 3} == ref
 
 
 BAND_COSTS = [(1, 1, 0, None), (1, 1, 0, 1), (2, 1, 2, None), (3, 2, 1, 2)]

@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke as cs
+
 from triple_accel_tpu.ops.pallas.lev_myers import (
     myers_distance_pallas,
     prepare_myers_inputs as jax_prepare,
@@ -153,3 +155,37 @@ def test_wrapper_checks_its_inputs():
         prepare_myers_inputs([a[0]], [np.zeros(20, np.uint8)], 4, 8,
                              device="cpu")
     assert myers_distance.launches == 0  # CPU tensors never launch
+
+
+def test_k1_k2_edge_cases_cover_their_edges():
+    """The K1 edge pairs put every length at ukL 0, 1 and k // 2 inside
+    the kernel's contract; the K2 edge shapes cover every built word
+    count's edge, haystacks one under and over multiples of 32, owned
+    lengths off the 16-byte chunk and halos reaching byte 0, and their
+    inputs hold the planted copies."""
+    from triple_accel_tpu_torch.ops.myers_search import (
+        WORD_CHOICES, myers_search_plan)
+    from triple_accel_tpu_torch.ops.search_common import window_span
+
+    rng = np.random.default_rng(8)
+    for k in cs.DIST_EDGE_KS:
+        a_list, b_list, ks, max_m = cs.distance_edge_cases(rng, k)
+        la = np.array([len(a) for a in a_list])
+        delta = np.array([len(b) for b in b_list]) - la
+        assert ((0 <= delta) & (delta <= ks) & (ks <= k)).all()
+        assert (la <= max_m).all()
+        ukl = (ks - delta) // 2
+        for m in cs.DIST_EDGE_LENS:
+            assert set(ukl[la == m].tolist()) == {0, 1, k // 2}
+    cases = cs.SEARCH_EDGE_CASES
+    assert {myers_search_plan(c[0])[0] for c in cases} >= set(WORD_CHOICES) - {24}
+    assert {c[1] % 32 for c in cases if not c[4]} >= {1, 31}
+    assert any(c[2] % 16 for c in cases) and any(c[3] > c[2] for c in cases)
+    assert {c[6] for c in cases} >= {1, 8} and any(c[4] for c in cases)
+    for m, n, own, halo, anchored, _d, _w in cases:
+        assert anchored or halo >= window_span(m, 3, 1, 0)
+        needles, hay = cs.search_edge_input(rng, m, n)
+        assert needles.shape == (2, m) and hay.shape == (n,)
+        assert 0 in needles[1] and hay[0] == 0
+        if n > m + 2:
+            assert np.sum(hay[1:1 + m] != needles[0]) <= 2  # one swap

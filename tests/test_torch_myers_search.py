@@ -31,6 +31,7 @@ from triple_accel_tpu_torch.ops.myers_search import (
     myers_search,
     myers_search_plan,
     prepare_myers_needles,
+    search_halo,
     suggest_own_len,
 )
 from triple_accel_tpu_torch.ops.search_common import seg_count, window_span
@@ -61,14 +62,20 @@ def _port_dists(needles, hay, k, *, anchored, damerau, own_len):
 def test_plan_and_geometry():
     assert myers_search_plan(0) is None
     assert myers_search_plan(24) == (1,)
-    assert myers_search_plan(65) == (2,)
-    assert myers_search_plan(1280) == (20,)
+    assert myers_search_plan(64) == (2,)
+    assert myers_search_plan(65) == (3,)
+    assert myers_search_plan(400) == (16,)  # 13 words: the next built count
+    assert myers_search_plan(1280) == (40,)
     assert myers_search_plan(1281) is None
+    assert all(myers_search_plan(m)[0] * 32 >= m for m in range(1, 1281))
     assert window_span(24, 3, 1, 0) == 27
+    assert search_halo(27, 1 << 20) == 32 and search_halo(33, 1 << 20) == 64
+    assert search_halo(27, 20) == 20
     assert seg_count(0, 64) == 1 and seg_count(129, 64) == 3
-    own = suggest_own_len(128 << 20, 256)
-    assert own % 256 == 0 and own >= 16 * 256
-    assert seg_count(128 << 20, own) >= 132 * 128
+    own = suggest_own_len(128 << 20, 32)
+    assert own == 2048 and seg_count(128 << 20, own) == 64 * 1024
+    assert suggest_own_len(1 << 20, 32) == 256  # a small haystack
+    assert suggest_own_len(128 << 20, 512) == 4096  # halo / own_len 1/8
 
 
 @pytest.mark.parametrize("anchored", [False, True])
@@ -145,6 +152,42 @@ def test_plain_matches_pallas_interpret(m, damerau):
     assert np.array_equal(got, ref)
 
 
+@pytest.mark.parametrize("m,k,damerau", [(24, 3, False), (24, 3, True),
+                                         (40, 5, False)])
+def test_halo_rule_matches_pallas_interpret_and_oracle(m, k, damerau):
+    """The dispatch's halo rule (the window span rounded up to 32) over
+    many segments of whole store runs: every end position within k of the
+    JAX package's kernel (one whole-haystack segment, interpret mode) has
+    the same distance in the port and no other is within k, and the hits
+    equal the oracle's."""
+    costs = RDAMERAU_COSTS if damerau else LEVENSHTEIN_COSTS
+    rng = np.random.default_rng(100 + m + k)
+    n = 200
+    needle = rng.integers(65, 69, m).astype(np.uint8)
+    hay = rng.integers(65, 69, n).astype(np.uint8)
+    for pos in (5, 70, 140):  # copies across segment edges, one swapped
+        hay[pos:pos + m] = needle
+    hay[72], hay[73] = hay[73], hay[72]
+    halo = search_halo(window_span(m, k, 1, 0), n)
+    assert halo % 32 == 0 and halo >= window_span(m, k, 1, 0)
+    nd = prepare_myers_needles([needle], m, device="cpu")
+    got = myers_search(torch.from_numpy(hay), nd, own_len=32, halo=halo,
+                       damerau=damerau).numpy()[0]
+    nchar = jax_prepare_needles([needle], m)
+    _, seg_t, decode = prepare_myers_search_inputs(needle, hay[None, :])
+    G = jax_search_plan(m)[2]
+    raw = np.asarray(myers_search_pallas(
+        nchar, seg_t, needle_len=m, width=seg_t.shape[0] // G, seg_len=n,
+        anchored=False, num_needles=1, interpret=True, damerau=damerau,
+        chains=1))
+    ref = decode(raw, n)[0]
+    within = (ref <= k) | (got <= k)
+    assert within.sum() >= 3
+    assert np.array_equal(got[within], ref[within])
+    exp = _oracle_map(needle, hay, k, costs, False)
+    assert {j: int(got[j]) for j in np.flatnonzero(got <= k)} == exp
+
+
 def test_wrapper_checks_its_inputs():
     hay = torch.zeros(10, dtype=torch.uint8)
     nd = torch.zeros((1, 3), dtype=torch.uint8)
@@ -155,5 +198,7 @@ def test_wrapper_checks_its_inputs():
     with pytest.raises(ValueError):
         myers_search(hay, torch.zeros((1, 1281), dtype=torch.uint8),
                      own_len=16, halo=0)
+    with pytest.raises(ValueError):
+        myers_search(hay, nd, own_len=16, halo=0, warps=9)
     assert myers_search(hay[:0], nd, own_len=16, halo=0).tolist() == [[3]]
     assert myers_search.launches == 0  # CPU tensors never launch

@@ -1,8 +1,8 @@
 """Registers, spills and the hot loop's instructions of the wavefront
-kernels.
+kernels and of the headline Myers kernels.
 
     python3 -m triple_accel_tpu_torch.benches.band_sass [--kernel band
-        blocked diag]
+        blocked diag myers_distance myers_search]
 
 Builds the kernels (`utils/build.py`), reads what `-Xptxas -v` reports for
 every instantiation of the kernels named (registers, stack frame and
@@ -18,8 +18,16 @@ count too), the DPX min instructions, the shuffles, the add-with-carry
 instructions (IADD3.X), and every conditional forward branch inside it,
 by what the code it skips holds: a store, a load, a shuffle, or none of
 these ("arithmetic": a branch in the cells' or words' arithmetic would
-show here).  One JSON line per instantiation (per loop for the column
-loops).  Needs the CUDA toolkit (`nvcc`, `cuobjdump`); no device.
+show here).  `myers_distance` (`myers_distance_kernel<NW>`, K1) and
+`myers_search` (`myers_search_kernel<NW, DAM>`, K2) unroll 16 rows or
+columns into straight runs of code with no branch (K1's chunk, masked and
+unmasked; K2's chunk up to 4 words, its quad of 4 columns beyond): the two
+longest branch-free runs are those bodies, reported with their
+instructions a row or column and their shared-memory, global-memory,
+add-with-carry, funnel-shift and 3-input-logic instructions; every
+innermost loop besides.  One JSON line per
+instantiation (per loop for the column loops).  Needs the CUDA toolkit
+(`nvcc`, `cuobjdump`); no device.
 """
 
 from __future__ import annotations
@@ -126,9 +134,59 @@ def _column_loops(body: str, shuffles_a_step: int) -> list:
     return out
 
 
+def _op_kinds(run) -> dict:
+    kinds = collections.Counter(x[1].split(".")[0] for x in run)
+    return {
+        "instructions": len(run),
+        "shared_loads": kinds["LDS"], "shared_stores": kinds["STS"],
+        "global_loads": kinds["LDG"], "global_stores": kinds["STG"],
+        "add_with_carry": sum(1 for x in run if x[1].startswith("IADD3.X")),
+        "funnel_shifts": sum(1 for x in run if x[1].startswith("SHF")
+                             and ".W" in x[1]),
+        "logic_3_input": kinds["LOP3"],
+    }
+
+
+def _straight_bodies(body: str, steps_of, keep: int = 2) -> dict:
+    """The `keep` longest runs of code with no branch in or out: the fully
+    unrolled row / column bodies (a kernel may hold a guarded and an
+    unguarded one).  `steps_of(counts)`: the rows or columns a run holds.
+    Every innermost loop besides."""
+    ops = _ops(body)
+    targets = {t for _, op, t, _ in ops if op.startswith("BRA") and t}
+    runs, cur = [], []
+    for x in ops:
+        if x[0] in targets and cur:
+            runs.append(cur)
+            cur = []
+        cur.append(x)
+        if x[1].startswith(("BRA", "EXIT", "RET", "BSYNC", "WARPSYNC",
+                            "BAR", "CALL")):
+            runs.append(cur)
+            cur = []
+    runs.append(cur)
+    bodies = []
+    for run in sorted(runs, key=len, reverse=True)[:keep]:
+        c = _op_kinds(run)
+        steps = steps_of(c)
+        bodies.append({"at": hex(run[0][0]), "steps": steps, **c,
+                       **{f"{k}_a_step": round(v / steps, 2)
+                          for k, v in c.items()}})
+    backs = [(tgt, a) for a, op, tgt, _ in ops
+             if op.startswith("BRA") and tgt is not None and tgt < a]
+    inner = [(lo, hi) for lo, hi in backs
+             if not any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                        for l2, h2 in backs)]
+    return {"bodies": bodies,
+            "innermost_loops": [_loop_counts(ops, lo, hi)
+                                for lo, hi in sorted(inner)]}
+
+
 # the kernel each --kernel choice names (its mangled names hold it)
 _KERNELS = {"band": "band_kernel", "blocked": "blocked_kernel",
-            "diag": "search_diag_kernel"}
+            "diag": "search_diag_kernel",
+            "myers_distance": "myers_distance_kernel",
+            "myers_search": "myers_search_kernel"}
 
 
 def main(argv=None) -> int:
@@ -160,6 +218,18 @@ def main(argv=None) -> int:
                 rec = {"kernel": demangled, **regs.get(name, {})}
                 if "band_kernel" in name and "wide" not in name:
                     rec.update(_row_loop(part))
+            elif kind in ("myers_distance", "myers_search") \
+                    and _KERNELS[kind] in name:
+                # K1: a chunk is 16 rows; K2: one table load a word and
+                # column, so a run's columns are its shared loads / words
+                words = int(re.search(r"<(\d+)", demangled).group(1))
+                if kind == "myers_distance":
+                    steps_of = (lambda c: 16)
+                else:
+                    steps_of = (lambda c, w=words: max(
+                        round(c["shared_loads"] / w), 1))
+                rec = {"kernel": demangled, **regs.get(name, {}),
+                       **_straight_bodies(part, steps_of)}
             elif _KERNELS[kind] in name:
                 per_step = 1  # K6: one word handed up a step
                 if kind == "diag":  # <R, TRANS>: 7 shuffles with TRANS

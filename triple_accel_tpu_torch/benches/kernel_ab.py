@@ -1,12 +1,20 @@
-"""Kernel-only times of K5, K6 and K7 at the shapes chip_smoke.py's
+"""Kernel-only times of K1, K2 and K5-K7 at the shapes chip_smoke.py's
 phases give them, for comparing two versions of the port in one call.
 
     python3 -m triple_accel_tpu_torch.benches.kernel_ab [--tag NAME]
+        [--kernels K1 K2 K5 K6 K7]
 
 Run from the root of a checkout (it imports that checkout's package and
 `chip_smoke.py` input generators, and only calls the wrappers' arguments
 every version of them takes), so a copy of an older commit unpacked
 beside this one is timed by the same script:
+
+* K1 `myers_distance`: the 196,608 pairs of 1000 bytes of the `distance`
+  phase at k = 32, unit costs (the tensors `levenshtein_k_batch` gives it);
+* K2 `myers_search`: the 24-byte needle over the 128 MiB headline haystack
+  at k = 3, unit and restricted-Damerau, at the version's own plan (its
+  halo rule: `search_halo` where the version has it, else the span
+  rounded up to 256; its `suggest_own_len`);
 
 * K5 `blocked_distance`: 1,024 pairs of 20,000 ACGT bytes with 10% edits,
   unit costs, then the restricted-Damerau costs on the pairs with 1%
@@ -37,12 +45,17 @@ import torch
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="", help="a name for the JSON line")
+    ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K5", "K6",
+                                                     "K7"],
+                    choices=["K1", "K2", "K5", "K6", "K7"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA device", file=sys.stderr)
         return 2
     import chip_smoke as cs
     from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops import myers_distance as md
+    from triple_accel_tpu_torch.ops import myers_search as msm
     from triple_accel_tpu_torch.ops import search_diag as sd
     from triple_accel_tpu_torch.ops.myers_search import prepare_myers_needles
     from triple_accel_tpu_torch.ops.search_common import window_span
@@ -53,6 +66,34 @@ def main() -> int:
 
     def ms(fn, reps=7):
         return [round(x, 4) for x in cs.time_launches(fn, reps)]
+
+    if "K1" in args.kernels:
+        a_l, b_l = cs.make_pairs(cs.FULL_PAIRS)
+        # max_m as levenshtein_k_batch pads it: the next power of two
+        t = md.prepare_myers_inputs(a_l, b_l, cs.K_DIST,
+                                    1 << (cs.STR_LEN - 1).bit_length(),
+                                    ks=np.full(len(a_l), cs.K_DIST),
+                                    device=dev)
+        out["K1"] = ms(lambda: md.myers_distance(*t, k=cs.K_DIST), 15)
+        del a_l, b_l, t
+    if "K2" in args.kernels:
+        needle, hay, _ = cs.make_haystack(cs.FULL_HAY_MB << 20)
+        n = len(hay)
+        span = window_span(cs.NEEDLE_LEN, cs.K_SEARCH, 1, 0)
+        halo = (msm.search_halo(span, n) if hasattr(msm, "search_halo")
+                else min(-(-span // 256) * 256, n))
+        own = msm.suggest_own_len(n, halo)
+        hay_d = torch.from_numpy(hay).to(dev)
+        nd = prepare_myers_needles([needle], cs.NEEDLE_LEN, device=dev)
+        for damerau in (False, True):
+            out[f"K2_{'rdamerau' if damerau else 'unit'}"] = ms(
+                lambda: msm.myers_search(hay_d, nd, own_len=own, halo=halo,
+                                         damerau=damerau), 15)
+        out["K2_halo_own_len"] = [halo, own]
+        del hay_d, hay
+    if not {"K5", "K6", "K7"} & set(args.kernels):
+        print(json.dumps(out), flush=True)
+        return 0
 
     a_l, b_l = cs.make_long_pairs(cs.BLOCKED_PAIRS, cs.BLOCKED_LEN,
                                   cs.BLOCKED_EDIT_SHARE, seed=2024)

@@ -4,12 +4,18 @@ and of K8 (`flat_search`) and K9 (`flat_distance`) over their launch
 shape.
 
     python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128]
-        [--blocked | --diag | --cap | --flat]
+        [--blocked | --diag | --cap | --flat | --long]
 
 Times the search kernel alone (CUDA events, one warm-up, 9 launches:
 median, least and most) for unit and restricted-Damerau costs at several
 `own_len`.  K2: the headline haystack (upper-case noise, 24-byte needle,
-the 256-byte halo of k = 3), the measurement behind `suggest_own_len`.
+k = 3: a window span of 27) at two halos (32: the span rounded up to 32,
+`search_halo`; 256: the JAX package's quantum) x `own_len` x warps a
+block (`--own-lens`, `--warps` pick points): the measurement behind
+`search_halo`, `suggest_own_len` and `WARPS`.  `--long`: K2 at its plan
+against K6 at its plan for needles of 64 to 1,280 chars (`--lens`) over a
+16 MiB ACGT haystack at k = m / 8, both cost models: the measurement
+behind the search dispatch's route from K2 to K6 (`ROUTE_MAX_NEEDLE`).
 K6 (`--blocked`): chip_smoke.py's long-needle input (a 3,000-byte ACGT
 needle at k = 150 and k = 1000: halos 3,328 and 4,096) over the lane maps
 that hold its 94 words (32 lanes x 3 words, 16 x 6, 8 x 12) x warps a
@@ -47,15 +53,18 @@ import sys
 import numpy as np
 import torch
 
-from ..ops.myers_chunked import blocked_search
-from ..ops.myers_search import myers_search, prepare_myers_needles
+from ..ops.myers_chunked import blocked_search, suggest_own_len_blocked
+from ..ops.myers_search import (myers_search, prepare_myers_needles,
+                                search_halo, suggest_own_len)
 from ..ops.search_common import window_span
 from ..ops import search_flat as sf
 from ..ops.search_diag import ROW_CHOICES, diag_plan, search_diag
 
 NEEDLE_LEN = 24
-HALO = 256
-OWN_LENS = (512, 1024, 2048, 4096, 8192, 16384)
+K2_HALOS = (32, 256)
+K2_OWN_LENS = (512, 1024, 1536, 2048, 3072, 4096, 8192)
+K2_WARPS = (2, 4, 8)
+LONG_MB, LONG_LENS = 16, (64, 128, 256, 400, 640, 1280)
 BLOCKED_NEEDLE_LEN, BLOCKED_KS = 3000, (150, 1000)
 BLOCKED_MAPS = ((32, 3), (16, 6), (8, 12))  # lanes, words a lane: 94 words
 BLOCKED_WARPS = (2, 4, 8)
@@ -250,6 +259,32 @@ def cap_sweep(dev, rng) -> None:
                 }), flush=True)
 
 
+def long_sweep(dev, rng, lens) -> None:
+    """K2 against K6, each at its own plan, over needle lengths."""
+    acgt = np.frombuffer(b"ACGT", dtype=np.uint8)
+    n = LONG_MB << 20
+    hay = torch.from_numpy(acgt[rng.integers(0, 4, n)]).to(dev)
+    for m in lens:
+        nd = prepare_myers_needles([acgt[rng.integers(0, 4, m)]], m,
+                                   device=dev)
+        span = window_span(m, m // 8, 1, 0)
+        h2 = search_halo(span, n)
+        h6 = min(-(-span // 256) * 256, n)
+        plans = {"myers_search": (myers_search, h2, suggest_own_len(n, h2)),
+                 "blocked_search": (blocked_search, h6,
+                                    suggest_own_len_blocked(n, h6))}
+        for damerau in (False, True):
+            for name, (fn, halo, own) in plans.items():
+                print(json.dumps({
+                    "kernel": name, "haystack_bytes": n, "needle_len": m,
+                    "k": m // 8, "halo": halo, "own_len": own,
+                    "damerau": damerau,
+                    "kernel_ms_median_min_max": _time_ms(
+                        lambda: fn(hay, nd, own_len=own, halo=halo,
+                                   damerau=damerau), 5),
+                }), flush=True)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=128, help="haystack MiB")
@@ -261,6 +296,14 @@ def main() -> int:
                     help="time K7 against K8 at 256 to 512 chars instead")
     ap.add_argument("--flat", action="store_true",
                     help="sweep K8 and K9 over their launch shape instead")
+    ap.add_argument("--long", action="store_true",
+                    help="time K2 against K6 over needle lengths instead")
+    ap.add_argument("--lens", type=int, nargs="+", default=LONG_LENS,
+                    help="--long: the needle lengths to time")
+    ap.add_argument("--own-lens", type=int, nargs="+", default=K2_OWN_LENS,
+                    help="K2: the owned lengths to time")
+    ap.add_argument("--warps", type=int, nargs="+", default=K2_WARPS,
+                    help="K2: the warps a block to time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("search_sweep needs a CUDA device", file=sys.stderr)
@@ -278,7 +321,10 @@ def main() -> int:
     if args.cap:
         cap_sweep(dev, rng)
         return 0
-    m, halo, own_lens = NEEDLE_LEN, HALO, OWN_LENS
+    if args.long:
+        long_sweep(dev, rng, args.lens)
+        return 0
+    m = NEEDLE_LEN
     needle = rng.integers(97, 123, m).astype(np.uint8)
     hay = torch.from_numpy(rng.integers(65, 91, n).astype(np.uint8)).to(dev)
     nd = prepare_myers_needles([needle], m, device=dev)
@@ -286,14 +332,19 @@ def main() -> int:
         diag_sweep(hay, nd[0])
         return 0
     for damerau in (False, True):
-        for own in own_lens:
-            print(json.dumps({
-                "kernel": "myers_search", "haystack_bytes": n,
-                "needle_len": m, "halo": halo, "damerau": damerau,
-                "own_len": own, "segments": -(-n // own),
-                "kernel_ms_median_min_max": _time_ms(lambda: myers_search(
-                    hay, nd, own_len=own, halo=halo, damerau=damerau)),
-            }), flush=True)
+        for halo in K2_HALOS:
+            for warps in args.warps:
+                for own in args.own_lens:
+                    print(json.dumps({
+                        "kernel": "myers_search", "haystack_bytes": n,
+                        "needle_len": m, "halo": halo, "damerau": damerau,
+                        "warps": warps, "own_len": own,
+                        "segments": -(-n // own),
+                        "kernel_ms_median_min_max": _time_ms(
+                            lambda: myers_search(
+                                hay, nd, own_len=own, halo=halo,
+                                damerau=damerau, warps=warps)),
+                    }), flush=True)
     return 0
 
 

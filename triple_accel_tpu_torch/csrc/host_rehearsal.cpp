@@ -29,12 +29,15 @@ static void rehearse_distance(const uint8_t* a, const uint8_t* b,
                               const int32_t* m, const int32_t* dlen,
                               const int32_t* ukl, int32_t* out, int64_t B,
                               int64_t a_stride, int64_t b_stride) {
-  std::vector<uint64_t> tab(32 * NW);
-  for (int64_t p = 0; p < B; ++p) {
-    RingTables<NW> ring{tab.data(), 1};
-    out[p] = distance_pair<NW>(a + p * a_stride, b + p * b_stride, m[p],
-                               dlen[p], ukl[p], ring);
-  }
+  // one "thread" of a table laid out for 16 (its column 0), garbage
+  // between pairs as on the card (nothing is cleared but what the kernel
+  // clears)
+  constexpr int TS = 16;
+  std::vector<uint32_t> tab((size_t)MD_ENTRIES * md_slots<NW> * TS,
+                            0xA5A5A5A5u);
+  for (int64_t p = 0; p < B; ++p)
+    out[p] = distance_pair<NW, TS>(a + p * a_stride, b + p * b_stride, m[p],
+                                   dlen[p], ukl[p], tab.data(), 0);
 }
 
 // Same arguments as ta_myers_distance, host pointers, no stream.
@@ -49,53 +52,115 @@ extern "C" int ta_rehearse_distance(const void* a, const void* b,
   const int32_t* dp = (const int32_t*)dlen;
   const int32_t* up = (const int32_t*)ukl;
   int32_t* op = (int32_t*)out;
-  switch (nw) {
+  if ((a_stride & 15) || (b_stride & 15)) return 1;
+  switch (nw) {  // the plan's 64-bit words: 2 * nw words of 32 bits
     case 1:
-      rehearse_distance<1>(ap, bp, mp, dp, up, op, B, a_stride, b_stride);
-      return 0;
-    case 2:
       rehearse_distance<2>(ap, bp, mp, dp, up, op, B, a_stride, b_stride);
       return 0;
+    case 2:
+      rehearse_distance<4>(ap, bp, mp, dp, up, op, B, a_stride, b_stride);
+      return 0;
     case 3:
-      rehearse_distance<3>(ap, bp, mp, dp, up, op, B, a_stride, b_stride);
+      rehearse_distance<6>(ap, bp, mp, dp, up, op, B, a_stride, b_stride);
       return 0;
     default:
       return 1;
   }
 }
 
-// Same arguments as ta_myers_search, host pointers, no stream.
+// One needle of K2: its table, then the warps of 32 consecutive segments
+// one after the other; inside a warp, each chunk's 16 steps lane by lane,
+// then the store phase lane by lane (the staging area an array), as the
+// card runs them between its two __syncwarp.
+template <int NW, bool DAM>
+static void rehearse_search_needle(const SearchArgs& g, const uint8_t* needle,
+                                   int32_t* out_row) {
+  std::vector<uint32_t> peq((size_t)NW * MS_ROW, 0u);
+  for (int t = 0; t < g.m; ++t)
+    peq[(t >> 5) * MS_ROW + needle[t]] |= 1u << (t & 31);
+  out_row[0] = g.m;
+  std::vector<uint4> stage(MS_STAGE_PIECES);
+  std::vector<MsLane<NW, DAM>> L(MS_LANES);
+  std::vector<MsStore> st(MS_LANES);
+  const uint32_t ph_in = g.anchored ? 1u : 0u;
+  const int wS = ms_score_word<NW>(g.m), offS = (g.m - 1) & 31;
+  for (int64_t c_warp = 0; c_warp < g.nseg; c_warp += MS_LANES) {
+    int32_t chunks = 0;
+    bool guard = false;
+    for (int lane = 0; lane < MS_LANES; ++lane) {
+      const MsSeg sg = ms_seg(g, c_warp + lane);
+      chunks = sg.chunks > chunks ? sg.chunks : chunks;
+      guard = guard || sg.d > 0;
+      ms_lane_start(L[lane], g, sg);
+      st[lane] = ms_store_plan(g, out_row, c_warp, lane);
+    }
+    for (int32_t k = 0; k < chunks; ++k) {
+      for (int lane = 0; lane < MS_LANES; ++lane) {
+        uint4* row = stage.data() + 4 * lane;
+        if (k < 2 && guard)
+          ms_chunk<NW, DAM, true>(L[lane], peq.data(), k, row, ms_swz(lane),
+                                  ph_in, wS, offS);
+        else
+          ms_chunk<NW, DAM, false>(L[lane], peq.data(), k, row,
+                                   ms_swz(lane), ph_in, wS, offS);
+      }
+      for (int lane = 0; lane < MS_LANES; ++lane)
+        ms_store(st[lane], stage.data(), lane, k);
+    }
+  }
+}
+
+template <bool DAM>
+static int rehearse_search_words(int nw, const SearchArgs& g,
+                                 const uint8_t* needle, int32_t* out_row) {
+  switch (nw) {
+#define TA_MS_CASE(NN)                                   \
+  case NN:                                               \
+    rehearse_search_needle<NN, DAM>(g, needle, out_row); \
+    return 0;
+    TA_MS_CASE(1)
+    TA_MS_CASE(2)
+    TA_MS_CASE(3)
+    TA_MS_CASE(4)
+    TA_MS_CASE(6)
+    TA_MS_CASE(8)
+    TA_MS_CASE(12)
+    TA_MS_CASE(16)
+    TA_MS_CASE(24)
+    TA_MS_CASE(40)
+#undef TA_MS_CASE
+    default:
+      return 1;
+  }
+}
+
+// Same arguments as ta_myers_search but the warps a block (they share the
+// table only), host pointers, no stream.
 extern "C" int ta_rehearse_search(const void* hay, int64_t iter_len,
                                   const void* needles, int num, int m,
                                   int64_t own_len, int64_t halo, int64_t nseg,
                                   int anchored, int damerau, void* out,
-                                  int64_t out_stride) {
-  if (m < 1 || m > 1280 || out_stride < iter_len + 1 || (out_stride & 3))
+                                  int64_t out_stride, int nw) {
+  if (m < 1 || m > 1280 || 32 * nw < m || (nw <= 2 && 32 * nw - 32 >= m) ||
+      own_len < 1 || halo < 0 || nseg < 1 || out_stride < iter_len + 1 ||
+      (out_stride & 3))
     return 1;
   SearchArgs g;
   g.hay = (const uint8_t*)hay;
   g.iter_len = iter_len;
   g.m = m;
-  g.nw = (m + 63) / 64;
   g.own_len = own_len;
   g.halo = halo;
+  g.nseg = nseg;
   g.anchored = anchored;
-  g.damerau = damerau;
   g.out_stride = out_stride;
   const uint8_t* nd = (const uint8_t*)needles;
   for (int i = 0; i < num; ++i) {
-    std::vector<uint64_t> peq((int64_t)256 * g.nw, 0ull);
-    for (int t = 0; t < m; ++t)
-      peq[(int64_t)nd[(int64_t)i * m + t] * g.nw + t / 64] |= 1ull << (t % 64);
     int32_t* row = (int32_t*)out + (int64_t)i * out_stride;
-    for (int64_t c = 0; c < nseg; ++c) {
-      if (g.nw == 1)
-        search_segment<1>(g, peq.data(), c, row);
-      else if (g.nw == 2)
-        search_segment<2>(g, peq.data(), c, row);
-      else
-        search_segment<20>(g, peq.data(), c, row);
-    }
+    const int rc = damerau
+                       ? rehearse_search_words<true>(nw, g, nd + (int64_t)i * m, row)
+                       : rehearse_search_words<false>(nw, g, nd + (int64_t)i * m, row);
+    if (rc) return rc;
   }
   return 0;
 }

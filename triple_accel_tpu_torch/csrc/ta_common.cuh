@@ -41,6 +41,28 @@ static TA_DEV uint4 ta_load16(const uint8_t* p) {
 #endif
 }
 
+// 16 bytes from a 16-byte aligned address, cached in L2 only (a stream
+// that is read once: no L1 line is allocated for it)
+static TA_DEV uint4 ta_load16_cg(const uint8_t* p) {
+#ifdef TA_HOST_REHEARSAL
+  return ta_load16(p);
+#else
+  return __ldcg(reinterpret_cast<const uint4*>(p));
+#endif
+}
+
+// four ints given one by one to a 16-byte aligned address in one
+// streaming store (written once, evicted first)
+static TA_DEV void ta_store4_cs(int32_t* p, int32_t a, int32_t b, int32_t c,
+                                int32_t d) {
+#ifdef TA_HOST_REHEARSAL
+  const int32_t v[4] = {a, b, c, d};
+  __builtin_memcpy(p, v, 16);
+#else
+  __stcs(reinterpret_cast<int4*>(p), make_int4(a, b, c, d));
+#endif
+}
+
 // four ints to a 16-byte aligned address in one store
 static TA_DEV void ta_store4(int32_t* p, const int32_t* v) {
 #ifdef TA_HOST_REHEARSAL
@@ -64,9 +86,12 @@ static TA_DEV uint64_t ta_low_mask(int nbits) {
   return (1ull << nbits) - 1ull;
 }
 
-// 32-bit words of multi-word bit vectors (the blocked Myers kernel).
+// 32-bit words of multi-word bit vectors (the Myers kernels).
 //   ta_fshl1(lo, hi): (hi << 1) | (lo >> 31), one funnel shift: a word
 //     shifted left by one with the top bit of the word below it;
+//   ta_fshr(lo, hi, s): the low word of (hi:lo) >> s, s in [0, 31], one
+//     funnel shift: a word shifted right with the low bits of the word
+//     above it;
 //   ta_add_chain<N>(s, x, y, cw): s = x + y + carry over N words, low word
 //     first, the carry-in being bit 31 of cw; returns the carry out (0 or
 //     1).  On the card a PTX add.cc / addc.cc chain: one instruction a
@@ -76,6 +101,9 @@ static TA_DEV uint64_t ta_low_mask(int nbits) {
 #ifdef TA_HOST_REHEARSAL
 static inline uint32_t ta_fshl1(uint32_t lo, uint32_t hi) {
   return (hi << 1) | (lo >> 31);
+}
+static inline uint32_t ta_fshr(uint32_t lo, uint32_t hi, int s) {
+  return s ? (lo >> s) | (hi << (32 - s)) : lo;
 }
 static inline int ta_popc32(uint32_t x) { return __builtin_popcount(x); }
 template <int N>
@@ -93,6 +121,10 @@ static inline uint32_t ta_add_chain(uint32_t* s, const uint32_t* x,
 static __device__ __forceinline__ uint32_t ta_fshl1(uint32_t lo,
                                                     uint32_t hi) {
   return __funnelshift_l(lo, hi, 1);
+}
+static __device__ __forceinline__ uint32_t ta_fshr(uint32_t lo, uint32_t hi,
+                                                   int s) {
+  return __funnelshift_r(lo, hi, s);
 }
 static __device__ __forceinline__ int ta_popc32(uint32_t x) {
   return __popc(x);

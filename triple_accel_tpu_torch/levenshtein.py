@@ -915,8 +915,10 @@ def levenshtein_search_simd_with_opts(
     Long haystacks run as parallel segments with a halo of one window
     span, which is exact for every candidate with cost <= k.
 
-    Unit and restricted-Damerau costs: needles of 1..1280 chars take the
-    Myers search kernel (ops/myers_search.py), longer ones the blocked one
+    Unit and restricted-Damerau costs: needles of up to
+    `myers_search.ROUTE_MAX_NEEDLE` chars (352 unit, 288 rDamerau: where
+    it stops beating the blocked kernel on the card) take the Myers search
+    kernel (ops/myers_search.py), longer ones the blocked one
     (ops/myers_chunked.py, logged `myers_search_blocked`), which serves
     both long-needle engines of the JAX package, `myers_search_blocked`
     and `myers_search_chunked`, at any halo.  A hit stream whose replay
@@ -933,10 +935,11 @@ def levenshtein_search_simd_with_opts(
     """
     from .ops.myers_chunked import blocked_search, suggest_own_len_blocked
     from .ops.myers_search import (
+        ROUTE_MAX_NEEDLE,
         collect_hits,
         myers_search,
-        myers_search_plan,
         prepare_myers_needles,
+        search_halo,
         suggest_own_len,
     )
     from .ops.search_common import window_span
@@ -962,7 +965,7 @@ def levenshtein_search_simd_with_opts(
     if not (ct == _UNIT or damerau):
         return _search_general(needle, haystack, k, search_type, costs,
                                anchored, dev)
-    blocked = myers_search_plan(m) is None
+    blocked = m > ROUTE_MAX_NEEDLE[damerau]
 
     span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
     if anchored:
@@ -976,11 +979,16 @@ def levenshtein_search_simd_with_opts(
         own_len = max(iter_len, 1)
     else:
         iter_len = n
-        # quantized like the JAX package's: a larger overlap is still
-        # exact — every cost-<=k candidate's window is contained a fortiori
-        halo = min(-(-span // 256) * 256, iter_len)
-        own_len = (suggest_own_len_blocked if blocked else suggest_own_len)(
-            iter_len, halo)
+        # a larger overlap than the span is still exact: every cost-<=k
+        # candidate's window is contained a fortiori.  K2 rounds the span
+        # to its 32-byte sectors; K6 keeps the JAX package's quantum of 256,
+        # which its own_len rule was measured at
+        if blocked:
+            halo = min(-(-span // 256) * 256, iter_len)
+            own_len = suggest_own_len_blocked(iter_len, halo)
+        else:
+            halo = search_halo(span, iter_len)
+            own_len = suggest_own_len(iter_len, halo)
     if blocked:
         path = "myers_search_blocked"
     else:

@@ -18,7 +18,9 @@ otherwise.
 
 What bounds the kernel on an H100 is integer operations, not bytes (see
 the note at the top of csrc/myers_distance.cu); the window is Wp = 64 * NW
-bits, NW in {1, 2, 3}, so the plan covers k <= 191.
+bits, NW in {1, 2, 3}, so the plan covers k <= 191.  The kernel runs the
+window as 2 * NW words of 32 bits, one pair a thread, the window's match
+masks a ring in shared memory.
 
 Layout (the port's own, pair order, no grouping): `a_t` uint8
 [B, max_m16], `b_t` uint8 [B, max_m16 + Wp] with each pair's b at byte

@@ -20,9 +20,12 @@ the truth.  The kernel reads the RAW haystack: no halo-duplicated windows
 are built, and segment 0 sees no synthetic pad bytes.
 
 Output: int32 [num, iter_len + 1] in plain global order.  On an H100 bytes
-bound the function for needles of up to 32 chars, operations beyond; what
-the kernel loses time to is latency and its store path; see the note at the
-top of csrc/myers_search.cu.
+bound the function for needles of up to 32 chars, operations beyond.  The
+kernel (csrc/myers_search.cu) runs a segment a lane in 32-bit words, a
+warp's lanes in lockstep over 16-byte chunks, and stages its scores in
+shared memory so they leave in whole 64-byte runs; the plan here gives it
+a halo on a sector edge (`search_halo`) and owned lengths that are whole
+sectors (`suggest_own_len`).
 """
 
 from __future__ import annotations
@@ -37,9 +40,13 @@ from .search_common import seg_count
 
 __all__ = [
     "WORD",
+    "WORD_CHOICES",
     "MAX_NW",
     "MAX_NEEDLE",
+    "WARPS",
+    "ROUTE_MAX_NEEDLE",
     "myers_search_plan",
+    "search_halo",
     "suggest_own_len",
     "prepare_myers_needles",
     "from_reference_needles",
@@ -48,34 +55,65 @@ __all__ = [
     "collect_hits",
 ]
 
-WORD = 64
-MAX_NW = 20
+WORD = 32
+# 32-bit words a lane the kernel is built for; a needle takes the fewest
+# that hold it (words past the needle are rows no lower row sees)
+WORD_CHOICES = (1, 2, 3, 4, 6, 8, 12, 16, 24, 40)
+MAX_NW = WORD_CHOICES[-1]
 MAX_NEEDLE = MAX_NW * WORD  # 1280 chars, the TPU kernel's ceiling too
+# Warps a block (the segments of a block share the needle's table).
+# benches/search_sweep.py, 128 MiB, needle 24, k = 3, halo 32, own_len
+# 2048 (NVIDIA H100 80GB HBM3, 700 W), unit / rDamerau ms: 2 warps 0.3774
+# / 0.3819, 4: 0.3774 / 0.3611, 8: 0.3691 / 0.4184.
+WARPS = 4
+# The longest needle the search dispatch gives K2 rather than K6
+# (ops/myers_chunked.py), by cost model (False: unit, True: rDamerau).
+# benches/search_sweep.py --long, 16 MiB ACGT at k = m / 8, each kernel at
+# its own plan (NVIDIA H100 80GB HBM3, 700 W), K2 against K6 in ms: unit
+# 320 chars 0.7775 / 0.8155, 352: 0.8081 / 0.8435, 384: 0.8964 / 0.8647,
+# 448: 1.2765 / 0.923; rDamerau 288: 0.9116 / 0.9273, 320: 0.9975 /
+# 0.9884, 352: 1.1284 / 0.9227.  K2 itself takes needles up to
+# MAX_NEEDLE.
+ROUTE_MAX_NEEDLE = {False: 352, True: 288}
 
-# segments wanted in flight on a large haystack: about a thousand threads
-# for each of the card's 132 SMs
-_TARGET_SEGMENTS = 132 * 1024
+# Segments wanted on a large haystack: about 16 warps an SM.
+# benches/search_sweep.py at 128 MiB (needle 24, k = 3, halo 32, 4 warps
+# a block; NVIDIA H100 80GB HBM3, 700 W), unit / rDamerau ms by own_len:
+# 1024 (128 Ki segments) 0.4095 / 0.4437, 2048 (64 Ki) 0.3774 / 0.3611,
+# 4096 (32 Ki) 0.4167 / 0.4619.  Measured at that one haystack size; for
+# others the count is an extrapolation.
+_TARGET_SEGMENTS = 64 * 1024
 
 
 def myers_search_plan(needle_len: int) -> Optional[Tuple[int]]:
-    """(NW words,) for a needle of `needle_len` chars; None when the needle
-    is empty or longer than 1280 chars."""
+    """(NW 32-bit words,) the kernel runs a needle of `needle_len` chars
+    with; None when the needle is empty or longer than 1280 chars."""
     if needle_len < 1 or needle_len > MAX_NEEDLE:
         return None
-    return (-(-needle_len // WORD),)
+    need = -(-needle_len // WORD)
+    return (next(w for w in WORD_CHOICES if w >= need),)
+
+
+def search_halo(span: int, iter_len: int) -> int:
+    """Warm-up bytes before a segment's first owned column: the widest
+    window a cost-<=k match can span, rounded up to 32 (with an owned
+    length that is a multiple of 32, every segment then starts on the
+    32-byte sector the kernel loads), at most the haystack.  Any halo at
+    or above the span is exact.  The JAX package's quantum of 256 only
+    re-reads more: benches/search_sweep.py, 128 MiB, needle 24, k = 3,
+    own_len 2048, 4 warps (NVIDIA H100 80GB HBM3, 700 W), unit /
+    rDamerau ms: halo 32 0.3774 / 0.3611, halo 256 0.4205 / 0.4019."""
+    return min(-(-span // 32) * 32, iter_len)
 
 
 def suggest_own_len(iter_len: int, halo: int) -> int:
-    """Owned end positions per segment: enough segments to fill the card
-    on a large haystack, while the halo re-read stays under a sixteenth of
-    the owned length; a multiple of 256, at least 1024.  The factor 16 was
-    measured at ONE halo only: on an H100 at a 256-byte halo (needle 24,
-    k = 3), 4096 owned columns timed best in benches/search_sweep.py
-    (shorter segments re-read more and scatter their stores, longer ones
-    leave too few threads).  For every other halo it is an extrapolation."""
+    """Owned end positions per segment: about `_TARGET_SEGMENTS` segments
+    on a large haystack (128 MiB: 2048), while the halo re-read stays
+    under an eighth of the owned length; a multiple of 32 (whole sectors),
+    at least 256."""
     per_target = -(-max(iter_len, 1) // _TARGET_SEGMENTS)
-    own = max(per_target, 16 * halo, 1024)
-    return -(-own // 256) * 256
+    own = max(per_target, 8 * halo, 256)
+    return -(-own // 32) * 32
 
 
 def prepare_myers_needles(needles: Sequence[np.ndarray], needle_len: int, *,
@@ -217,8 +255,8 @@ def myers_search_plain(hay: torch.Tensor, needles: torch.Tensor, *,
 
 
 def myers_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
-                 halo: int, anchored: bool = False,
-                 damerau: bool = False) -> torch.Tensor:
+                 halo: int, anchored: bool = False, damerau: bool = False,
+                 warps: Optional[int] = None) -> torch.Tensor:
     """D[m][j] for every end position j in [0, len(hay)] of every needle,
     int32 [num, len(hay) + 1].
 
@@ -227,12 +265,17 @@ def myers_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
     raises.  CPU tensors — and only those — take the plain PyTorch version.
     An anchored search must run as one segment (own_len >= len(hay),
     halo = 0).  Needles of 1..1280 chars: the kernel's shared-memory table
-    stops there (ops/myers_chunked.py takes longer ones).
+    stops there (ops/myers_chunked.py takes longer ones).  `warps`: warps
+    a block (1..8; default `WARPS`), a launch-shape knob for sweeps.
     """
     m = _check_inputs(hay, needles, own_len, halo, anchored)
-    if myers_search_plan(m) is None:
+    plan = myers_search_plan(m)
+    if plan is None:
         raise ValueError(f"needle length {m} outside [1, 1280]: "
                          "myers_chunked.blocked_search takes any length")
+    warps = WARPS if warps is None else int(warps)
+    if not 1 <= warps <= 8:
+        raise ValueError(f"warps={warps} outside [1, 8]")
     n = hay.shape[0]
     if hay.device.type == "cpu":
         return myers_search_plain(hay, needles, own_len=own_len, halo=halo,
@@ -245,16 +288,17 @@ def myers_search(hay: torch.Tensor, needles: torch.Tensor, *, own_len: int,
     hay = _aligned(hay)
     needles = needles.contiguous()
     num = needles.shape[0]
-    # rows padded to a multiple of 4 ints: the kernel stores four columns
-    # at a time, 16-byte aligned; the pad columns are never written
-    stride = -(-(n + 1) // 4) * 4
+    # rows padded to a multiple of 32 ints: the kernel stores 16-byte
+    # pieces of 64-byte runs, and 128-byte aligned rows keep a run inside
+    # one line; the pad columns are never written
+    stride = -(-(n + 1) // 32) * 32
     out = torch.empty((num, stride), dtype=torch.int32, device=hay.device)
     with torch.cuda.device(hay.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ta_myers_search(
             hay.data_ptr(), n, needles.data_ptr(), num, m, own_len, halo,
             seg_count(n, own_len), int(anchored), int(damerau),
-            out.data_ptr(), stride, stream,
+            out.data_ptr(), stride, plan[0], warps, stream,
         )
     check_launch(lib, code, "myers_search")
     if num:

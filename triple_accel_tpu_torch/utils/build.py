@@ -133,7 +133,8 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     ]
     lib.ta_myers_search.restype = ctypes.c_int
     lib.ta_myers_search.argtypes = [
-        vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64, vp,
+        vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64, i32, i32,
+        vp,
     ]
     lib.ta_band_distance.restype = ctypes.c_int
     lib.ta_band_distance.argtypes = [
