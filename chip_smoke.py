@@ -19,7 +19,12 @@ each against its plain PyTorch version on the card:
   its short and its long regime;
 * `band_trace`: `levenshtein_k_batch(..., trace_on=True)` on 8,192 pairs of
   1000 bytes at k = 32 and on 256 pairs of 3000 bytes at k = 64: the traced
-  band kernel, the batched walk on the device and the RLE decode;
+  band kernel, the walk kernel `trace_walk` and the RLE decode, and where
+  the time goes (`e2e_split_s`); then, past the band plan, 128 pairs of
+  10,000 ACGT bytes against copies with 10% edits and 1% adjacent swaps at
+  an unbounded threshold under the restricted-Damerau costs (unit_k
+  16,384: the traced band kernel with its band state in device memory,
+  then the same walk), and one single-pair call of the same kind;
 * `hamming`: `hamming_batch` on the distance pairs and a Hamming search of
   the search needle over the 128 MiB haystack (plain PyTorch ops: the JAX
   package has no hand-written kernel there either);
@@ -121,6 +126,23 @@ BAND_OPS_CODE = {False: 6, True: 7}
 
 # the band phases (sizes of the full run)
 TRACE_PAIRS = 8192
+# the traced phase past the band plan: long ACGT pairs with 10% edits and
+# 1% adjacent swaps at an unbounded threshold under rDamerau costs (unit_k
+# 16,384, a band of 32,769 cells); the plain versions at a cut: K4 over
+# the first pairs, the walk over the first pairs of every traced phase
+PAST_PLAN_PAIRS, PAST_PLAN_LEN = 128, 10_000
+PAST_PLAN_EDIT_SHARE, PAST_PLAN_SWAP_SHARE = 0.10, 0.01
+PAST_PLAN_PLAIN_PAIRS, PLAIN_WALK_PAIRS = 2, 64
+# K10, the traceback walk, per step of a walk: one 32-bit code word and, on
+# a diagonal step, a's and b's characters (6 bytes at most), and one byte
+# of output for every step of its [B, steps] output (the walk's -1 padding
+# included); a handful of integer operations a step, so bytes bound it.
+# Its steps depend on each other: beside the bound stands K10's measured
+# time for the batch's longest walk alone (`k10_alone`), with L2 emptied
+# before each launch by writing K10_FLUSH_BYTES (L2 is 50 MB).
+K10_CODE_BYTES, K10_CHAR_BYTES = 4, 2
+K10_OPS_PER_STEP = 12
+K10_FLUSH_BYTES = 256 << 20
 LONG_PAIRS, LONG_LEN, K_LONG = 4096, 20_000, 256
 TRACE_LONG_PAIRS, TRACE_LONG_LEN, K_TRACE_LONG = 256, 3000, 64
 AFFINE = (2, 1, 2, None)
@@ -697,6 +719,70 @@ def lane_edge_pairs(rng, unit_k: int, cells: int, max_m: int):
     return a_list, b_list
 
 
+# band cells the walk's checks run along: the band's two ends and both
+# sides of the first two 16-code word edges
+WALK_EDGE_CELLS = (0, 15, 16, 31, 32)
+# costs under which a mismatch costs more than two gaps: every step of the
+# walk is a gap, so a pair X^m, Y^(m + unit_k) walks m + n steps
+LONGEST_WALK_COSTS = (3, 1, 0, None)
+
+
+def walk_edge_pairs(rng, unit_k: int, max_m: int):
+    """Pairs whose traceback walks run along band cells 0, 15, 16, 31, 32
+    and W - 1, W = 2 * unit_k + 1 (those inside the band): at offset e =
+    cell - unit_k, a = F + s and b = s + G with |e| filler bytes each (e <
+    0: deletions first), or a = s + F and b = G + s (e > 0), s an ACGT
+    string three times |e| long or as long as max_m allows, so that two gap
+    runs beat the mismatches of the shifted diagonal; then a pair whose
+    walk ends with a transposition (a starts "CA", b "AC") and an empty
+    a against a non-empty b.  len(a) <= len(b) <= len(a) + unit_k and
+    len(a) <= max_m hold for every pair."""
+    W = 2 * unit_k + 1
+    a_list, b_list = [], []
+    for cell in sorted({c for c in WALK_EDGE_CELLS if c < W} | {W - 1}):
+        e = cell - unit_k
+        s = ACGT[rng.integers(0, 4, max(1, min(3 * abs(e) + 16,
+                                               max_m - abs(e))))]
+        fill_a = np.full(abs(e), ord("X"), np.uint8)
+        fill_b = np.full(abs(e), ord("Y"), np.uint8)
+        if e < 0:
+            a, b = np.concatenate([fill_a, s]), np.concatenate([s, fill_b])
+        else:
+            a, b = np.concatenate([s, fill_a]), np.concatenate([fill_b, s])
+        if len(a) <= max_m:
+            a_list.append(a)
+            b_list.append(b)
+    s = ACGT[rng.integers(0, 4, max(0, min(40, max_m - 2)))]
+    a_list.append(np.concatenate([np.frombuffer(b"CA", np.uint8), s]))
+    b_list.append(np.concatenate([np.frombuffer(b"AC", np.uint8), s]))
+    a_list.append(np.empty(0, np.uint8))
+    b_list.append(ACGT[rng.integers(0, 4, min(unit_k, 7))])
+    return a_list, b_list
+
+
+def longest_walk_pair(unit_k: int, max_m: int):
+    """The pair whose walk is as long as the walk's bound allows: m =
+    max_m, n = m + unit_k, no character in common; under
+    LONGEST_WALK_COSTS all m + n = 2 * max_m + unit_k steps are gaps (the
+    bound, `steps`, is one more)."""
+    return (np.full(max_m, ord("X"), np.uint8),
+            np.full(max_m + unit_k, ord("Y"), np.uint8))
+
+
+def walk_cells(seq_row: np.ndarray, m: int, n: int, unit_k: int):
+    """The band cells a walked edit stream (one row of the walk's output,
+    reverse walk order) passes through, from (m, n) to (0, 0)."""
+    i, j, cells = m, n, [n - m + unit_k]
+    step = {0: (1, 1), 1: (1, 1), 2: (0, 1), 3: (1, 0), 4: (2, 2)}
+    for v in seq_row.tolist():
+        if v < 0:
+            break
+        di, dj = step[v]
+        i, j = i - di, j - dj
+        cells.append(j - i + unit_k)
+    return cells
+
+
 def band_lane_cases():
     """(band W, cells a lane, lanes a pair) for the warp regime of the band
     kernel: every lane map at its group's edge (the largest odd W it
@@ -738,8 +824,10 @@ def band_errors(got_d, got_codes, ref_d, ref_codes, t, unit_k: int,
                 walk: bool) -> int:
     """Largest disagreement between the kernel's and the plain version's
     distances, argmin codes (rows 1..m of each pair: the kernel writes no
-    others) and, with `walk`, the edit streams walked from the codes."""
+    others) and, with `walk`, the edit streams the walk kernel K10 walks
+    from the kernel's codes and the plain walk from the plain codes."""
     from triple_accel_tpu_torch.ops.band_scan import walk_packed_traceback
+    from triple_accel_tpu_torch.ops.trace_walk import trace_walk
 
     err = int((got_d.to(torch.int64) - ref_d.to(torch.int64)).abs().max())
     if got_codes is None:
@@ -749,7 +837,7 @@ def band_errors(got_d, got_codes, ref_d, ref_codes, t, unit_k: int,
             < t[2][:, None])[:, :, None]
     err = max(err, int(((got_codes != ref_codes) & live).any()))
     if walk:
-        seq_g, _ = walk_packed_traceback(got_codes, *t, unit_k=unit_k)
+        seq_g, _ = trace_walk(got_codes, *t, unit_k=unit_k)
         seq_r, _ = walk_packed_traceback(ref_codes, *t, unit_k=unit_k)
         err = max(err, int((seq_g.to(torch.int32)
                             - seq_r.to(torch.int32)).abs().max()))
@@ -760,14 +848,18 @@ def check_band_kernels(dev):
     """The band kernels over a seeded grid of cost models, band widths and
     lengths: the short regime, the long one (rows >= 16384, band 513), the
     wide regime (bands 1025 and 8193, the widest the plan takes: 200 KB of
-    dynamic shared memory a block), and every lane map of the warp regime
-    at its lane and group edges (`band_lane_cases`), at a batch that
-    leaves its last warp part empty and at a full one, with swaps on the
-    diagonals of the lane edges.  Distances, codes and walked edit streams
-    equal the plain version's exactly."""
+    dynamic shared memory a block), the traced kernel's device-memory
+    regime (forced onto bands 65 and 1025, and band 16,385, the narrowest
+    a traced batch past the plan gets), and every lane map of the warp
+    regime at its lane and group edges (`band_lane_cases`), at a batch
+    that leaves its last warp part empty and at a full one, with swaps on
+    the diagonals of the lane edges.  Distances, codes and the edit
+    streams walked from them (by K10 from the kernel's codes, by the plain
+    walk from the plain version's) equal the plain version's exactly."""
     from triple_accel_tpu_torch.ops.band_scan import band_scan_distance
     from triple_accel_tpu_torch.ops.lev_band import (
-        MAX_UNIT_K, band_distance, band_trace, prepare_band_tensors)
+        MAX_UNIT_K, band_distance, band_plan, band_trace,
+        prepare_band_tensors)
     from triple_accel_tpu_torch.types import (
         EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS)
 
@@ -796,18 +888,44 @@ def check_band_kernels(dev):
                 err = max(
                     band_errors(got_d, None, ref_d, None, t, unit_k, False),
                     band_errors(got_dt, got_codes, ref_d, ref_codes, t,
-                                unit_k, walk=regime != "long"))
+                                unit_k, walk=True))
                 worst = max(worst, err)
                 check(err == 0, f"band kernels != plain at costs={ct} "
                                 f"unit_k={unit_k} max_m={max_m}")
                 cases[regime] += 2  # the untraced and the traced kernel
                 del got_codes, ref_codes
+    # the device-memory regime (traced only): forced onto narrow bands at
+    # 64 and 1024 threads, then band 16,385 as the plan gives it
+    cases["device_memory"] = 0
+    deep = band_plan(8, 2 * MAX_UNIT_K, True)
+    for costs in (RDAMERAU_COSTS, EditCosts(*AFFINE)):
+        ct = costs_tuple(costs)
+        for unit_k, max_m, n_pairs, plan in (
+                (32, 300, 40, dict(deep, threads=64)),
+                (512, 1100, 9, dict(deep, threads=1024)),
+                (2 * MAX_UNIT_K, 400, 5, None)):
+            a_list, b_list = band_cases(rng, n_pairs, max_m, unit_k)
+            a_e, b_e = walk_edge_pairs(rng, unit_k, max_m)
+            t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k,
+                                     max_m, device=dev)
+            got_dt, got_codes = band_trace(*t, unit_k=unit_k, costs_t=ct,
+                                           plan=plan)
+            torch.cuda.synchronize()
+            ref_d, ref_codes = band_scan_distance(
+                *t, unit_k=unit_k, costs_t=ct, trace_on=True)
+            err = band_errors(got_dt, got_codes, ref_d, ref_codes, t,
+                              unit_k, walk=True)
+            worst = max(worst, err)
+            check(err == 0, f"band_trace in device memory != plain at "
+                            f"costs={ct} unit_k={unit_k} max_m={max_m}")
+            cases["device_memory"] += 1
+            del got_codes, ref_codes
     cases["lane_edges"] = 0
     for q, (W, cells, lanes) in enumerate(band_lane_cases()):
         unit_k, max_m = (W - 1) // 2, 60
         per_warp = 32 // lanes
         # with and without transpositions at each batch, in turns across
-        # the cases; the walk at the small batch (it is a host loop)
+        # the cases
         costs_pair = (RDAMERAU_COSTS, EditCosts(*AFFINE))[::1 - 2 * (q % 2)]
         for costs, n_pairs, threads in (
                 (costs_pair[0], max(per_warp - 1, 2), 32),
@@ -827,12 +945,86 @@ def check_band_kernels(dev):
             err = max(
                 band_errors(got_d, None, ref_d, None, t, unit_k, False),
                 band_errors(got_dt, got_codes, ref_d, ref_codes, t,
-                            unit_k, walk=threads == 32))
+                            unit_k, walk=True))
             worst = max(worst, err)
             check(err == 0, f"band kernels != plain at costs={ct} W={W} "
                             f"lanes {lanes} x cells {cells}, "
                             f"{len(a_list) + len(a_e)} pairs")
             cases["lane_edges"] += 2
+    return cases, worst
+
+
+def check_trace_walk_kernel(dev):
+    """The walk kernel K10 against the plain walk, exactly (the -1 padding
+    included), on codes from K4 in each of its regimes (warp, wide in
+    shared memory, device memory at a forced narrow plan and at band
+    16,385 as the plan gives it), under a cost model with transpositions
+    and one without: edited pairs with m = 0 and empty pairs
+    (`band_cases`), walks along band cells 0, 15, 16, 31, 32 and W - 1 and
+    a transposition as a walk's last step (`walk_edge_pairs`), batches
+    that are not a multiple of the kernel's 32-thread block; then the
+    longest walk the bound allows (every step a gap, m + n = steps - 1)
+    and random codes whose walks leave the matrix."""
+    from triple_accel_tpu_torch.ops.band_scan import (
+        code_words, walk_packed_traceback)
+    from triple_accel_tpu_torch.ops.lev_band import (
+        MAX_UNIT_K, band_plan, band_trace, prepare_band_tensors)
+    from triple_accel_tpu_torch.ops.trace_walk import trace_walk
+    from triple_accel_tpu_torch.types import EditCosts, RDAMERAU_COSTS
+
+    rng = np.random.default_rng(1010)
+    worst, cases = 0, 0
+
+    def compare(codes, t, unit_k, what):
+        nonlocal worst, cases
+        got, steps = trace_walk(codes, *t, unit_k=unit_k)
+        ref, ref_steps = walk_packed_traceback(codes, *t, unit_k=unit_k)
+        err = int((got.to(torch.int32) - ref.to(torch.int32)).abs().max()) \
+            if got.numel() else 0
+        err = max(err, int(steps != ref_steps or got.shape != ref.shape))
+        worst = max(worst, err)
+        check(err == 0, f"trace_walk != plain walk: {what}")
+        cases += 1
+        return got
+
+    deep = band_plan(8, 2 * MAX_UNIT_K, True)
+    regimes = (("warp", 16, 80, 33, None),
+               ("wide", 600, 2500, 9, None),
+               ("device_memory_forced", 16, 80, 71, dict(deep, threads=64)),
+               ("device_memory", 2 * MAX_UNIT_K, 200, 3, None))
+    for costs in (RDAMERAU_COSTS, EditCosts(*AFFINE)):
+        ct = costs_tuple(costs)
+        for regime, unit_k, max_m, n_pairs, plan in regimes:
+            a_list, b_list = band_cases(rng, n_pairs, max_m, unit_k)
+            a_e, b_e = walk_edge_pairs(rng, unit_k, max_m)
+            t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k,
+                                     max_m, device=dev)
+            _, codes = band_trace(*t, unit_k=unit_k, costs_t=ct, plan=plan)
+            got = compare(codes, t, unit_k, f"{regime} costs={ct}")
+            if ct[4]:  # the transposition pair's walk ends with one
+                row = got[len(a_list) + len(a_e) - 2]
+                check(int(row[int((row >= 0).sum()) - 1]) == 4,
+                      f"{regime}: the transposition is not the last step")
+    a, b = longest_walk_pair(16, 64)
+    t = prepare_band_tensors([a] * 35, [b] * 35, 16, 64, device=dev)
+    _, codes = band_trace(*t, unit_k=16,
+                          costs_t=costs_tuple(EditCosts(*LONGEST_WALK_COSTS)))
+    got = compare(codes, t, 16, "the longest walk")
+    check(bool((got[:, :-1] >= 0).all()) and bool((got[:, -1] == -1).all()),
+          "the longest walk does not fill its bound but the last step")
+    B, unit_k, max_m = 45, 16, 48
+    W = 2 * unit_k + 1
+    m = torch.from_numpy(rng.integers(0, max_m + 1, B).astype(np.int32))
+    t = (torch.from_numpy(rng.integers(65, 69, (B, max_m)).astype(np.uint8)),
+         torch.from_numpy(rng.integers(65, 69, (B, max_m + W))
+                          .astype(np.uint8)),
+         m, m + torch.from_numpy(rng.integers(0, unit_k + 1, B)
+                                 .astype(np.int32)))
+    codes = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, (B, max_m, code_words(W)), dtype=np.int64)
+        .astype(np.int32))
+    compare(codes.to(dev), tuple(x.to(dev) for x in t), unit_k,
+            "random codes")
     return cases, worst
 
 
@@ -1821,15 +2013,71 @@ def band_bound(m_arr, n_arr, unit_k: int, ct, traced: bool) -> dict:
     }
 
 
+def k10_bound(seq: torch.Tensor, steps: int) -> dict:
+    """The least time the card could take for the walks in `seq` (K10's
+    output, [B, steps]): the code words and characters the walked steps
+    read, the output written once, against K10_OPS_PER_STEP operations a
+    walked step."""
+    walked = (seq >= 0).sum(dim=1)
+    diag = ((seq == 0) | (seq == 1)).sum(dim=1)
+    n_walked, n_diag = int(walked.sum()), int(diag.sum())
+    bytes_moved = (n_walked * K10_CODE_BYTES + n_diag * K10_CHAR_BYTES
+                   + seq.numel() + 8 * seq.shape[0])
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = n_walked * K10_OPS_PER_STEP / PEAK_INT32_OPS_PER_S * 1e3
+    longest = int(walked.max()) if seq.shape[0] else 0
+    return {
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
+        "walked_steps": n_walked, "longest_walk": longest, "steps": steps,
+    }
+
+
+def k10_alone(codes, t, seq, unit_k: int, reps: int) -> dict:
+    """K10 on the pair of `seq` (its output on the batch) with the longest
+    walk, alone: one lane of one warp, one chain of dependent steps.  The
+    median of `reps` launches (CUDA events around the wrapper: its -1
+    fill, the kernel and the transpose of one row), each after a write of
+    K10_FLUSH_BYTES that empties L2, so that its codes come from device
+    memory as the batch's do; the first launch is a warm-up."""
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+
+    walked = (seq >= 0).sum(dim=1)
+    p = int(walked.argmax())
+    one = [x[p:p + 1] for x in (codes, *t)]
+    flush = torch.empty(K10_FLUSH_BYTES, dtype=torch.uint8,
+                        device=codes.device)
+    times = []
+    for _ in range(reps + 1):
+        flush.fill_(1)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        got, _ = tw.trace_walk(*one, unit_k=unit_k)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    check(torch.equal(got[0], seq[p]), "K10 on one pair != its batch row")
+    ms = statistics.median(times[1:])
+    return {"longest_walk_alone_ms": ms,
+            "longest_walk_alone_ns_a_step": ms * 1e6 / int(walked[p])}
+
+
 def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
-                     out: np.ndarray, reps: int):
+                     out: np.ndarray, reps: int, plain_pairs=None,
+                     walk_reps: int = 9):
     """The band kernel alone at the tensors the main path gave it (batch,
     rows and band of the logged dispatch decision): equal to the main
-    path's distances, timed, held against the plain version; traced, the
-    walk and the decode are timed too.  Returns the numbers of the
-    kernel's entry in the `kernels` line and of the phase line."""
+    path's distances, timed, held against the plain version (on the first
+    `plain_pairs` pairs where given, else on all); traced, the walk kernel
+    K10 over its codes is timed and held against the plain walk on the
+    first PLAIN_WALK_PAIRS pairs, and the fetch and decode are timed.
+    Returns the numbers of the kernel's entry in the `kernels` line, of
+    the phase line, and (traced) of K10's entry."""
     from triple_accel_tpu_torch.ops import band_scan as bs
     from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import trace_walk as tw
 
     ct = costs_tuple(costs)
     unit_k, rows = decision.unit_k, decision.padded_m
@@ -1847,44 +2095,75 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
         times = time_launches(lambda: lb.band_distance(*t, **kw), reps)
     check(np.array_equal(got_d.cpu().numpy().astype(np.int64), out),
           "kernel-only rerun != main path result")
+    n_plain = len(a_list) if plain_pairs is None else plain_pairs
+    tc = tuple(x[:n_plain] for x in t)
     ref = None
 
     def run_plain():
         nonlocal ref
-        ref = bs.band_scan_distance(*t, trace_on=traced, **kw)
+        ref = bs.band_scan_distance(*tc, trace_on=traced, **kw)
 
     plain_ms = time_once_ms(run_plain)
-    err = band_errors(got_d, got_codes, ref[0], ref[1], t, unit_k, False)
+    err = band_errors(got_d[:n_plain],
+                      None if got_codes is None else got_codes[:n_plain],
+                      ref[0], ref[1], tc, unit_k, False)
     check(err == 0, "band kernel != plain at the main-path shape")
+    walk = None
     if traced:
-        seq = None
+        seq, steps = tw.trace_walk(got_codes, *t, unit_k=unit_k)
+        walk_times = time_launches(
+            lambda: tw.trace_walk(got_codes, *t, unit_k=unit_k), walk_reps)
+        n_walk = min(PLAIN_WALK_PAIRS, len(a_list))
+        seq_ref = None
 
         def run_walk():
-            nonlocal seq
-            seq, _ = bs.walk_packed_traceback(got_codes, *t, unit_k=unit_k)
+            nonlocal seq_ref
+            seq_ref, _ = bs.walk_packed_traceback(
+                got_codes[:n_walk], *(x[:n_walk] for x in t), unit_k=unit_k)
 
-        extra["walk_ms"] = round(time_once_ms(run_walk), 2)
-        seq_ref, _ = bs.walk_packed_traceback(ref[1], *t, unit_k=unit_k)
-        err = max(err, int((seq.to(torch.int32)
-                            - seq_ref.to(torch.int32)).abs().max()))
-        check(err == 0, "walked edit streams differ at the main-path shape")
+        plain_walk_ms = time_once_ms(run_walk)
+        walk_err = int((seq[:n_walk].to(torch.int32)
+                        - seq_ref.to(torch.int32)).abs().max())
+        check(walk_err == 0, "trace_walk != the plain walk at the main-path "
+                             "shape")
         t0 = time.perf_counter()
-        bs.decode_walked_batch(seq.cpu().numpy(), [False] * len(a_list))
-        extra["fetch_and_decode_s"] = round(time.perf_counter() - t0, 4)
+        seq_np = seq.cpu().numpy()
+        extra["walk_fetch_s"] = round(time.perf_counter() - t0, 4)
+        t0 = time.perf_counter()
+        bs.decode_walked_batch(seq_np, [False] * len(a_list))
+        extra["decode_s"] = round(time.perf_counter() - t0, 4)
         extra["code_MB"] = round(got_codes.numel() * 4 / 1e6, 1)
+        extra["walk_ms"] = round(walk_times[0], 4)
+        extra["walk_ms_min_max"] = [round(walk_times[1], 4),
+                                    round(walk_times[2], 4)]
+        extra["plain_walk_ms"] = round(plain_walk_ms, 1)
+        extra["plain_walk_cut_pairs"] = n_walk
+        walk = {
+            "max_abs_err": walk_err, "ms": walk_times[0],
+            "ms_min": walk_times[1], "ms_max": walk_times[2],
+            "plain_ms": plain_walk_ms,
+            "plain_shape": f"the first {n_walk} pairs (steps as at the "
+                           "full batch)",
+            "library_ms": None, **k10_bound(seq, steps),
+            **k10_alone(got_codes, t, seq, unit_k, walk_reps),
+        }
     m_arr = t[2].cpu().numpy().astype(np.int64)
     n_arr = t[3].cpu().numpy().astype(np.int64)
     bound = band_bound(m_arr, n_arr, unit_k, ct, traced)
     plan = lb.band_plan(rows, unit_k, traced, batch=len(a_list))
+    wide = (f"band_wide_kernel<*, {str(traced).lower()}, "
+            f"{str(plan['regime'] == 'wide_global').lower()}>")
     entry = {
         "kernel": (f"band_kernel<*, {str(traced).lower()}, "
                    f"{plan['cells_per_lane']}>" if plan["regime"] == "warp"
-                   else f"band_wide_kernel<*, {str(traced).lower()}>"),
+                   else wide),
         "max_abs_err": err, "ms": times[0], "ms_min": times[1],
         "ms_max": times[2], "plain_ms": plain_ms, "library_ms": None,
         **{k_: bound[k_] for k_ in ("bound_ms", "bound_by", "bound_bytes_ms",
                                     "bound_operations_ms")},
     }
+    if n_plain < len(a_list):
+        entry["plain_shape"] = f"the first {n_plain} pairs"
     phase = {
         "unit_k": unit_k, "band_cells": 2 * unit_k + 1, "rows": rows,
         "band_regime": plan["regime"],
@@ -1893,11 +2172,11 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
         "host_prep_and_upload_s": round(prep_s, 4),
         "kernel_ms": round(times[0], 4),
         "kernel_ms_min_max": [round(times[1], 4), round(times[2], 4)],
-        "plain_ms": round(plain_ms, 1),
+        "plain_ms": round(plain_ms, 1), "plain_cut_pairs": n_plain,
         "Gcells_per_s_kernel": round(bound["cells"] / times[0] / 1e6, 2),
         **extra,
     }
-    return entry, phase
+    return entry, phase, walk
 
 
 def band_entry(name: str, regime: str, traced: bool, replaces: str,
@@ -2006,7 +2285,7 @@ def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
     check(bool((out[:4096] <= plain_lev).all())
           and bool((out[:4096] < plain_lev).any()),
           "transpositions never made a pair cheaper than unit costs")
-    numbers, phase = band_kernel_only(dev, a_list, b_swapped, dec,
+    numbers, phase, _ = band_kernel_only(dev, a_list, b_swapped, dec,
                                       tt.RDAMERAU_COSTS, False, out, 15)
     k3 = band_entry("band_distance", "short", False, "148", launches, numbers)
 
@@ -2052,8 +2331,8 @@ def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
         oracle_sample(la_list, lb_list, K_LONG, affine, out, None, 1,
                       "band_distance (long)")
         ref_kind = "python oracle (1 pair)"
-    numbers, phase = band_kernel_only(dev, la_list, lb_list, dec, affine,
-                                      False, out, 7)
+    numbers, phase, _ = band_kernel_only(dev, la_list, lb_list, dec,
+                                         affine, False, out, 7)
     k3_long = band_entry("band_distance_long", "long", False, "402",
                          launches, numbers)
     emit({"phase": "band_distance", "regime": "long", "pairs": n_long,
@@ -2069,11 +2348,106 @@ def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
     return k3, k3_long
 
 
-def run_band_trace(dev, a_list, b_swapped, scale: float):
-    """Distances with tracebacks: the traced kernel, the walk, the decode."""
+def band_trace_split(a_list, b_list, k: int, costs, out, traces) -> dict:
+    """Where a traced call's end-to-end time goes: the call again with the
+    band kernels' host prep (packing the strings, then the upload of their
+    tensors), K4 and K10 and the RLE decode timed where the entry point
+    calls them, then the fetch of the distances and the walks timed on the
+    same tensors; the rest is the entry point's list work, dispatch math
+    and its own fetch.  The entry point is unchanged; its result is
+    checked."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.ops import band_scan as bs
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+
+    secs, keep = {}, []
+    prep, k4, k10 = lb.prepare_band_tensors, lb.band_trace, tw.trace_walk
+
+    def timed_prep(*args, device, **kwargs):
+        host = _timed(secs, "host_prep_s", prep)(*args, device="cpu",
+                                                 **kwargs)
+        return _timed(secs, "upload_s",
+                      lambda: tuple(x.to(device) for x in host))()
+
+    def timed_k4(*args, **kwargs):
+        res = _timed(secs, "k4_s", k4)(*args, **kwargs)
+        keep.append(res[0])
+        return res
+
+    def timed_k10(*args, **kwargs):
+        res = _timed(secs, "k10_s", k10)(*args, **kwargs)
+        keep.append(res[0])
+        return res
+
+    with _patched(lb, prepare_band_tensors=timed_prep, band_trace=timed_k4), \
+            _patched(tw, trace_walk=timed_k10), \
+            _patched(bs, decode_walked_batch=_timed(
+                secs, "decode_s", bs.decode_walked_batch)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = tt.levenshtein_k_batch(a_list, b_list, k, costs,
+                                       trace_on=True)
+        e2e = time.perf_counter() - t0
+    check(np.array_equal(again[0], out) and again[1] == traces,
+          "timed traced rerun != main path")
+    t0 = time.perf_counter()
+    for x in keep:
+        x.cpu().numpy()
+    secs["fetch_s"] = time.perf_counter() - t0
+    secs["lists_and_rest_s"] = e2e - sum(secs.values())
+    return {"e2e_s": round(e2e, 4),
+            **{k_: round(v, 4) for k_, v in secs.items()}}
+
+
+def drive_traced(a_l, b_l, k: int, costs, name: str, path: str):
+    """One traced call of `levenshtein_k_batch` with the launch counts of
+    K4 and K10 set to 0 just before it and read just after: (distances,
+    traces, e2e seconds, K4 launches, K10 launches, the dispatch decision).
+    Checks the route, the counts and that every pair came back with a
+    distance and a trace that replays a into b at that distance."""
     import triple_accel_tpu_torch as tt
     from triple_accel_tpu_torch.dispatch import dispatch_history
     from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+
+    dispatch_history(clear=True)
+    lb.band_trace.launches = tw.trace_walk.launches = 0  # 0 just before
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, traces = tt.levenshtein_k_batch(a_l, b_l, k, costs, trace_on=True)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    k4_n, k10_n = lb.band_trace.launches, tw.trace_walk.launches  # after
+    hist = dispatch_history()
+    check(k4_n >= 1 and k10_n == k4_n,
+          f"{name}: {k4_n} band_trace and {k10_n} trace_walk launches")
+    check({d.path for _, d in hist} == {path},
+          f"{name}: dispatch took {[d.path for _, d in hist]}")
+    check(len(traces) == len(a_l) and bool((out >= 0).all()),
+          f"{name}: a pair came back without a distance")
+    for p in range(len(a_l)):
+        check(replay_cost(a_l[p], b_l[p], traces[p], costs) == int(out[p]),
+              f"{name}: pair {p}: the trace does not replay a into b at "
+              f"cost {int(out[p])}")
+    return out, traces, e2e_s, k4_n, k10_n, hist[-1][1]
+
+
+def walk_entry(name: str, launches: int, numbers: dict) -> dict:
+    return {
+        "name": name, "route": "cuda",
+        "source": "triple_accel_tpu_torch/csrc/trace_walk.cu",
+        "kernel": "trace_walk_kernel",
+        "replaces": "triple_accel_tpu/ops/band_scan.py:189 (_walk_scan, "
+                    "XLA: no pallas_call)",
+        "launches": launches, **numbers,
+    }
+
+
+def run_band_trace(dev, a_list, b_swapped, scale: float):
+    """Distances with tracebacks: the traced kernel, the walk kernel, the
+    decode."""
+    import triple_accel_tpu_torch as tt
 
     n_short = max(64, int(TRACE_PAIRS * scale))
     n_long = max(32, int(TRACE_LONG_PAIRS * scale))
@@ -2085,37 +2459,23 @@ def run_band_trace(dev, a_list, b_swapped, scale: float):
              b_swapped[:n_short], K_DIST),
             ("long", "band_trace_long", "773", ta_list, tb_list,
              K_TRACE_LONG)):
-        dispatch_history(clear=True)
-        lb.band_trace.launches = 0  # 0 just before the path ...
-        torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out, traces = tt.levenshtein_k_batch(a_l, b_l, k, tt.RDAMERAU_COSTS,
-                                             trace_on=True)
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        launches = lb.band_trace.launches  # ... read just after it
-        hist = dispatch_history()
-        check(launches >= 1, f"{name}: no band_trace kernel launched")
-        check({d.path for _, d in hist} == {"band_trace"},
-              f"{name}: dispatch took {[d.path for _, d in hist]}")
-        check(len(traces) == len(a_l) and bool((out >= 0).all()),
-              f"{name}: a pair came back without a distance")
-        t0 = time.perf_counter()
-        for p in range(len(a_l)):
-            check(replay_cost(a_l[p], b_l[p], traces[p], tt.RDAMERAU_COSTS)
-                  == int(out[p]),
-                  f"{name}: pair {p}: the trace does not replay a into b "
-                  f"at cost {int(out[p])}")
-        replay_s = time.perf_counter() - t0
+        out, traces, e2e_s, launches, walks, dec = drive_traced(
+            a_l, b_l, k, tt.RDAMERAU_COSTS, name, "band_trace")
+        replay_s = time.perf_counter() - t0 - e2e_s
         n_oracle = oracle_sample(a_l, b_l, k, tt.RDAMERAU_COSTS, out, traces,
                                  32, name)
-        numbers, phase = band_kernel_only(dev, a_l, b_l, hist[-1][1],
-                                          tt.RDAMERAU_COSTS, True, out, 9)
+        split = band_trace_split(a_l, b_l, k, tt.RDAMERAU_COSTS, out, traces)
+        numbers, phase, walk = band_kernel_only(
+            dev, a_l, b_l, dec, tt.RDAMERAU_COSTS, True, out, 9)
         entries.append(band_entry(name, regime, True, replaces, launches,
                                   numbers))
+        entries.append(walk_entry(name.replace("band_trace", "trace_walk"),
+                                  walks, walk))
         emit({"phase": "band_trace", "regime": regime, "pairs": len(a_l),
               "str_len": len(a_l[0]), "k": k, "costs": "RDAMERAU_COSTS",
-              "dispatch": hist[-1][1].path, "launches": launches,
+              "dispatch": dec.path, "launches": launches,
+              "walk_launches": walks,
               "traces_replayed": len(a_l), "replay_check_s": round(
                   replay_s, 2),
               "oracle_trace_sample": n_oracle,
@@ -2125,8 +2485,112 @@ def run_band_trace(dev, a_list, b_swapped, scale: float):
               "pairs_per_s_e2e": round(len(a_l) / e2e_s, 1),
               "pairs_per_s_kernel": round(
                   len(a_l) / (numbers["ms"] * 1e-3), 1),
-              **phase})
+              "e2e_split_s": split, **phase})
     return entries
+
+
+def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
+    """Traced distances past the band plan (the JAX package's
+    `trace_batch` engine): K4 with its band state in device memory, then
+    K10, on long ACGT pairs at an unbounded threshold; the distances equal
+    the untraced call's (K5) and every trace replays.  Then one pair
+    through `levenshtein_simd_k_with_opts` and one through
+    `levenshtein_exp_with_opts`, whose last rung passes the plan."""
+    import importlib
+
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    n_pairs = max(8, int(PAST_PLAN_PAIRS * scale))
+    t_phase = t0 = time.perf_counter()
+    a_list, b_list = make_long_pairs(n_pairs, PAST_PLAN_LEN,
+                                     PAST_PLAN_EDIT_SHARE, seed=3030)
+    b_list = swap_adjacent_list(b_list, PAST_PLAN_SWAP_SHARE,
+                                np.random.default_rng(3031))
+    gen_s = time.perf_counter() - t0
+    costs, name = tt.RDAMERAU_COSTS, "band_trace (past_plan)"
+    t0 = time.perf_counter()
+    out, traces, e2e_s, launches, walks, dec = drive_traced(
+        a_list, b_list, U32_MAX, costs, name, "band_trace_global")
+    replay_s = time.perf_counter() - t0 - e2e_s
+    check(dec.unit_k > lb.MAX_UNIT_K, f"{name} ran at unit_k={dec.unit_k}")
+    # the same pairs untraced: the blocked Myers distance kernel (K5)
+    dispatch_history(clear=True)
+    mc.blocked_distance.launches = 0
+    untraced = tt.levenshtein_k_batch(a_list, b_list, U32_MAX, costs)
+    check(mc.blocked_distance.launches >= 1
+          and {d.path for _, d in dispatch_history()}
+          == {"myers_blocked_distance"},
+          f"{name}: the untraced call did not take K5")
+    check(np.array_equal(untraced, out),
+          f"{name}: traced distances != the untraced call's (K5)")
+    ref_kind = "K5 on every pair"
+    if native_loaded:
+        ref = scalar_banded_batch_native(a_list[:1], b_list[:1],
+                                         int(out[0]), costs)
+        check(int(ref[0]) == int(out[0]),
+              f"{name}: pair 0 != the compiled scalar comparator")
+        ref_kind += ", ta_scalar_banded_batch on pair 0"
+    # one pair through the single-pair entry point
+    lb.band_trace.launches = tw.trace_walk.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    single = lev.levenshtein_simd_k_with_opts(a_list[0], b_list[0], U32_MAX,
+                                              True, costs)
+    torch.cuda.synchronize()
+    single_s = time.perf_counter() - t0
+    check(lb.band_trace.launches == 1 and tw.trace_walk.launches == 1,
+          f"{name}: the single-pair call launched {lb.band_trace.launches} "
+          f"band_trace and {tw.trace_walk.launches} trace_walk")
+    check(single == (int(out[0]), traces[0]),
+          f"{name}: the single-pair call != the batch's pair 0")
+    # the exponential search on a pair with nothing in common: its rungs
+    # double k from 30 until the last one (k 7,680) passes the plan
+    x, y = longest_walk_pair(0, 4100)
+    dispatch_history(clear=True)
+    got = lev.levenshtein_exp_with_opts(x, y, True, costs)
+    exp_paths = [d.path for _, d in dispatch_history()]
+    check(got == (4100, [tt.Edit(tt.EditType.Mismatch, 4100)])
+          and exp_paths[-1] == "band_trace_global"
+          and "band_trace_global" not in exp_paths[:-1],
+          f"{name}: levenshtein_exp_with_opts gave {str(got)[:80]} over "
+          f"{exp_paths}")
+    split = band_trace_split(a_list, b_list, U32_MAX, costs, out, traces)
+    # kernel only, at the tensors the main path gives it (m <= n)
+    sa = [a if len(a) <= len(b) else b for a, b in zip(a_list, b_list)]
+    sb = [b if len(a) <= len(b) else a for a, b in zip(a_list, b_list)]
+    numbers, phase, walk = band_kernel_only(
+        dev, sa, sb, dec, costs, True, out, 3,
+        plain_pairs=PAST_PLAN_PLAIN_PAIRS, walk_reps=5)
+    plan = lb.band_plan(dec.padded_m, dec.unit_k, True, batch=n_pairs)
+    emit({"phase": "band_trace", "regime": "past_plan", "pairs": n_pairs,
+          "str_len": PAST_PLAN_LEN, "edit_share": PAST_PLAN_EDIT_SHARE,
+          "swap_share": PAST_PLAN_SWAP_SHARE, "k": U32_MAX,
+          "costs": "RDAMERAU_COSTS", "dispatch": dec.path,
+          "launches": launches, "walk_launches": walks,
+          "reference": ref_kind, "traces_replayed": n_pairs,
+          "replay_check_s": round(replay_s, 2),
+          "datagen_s": round(gen_s, 3),
+          "scratch_MB": round(n_pairs * plan["scratch_bytes_per_pair"] / 1e6,
+                              1),
+          "e2e_s": round(e2e_s, 4),
+          "pairs_per_s_e2e": round(n_pairs / e2e_s, 2),
+          "pairs_per_s_kernel": round(n_pairs / (numbers["ms"] * 1e-3), 2),
+          "single_pair_e2e_s": round(single_s, 4),
+          "exp_with_opts_rungs": exp_paths,
+          "e2e_split_s": split, **phase,
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return [band_entry("band_trace_past_plan", "past_plan", True, "773",
+                       launches, dict(numbers, jax_engine=(
+                           "triple_accel_tpu/ops/band_scan.py:233 "
+                           "band_trace_batch (XLA scan past W 2048)"))),
+            walk_entry("trace_walk_past_plan", walks, walk)]
 
 
 def run_hamming(dev, a_list, b_list, needle, hay, planted):
@@ -3116,6 +3580,7 @@ def main() -> int:
     d_cases, d_err = check_distance_kernel(dev)
     s_cases, s_err = check_search_kernel(dev)
     b_cases, b_err = check_band_kernels(dev)
+    w_cases, w_err = check_trace_walk_kernel(dev)
     (bd_cases, bd_err), (bs_cases, bs_err) = check_blocked_kernels(dev)
     sd_cases, sd_err = check_search_diag_kernel(dev)
     fs_cases, fs_err = check_flat_search_kernel(dev)
@@ -3127,7 +3592,9 @@ def main() -> int:
               "cases_short": b_cases["short"], "cases_long": b_cases["long"],
               "cases_widest_band": b_cases["wide"],
               "cases_lane_edges": b_cases["lane_edges"],
+              "cases_device_memory": b_cases["device_memory"],
               "max_abs_err": b_err},
+          "trace_walk": {"cases": w_cases, "max_abs_err": w_err},
           "blocked_distance": {"cases": bd_cases, "max_abs_err": bd_err},
           "blocked_search": {"cases": bs_cases, "max_abs_err": bs_err},
           "search_diag": {"cases": sd_cases, "max_abs_err": sd_err},
@@ -3163,10 +3630,15 @@ def main() -> int:
     k3, k3_long = run_band_distance(dev, a_list, b_swapped,
                                     (a_list, b_list), k1_out, native_loaded,
                                     scale)
-    k4, k4_long = run_band_trace(dev, a_list, b_swapped, scale)
+    k4, k10, k4_long, k10_long = run_band_trace(dev, a_list, b_swapped,
+                                                scale)
+    k4_past, k10_past = run_band_trace_past_plan(dev, scale, native_loaded)
     for entry, regime in ((k3, "short"), (k3_long, "long"), (k4, "short"),
                           (k4_long, "long")):
         entry.update(cases=b_cases[regime] // 2, ok=True)
+    k4_past.update(cases=b_cases["device_memory"], ok=True)
+    for entry in (k10, k10_long, k10_past):
+        entry.update(cases=w_cases, ok=True)
 
     # 8. Hamming (plain ops)
     run_hamming(dev, a_list, b_list, needle, hay, planted)
@@ -3193,8 +3665,8 @@ def main() -> int:
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_start, 1),
           "peak_device_MB": round(torch.cuda.max_memory_allocated() / 2**20)})
-    emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k5, k6,
-                      k6_chunked, k7, k8, k9]})
+    emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k4_past, k10,
+                      k10_long, k10_past, k5, k6, k6_chunked, k7, k8, k9]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

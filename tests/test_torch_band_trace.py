@@ -273,33 +273,45 @@ def test_single_pair_trace_equals_jax_and_oracle(a, b):
     assert tl.levenshtein_simd_k_with_opts(b"", b"", 3, True, **CPU) == (0, [])
 
 
-# untraced batches past the plan have engines: the blocked Myers distance
+# batches past the plan have engines: untraced, the blocked Myers distance
 # kernel for unit and rDamerau costs (test_torch_blocked_distance.py) and
 # the flat distance kernel for the others (test_torch_flat_distance.py);
-# their traces do not yet
+# traced, the band kernel with its state in device memory and the walk
 @pytest.mark.parametrize("c,trace,engine", [
-    (COSTS[0], True, "band_trace_batch"),
-    (COSTS[1], True, "band_trace_batch"),
+    (COSTS[0], True, "band_trace_global"),
+    (COSTS[1], True, "band_trace_global"),
     (COSTS[2], False, "flat_distance"),
-    (COSTS[3], True, "band_trace_batch"),
+    (COSTS[3], True, "band_trace_global"),
 ], ids=["unit", "rdamerau", "affine", "traced"])
 def test_batches_past_the_band_plan_raise(c, trace, engine):
-    """Traced batches past the plan raise naming the JAX engine; the
-    untraced `affine` case raised too until the flat distance kernel was
-    ported, and now takes it (with the shortest strings past the plan)."""
+    """Every case here raised until its engine was ported (the untraced
+    `affine` one until the flat distance kernel, the traced ones until the
+    band kernel's device-memory regime and the walk K10); each now takes
+    its engine on the shortest strings past the plan and is held against
+    the compiled scalar comparator, traces replayed."""
     from triple_accel_tpu_torch.utils.native import (
         scalar_banded_batch_native)
 
-    n = 9000 if trace else 4150
-    a = np.full(n, 65, np.uint8)
-    b = np.full(n, 66, np.uint8)  # unbounded k: the band is the length
+    k = (1 << 32) - 1  # unbounded: the band is the length
     if not trace:
-        got = tl.levenshtein_k_batch([a], [b], (1 << 32) - 1, EditCosts(*c),
-                                     **CPU)
+        a = np.full(4150, 65, np.uint8)
+        b = np.full(4150, 66, np.uint8)
+        got = tl.levenshtein_k_batch([a], [b], k, EditCosts(*c), **CPU)
         assert last_dispatch().path == engine
         assert got.tolist() == scalar_banded_batch_native(
-            [a], [b], (1 << 32) - 1, EditCosts(*c)).tolist()
+            [a], [b], k, EditCosts(*c)).tolist()
         return
-    with pytest.raises(NotImplementedError, match=engine):
-        tl.levenshtein_k_batch([a], [b], (1 << 32) - 1, EditCosts(*c), trace,
-                               **CPU)
+    rng = np.random.default_rng(4100 + c[0])
+    a = rng.integers(65, 69, 4100).astype(np.uint8)
+    b = np.delete(a, rng.integers(0, 4100, 8))
+    b[rng.integers(0, len(b), 20)] = 66
+    b = np.insert(b, rng.integers(0, len(b), 12), 67)  # n = 4,104
+    for q in rng.integers(0, len(b) - 1, 6).tolist():
+        b[q], b[q + 1] = b[q + 1], b[q]
+    got, traces = tl.levenshtein_k_batch([b], [a], k, EditCosts(*c), trace,
+                                         **CPU)
+    assert last_dispatch().path == engine and last_dispatch().unit_k == 8192
+    assert got.tolist() == scalar_banded_batch_native(
+        [b], [a], k, EditCosts(*c)).tolist()
+    cost = _replay_cost(b, a, _fields(traces[0]), c)
+    assert cost == int(got[0]) if c[2] == 0 else cost >= int(got[0])

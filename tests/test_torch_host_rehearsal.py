@@ -2,8 +2,8 @@
 PyTorch versions and the oracle.
 
 `csrc/myers_distance.cu`, `csrc/myers_search.cu`, `csrc/band_distance.cu`,
-`csrc/myers_blocked.cu`, `csrc/search_diag.cu` and `csrc/search_flat.cu`
-keep their per-pair, per-segment, per-row and per-lane code in plain
+`csrc/myers_blocked.cu`, `csrc/search_diag.cu`, `csrc/search_flat.cu` and
+`csrc/trace_walk.cu` keep their per-pair, per-segment, per-row and per-lane code in plain
 functions that also compile with a host C++ compiler
 (`-DTA_HOST_REHEARSAL`);
 `csrc/host_rehearsal.cpp` wraps them in a C interface that runs one
@@ -32,6 +32,7 @@ from triple_accel_tpu_torch.ops import myers_distance as md
 from triple_accel_tpu_torch.ops import myers_search as ms
 from triple_accel_tpu_torch.ops import search_diag as sd
 from triple_accel_tpu_torch.ops import search_flat as sf
+from triple_accel_tpu_torch.ops import trace_walk as ttw
 from triple_accel_tpu_torch.ops.search_common import seg_count, window_span
 from triple_accel_tpu_torch.oracle import (
     levenshtein_naive_k_with_opts,
@@ -73,7 +74,9 @@ def lib(tmp_path_factory):
         vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64, i32]
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
-        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
+        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8 + [vp, i64])
+    lib.ta_rehearse_trace_walk.restype = ctypes.c_int
+    lib.ta_rehearse_trace_walk.argtypes = [vp] * 6 + [i64] * 5 + [i32, i64]
     lib.ta_rehearse_blocked_distance.restype = ctypes.c_int
     lib.ta_rehearse_blocked_distance.argtypes = (
         [vp] * 5 + [i32, i32, vp, i64, i64, i64, vp, i64, i32])
@@ -312,11 +315,30 @@ def _band_pairs(rng, n_pairs, max_m, unit_k):
     return a_list, b_list
 
 
+def _rehearse_walk(lib, codes, t, unit_k):
+    """K10's body over int32 codes [B, rows, wpr] (numpy) and the band
+    tensors `t`: (seq [B, steps], steps), from its step-major output."""
+    arrs = [x.numpy() for x in t]
+    codes = np.ascontiguousarray(codes)
+    B, rows, wpr = codes.shape
+    steps = ttw.walk_steps(arrs[0].shape[1], unit_k)
+    seq_t = np.full((steps, B), -1, np.int8)  # as the wrapper fills it
+    rc = lib.ta_rehearse_trace_walk(
+        codes.ctypes.data, *[x.ctypes.data for x in arrs], seq_t.ctypes.data,
+        B, rows, wpr, arrs[0].shape[1], arrs[1].shape[1], unit_k, steps)
+    assert rc == 0
+    return torch.from_numpy(np.ascontiguousarray(seq_t.T)), steps
+
+
 def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
-                lanes, oracle=True):
+                lanes, oracle=True, scratch_pad=None):
     """The rehearsal (untraced and traced) at one launch plan against the
-    plain version (distances, codes of rows 1..m, walked streams) and, with
-    `oracle`, the oracle wherever the costs stay inside the band."""
+    plain version (distances, codes of rows 1..m, walked streams, K10's
+    body walking the rehearsal's codes) and, with `oracle`, the oracle
+    wherever the costs stay inside the band.  `scratch_pad` (bytes past
+    the state a pair, a multiple of 16): the wide regime with its state in
+    a per-pair scratch, as the wrapper allocates it for the device-memory
+    regime."""
     B = len(a_list)
     ct = (costs[0], costs[1], costs[2], costs[3] or 0, costs[3] is not None)
     t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m, device="cpu")
@@ -325,6 +347,11 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
     plain_seq, _ = bs.walk_packed_traceback(plain_codes, *t, unit_k=unit_k)
     arrs = [x.numpy() for x in t]
     rows, wpr = plain_codes.shape[1], plain_codes.shape[2]
+    stride = 0
+    scratch = None
+    if scratch_pad is not None:
+        stride = lb._scratch_bytes(2 * unit_k + 1) + scratch_pad
+        scratch = np.full(B * stride, 0xA5, np.uint8)  # garbage, not zeros
     for traced in (False, True):
         out = np.full(B, -7, np.int32)
         codes = np.zeros((B, rows, wpr), np.int32)
@@ -332,7 +359,8 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
             *[x.ctypes.data for x in arrs], out.ctypes.data,
             codes.ctypes.data if traced else None, B, arrs[0].shape[1],
             arrs[1].shape[1], unit_k, rows, *ct[:4], int(ct[4]), threads,
-            cells, lanes)
+            cells, lanes, None if scratch is None else scratch.ctypes.data,
+            stride)
         assert rc == 0
         assert np.array_equal(out, plain_d.numpy()), costs
         if traced:
@@ -341,6 +369,8 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
             seq, _ = bs.walk_packed_traceback(
                 torch.from_numpy(codes), *t, unit_k=unit_k)
             assert torch.equal(seq, plain_seq)
+            assert torch.equal(_rehearse_walk(lib, codes, t, unit_k)[0],
+                               plain_seq)
             for p in range(B):
                 mp = len(a_list[p])
                 assert np.array_equal(codes[p, :mp],
@@ -401,21 +431,104 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
     out = np.zeros(1, np.int32)
     args = [z.ctypes.data, z.ctypes.data, i0.ctypes.data, i0.ctypes.data,
             out.ctypes.data, None, 1, 16, 25]
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0, 0) == 0
+    no_scratch = (None, 0)
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0, 0,
+                                *no_scratch) == 0
     assert out[0] == 0
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 48, 0, 0) == 1
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 2048, 0, 0) == 1
-    assert lib.ta_rehearse_band(*args, 8192, 16, 1, 1, 0, 0, 0, 32, 0, 0) == 1
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 48, 0, 0,
+                                *no_scratch) == 1
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 2048, 0, 0,
+                                *no_scratch) == 1
+    assert lib.ta_rehearse_band(*args, 8192, 16, 1, 1, 0, 0, 0, 32, 0, 0,
+                                *no_scratch) == 1
     # the warp regime: a known lane map that holds the band, <= 256 threads
     out[0] = -7
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8) == 0
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8,
+                                *no_scratch) == 0
     assert out[0] == 0
     for cells, lanes, threads in ((4, 8, 32), (3, 4, 32), (3, 64, 32),
                                   (3, 8, 512)):
         assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, threads,
-                                    cells, lanes) == 1
+                                    cells, lanes, *no_scratch) == 1
     assert lib.ta_rehearse_band(*args, 12, 16, 1, 1, 0, 0, 0, 32, 3,
-                                8) == 1  # 24 cells < W = 25
+                                8, *no_scratch) == 1  # 24 cells < W = 25
+    # the device-memory regime: the state's bytes a pair or more, in steps
+    # of 16, the wide regime only, any band up to its cap
+    need = lb._scratch_bytes(2 * 8192 + 1)
+    scratch = np.zeros(need + 16, np.uint8)
+    big = [z.ctypes.data, np.zeros(8192 + 16 + 16385, np.uint8).ctypes.data,
+           i0.ctypes.data, i0.ctypes.data, out.ctypes.data, None, 1, 16,
+           8192 + 16 + 16385]
+    out[0] = -7
+    assert lib.ta_rehearse_band(*big, 8192, 16, 1, 1, 0, 0, 0, 1024, 0, 0,
+                                scratch.ctypes.data, need) == 0
+    assert out[0] == 0
+    for stride in (need - 16, need + 8):
+        assert lib.ta_rehearse_band(*big, 8192, 16, 1, 1, 0, 0, 0, 1024, 0,
+                                    0, scratch.ctypes.data, stride) == 1
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8,
+                                scratch.ctypes.data, need) == 1
+    assert lib.ta_rehearse_band(*args, lb.MAX_TRACE_UNIT_K + 1, 16, 1, 1, 0,
+                                0, 0, 1024, 0, 0, scratch.ctypes.data,
+                                1 << 40) == 1
+
+
+# The device-memory regime (band_wide_kernel<*, *, true>): the wide
+# regime's row passes over a per-pair scratch that starts as garbage,
+# forced onto narrow bands (the plan takes it past unit_k 4096 only), one
+# stride the state's own size and one with room after it.
+@pytest.mark.parametrize("costs", BAND_COSTS,
+                         ids=["unit", "rdamerau", "affine", "affine_transpose"])
+def test_band_rows_in_device_memory_equal_plain_version_and_oracle(lib,
+                                                                   costs):
+    for unit_k, max_m, threads, pad in ((4, 40, 32, 0), (16, 50, 64, 48),
+                                        (40, 30, 96, 0)):
+        rng = np.random.default_rng(17 * unit_k + costs[0])
+        a_list, b_list = _band_pairs(rng, 24, max_m, unit_k)
+        a_e, b_e = cs.walk_edge_pairs(rng, unit_k, max_m)
+        _band_check(lib, a_list + a_e, b_list + b_e, unit_k, max_m, costs,
+                    threads, 0, 0, scratch_pad=pad)
+
+
+# K10's body on its edges: the walk edge pairs (cells 0, 15, 16, 31, 32,
+# W - 1, a transposition last, m = 0), the longest walk the bound allows,
+# and random codes whose walks leave the matrix; batches not a multiple of
+# the kernel's 32-thread block.
+@pytest.mark.parametrize("case", ["edges", "longest", "random"])
+def test_trace_walk_body_equals_plain_version(lib, case):
+    rng = np.random.default_rng(len(case))
+    unit_k, max_m = 16, 80
+    if case == "random":
+        B, W = 45, 2 * unit_k + 1
+        m = rng.integers(0, max_m + 1, B).astype(np.int32)
+        t = (torch.from_numpy(rng.integers(65, 69, (B, max_m))
+                              .astype(np.uint8)),
+             torch.from_numpy(rng.integers(65, 69, (B, max_m + W))
+                              .astype(np.uint8)),
+             torch.from_numpy(m),
+             torch.from_numpy((m + rng.integers(0, unit_k + 1, B))
+                              .astype(np.int32)))
+        codes = torch.from_numpy(rng.integers(
+            -(1 << 31), 1 << 31, (B, max_m, bs.code_words(W)),
+            dtype=np.int64).astype(np.int32))
+    else:
+        if case == "edges":
+            a_list, b_list = cs.walk_edge_pairs(rng, unit_k, max_m)
+            a_list, b_list = a_list * 5, b_list * 5  # 35 pairs
+            costs = (1, 1, 0, 1, True)
+        else:
+            a, b = cs.longest_walk_pair(unit_k, max_m)
+            a_list, b_list = [a] * 33, [b] * 33
+            costs = (3, 1, 0, 0, False)
+        t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m,
+                                    device="cpu")
+        _, codes = bs.band_scan_distance(*t, unit_k=unit_k, costs_t=costs,
+                                         trace_on=True)
+    plain, steps = bs.walk_packed_traceback(codes, *t, unit_k=unit_k)
+    got, got_steps = _rehearse_walk(lib, codes.numpy(), t, unit_k)
+    assert got_steps == steps and torch.equal(got, plain)
+    if case == "longest":
+        assert int((got[0] >= 0).sum()) == steps - 1
 
 
 def _blocked_distance_rehearsal(lib, t, wpt, damerau):

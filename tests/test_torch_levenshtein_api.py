@@ -4,8 +4,8 @@ Every public function the port carries is run with device="cpu" (so the
 kernels' plain PyTorch versions compute) and must equal, exactly, the
 same-named function of the JAX package on its default CPU path and the
 scalar oracle.  Also: the dispatch log names the engine, every route that
-is not ported raises NotImplementedError (and the four that raised until
-the general-cost engines were ported return the reference's results), and
+is not ported raises NotImplementedError (and the seven that raised until
+their engines were ported return the reference's results), and
 results do not depend on the native host library.  The general-cost and traced distance routes have
 their own files (test_torch_band_distance.py, test_torch_band_trace.py),
 Hamming has test_torch_hamming.py.
@@ -16,6 +16,7 @@ import importlib
 import numpy as np
 import pytest
 
+import chip_smoke as cs
 from triple_accel_tpu.oracle import (
     levenshtein_naive_k,
     levenshtein_search_naive_with_opts,
@@ -222,18 +223,62 @@ def test_nul_bytes_are_legal_inputs():
     assert tl.levenshtein(b"a\x00b", b"ab\x00", **CPU) == 2
 
 
-_LONG_A = np.full(9000, 65, np.uint8)
-_LONG_B = np.full(9000, 66, np.uint8)
+_LONG_A = np.full(4150, 65, np.uint8)  # unit_k past the plan's 4096
+_LONG_B = np.full(4150, 66, np.uint8)
 
 
-# Four routes raised here until the general-cost engines were ported (K7
-# search_diag, K8 flat_search, K9 flat_distance); their cases keep their
-# ids and now hold the route's result against a reference (engine None).
+# Seven routes raised here until their engines were ported (K7
+# search_diag, K8 flat_search, K9 flat_distance; the traced band kernel's
+# device-memory regime with the walk K10); their cases keep their ids and
+# now hold the route's result against a reference (engine None).
+def _long_traced_pair(seed):
+    """The shortest pairs past the band plan at an unbounded threshold (n =
+    4,100 > 4,096: unit_k 8,192): ACGT, substitutions and adjacent swaps."""
+    rng = np.random.default_rng(seed)
+    a = cs.ACGT[rng.integers(0, 4, 4100)]
+    b = a.copy()
+    b[rng.integers(0, 4100, 30)] = cs.ACGT[rng.integers(0, 4, 30)]
+    for q in rng.integers(0, 4099, 6).tolist():
+        b[q], b[q + 1] = b[q + 1], b[q]
+    return a, b
+
+
+def _check_traced_long(dist, edits, a, b, k, costs):
+    from triple_accel_tpu_torch.utils.native import (
+        scalar_banded_batch_native)
+
+    assert last_dispatch().path == "band_trace_global"
+    assert last_dispatch().unit_k == 8192
+    assert dist == int(scalar_banded_batch_native([a], [b], k, costs)[0])
+    assert cs.replay_cost(a, b, edits, costs) == dist > 0
+
+
+def _levenshtein_past_band_plan():
+    a, b = _long_traced_pair(1)
+    d, traces = tl.levenshtein_k_batch([a], [b], tl.U32_MAX, trace_on=True,
+                                       **CPU)
+    _check_traced_long(int(d[0]), traces[0], a, b, tl.U32_MAX,
+                       LEVENSHTEIN_COSTS)
+
+
+def _rdamerau_past_band_plan():
+    a, b = _long_traced_pair(2)
+    d, edits = tl.levenshtein_simd_k_with_opts(a, b, tl.U32_MAX, True,
+                                               RDAMERAU_COSTS, **CPU)
+    _check_traced_long(d, edits, a, b, tl.U32_MAX, RDAMERAU_COSTS)
+
+
+def _trace_past_band_plan():
+    a, b = _long_traced_pair(3)
+    d, edits = tl.levenshtein_simd_k_with_opts(a, b, 10**6, True, **CPU)
+    _check_traced_long(d, edits, a, b, 10**6, LEVENSHTEIN_COSTS)
+
+
 def _affine_past_band_plan():
     from triple_accel_tpu_torch.utils.native import (
         scalar_banded_batch_native)
 
-    a, b = _LONG_A[:4150], _LONG_B[:4150]  # unit_k past the plan's 4096
+    a, b = _LONG_A, _LONG_B
     costs = EditCosts(2, 1, 2, None)
     dispatch_history(clear=True)
     got = tl.levenshtein_k_batch([a], [b], 10**6, costs, **CPU)
@@ -294,17 +339,12 @@ def _search_dense_hits():
                                     **CPU), "sharded"),
     (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, trace_on=True,
                                     mesh=object(), **CPU), "sharded"),
-    # past the band plan (band half-width over 4096) unit and rDamerau
-    # distances have an engine (test_torch_blocked_distance.py); their
-    # tracebacks, and other cost models, do not yet
-    (lambda: tl.levenshtein_k_batch([_LONG_A], [_LONG_B], tl.U32_MAX,
-                                    trace_on=True, **CPU), "band_scan"),
-    (lambda: tl.levenshtein_simd_k_with_opts(
-        _LONG_A, _LONG_B, tl.U32_MAX, True, RDAMERAU_COSTS, **CPU),
-     "band_scan"),
+    # past the band plan (band half-width over 4096) every cost model has
+    # an engine, traced or not
+    (_levenshtein_past_band_plan, None),
+    (_rdamerau_past_band_plan, None),
     (_affine_past_band_plan, None),
-    (lambda: tl.levenshtein_simd_k_with_opts(_LONG_A, _LONG_B, 10**6, True,
-                                             **CPU), "band_scan"),
+    (_trace_past_band_plan, None),
     (_search_general_costs, None),
     (_search_long_needle, None),
     (_search_dense_hits, None),

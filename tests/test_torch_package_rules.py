@@ -30,7 +30,8 @@ def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
     assert "triple_accel_tpu_torch.ops.myers_distance" in mods
     for new in ("ops.band_scan", "ops.lev_band", "ops.hamming_ops",
                 "oracle.hamming", "hamming", "ops.myers_chunked",
-                "ops.search_scan", "ops.search_diag", "ops.search_flat"):
+                "ops.search_scan", "ops.search_diag", "ops.search_flat",
+                "ops.trace_walk"):
         assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
@@ -91,6 +92,9 @@ def test_source_imports_no_jax(path):
                                        tt.EditCosts(2, 1, 2, None)),
     lambda: tt.levenshtein_k_batch([b"a" * 5000], [b"b" * 5100], 10**6,
                                    tt.EditCosts(2, 1, 2, None)),
+    # a traced long pair past the band plan
+    lambda: tt.levenshtein_k_batch([b"a" * 5000], [b"b" * 5100], 10**6,
+                                   trace_on=True),
 ])
 def test_default_device_raises_without_a_card(call):
     if torch.cuda.is_available():
@@ -133,6 +137,7 @@ def test_cuda_tensors_never_take_the_plain_version():
     ("myers_chunked", ["blocked_distance", "blocked_search"]),
     ("search_diag", ["search_diag"]),
     ("search_flat", ["flat_search", "flat_distance"]),
+    ("trace_walk", ["trace_walk"]),
 ])
 def test_wrappers_take_the_plain_version_for_cpu_tensors_only(module,
                                                               wrappers):
@@ -153,7 +158,8 @@ def test_wrappers_take_the_plain_version_for_cpu_tensors_only(module,
         assert "try:" not in src and "except" not in src
         cpu_at = src.index('.device.type == "cpu"')
         plain_at = min(src.index(p, cpu_at) for p in
-                       ("_plain(", "band_scan_distance(") if p in src[cpu_at:])
+                       ("_plain(", "band_scan_distance(",
+                        "walk_packed_traceback(") if p in src[cpu_at:])
         assert plain_at - cpu_at < 80  # the very next statement
         assert src.index(".launches += 1") > src.index('!= "cuda"')
     launch_src = inspect.getsource(mod)
@@ -187,4 +193,5 @@ def test_build_raises_without_nvcc(monkeypatch):
     assert all(s.endswith(".cu") for s in build._sources())
     assert [os.path.basename(s) for s in build._sources()] == [
         "band_distance.cu", "myers_blocked.cu", "myers_distance.cu",
-        "myers_search.cu", "search_diag.cu", "search_flat.cu"]
+        "myers_search.cu", "search_diag.cu", "search_flat.cu",
+        "trace_walk.cu"]

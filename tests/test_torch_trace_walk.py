@@ -1,0 +1,305 @@
+"""The traceback walk of the PyTorch/CUDA port (kernel K10's plain path)
+and the traced route past the band plan, on the CPU.
+
+Module level: the port's `trace_walk` on CPU tensors (its plain version,
+`band_scan.walk_packed_traceback`) against the JAX package's
+`walk_packed_traceback` (the codes repacked into its Pallas layout), its
+`band_trace_batch` (its own scan and walk) and the scalar
+`decode_traceback`, on numpy-seeded pairs with the walk's edges: m = 0 and
+empty pairs, a transposition as the walk's last step, walks along band
+cells 0, W - 1 and the edges of 16-code words, a batch that is not a
+multiple of the kernel's block, and the longest walk the bound allows;
+and on random codes, where walks leave the matrix.  Slice level: one
+traced batch past the band plan through `levenshtein_k_batch`, field by
+field against the JAX package.  Also `chip_smoke.py`'s helpers of the
+walk's checks on the card (edge pairs, walked cells, K10's bound).
+Tolerance: exact.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+import torch
+
+import chip_smoke as cs
+from triple_accel_tpu.ops import band_scan as jbs
+from triple_accel_tpu.ops.pallas import lev_band as jlb
+from triple_accel_tpu.types import EditCosts as JEditCosts
+
+from triple_accel_tpu_torch.dispatch import last_dispatch
+from triple_accel_tpu_torch.oracle import (
+    levenshtein_naive_k_with_opts as _naive)
+from triple_accel_tpu_torch.ops import band_scan as tbs
+from triple_accel_tpu_torch.ops import lev_band as tlb
+from triple_accel_tpu_torch.ops import trace_walk as ttw
+from triple_accel_tpu_torch.types import EditCosts
+from triple_accel_tpu_torch.types import LEVENSHTEIN_COSTS as _LEV
+from triple_accel_tpu_torch.utils.native import scalar_banded_batch_native
+
+from test_torch_band_distance import COSTS, COST_IDS, _ct, _pairs
+
+jl = importlib.import_module("triple_accel_tpu.levenshtein")
+tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+
+UK, MAX_M = 16, 80  # W = 33: three code words a row, cells 0 .. 32
+BLOCK = 32  # threads a block of the kernel (csrc/trace_walk.cu)
+
+
+def _fields(edits):
+    return None if edits is None else [(e.edit.name, e.count) for e in edits]
+
+
+def _jax_packed(codes: torch.Tensor, W: int) -> np.ndarray:
+    """The port's codes [B, rows, ceil(W / 16)] in the JAX package's Pallas
+    layout: [rows * P8, B], PACK cells a word."""
+    cells = tbs.unpack_codes(codes, W).numpy().astype(np.int64)
+    B, rows, _ = cells.shape
+    P8 = jlb.packed_code_rows(W)
+    out = np.zeros((rows, P8, B), np.int64)
+    for c in range(W):
+        out[:, c // jlb.PACK, :] |= cells[:, :, c].T << (2 * (c % jlb.PACK))
+    out = np.where(out >= 1 << 31, out - (1 << 32), out)
+    return out.reshape(rows * P8, B).astype(np.int32)
+
+
+def _jax_walk(codes, t, unit_k):
+    a_t, b_t, m, n = (x.numpy() for x in t)
+    seq, steps = jbs.walk_packed_traceback(
+        _jax_packed(codes, 2 * unit_k + 1), a_t, b_t, m[None, :],
+        n[None, :], unit_k=unit_k, max_m=a_t.shape[1],
+        P8=jlb.packed_code_rows(2 * unit_k + 1))
+    return np.asarray(seq), steps
+
+
+def _edge_batch(rng):
+    """Edited pairs inside the band plus `chip_smoke.walk_edge_pairs`, an
+    empty pair first: 41 pairs, one more than a multiple of the block."""
+    a_list, b_list = _pairs(rng, 33, 60, UK)
+    a_e, b_e = cs.walk_edge_pairs(rng, UK, MAX_M)
+    a_list, b_list = a_list + a_e, b_list + b_e
+    while len(a_list) % BLOCK != 9:
+        a_list.append(np.empty(0, np.uint8))
+        b_list.append(np.empty(0, np.uint8))
+    return a_list, b_list
+
+
+@pytest.mark.parametrize("c", COSTS, ids=COST_IDS)
+def test_walk_equals_jax_walks_and_scalar_decode(c):
+    rng = np.random.default_rng(900 + c[0] + 10 * (c[3] or 0))
+    a_list, b_list = _edge_batch(rng)
+    B = len(a_list)
+    t = tlb.prepare_band_tensors(a_list, b_list, UK, MAX_M, device="cpu")
+    d, codes = tlb.band_trace(*t, unit_k=UK, costs_t=_ct(c))
+    before = ttw.trace_walk.launches
+    seq, steps = ttw.trace_walk(codes, *t, unit_k=UK)
+    assert ttw.trace_walk.launches == before  # CPU tensors: plain version
+    assert seq.dtype == torch.int8 and seq.shape == (B, steps)
+    assert steps == ttw.walk_steps(t[0].shape[1], UK)
+    assert torch.equal(seq, tbs.walk_packed_traceback(codes, *t,
+                                                      unit_k=UK)[0])
+    # the JAX package's packed walk over the same codes
+    seq_ref, steps_ref = _jax_walk(codes, t, UK)
+    assert steps_ref == steps and np.array_equal(seq.numpy(), seq_ref)
+    # the JAX package's own scan and walk (its int32 layout, same max_m)
+    a_pad, b_pad, m, n = jbs.prepare_band_inputs(a_list, b_list, UK,
+                                                 t[0].shape[1])
+    d_j, seq_j, _ = jbs.band_trace_batch(a_pad, b_pad, m, n, unit_k=UK,
+                                         max_m=t[0].shape[1],
+                                         costs_t=_ct(c))
+    assert d.tolist() == np.asarray(d_j).tolist()
+    assert np.array_equal(seq.numpy(), np.asarray(seq_j))
+    # the scalar walk over the unpacked codes, RLE-decoded the same way
+    swaps = [bool(p % 2) for p in range(B)]
+    walked = tbs.decode_walked_batch(seq.numpy(), swaps)
+    cells = tbs.unpack_codes(codes, 2 * UK + 1).numpy()
+    for p, (a, b) in enumerate(zip(a_list, b_list)):
+        host = tbs.decode_traceback(cells[p], a, b, UK, swaps[p])
+        assert _fields(walked[p]) == _fields(host), p
+    # the edges were reached: each edge cell on its pair's walk, the empty
+    # pairs walk no step, the transposition is the walk's last step
+    n_e = len(cs.walk_edge_pairs(np.random.default_rng(0), UK, MAX_M)[0])
+    seen = set()
+    for p in range(33, 33 + n_e - 2):
+        seen |= set(cs.walk_cells(seq[p].numpy(), len(a_list[p]),
+                                  len(b_list[p]), UK))
+    assert {0, 15, 16, 31, 32} <= seen
+    assert (seq[B - 1] == -1).all() and (seq[0] == -1).all()
+    last = seq[33 + n_e - 2]
+    if c[3] is not None:
+        assert int(last[(last >= 0).sum() - 1]) == 4
+
+
+def test_longest_walk_reaches_the_bound():
+    a, b = cs.longest_walk_pair(UK, MAX_M)
+    a_list, b_list = [a, a[:5]], [b, b[:9]]
+    t = tlb.prepare_band_tensors(a_list, b_list, UK, MAX_M, device="cpu")
+    ct = _ct(cs.LONGEST_WALK_COSTS)
+    d, codes = tlb.band_trace(*t, unit_k=UK, costs_t=ct)
+    seq, steps = ttw.trace_walk(codes, *t, unit_k=UK)
+    assert steps == 2 * MAX_M + UK + 1
+    assert int((seq[0] >= 0).sum()) == steps - 1 == len(a) + len(b)
+    assert set(seq[0, :steps - 1].tolist()) <= {2, 3}
+    assert int(d[0]) == len(a) + len(b)
+    seq_ref, _ = _jax_walk(codes, t, UK)
+    assert np.array_equal(seq.numpy(), seq_ref)
+
+
+@pytest.mark.parametrize("unit_k", [0, 16])
+def test_walk_on_random_codes_equals_jax(unit_k):
+    """Codes the band kernel would never write: walks that step past row 0
+    or column 0 and keep walking until the bound, as the JAX walk does."""
+    rng = np.random.default_rng(77 + unit_k)
+    B, max_m = 37, 32
+    W = 2 * unit_k + 1
+    m = rng.integers(0, max_m + 1, B).astype(np.int32)
+    n = (m + rng.integers(0, unit_k + 1, B)).astype(np.int32)
+    codes = torch.from_numpy(rng.integers(
+        -(1 << 31), 1 << 31, (B, max_m, tbs.code_words(W)), dtype=np.int64)
+        .astype(np.int32))
+    t = (torch.from_numpy(rng.integers(65, 69, (B, max_m)).astype(np.uint8)),
+         torch.from_numpy(rng.integers(65, 69, (B, max_m + W))
+                          .astype(np.uint8)),
+         torch.from_numpy(m), torch.from_numpy(n))
+    seq, steps = ttw.trace_walk(codes, *t, unit_k=unit_k)
+    seq_ref, _ = _jax_walk(codes, t, unit_k)
+    assert np.array_equal(seq.numpy(), seq_ref)
+    assert (seq == 4).any()
+
+
+def test_trace_walk_checks_its_inputs():
+    t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
+                                 [np.zeros(5, np.uint8)], 4, 8, device="cpu")
+    _, codes = tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False))
+    with pytest.raises(TypeError):
+        ttw.trace_walk(codes.to(torch.int64), *t, unit_k=4)
+    with pytest.raises(TypeError):
+        ttw.trace_walk(codes, t[0].to(torch.int32), *t[1:], unit_k=4)
+    with pytest.raises(ValueError, match="words"):
+        ttw.trace_walk(codes, *t, unit_k=40)
+    with pytest.raises(ValueError, match="row lengths"):
+        ttw.trace_walk(codes, t[0], t[1][:, :-1], *t[2:], unit_k=4)
+    with pytest.raises(ValueError, match="int32"):
+        ttw.trace_walk(codes, *t[:2], t[2].to(torch.int64), t[3], unit_k=4)
+    with pytest.raises(ValueError, match="same B"):
+        ttw.trace_walk(codes, t[0][:0], *t[1:], unit_k=4)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ttw.trace_walk(*(x.to("meta") for x in (codes, *t)), unit_k=4)
+    with pytest.raises(ValueError, match="negative"):
+        ttw.trace_walk(codes, *t, unit_k=-1)
+    seq, steps = ttw.trace_walk(codes, *t, unit_k=4)
+    assert steps == 2 * 16 + 4 + 1 and int((seq[0] >= 0).sum()) == 5
+    edits = tbs.decode_walked_batch(seq.numpy(), [False])[0]
+    assert cs.replay_cost(np.zeros(3, np.uint8), np.zeros(5, np.uint8),
+                          edits, EditCosts(1, 1, 0, None)) == 2
+
+
+def test_band_plan_takes_traced_bands_past_the_cap():
+    W = 2 * 16_384 + 1
+    plan = tlb.band_plan(10_016, 16_384, True, batch=128)
+    assert plan["regime"] == "wide_global" and plan["smem_bytes"] == 0
+    assert plan["threads"] == tlb.GLOBAL_THREADS == 128
+    assert plan["pairs_per_block"] == 1
+    assert plan["cells_per_lane"] * plan["threads"] >= W
+    assert plan["scratch_bytes_per_pair"] % 16 == 0
+    assert plan["scratch_bytes_per_pair"] >= (6 * W + 32) * 4 + W
+    assert plan["code_bytes_per_pair"] == 10_016 * tbs.code_words(W) * 4
+    # untraced batches past the cap keep their kernels (K5, K9)
+    assert tlb.band_plan(10_016, 16_384) is None
+    assert tlb.band_plan(8, tlb.MAX_UNIT_K, True)["regime"] == "wide"
+    assert tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True)["regime"] \
+        == "wide_global"
+    assert tlb.band_plan(8, tlb.MAX_TRACE_UNIT_K + 1, True) is None
+    # a check may force the regime onto a narrow band; not past its cap
+    t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
+                                 [np.zeros(5, np.uint8)], 4, 8, device="cpu")
+    forced = dict(tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True), threads=64)
+    assert tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
+                          plan=forced)[0].tolist() == [2]
+    with pytest.raises(ValueError, match="plan"):
+        tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
+                       plan=dict(forced, threads=48))
+    with pytest.raises(ValueError, match="band plan"):
+        tlb.band_distance(*t, unit_k=2 * tlb.MAX_UNIT_K,
+                          costs_t=(1, 1, 0, 0, False))
+
+
+def test_traced_batch_past_the_plan_equals_jax():
+    """The route that raised until the walk and the band kernel's
+    device-memory regime were ported: the shortest pairs past the band
+    plan (n = 4,100 > 4,096, unbounded threshold: unit_k 8,192), edited
+    ACGT copies under rDamerau costs, against the JAX package's
+    `trace_batch` engine and the compiled scalar comparator."""
+    rng = np.random.default_rng(4100)
+    a = cs.ACGT[rng.integers(0, 4, 4096)]
+    b = a.copy()
+    b[rng.integers(0, 4096, 40)] = cs.ACGT[rng.integers(0, 4, 40)]
+    b = np.insert(b, rng.integers(0, 4096, 4), cs.ACGT[:4])
+    b[100], b[101] = b[101], b[100]
+    got_d, got_t = tl.levenshtein_k_batch([a], [b], tl.U32_MAX,
+                                          EditCosts(1, 1, 0, 1), True,
+                                          device="cpu")
+    assert last_dispatch().path == "band_trace_global"
+    assert last_dispatch().unit_k == 8192
+    ref_d, ref_t = jl.levenshtein_k_batch([a], [b], jl.U32_MAX,
+                                          JEditCosts(1, 1, 0, 1), True)
+    assert got_d.tolist() == np.asarray(ref_d).tolist()
+    assert _fields(got_t[0]) == _fields(ref_t[0])
+    assert got_d.tolist() == scalar_banded_batch_native(
+        [a], [b], tl.U32_MAX, EditCosts(1, 1, 0, 1)).tolist()
+    assert cs.replay_cost(a, b, got_t[0], EditCosts(1, 1, 0, 1)) \
+        == int(got_d[0]) > 0
+
+
+# chip_smoke.py's helpers of the walk's checks on the card
+
+@pytest.mark.parametrize("unit_k,max_m", [(0, 16), (16, 80), (600, 2500)])
+def test_walk_edge_pairs_satisfy_the_kernel_contract(unit_k, max_m):
+    a_list, b_list = cs.walk_edge_pairs(np.random.default_rng(7), unit_k,
+                                        max_m)
+    la = np.array([len(a) for a in a_list])
+    lb = np.array([len(b) for b in b_list])
+    assert ((la <= lb) & (lb - la <= unit_k) & (la <= max_m)).all()
+    assert la[-1] == 0 < lb[-1] or unit_k == 0
+    assert bytes(a_list[-2][:2]) == b"CA" and bytes(b_list[-2][:2]) == b"AC"
+    W = 2 * unit_k + 1
+    assert len(a_list) == 2 + len({c for c in cs.WALK_EDGE_CELLS if c < W}
+                                  | {W - 1})
+    # the cheapest alignment of an edge pair runs along its cell: the
+    # oracle's traceback, walked from (0, 0), passes it
+    if unit_k == 16:
+        for cell, a, b in zip(sorted(set(cs.WALK_EDGE_CELLS) | {W - 1}),
+                              a_list, b_list):
+            _, edits = _naive(a, b, 10**6, True,
+                                                     _LEV)
+            i = j = 0
+            cells = {unit_k}
+            for e in edits:
+                for _ in range(e.count):
+                    di, dj = {"Match": (1, 1), "Mismatch": (1, 1),
+                              "AGap": (0, 1), "BGap": (1, 0)}[e.edit.name]
+                    i, j = i + di, j + dj
+                    cells.add(j - i + unit_k)
+            assert cell in cells
+
+
+def test_walk_cells_longest_pair_and_k10_bound():
+    # a stream in reverse walk order from (3, 5): consume-b twice, then
+    # three diagonals, at unit_k 4
+    seq = np.array([2, 2, 0, 1, 0, -1, -1], np.int8)
+    assert cs.walk_cells(seq, 3, 5, 4) == [6, 5, 4, 4, 4, 4]
+    assert cs.walk_cells(np.array([4, -1], np.int8), 2, 2, 1) == [1, 1]
+    a, b = cs.longest_walk_pair(4, 16)
+    assert len(a) == 16 and len(b) == 20 and not set(a) & set(b)
+    import torch
+
+    seqs = torch.tensor([[2, 2, 0, 1, 0, -1, -1], [-1] * 7], dtype=torch.int8)
+    bound = cs.k10_bound(seqs, 7)
+    assert bound["walked_steps"] == 5 and bound["longest_walk"] == 5
+    assert bound["bound_bytes_ms"] == pytest.approx(
+        (5 * cs.K10_CODE_BYTES + 3 * cs.K10_CHAR_BYTES + 14 + 16)
+        / cs.PEAK_BYTES_PER_S * 1e3)
+    assert bound["bound_by"] == "bytes"
+    assert bound["bound_operations_ms"] == pytest.approx(
+        5 * cs.K10_OPS_PER_STEP / cs.PEAK_INT32_OPS_PER_S * 1e3)
+    assert bound["bound_ms"] == bound["bound_bytes_ms"]

@@ -10,13 +10,13 @@ JAX package stays beside it as the reference the tests compare against.
 Module names follow the JAX package's so a reader finds the counterpart.
 The port carries the distance paths (`levenshtein_k_batch` and its
 wrappers: unit costs on the Myers kernel, every cost model and tracebacks
-on the general band kernels, unit and restricted-Damerau costs of any
-length on the blocked Myers kernel, any cost model past the band plan on
-the row kernel), search (`levenshtein_search*` under every cost model,
-needles of any length, anchored or not, with the device resolution of dense
-hits) and Hamming distance and search.  Not carried yet: tracebacks past the
-band plan, `levenshtein_search_many` / `PackedHaystack` and every `mesh=`
-route (each raises `NotImplementedError` naming the JAX engine), and the
+of any length on the general band kernels and the walk kernel, unit and
+restricted-Damerau costs of any length on the blocked Myers kernel, any
+cost model past the band plan on the row kernel), search
+(`levenshtein_search*` under every cost model, needles of any length,
+anchored or not, with the device resolution of dense hits) and Hamming
+distance and search.  Not carried yet: `levenshtein_search_many` /
+`PackedHaystack` and every `mesh=` route (each raises `NotImplementedError` naming the JAX engine), and the
 resumable sweep.  Entry points run on "cuda" unless the caller passes
 `device=`; without a card they raise.
 """

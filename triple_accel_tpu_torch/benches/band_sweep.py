@@ -1,6 +1,7 @@
 """Sweep of the band kernels K3 / K4 over their launch plan.
 
     python3 -m triple_accel_tpu_torch.benches.band_sweep [--chosen]
+    python3 -m triple_accel_tpu_torch.benches.band_sweep --past-plan
 
 Times `band_distance` and `band_trace` alone (CUDA events, one warm-up, 5
 launches: median, least and most) at the four shapes `chip_smoke.py`
@@ -16,6 +17,13 @@ equal lengths: the kernel's work does not depend on the data.  Every point
 must give the first point's distances.  Prints the card's name and power
 limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
 there is no CPU mode.
+
+With `--past-plan`, only K4 past the band plan at the shape of
+`chip_smoke.py`'s `past_plan` phase (128 pairs of 10,000 bytes, band
+32,769: the device-memory regime) over `GLOBAL_THREAD_POINTS` threads a
+block, one warm-up and one timed launch each (a launch takes seconds); every
+point must give the first point's distances and codes.  This is the
+measurement behind `lev_band.GLOBAL_THREADS`.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ import torch
 from ..ops import lev_band as lb
 
 THREADS = (32, 64, 128, 256)
+GLOBAL_THREAD_POINTS = (64, 128, 256, 512, 1024)
 RDAMERAU_T = (1, 1, 0, 1, True)
 AFFINE_T = (2, 1, 2, 0, False)
 # (name, traced, pairs, string length, unit_k, costs)
@@ -40,6 +49,8 @@ SHAPES = (
     ("band_trace_long", True, 256, 3000, 64, RDAMERAU_T),
     ("band_distance_small", False, 256, 3000, 64, AFFINE_T),
 )
+PAST_PLAN_SHAPE = ("band_trace_past_plan", True, 128, 10_000, 16_384,
+                   RDAMERAU_T)
 
 
 def _time_ms(fn, reps: int = 5):
@@ -76,9 +87,13 @@ def _plans(rows: int, unit_k: int, traced: bool, pairs: int, only_chosen):
     """The chosen plan first, then every other warp-regime plan."""
     chosen = lb.band_plan(rows, unit_k, traced, batch=pairs)
     out = [chosen]
+    W = 2 * unit_k + 1
+    if chosen["regime"] == "wide_global" and not only_chosen:
+        out += [dict(chosen, threads=t, lanes_per_pair=t,
+                     warps_per_pair=t // 32, cells_per_lane=-(-W // t))
+                for t in GLOBAL_THREAD_POINTS if t != chosen["threads"]]
     if only_chosen or chosen["regime"] != "warp":
         return out
-    W = 2 * unit_k + 1
     for cells in lb.WARP_CELLS:
         for lanes in lb.WARP_LANES:
             for threads in THREADS:
@@ -103,16 +118,23 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
-    for name, traced, pairs, length, unit_k, costs_t in SHAPES:
+    past_plan = "--past-plan" in argv
+    shapes = (PAST_PLAN_SHAPE,) if past_plan else SHAPES
+    for name, traced, pairs, length, unit_k, costs_t in shapes:
         tensors = _make_batch(dev, pairs, length, unit_k)
         fn = lb.band_trace if traced else lb.band_distance
-        first = None
+        first = first_codes = None
         for k, plan in enumerate(_plans(tensors[0].shape[1], unit_k, traced,
                                         pairs, only_chosen)):
             res = fn(*tensors, unit_k=unit_k, costs_t=costs_t, plan=plan)
             dist = (res[0] if traced else res).cpu()
             if first is None:
                 first = dist
+            extra = {}
+            if past_plan:
+                if first_codes is None:
+                    first_codes = res[1]
+                extra["same_codes"] = bool(torch.equal(res[1], first_codes))
             print(json.dumps({
                 "kernel": name, "pairs": pairs, "str_len": length,
                 "band": 2 * unit_k + 1, "chosen": k == 0,
@@ -120,12 +142,13 @@ def main(argv=None) -> int:
                 "cells_per_lane": plan["cells_per_lane"],
                 "lanes_per_pair": plan["lanes_per_pair"],
                 "threads": plan["threads"],
-                "same_distances": bool(torch.equal(dist, first)),
+                "same_distances": bool(torch.equal(dist, first)), **extra,
                 "kernel_ms_median_min_max": _time_ms(lambda: fn(
-                    *tensors, unit_k=unit_k, costs_t=costs_t, plan=plan)),
+                    *tensors, unit_k=unit_k, costs_t=costs_t, plan=plan),
+                    1 if past_plan else 5),
             }), flush=True)
             del res
-        del tensors
+        del tensors, first_codes
         torch.cuda.empty_cache()
     return 0
 

@@ -2,7 +2,7 @@
 phases give them, for comparing two versions of the port in one call.
 
     python3 -m triple_accel_tpu_torch.benches.kernel_ab [--tag NAME]
-        [--kernels K1 K2 K5 K6 K7]
+        [--kernels K1 K2 K5 K6 K7 K10]
 
 Run from the root of a checkout (it imports that checkout's package and
 `chip_smoke.py` input generators, and only calls the wrappers' arguments
@@ -25,10 +25,16 @@ beside this one is timed by the same script:
   anchored, one segment of 4,000 columns;
 * K7 `search_diag`: the 24-byte needle over the 128 MiB headline haystack
   at k = 6 under the phase's two general cost models (the version's own
-  `suggest_own_len_diag`).
+  `suggest_own_len_diag`);
+* K10 `trace_walk`: the walks of the three traced cells of the
+  `band_trace` phase (8,192 x 1000 B at k = 32, 256 x 3000 B at k = 64,
+  and `past_plan`, 128 x 10,000 B at an unbounded threshold; rDamerau
+  costs) over the codes K4 gives at the band the traced call's dispatch
+  chose; where the checkout's `chip_smoke.py` has `k10_alone`, also the
+  longest walk of each alone.
 
 CUDA events, one warm-up, the median (least, most) of 7 launches, 9 for
-the anchored one.  Prints the card's name and power limit, then one JSON
+the anchored one and for K10.  Prints the card's name and power limit, then one JSON
 line.  Needs one CUDA device and `nvcc`.
 """
 
@@ -46,8 +52,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tag", default="", help="a name for the JSON line")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K5", "K6",
-                                                     "K7"],
-                    choices=["K1", "K2", "K5", "K6", "K7"])
+                                                     "K7", "K10"],
+                    choices=["K1", "K2", "K5", "K6", "K7", "K10"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA device", file=sys.stderr)
@@ -91,6 +97,8 @@ def main() -> int:
                                          damerau=damerau), 15)
         out["K2_halo_own_len"] = [halo, own]
         del hay_d, hay
+    if "K10" in args.kernels:
+        out.update(time_k10(cs, dev, ms))
     if not {"K5", "K6", "K7"} & set(args.kernels):
         print(json.dumps(out), flush=True)
         return 0
@@ -138,6 +146,50 @@ def main() -> int:
         out[f"K7_{c}_own_len"] = own
     print(json.dumps(out), flush=True)
     return 0
+
+
+def time_k10(cs, dev, ms) -> dict:
+    """K10 at the three traced cells; the inputs as chip_smoke.py makes
+    them, the band as the traced call's dispatch picks it."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import last_dispatch
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+
+    a_l, b_l = cs.make_pairs(cs.FULL_PAIRS)
+    # the phase swaps over the whole batch with one generator
+    b_all = np.stack(b_l)
+    cs.swap_adjacent(b_all, cs.SWAPS_PER_PAIR, np.random.default_rng(4321))
+    b_rows = b_all[:cs.TRACE_PAIRS]
+    a_p, b_p = cs.make_long_pairs(cs.PAST_PLAN_PAIRS, cs.PAST_PLAN_LEN,
+                                  cs.PAST_PLAN_EDIT_SHARE, seed=3030)
+    b_p = cs.swap_adjacent_list(b_p, cs.PAST_PLAN_SWAP_SHARE,
+                                np.random.default_rng(3031))
+    cells = (("K10_short", a_l[:cs.TRACE_PAIRS], list(b_rows), cs.K_DIST),
+             ("K10_long", *cs.make_edited_pairs(
+                 cs.TRACE_LONG_PAIRS, cs.TRACE_LONG_LEN, 24, 12, seed=77),
+              cs.K_TRACE_LONG),
+             ("K10_past_plan",
+              [a if len(a) <= len(b) else b for a, b in zip(a_p, b_p)],
+              [b if len(a) <= len(b) else a for a, b in zip(a_p, b_p)],
+              cs.U32_MAX))
+    del a_l, b_l, b_all
+    costs = tt.RDAMERAU_COSTS
+    out = {}
+    for name, a, b, k in cells:
+        tt.levenshtein_k_batch(a, b, k, costs, trace_on=True)
+        dec = last_dispatch()
+        t = lb.prepare_band_tensors(a, b, dec.unit_k, dec.padded_m,
+                                    device=dev)
+        _, codes = lb.band_trace(*t, unit_k=dec.unit_k,
+                                 costs_t=cs.costs_tuple(costs))
+        out[name] = ms(lambda: tw.trace_walk(codes, *t, unit_k=dec.unit_k),
+                       9)
+        if hasattr(cs, "k10_alone"):
+            seq, _ = tw.trace_walk(codes, *t, unit_k=dec.unit_k)
+            out[f"{name}_alone"] = cs.k10_alone(codes, t, seq, dec.unit_k, 9)
+        del t, codes
+    return out
 
 
 if __name__ == "__main__":

@@ -28,7 +28,7 @@
 // the code; chip_smoke.py's BAND_OPS_* list them) against 2 / W bytes of
 // strings, and the traced kernel writes 2 bits per cell.
 //
-// Two regimes, one function:
+// Three regimes, one function:
 //   * band_kernel<TRANS, TRACE, C>, every band up to 32 * 17 = 544 cells
 //     (all of chip_smoke.py's phases: 65, 129 and 513 cells).  A group of
 //     G = 8, 16 or 32 lanes of one warp owns one pair (32 / G pairs a
@@ -53,10 +53,16 @@
 //     word and the group's lanes join them into the row's 32-bit words by
 //     shuffles (cell c at bits 2 * (c % 16) of word c / 16, the layout of
 //     the plain version), lane w writing word w: one coalesced row.
-//   * band_wide_kernel<TRANS, TRACE>, wider bands (up to 8193 cells): one
-//     pair a block, the band in shared memory (6 rows of W ints), each
-//     thread a contiguous run of cells, two block barriers a row.  No main
-//     path runs it.
+//   * band_wide_kernel<TRANS, TRACE, false>, wider bands (up to 8193
+//     cells): one pair a block, the band in shared memory (6 rows of W
+//     ints), each thread a contiguous run of cells, two block barriers a
+//     row.  No main path runs it.
+//   * band_wide_kernel<TRANS, TRACE, true>, traced bands of any width
+//     (chip_smoke.py's past_plan phase: 32,769 cells): the same row passes
+//     over the same state layout, kept in a per-pair scratch in device
+//     memory that the wrapper allocates, since it passes what a block's
+//     shared memory holds.  A simple regime, right first: its state
+//     streams through L1 and L2 at every row.
 // Every cascade is selects on non-short-circuit compares (a branch makes
 // the lanes of a warp diverge), and the min chains use Hopper's DPX
 // (__viaddmin_s32 for min(a + b, c), __vimin3_s32).  The per-lane passes
@@ -77,6 +83,9 @@ constexpr int TA_CODES_PER_WORD = 16;
 // the warp regime: threads a block at most, and cells a lane at most
 constexpr int TA_BAND_WARP_THREADS = 256;
 constexpr int TA_BAND_MAX_CELLS = 17;
+// the widest band of the device-memory regime: every intermediate of the
+// row passes (INF + c * gap + start, c < W, costs < 256) stays in int32
+constexpr int TA_BAND_GLOBAL_MAX_UNIT_K = 1 << 20;
 
 static TA_DEV int32_t ta_min32(int32_t x, int32_t y) { return x < y ? x : y; }
 
@@ -525,6 +534,23 @@ static TA_DEV uint32_t band_pack_word(const uint8_t* code, int w, int W) {
   return word;
 }
 
+// The wide regimes' state of one pair at `base`: 6 rows of W ints (three
+// of D, two of the vertical-gap state, the transposition candidates), one
+// int a warp for the scan (`wmin`), then one code byte a cell.
+static TA_DEV BandState band_wide_state(int32_t* base, int W,
+                                        int32_t** wmin) {
+  BandState S;
+  S.dp0 = base;
+  S.dp1 = S.dp0 + W;
+  S.cur = S.dp1 + W;
+  S.bg = S.cur + W;
+  S.bgcur = S.bg + W;
+  S.tr = S.bgcur + W;
+  *wmin = S.tr + W;
+  S.code = reinterpret_cast<uint8_t*>(*wmin + 32);
+  return S;
+}
+
 static TA_DEV void band_rotate(BandState& S) {
   int32_t* t = S.dp0;
   S.dp0 = S.dp1;
@@ -538,6 +564,18 @@ static TA_DEV void band_rotate(BandState& S) {
 // ints of band state per pair (6 rows of W) and the bytes that follow them
 static inline size_t band_state_bytes(int W) {
   return (size_t)(6 * W + 32) * sizeof(int32_t) + (size_t)((W + 3) & ~3);
+}
+
+// What the launcher takes of the wide regimes: in shared memory, a band
+// whose state fits a block's 227 KB; in device memory (`global`), a band up
+// to TA_BAND_GLOBAL_MAX_UNIT_K with at least its state's bytes a pair, in
+// 16-byte steps.  The warp regime (`cells` != 0) takes no scratch.
+static inline bool band_wide_ok(int unit_k, int cells, bool global,
+                                int64_t scratch_stride) {
+  if (cells != 0) return !global;
+  if (!global) return band_state_bytes(2 * unit_k + 1) <= 232448;
+  return unit_k <= TA_BAND_GLOBAL_MAX_UNIT_K && (scratch_stride & 15) == 0 &&
+         scratch_stride >= (int64_t)band_state_bytes(2 * unit_k + 1);
 }
 
 // The warp regime's lane maps: cells a lane, lanes a pair.
@@ -641,16 +679,20 @@ __global__ void __launch_bounds__(TA_BAND_WARP_THREADS)
   }
 }
 
-template <bool TRANS, bool TRACE>
-__global__ void band_wide_kernel(const uint8_t* __restrict__ a,
-                                 const uint8_t* __restrict__ b,
-                                 const int32_t* __restrict__ m,
-                                 const int32_t* __restrict__ n,
-                                 int32_t* __restrict__ out,
-                                 uint32_t* __restrict__ codes,
-                                 int64_t a_stride, int64_t b_stride,
-                                 int unit_k, int64_t code_rows,
-                                 BandCosts costs) {
+// GLOBAL: the state lives in `scratch`, `scratch_stride` bytes a pair,
+// instead of the block's shared memory (a template constant, so that the
+// shared-memory regime keeps its shared-memory loads and stores).
+template <bool TRANS, bool TRACE, bool GLOBAL>
+__global__ void __launch_bounds__(1024)
+    band_wide_kernel(const uint8_t* __restrict__ a,
+                     const uint8_t* __restrict__ b,
+                     const int32_t* __restrict__ m,
+                     const int32_t* __restrict__ n,
+                     int32_t* __restrict__ out,
+                     uint32_t* __restrict__ codes, int64_t a_stride,
+                     int64_t b_stride, int unit_k, int64_t code_rows,
+                     BandCosts costs, uint8_t* scratch,
+                     int64_t scratch_stride) {
   extern __shared__ int32_t ta_band_smem[];
   const int W = 2 * unit_k + 1;
   const int T = blockDim.x, t = threadIdx.x;
@@ -659,15 +701,11 @@ __global__ void band_wide_kernel(const uint8_t* __restrict__ a,
   const int c_lo = min(t * cpt, W), c_hi = min(c_lo + cpt, W);
   const int64_t p = blockIdx.x;
 
-  BandState S;
-  S.dp0 = ta_band_smem;
-  S.dp1 = S.dp0 + W;
-  S.cur = S.dp1 + W;
-  S.bg = S.cur + W;
-  S.bgcur = S.bg + W;
-  S.tr = S.bgcur + W;
-  int32_t* wmin = S.tr + W;  // one word per warp
-  S.code = reinterpret_cast<uint8_t*>(wmin + 32);
+  int32_t* wmin;  // one word per warp
+  BandState S = band_wide_state(
+      GLOBAL ? reinterpret_cast<int32_t*>(scratch + p * scratch_stride)
+             : ta_band_smem,
+      W, &wmin);
 
   BandPair P;
   P.a = a + p * a_stride;
@@ -724,6 +762,8 @@ struct BandLaunch {
   int64_t code_rows;
   BandCosts costs;
   int threads, cells, lanes;
+  uint8_t* scratch;  // the device-memory regime's state, or null
+  int64_t scratch_stride;
   cudaStream_t stream;
 };
 
@@ -747,17 +787,24 @@ static int launch_band(const BandLaunch& g) {
     case 17: return launch_warp_c<TRANS, TRACE, 17>(g);
     default: break;
   }
+  if (g.scratch != nullptr) {
+    band_wide_kernel<TRANS, TRACE, true>
+        <<<(unsigned)g.B, g.threads, 0, g.stream>>>(
+            g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride,
+            g.unit_k, g.code_rows, g.costs, g.scratch, g.scratch_stride);
+    return (int)cudaGetLastError();
+  }
   const size_t smem = band_state_bytes(2 * g.unit_k + 1);
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        band_wide_kernel<TRANS, TRACE>,
+        band_wide_kernel<TRANS, TRACE, false>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  band_wide_kernel<TRANS, TRACE>
+  band_wide_kernel<TRANS, TRACE, false>
       <<<(unsigned)g.B, g.threads, smem, g.stream>>>(
           g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride,
-          g.unit_k, g.code_rows, g.costs);
+          g.unit_k, g.code_rows, g.costs, nullptr, 0);
   return (int)cudaGetLastError();
 }
 
@@ -769,24 +816,29 @@ static int launch_band(const BandLaunch& g) {
 // rows 1..m of every pair (rows past m are left as they were).  `cells`:
 // cells a lane of the warp regime (3, 5, 9 or 17, with `lanes` 8, 16 or 32
 // lanes a pair, cells * lanes >= W, `threads` a multiple of 32 up to 256),
-// or 0 for the wide regime (one pair a block of `threads` threads, a
-// multiple of 32 up to 1024).  Returns the cudaError_t of the launch.
+// or 0 for the wide regimes (one pair a block of `threads` threads, a
+// multiple of 32 up to 1024): with `scratch` null the band state lives in
+// the block's shared memory (band_state_bytes(W) <= 227 KB), else in
+// `scratch`, `scratch_stride` bytes a pair (at least band_state_bytes(W),
+// a multiple of 16; unit_k <= 2^20).  Returns the cudaError_t of the
+// launch.
 extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
                                 const void* n, void* out, void* codes,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
                                 int unit_k, int64_t code_rows, int mc, int gc,
                                 int sgc, int tc, int transpose, int threads,
-                                int cells, int lanes, void* stream) {
+                                int cells, int lanes, void* scratch,
+                                int64_t scratch_stride, void* stream) {
   if (B <= 0) return 0;
   if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31) ||
       B > 0x7fffffffLL || a_stride < 1 || b_stride < a_stride)
+    return (int)cudaErrorInvalidValue;
+  if (!band_wide_ok(unit_k, cells, scratch != nullptr, scratch_stride))
     return (int)cudaErrorInvalidValue;
   const int W = 2 * unit_k + 1;
   if (cells != 0) {
     if (!band_warp_map_ok(cells, lanes, W) || threads > TA_BAND_WARP_THREADS)
       return (int)cudaErrorInvalidValue;
-  } else if (band_state_bytes(W) > 232448) {
-    return (int)cudaErrorInvalidValue;
   }
   BandLaunch g;
   g.a = (const uint8_t*)a;
@@ -804,6 +856,8 @@ extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
   g.threads = threads;
   g.cells = cells;
   g.lanes = lanes;
+  g.scratch = (uint8_t*)scratch;
+  g.scratch_stride = scratch_stride;
   g.stream = (cudaStream_t)stream;
   if (g.codes == nullptr)
     return transpose ? launch_band<true, false>(g) : launch_band<false, false>(g);

@@ -1,6 +1,8 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
 // functions of myers_distance.cu and myers_search.cu, the lanes of
-// band_distance.cu's warp regime and the row passes of its wide regime,
+// band_distance.cu's warp regime and the row passes of its wide regimes
+// (the band state in a block's shared memory or in a per-pair scratch),
+// the per-step walk of trace_walk.cu (the lanes of a warp in lockstep),
 // the per-lane wavefront steps of myers_blocked.cu and search_diag.cu (the
 // lanes of a group in turn, the warps of a block in order) and the lanes
 // and warps of search_flat.cu,
@@ -23,6 +25,7 @@
 #include "myers_search.cu"
 #include "search_diag.cu"
 #include "search_flat.cu"
+#include "trace_walk.cu"
 
 template <int NW>
 static void rehearse_distance(const uint8_t* a, const uint8_t* b,
@@ -165,33 +168,32 @@ extern "C" int ta_rehearse_search(const void* hay, int64_t iter_len,
   return 0;
 }
 
-// The wide regime: one pair after the other; inside a pair, `threads`
+// The wide regimes: one pair after the other; inside a pair, `threads`
 // "threads" take their runs of band cells in turn, pass 1, then the
 // exclusive prefix over the threads' mins that the device gets from a warp
-// scan, then pass 2.
+// scan, then pass 2.  The state lives where the kernel keeps it: one
+// block's shared memory, used by pair after pair (a buffer here), or with
+// `scratch` the pair's own `scratch_stride` bytes of it.
 template <bool TRANS, bool TRACE>
 static void rehearse_band_wide(const uint8_t* a, const uint8_t* b,
                                const int32_t* m, const int32_t* n,
                                int32_t* out, uint32_t* codes, int64_t B,
                                int64_t a_stride, int64_t b_stride, int unit_k,
                                int64_t code_rows, BandCosts costs,
-                               int threads) {
+                               int threads, uint8_t* scratch,
+                               int64_t scratch_stride) {
   const int W = 2 * unit_k + 1;
   const int T = threads;
   const int cpt = (W + T - 1) / T;
   const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
-  std::vector<int32_t> state((size_t)6 * W);
-  std::vector<uint8_t> code(W);
+  std::vector<int32_t> smem((band_state_bytes(W) + 3) / 4);
   std::vector<int32_t> cmin(T);
   for (int64_t p = 0; p < B; ++p) {
-    BandState S;
-    S.dp0 = state.data();
-    S.dp1 = S.dp0 + W;
-    S.cur = S.dp1 + W;
-    S.bg = S.cur + W;
-    S.bgcur = S.bg + W;
-    S.tr = S.bgcur + W;
-    S.code = code.data();
+    int32_t* wmin;
+    BandState S = band_wide_state(
+        scratch ? reinterpret_cast<int32_t*>(scratch + p * scratch_stride)
+                : smem.data(),
+        W, &wmin);
     BandPair P;
     P.a = a + p * a_stride;
     P.b = b + p * b_stride;
@@ -323,7 +325,8 @@ static int rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
                          const int32_t* n, int32_t* out, uint32_t* codes,
                          int64_t B, int64_t a_stride, int64_t b_stride,
                          int unit_k, int64_t code_rows, BandCosts k,
-                         int threads, int cells, int lanes) {
+                         int threads, int cells, int lanes, uint8_t* scratch,
+                         int64_t scratch_stride) {
   switch (cells) {
 #define TA_BAND_CASE(CC)                                                  \
   case CC:                                                                \
@@ -339,7 +342,7 @@ static int rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
     default:
       rehearse_band_wide<TRANS, TRACE>(a, b, m, n, out, codes, B, a_stride,
                                        b_stride, unit_k, code_rows, k,
-                                       threads);
+                                       threads, scratch, scratch_stride);
       return 0;
   }
 }
@@ -351,16 +354,17 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
                                 int unit_k, int64_t code_rows, int mc, int gc,
                                 int sgc, int tc, int transpose, int threads,
-                                int cells, int lanes) {
+                                int cells, int lanes, void* scratch,
+                                int64_t scratch_stride) {
   if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31) ||
       a_stride < 1 || b_stride < a_stride)
+    return 1;
+  if (!band_wide_ok(unit_k, cells, scratch != nullptr, scratch_stride))
     return 1;
   const int W = 2 * unit_k + 1;
   if (cells != 0) {
     if (!band_warp_map_ok(cells, lanes, W) || threads > TA_BAND_WARP_THREADS)
       return 1;
-  } else if (band_state_bytes(W) > 232448) {
-    return 1;
   }
   if (B <= 0) return 0;
   const uint8_t* ap = (const uint8_t*)a;
@@ -370,23 +374,56 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
   int32_t* op = (int32_t*)out;
   uint32_t* cp = (uint32_t*)codes;
   const BandCosts k{mc, gc, sgc, tc};
+  uint8_t* sp = (uint8_t*)scratch;
   if (cp == nullptr)
     return transpose ? rehearse_band<true, false>(ap, bp, mp, np_, op, cp, B,
                                                   a_stride, b_stride, unit_k,
                                                   code_rows, k, threads, cells,
-                                                  lanes)
+                                                  lanes, sp, scratch_stride)
                      : rehearse_band<false, false>(ap, bp, mp, np_, op, cp, B,
                                                    a_stride, b_stride, unit_k,
                                                    code_rows, k, threads,
-                                                   cells, lanes);
+                                                   cells, lanes, sp,
+                                                   scratch_stride);
   return transpose ? rehearse_band<true, true>(ap, bp, mp, np_, op, cp, B,
                                                a_stride, b_stride, unit_k,
                                                code_rows, k, threads, cells,
-                                               lanes)
+                                               lanes, sp, scratch_stride)
                    : rehearse_band<false, true>(ap, bp, mp, np_, op, cp, B,
                                                 a_stride, b_stride, unit_k,
                                                 code_rows, k, threads, cells,
-                                                lanes);
+                                                lanes, sp, scratch_stride);
+}
+
+// Same arguments as ta_trace_walk, host pointers, no stream, seq_t filled
+// with -1 by the caller: the warps one after the other, the 32 lanes of a
+// warp in lockstep until the warp's longest walk has ended.
+extern "C" int ta_rehearse_trace_walk(const void* codes, const void* a,
+                                      const void* b, const void* m,
+                                      const void* n, void* seq_t, int64_t B,
+                                      int64_t rows, int64_t wpr,
+                                      int64_t a_stride, int64_t b_stride,
+                                      int unit_k, int64_t steps) {
+  if (B <= 0 || steps <= 0) return 0;
+  WalkArgs g;
+  if (!trace_walk_args(codes, a, b, m, n, seq_t, B, rows, wpr, a_stride,
+                       b_stride, unit_k, steps, &g))
+    return 1;
+  for (int64_t p0 = 0; p0 < B; p0 += TW_THREADS) {
+    PairWalk w[TW_THREADS];
+    for (int l = 0; l < TW_THREADS; ++l)
+      w[l] = walk_begin(g, p0 + l < B ? p0 + l : 0, p0 + l < B);
+    for (int64_t s = 0; s < steps; ++s) {
+      bool all_done = true;
+      for (int l = 0; l < TW_THREADS; ++l) all_done &= walk_done(w[l]);
+      if (all_done) break;
+      for (int l = 0; l < TW_THREADS; ++l) {
+        const int8_t v = walk_step(g, w[l]);
+        if (p0 + l < B) g.seq_t[s * B + p0 + l] = v;
+      }
+    }
+  }
+  return 0;
 }
 
 // One block of myers_blocked.cu: its warps one after the other on each

@@ -10,7 +10,11 @@ engines and every host step around them:
 * `band` / `band_trace` — the same entry points with any cost model, with
   unit costs past 191, and with `trace_on=True`: the general-cost band
   kernels (ops/lev_band.py, band up to unit_k 4096, any string length),
-  the batched traceback walk and its RLE decode (ops/band_scan.py);
+  the batched traceback walk (ops/trace_walk.py, kernel K10) and its RLE
+  decode (ops/band_scan.py);
+* `band_trace_global` — traced batches past that band plan: the traced
+  band kernel with its band state in device memory, then the same walk
+  and decode;
 * `myers_blocked_distance` — the same entry points past the band plan
   with unit or restricted-Damerau costs, untraced: exact distances of
   pairs of any length (ops/myers_chunked.py, kernel K5), so `levenshtein`
@@ -31,9 +35,9 @@ engines and every host step around them:
   (ops/search_diag.py, K7), longer ones on the row kernel
   (ops/search_flat.py, K8), both with the match lengths on the device.
 
-Every other route of the JAX package (meshes, traces past the band plan,
-dictionary search, sharded search) raises `NotImplementedError` naming the
-JAX engine that is still to be ported.  Nothing falls back to the oracle, the plain
+Every other route of the JAX package (meshes, dictionary search, sharded
+search) raises `NotImplementedError` naming the JAX engine that is still to
+be ported.  Nothing falls back to the oracle, the plain
 PyTorch versions or the CPU: the same dispatch runs on both devices.
 
 Device rule: every entry point takes a keyword-only `device=`; None means
@@ -112,8 +116,12 @@ _MIN_BUCKET = 256
 
 # bytes of packed argmin codes one traced launch may hold on the device:
 # larger traced batches chunk on the batch axis (pairs walk independently).
-# The walk indexes the codes with int64, so no batch overflows an index.
-_TRACE_CODE_BYTES_CAP = 1 << 30
+# 16 GiB, a fifth of the H100's 80 GB: past the band plan the kernel runs
+# one pair a block, so a chunk must hold 132 pairs to give every SM one,
+# and 128 pairs of 10,000 bytes at unit_k 16,384 hold 82 MB of codes each
+# (10.5 GB; a 1 GiB cap would cut them into chunks of 13).  The kernels
+# and the walk index the codes with int64, so no batch overflows an index.
+_TRACE_CODE_BYTES_CAP = 16 << 30
 
 _UNIT = (1, 1, 0, 0, False)
 _RDAMERAU = (1, 1, 0, 1, True)
@@ -208,8 +216,8 @@ def levenshtein_simd_k_with_opts(
     kept as the scalar check of the batched walk).  Untraced unit and
     restricted-Damerau thresholds past the band plan take the blocked
     Myers distance kernel and other cost models the row-oriented flat
-    distance kernel, so any string length resolves; a trace there raises
-    NotImplementedError.
+    distance kernel, traced ones the band kernel with its state in device
+    memory, so any string length resolves.
     """
     dev = resolve_device(device)
     a = to_bytes_array(a)
@@ -285,9 +293,10 @@ def levenshtein_exp_with_opts(
     device=None,
 ) -> Tuple[int, Optional[List[Edit]]]:
     """Exponential-search distance with options (reference levenshtein.rs:
-    1480-1494).  Untraced costs resolve at any length (past the band plan
-    on the blocked Myers kernel, or the flat distance kernel for general
-    costs); a traced search that outgrows the plan raises."""
+    1480-1494).  Every cost model resolves at any length: past the band
+    plan untraced searches take the blocked Myers kernel or the flat
+    distance kernel for general costs, traced ones the band kernel with
+    its state in device memory."""
     k = 30
     while True:
         res = levenshtein_simd_k_with_opts(a, b, k, trace_on, costs,
@@ -381,7 +390,12 @@ def levenshtein_k_batch(
       `TRIPLE_ACCEL_TORCH_FORCE_PATH=band` [`pallas_band`] sends unit-cost
       batches here too;
     * `band_trace` [`trace_pallas`, `trace_tiled`]: traced batches, same
-      plan, chunked on the batch axis by `_TRACE_CODE_BYTES_CAP`;
+      plan, chunked on the batch axis by `_TRACE_CODE_BYTES_CAP`; the walk
+      is kernel K10 (ops/trace_walk.py);
+    * `band_trace_global` [`trace_batch`]: traced batches past the plan
+      (unit_k > 4096, up to `lev_band.MAX_TRACE_UNIT_K`): the traced band
+      kernel with each pair's band state in device memory, chunked and
+      walked the same way;
     * `myers_blocked_distance` [`myers_blocked_distance`]: untraced batches
       past the plan under unit or restricted-Damerau costs: the exact
       full-matrix bit-vector distance of pairs of any length
@@ -394,13 +408,12 @@ def levenshtein_k_batch(
       package chose between this kernel and its banded `lax.scan` by time
       models measured on a v5e (`_flat_beats_scan`); here that scan is
       only the plain version, so there is nothing to choose between and
-      the guard is not ported;
-    * traced batches past the plan: NotImplementedError naming the JAX
-      engine (the `band_scan.band_trace_batch` scan walk).
+      the guard is not ported.
     `mesh=` is not ported.
     """
-    from .ops.band_scan import decode_walked_batch, walk_packed_traceback
+    from .ops.band_scan import decode_walked_batch
     from .ops.lev_band import (
+        MAX_TRACE_UNIT_K,
         band_distance,
         band_plan,
         band_trace,
@@ -416,6 +429,7 @@ def levenshtein_k_batch(
         prepare_myers_inputs,
     )
     from .ops.search_flat import flat_distance, prepare_flat_distance_inputs
+    from .ops.trace_walk import trace_walk
 
     dev = resolve_device(device)
     if mesh is not None:
@@ -535,14 +549,11 @@ def levenshtein_k_batch(
         # time, so rows are padded to 16, not to a power of two
         rows = -(-max(longest, 1) // 16) * 16
         plan = band_plan(rows, uk_dev, trace_on)
+        if plan is None and trace_on:
+            raise ValueError(
+                f"a traced batch whose band half-width reaches {uk_dev}: "
+                f"the traced band kernel takes unit_k <= {MAX_TRACE_UNIT_K}")
         if plan is None:
-            what = (f"a batch whose band half-width reaches {uk_dev} (the "
-                    "band plan covers unit_k <= 4096)")
-            if trace_on:
-                raise _not_ported(
-                    what + " with trace_on=True",
-                    "ops/band_scan.py band_trace_batch (the chunked scan "
-                    "walk)")
             if ct not in (_UNIT, _RDAMERAU) or forced_path() == "band":
                 # any cost model: the row kernel, banded by the batch's
                 # unit_k (exact for every pair within its threshold)
@@ -577,8 +588,12 @@ def levenshtein_k_batch(
             # empty-a pairs come back 0 from the kernel: D[0][n] = n gaps
             out = np.where(m_len == 0, n_len, out)
             return np.where(feasible & (out <= max_ks), out, -1)
+        path = "band"
+        if trace_on:
+            path = ("band_trace_global" if plan["regime"] == "wide_global"
+                    else "band_trace")
         DispatchDecision(
-            path="band_trace" if trace_on else "band",
+            path=path,
             cost_bucket=select_cost_bucket(max_k),
             unit_k=uk_dev,
             max_k=max_k,
@@ -599,7 +614,7 @@ def levenshtein_k_batch(
             bargs = prepare_band_tensors(swapped_a[lo:hi], swapped_b[lo:hi],
                                          uk_dev, rows, device=dev)
             dist, codes = band_trace(*bargs, unit_k=uk_dev, costs_t=ct)
-            seq, _steps = walk_packed_traceback(codes, *bargs, unit_k=uk_dev)
+            seq, _steps = trace_walk(codes, *bargs, unit_k=uk_dev)
             del codes
             outs.append(dist.cpu().numpy().astype(np.int64))
             seqs.append(seq.cpu().numpy())

@@ -49,6 +49,7 @@ __all__ = [
     "unpack_codes",
     "band_scan_distance",
     "band_trace_batch",
+    "walk_steps",
     "walk_packed_traceback",
     "decode_walked_batch",
     "prepare_band_inputs",
@@ -197,6 +198,13 @@ def band_scan_distance(
     return result, codes
 
 
+def walk_steps(max_m: int, unit_k: int) -> int:
+    """Steps of a traced batch's walk output: 2 * max_m + unit_k + 1 bounds
+    every walk, since n <= m + unit_k and every step takes one character
+    or more off a pair."""
+    return 2 * max_m + unit_k + 1
+
+
 def walk_packed_traceback(
     codes: torch.Tensor,  # int32 [B, rows, ceil(W/16)] packed argmin codes
     a_t: torch.Tensor,  # [B, max_m]
@@ -212,15 +220,18 @@ def walk_packed_traceback(
     Returns (seq [B, steps] int8, steps).  seq is in REVERSE walk order:
     0 Match, 1 Mismatch, 2 consume-b, 3 consume-a, 4 Transpose, -1 done;
     `steps = 2*max_m + unit_k + 1` bounds every walk since n <= m + unit_k.
-    The loop itself stops after max(m + n) steps: every step takes at
-    least one character off a pair, and the rest of seq stays -1.  All
-    gather indices are int64, so no batch size overflows them.
+    A pair walks while i > 0 or j > 0, for at most `steps` steps, as the
+    JAX package's `_walk_scan` does; the loop stops once no pair walks,
+    and the rest of seq stays -1.  All gather indices are int64, so no
+    batch size overflows them.  The plain version of kernel K10
+    (csrc/trace_walk.cu, wrapper ops/trace_walk.py `trace_walk`), which
+    computes the same on the card.
     """
     W = 2 * unit_k + 1
     B, max_m = a_t.shape
     bw = b_t.shape[1]
     rows, wpr = codes.shape[1], codes.shape[2]
-    steps = 2 * max_m + unit_k + 1
+    steps = walk_steps(max_m, unit_k)
     dev = codes.device
     i64 = torch.int64
     seq_t = torch.full((steps, B), -1, dtype=torch.int8, device=dev)
@@ -232,9 +243,10 @@ def walk_packed_traceback(
     b_flat = b_t.reshape(-1)
     i = m.to(i64).clone()
     j = n.to(i64).clone()
-    n_iter = min(int((i + j).max()), steps)
-    for s in range(n_iter):
+    for s in range(steps):
         active = (i > 0) | (j > 0)
+        if not bool(active.any()):
+            break
         at_top = i == 0  # row-0 cells are implicit consume-b steps
         c = torch.clamp(j - i + unit_k, 0, W - 1)
         row = torch.clamp(i - 1, 0, rows - 1)

@@ -13,7 +13,8 @@ unit_k, the edit distance under (mismatch, gap, start_gap, transpose) costs
 restricted to the band |j - i| <= unit_k, W = 2*unit_k + 1 cells a row;
 `band_trace` also returns the argmin code of every cell of rows 1..m,
 {0 sub, 1 consume-b, 2 consume-a, 3 transpose}, which
-`band_scan.walk_packed_traceback` walks back on the device.
+the traceback walk (ops/trace_walk.py, kernel K10) walks back on the
+device.
 
 One kernel source serves the two regimes the TPU split into an untiled and
 a row-strip tiled kernel: the strings stream from global memory, so length
@@ -21,7 +22,9 @@ is unbounded.  The band bounds the kernel's regime: up to
 `MAX_WARP_BAND` cells a group of lanes of one warp holds a pair's band in
 registers (`band_plan` picks the cells a lane, the lanes a pair and the
 threads a block from the band and the batch); wider bands, up to
-`MAX_UNIT_K`, run one pair a block with the band in shared memory.
+`MAX_UNIT_K`, run one pair a block with the band in shared memory; traced
+bands past that, up to `MAX_TRACE_UNIT_K`, run the same way with the band
+in a per-pair scratch in device memory.
 
 Layout (the port's own, pair order): `a_t` uint8 [B, max_m], `b_t` uint8
 [B, max_m + W] with each pair's b at byte offset unit_k and 0 pads (a pad
@@ -40,6 +43,7 @@ from .band_scan import INF, band_scan_distance, code_words
 
 __all__ = [
     "MAX_UNIT_K",
+    "MAX_TRACE_UNIT_K",
     "MAX_WARP_BAND",
     "band_plan",
     "select_band_dtype",
@@ -77,10 +81,20 @@ MAX_WARP_BAND = max(WARP_LANES) * max(WARP_CELLS)  # 544 cells
 FULL_THREADS = 256
 SMALL_THREADS = 64
 SMALL_BATCH_WARPS = 4 * SM_COUNT
-# The wide regime (band_wide_kernel): band cells a thread walks serially,
+# The wide regimes (band_wide_kernel): band cells a thread walks serially,
 # threads rounded up to whole warps, at most 1024 (not swept past 544
 # cells).
 WIDE_CELLS_PER_THREAD = 4
+# The device-memory regime (band_wide_kernel<*, *, true>) takes traced
+# bands up to this half-width: every intermediate of its row passes stays
+# in int32 (csrc/band_distance.cu TA_BAND_GLOBAL_MAX_UNIT_K).
+MAX_TRACE_UNIT_K = 1 << 20
+# Its threads a block, from `benches/band_sweep.py --past-plan` (NVIDIA
+# H100 80GB HBM3, 700 W; PERF.md): 128 pairs of 10,000 bytes, band 32,769,
+# one launch each: 64 threads 6,311.7 ms, 128 4,250.5, 256 4,286.1, 512
+# 4,744.7, 1024 (the shared-memory regime's rule) 11,418.3.  With fewer
+# threads each runs a longer stretch of its cells, which stays in L1.
+GLOBAL_THREADS = 128
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -102,6 +116,12 @@ def _max_unit_k() -> int:
 
 
 MAX_UNIT_K = _max_unit_k()  # 4096: W = 8193, 6 * W ints = 192 KB
+
+
+def _scratch_bytes(W: int) -> int:
+    """Bytes a pair of the device-memory regime's scratch: the shared
+    memory layout of `_smem_bytes`, rounded up to 16."""
+    return _round_up(_smem_bytes(W), 16)
 
 
 def _warp_map(W: int, batch: Optional[int]) -> Tuple[int, int, int]:
@@ -129,7 +149,12 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
     `threads` threads a block.  Past it the wide regime (`regime` "wide"):
     one pair a block of `threads` threads, `cells_per_lane` cells a thread,
     the band state (6 * W ints) in the block's shared memory, which must
-    fit the 227 KB a block may use: unit_k <= MAX_UNIT_K.
+    fit the 227 KB a block may use: unit_k <= MAX_UNIT_K.  A traced batch
+    past that runs the device-memory regime (`regime` "wide_global", up
+    to MAX_TRACE_UNIT_K): the wide regime's row passes over the same
+    state, GLOBAL_THREADS threads a block, in `scratch_bytes_per_pair`
+    bytes a pair of device memory that the wrapper allocates.  Untraced
+    batches past MAX_UNIT_K have other kernels (K5, K9): None.
     """
     if unit_k < 0 or max_m < 0:
         return None
@@ -142,14 +167,22 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
                 "smem_bytes": 0}
     else:
         smem = _smem_bytes(W)
-        if smem > SMEM_BYTES_PER_BLOCK:
+        if smem <= SMEM_BYTES_PER_BLOCK:
+            regime = "wide"
+        elif trace and unit_k <= MAX_TRACE_UNIT_K:
+            regime, smem = "wide_global", 0
+        else:
             return None
-        threads = min(MAX_THREADS,
-                      _round_up(-(-W // WIDE_CELLS_PER_THREAD), 32))
-        plan = {"regime": "wide", "cells_per_lane": -(-W // threads),
+        threads = (GLOBAL_THREADS if regime == "wide_global" else
+                   min(MAX_THREADS,
+                       _round_up(-(-W // WIDE_CELLS_PER_THREAD), 32)))
+        plan = {"regime": regime, "cells_per_lane": -(-W // threads),
                 "lanes_per_pair": threads, "warps_per_pair": threads // 32,
                 "threads": threads, "pairs_per_block": 1,
                 "smem_bytes": smem}
+    plan["scratch_bytes_per_pair"] = (_scratch_bytes(W)
+                                      if plan["regime"] == "wide_global"
+                                      else 0)
     plan["code_words"] = code_words(W) if trace else 0
     plan["code_bytes_per_pair"] = (max(max_m, 1) * code_words(W) * 4
                                    if trace else 0)
@@ -166,9 +199,13 @@ def _check_plan(plan: dict, W: int) -> None:
               and plan["cells_per_lane"] * plan["lanes_per_pair"] >= W
               and threads % 32 == 0 and 32 <= threads <= WARP_MAX_THREADS)
     else:
-        ok = (plan["regime"] == "wide" and threads % 32 == 0
-              and 32 <= threads <= MAX_THREADS
-              and _smem_bytes(W) <= SMEM_BYTES_PER_BLOCK)
+        # the device-memory regime takes any band up to its cap (a check
+        # may force it onto a narrow one)
+        fits = (_smem_bytes(W) <= SMEM_BYTES_PER_BLOCK
+                if plan["regime"] == "wide"
+                else W <= 2 * MAX_TRACE_UNIT_K + 1)
+        ok = (plan["regime"] in ("wide", "wide_global") and fits
+              and threads % 32 == 0 and 32 <= threads <= MAX_THREADS)
     if not ok:
         raise ValueError(f"the band kernel does not take the plan {plan} "
                          f"at band {W}")
@@ -280,10 +317,12 @@ def from_reference_batch(a_t: np.ndarray, b_t: np.ndarray, m: np.ndarray,
                  for x in (a_rows, b_rows, m1, n1))
 
 
-def _check_inputs(a_t, b_t, m, n, unit_k: int, costs_t: CostsT) -> int:
-    if band_plan(0, unit_k) is None:
+def _check_inputs(a_t, b_t, m, n, unit_k: int, costs_t: CostsT,
+                  trace: bool) -> int:
+    if band_plan(0, unit_k, trace) is None:
+        cap = MAX_TRACE_UNIT_K if trace else MAX_UNIT_K
         raise ValueError(
-            f"unit_k={unit_k} exceeds the band plan (unit_k <= {MAX_UNIT_K})")
+            f"unit_k={unit_k} exceeds the band plan (unit_k <= {cap})")
     W = 2 * unit_k + 1
     if a_t.dtype != torch.uint8 or b_t.dtype != torch.uint8:
         raise TypeError("a_t and b_t must be uint8")
@@ -327,6 +366,11 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool,
     if trace:
         codes = torch.empty((B, rows, code_words(W)), dtype=torch.int32,
                             device=a_t.device)
+    scratch, stride = None, 0
+    if plan["regime"] == "wide_global" and B:
+        stride = _scratch_bytes(W)  # a forced plan may come from another band
+        scratch = torch.empty(B * stride, dtype=torch.uint8,
+                              device=a_t.device)
     mc, gc, sgc, tc, allow_transpose = costs_t
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -337,7 +381,9 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool,
             mc, gc, sgc, tc, int(bool(allow_transpose)),
             plan["threads"],
             plan["cells_per_lane"] if plan["regime"] == "warp" else 0,
-            plan["lanes_per_pair"], stream,
+            plan["lanes_per_pair"],
+            scratch.data_ptr() if scratch is not None else None, stride,
+            stream,
         )
     check_launch(lib, code, "band_trace" if trace else "band_distance")
     return out, codes
@@ -356,7 +402,7 @@ def band_distance(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
     batch when None; a sweep or a check may hand another one the kernel
     takes.  CPU tensors — and only those — take the plain PyTorch version.
     """
-    _check_inputs(a_t, b_t, m, n, unit_k, costs_t)
+    _check_inputs(a_t, b_t, m, n, unit_k, costs_t, False)
     plan = _plan_for(a_t, unit_k, False, plan)
     if a_t.device.type == "cpu":
         return band_scan_distance(a_t, b_t, m, n, unit_k=unit_k,
@@ -377,14 +423,15 @@ def band_trace(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
                plan: Optional[dict] = None):
     """Banded distances and packed argmin codes: (dist int32 [B], codes
     int32 [B, max_m, ceil(W / 16)]).  Only code rows 0..m-1 of a pair are
-    defined.  The codes stay on the device for
-    `band_scan.walk_packed_traceback`.
+    defined.  The codes stay on the device for the walk
+    (`trace_walk.trace_walk`).  Past MAX_UNIT_K the plan is the
+    device-memory regime, up to MAX_TRACE_UNIT_K.
 
     CUDA tensors launch the hand-written kernel and count one launch in
     `band_trace.launches`; `plan` as in `band_distance`.  CPU tensors — and
     only those — take the plain PyTorch version.
     """
-    _check_inputs(a_t, b_t, m, n, unit_k, costs_t)
+    _check_inputs(a_t, b_t, m, n, unit_k, costs_t, True)
     plan = _plan_for(a_t, unit_k, True, plan)
     if a_t.device.type == "cpu":
         return band_scan_distance(a_t, b_t, m, n, unit_k=unit_k,
