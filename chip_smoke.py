@@ -23,8 +23,9 @@ each against its plain PyTorch version on the card:
   the time goes (`e2e_split_s`); then, past the band plan, 128 pairs of
   10,000 ACGT bytes against copies with 10% edits and 1% adjacent swaps at
   an unbounded threshold under the restricted-Damerau costs (unit_k
-  16,384: the traced band kernel with its band state in device memory,
-  then the same walk), and one single-pair call of the same kind;
+  10,064, the longest b rounded up to 16: the traced band kernel's
+  cluster regime, then the same walk), and one single-pair call of the
+  same kind;
 * `hamming`: `hamming_batch` on the distance pairs and a Hamming search of
   the search needle over the 128 MiB haystack (plain PyTorch ops: the JAX
   package has no hand-written kernel there either);
@@ -128,7 +129,7 @@ BAND_OPS_CODE = {False: 6, True: 7}
 TRACE_PAIRS = 8192
 # the traced phase past the band plan: long ACGT pairs with 10% edits and
 # 1% adjacent swaps at an unbounded threshold under rDamerau costs (unit_k
-# 16,384, a band of 32,769 cells); the plain versions at a cut: K4 over
+# 10,064, a band of 20,129 cells); the plain versions at a cut: K4 over
 # the first pairs, the walk over the first pairs of every traced phase
 PAST_PLAN_PAIRS, PAST_PLAN_LEN = 128, 10_000
 PAST_PLAN_EDIT_SHARE, PAST_PLAN_SWAP_SHARE = 0.10, 0.01
@@ -849,8 +850,8 @@ def check_band_kernels(dev):
     lengths: the short regime, the long one (rows >= 16384, band 513), the
     wide regime (bands 1025 and 8193, the widest the plan takes: 200 KB of
     dynamic shared memory a block), the traced kernel's device-memory
-    regime (forced onto bands 65 and 1025, and band 16,385, the narrowest
-    a traced batch past the plan gets), and every lane map of the warp
+    regime (forced onto bands 65, 1025 and 16,385; its cluster regime has
+    `check_band_cluster`), and every lane map of the warp
     regime at its lane and group edges (`band_lane_cases`), at a batch
     that leaves its last warp part empty and at a full one, with swaps on
     the diagonals of the lane edges.  Distances, codes and the edit
@@ -895,15 +896,16 @@ def check_band_kernels(dev):
                 cases[regime] += 2  # the untraced and the traced kernel
                 del got_codes, ref_codes
     # the device-memory regime (traced only): forced onto narrow bands at
-    # 64 and 1024 threads, then band 16,385 as the plan gives it
+    # 64 and 1024 threads, then band 16,385 (the plan takes it past the
+    # cluster regime's columns)
     cases["device_memory"] = 0
-    deep = band_plan(8, 2 * MAX_UNIT_K, True)
+    deep = device_memory_plan()
     for costs in (RDAMERAU_COSTS, EditCosts(*AFFINE)):
         ct = costs_tuple(costs)
         for unit_k, max_m, n_pairs, plan in (
                 (32, 300, 40, dict(deep, threads=64)),
                 (512, 1100, 9, dict(deep, threads=1024)),
-                (2 * MAX_UNIT_K, 400, 5, None)):
+                (2 * MAX_UNIT_K, 400, 5, deep)):
             a_list, b_list = band_cases(rng, n_pairs, max_m, unit_k)
             a_e, b_e = walk_edge_pairs(rng, unit_k, max_m)
             t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k,
@@ -954,11 +956,151 @@ def check_band_kernels(dev):
     return cases, worst
 
 
+def device_memory_plan() -> dict:
+    """K4's device-memory regime as the plan gives it: past the cluster
+    regime's columns (a check forces it onto other bands)."""
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    return lb.band_plan(8, 2 * lb.MAX_UNIT_K, True,
+                        max_n=lb.CLUSTER_MAX_COLUMNS)
+
+
+def cluster_plan(max_m: int, unit_k: int, ctas: int, warps: int) -> dict:
+    """A plan of K4's cluster regime at a given cluster: `ctas` CTAs of
+    `warps` warps."""
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    from triple_accel_tpu_torch.ops.band_scan import code_words
+
+    plan = lb.band_plan(max_m, 2 * lb.MAX_UNIT_K, True, max_n=0)
+    W = 2 * unit_k + 1
+    return dict(plan, ctas_per_pair=ctas, threads=32 * warps,
+                warps_per_pair=ctas * warps,
+                lanes_per_pair=32 * ctas * warps, code_words=code_words(W),
+                code_bytes_per_pair=max(max_m, 1) * code_words(W) * 4)
+
+
+def cluster_pairs(rng, n_pairs: int, max_m: int, max_n: int, unit_k: int):
+    """Pairs for K4's cluster regime: len(a) <= len(b) <= min(len(a) +
+    unit_k, max_n); a over a four-letter alphabet with NUL bytes (pads are
+    0 too) in every fourth, b a copy with overwritten bytes and adjacent
+    swaps, grown by insertions; every third pair as long as allowed
+    (max_n: the columns at the cluster's edge), every fifth at max_m
+    rows; an empty pair and an empty a against a non-empty b."""
+    a_list, b_list = [], []
+    for p in range(n_pairs):
+        m = max_m if p % 5 == 0 else int(rng.integers(0, max_m + 1))
+        a = rng.integers(65, 69, m).astype(np.uint8)
+        if m and p % 4 == 0:
+            a[rng.integers(0, m, 3)] = 0
+        b = a.copy()
+        if m:
+            b[rng.integers(0, m, m // 20 + 1)] = rng.integers(65, 69, m // 20 + 1)
+        if m > 1:
+            for q in rng.integers(0, m - 1, m // 50 + 2).tolist():
+                b[q], b[q + 1] = int(b[q + 1]), int(b[q])
+        top = min(m + unit_k, max_n)
+        n = top if p % 3 == 0 else int(rng.integers(m, top + 1))
+        b = np.insert(b, rng.integers(0, m + 1, n - m),
+                      rng.integers(65, 69, n - m).astype(np.uint8))
+        a_list.append(a)
+        b_list.append(b)
+    a_list[0] = b_list[0] = np.empty(0, np.uint8)
+    a_list[1] = np.empty(0, np.uint8)
+    b_list[1] = b_list[1][:unit_k]
+    return a_list, b_list
+
+
+def cluster_edge_pairs(rng, unit_k: int, max_m: int, max_n: int):
+    """Pairs whose transpositions end on the first two columns of lanes
+    (16k, 16k + 1: D(i - 2, j - 2) and b[j - 2] come from the lane, warp
+    or CTA on the left): b is a copy of a with adjacent swaps at every
+    position q = 14, 15 (mod 16) of a block, shifted by d = 0, 1 or 15
+    bytes inserted in front (the diagonal moves by d columns); the last
+    pair as long as `max_n` allows.  len(a) <= len(b) <= len(a) + unit_k."""
+    a_list, b_list = [], []
+    for d in (0, 1, 15):
+        if d > unit_k:
+            continue
+        m = min(max_m, max_n - d)
+        a = ACGT[rng.integers(0, 4, m)]
+        b = a.copy()
+        for q in range(14 if d % 2 == 0 else 15, m - 1, 16 * (1 + d % 3)):
+            b[q], b[q + 1] = b[q + 1], b[q]
+        b = np.concatenate([ACGT[rng.integers(0, 4, d)], b])
+        a_list.append(a)
+        b_list.append(b)
+    a, b = a_list[-1], b_list[-1]
+    grow = min(unit_k - (len(b) - len(a)), max_n - len(b))
+    b_list[-1] = np.concatenate([b, ACGT[rng.integers(0, 4, grow)]])
+    return a_list, b_list
+
+
+# K4's cluster regime on the card: (unit_k, rows, longest b, CTAs a
+# cluster, warps a CTA, pairs).  Every cluster size, and the maps the plan
+# picks: band 9,409 just past the shared-memory plan (b strings of 4,700
+# bytes), band 20,001 (unit_k 10,000, the `past_plan` cell's map), the
+# widest the cluster holds (81,917-byte b strings, band 163,521); the
+# longest b of each case fills its last lane's columns to n + 2.
+CLUSTER_CHECKS = (
+    (4704, 700, 4_700, 1, 10, 6),
+    (4704, 900, 4_605, 2, 5, 6),
+    (10_000, 800, 10_749, 3, 7, 5),
+    (4704, 1500, 6_141, 4, 3, 6),
+    (4704, 700, 5_117, 5, 2, 6),
+    (10_000, 600, 9_213, 6, 3, 4),
+    (4704, 900, 3_581, 7, 1, 6),
+    (10_000, 500, 10_000, 8, 3, 4),
+    (10_000, 600, 10_237, 2, 10, 4),
+    (81_760, 160, 81_917, 8, 20, 3),
+)
+
+
+def check_band_cluster(dev):
+    """K4's cluster regime against the plain version on the card, under
+    the four cost models: distances and every code word of rows 1..m,
+    bit for bit, at CLUSTER_CHECKS (`cluster_pairs`, and
+    `cluster_edge_pairs`: transpositions across lane, warp and CTA edges).
+    K10 over this regime's codes: `check_trace_walk_kernel`."""
+    from triple_accel_tpu_torch.ops.band_scan import band_scan_distance
+    from triple_accel_tpu_torch.ops.lev_band import (
+        band_trace, prepare_band_tensors)
+    from triple_accel_tpu_torch.types import (
+        EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS)
+
+    rng = np.random.default_rng(1100)
+    worst, cases = 0, 0
+    for q, (unit_k, max_m, max_n, ctas, warps, n_pairs) in enumerate(
+            CLUSTER_CHECKS):
+        a_list, b_list = cluster_pairs(rng, n_pairs, max_m, max_n, unit_k)
+        a_e, b_e = cluster_edge_pairs(rng, unit_k, max_m, max_n)
+        t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k, max_m,
+                                 device=dev)
+        plan = cluster_plan(max_m, unit_k, ctas, warps)
+        for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS, EditCosts(*AFFINE),
+                      EditCosts(3, 2, 1, 2)):
+            ct = costs_tuple(costs)
+            got_d, got_codes = band_trace(*t, unit_k=unit_k, costs_t=ct,
+                                          plan=plan)
+            torch.cuda.synchronize()
+            ref_d, ref_codes = band_scan_distance(
+                *t, unit_k=unit_k, costs_t=ct, trace_on=True)
+            err = band_errors(got_d, got_codes, ref_d, ref_codes, t, unit_k,
+                              walk=False)
+            worst = max(worst, err)
+            check(err == 0, f"band_trace in a cluster != plain at costs={ct}"
+                            f" unit_k={unit_k} {ctas} x {warps} warps")
+            cases += 1
+            del got_codes, ref_codes
+    return cases, worst
+
+
 def check_trace_walk_kernel(dev):
     """The walk kernel K10 against the plain walk, exactly (the -1 padding
     included), on codes from K4 in each of its regimes (warp, wide in
     shared memory, device memory at a forced narrow plan and at band
-    16,385 as the plan gives it), under a cost model with transpositions
+    16,385, the cluster regime at band 16,385 as the plan gives it), under
+    a cost model with transpositions
     and one without: edited pairs with m = 0 and empty pairs
     (`band_cases`), walks along band cells 0, 15, 16, 31, 32 and W - 1 and
     a transposition as a walk's last step (`walk_edge_pairs`), batches
@@ -987,11 +1129,12 @@ def check_trace_walk_kernel(dev):
         cases += 1
         return got
 
-    deep = band_plan(8, 2 * MAX_UNIT_K, True)
+    deep = device_memory_plan()
     regimes = (("warp", 16, 80, 33, None),
                ("wide", 600, 2500, 9, None),
                ("device_memory_forced", 16, 80, 71, dict(deep, threads=64)),
-               ("device_memory", 2 * MAX_UNIT_K, 200, 3, None))
+               ("device_memory", 2 * MAX_UNIT_K, 200, 3, deep),
+               ("cluster", 2 * MAX_UNIT_K, 200, 3, None))
     for costs in (RDAMERAU_COSTS, EditCosts(*AFFINE)):
         ct = costs_tuple(costs)
         for regime, unit_k, max_m, n_pairs, plan in regimes:
@@ -2150,13 +2293,15 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
     m_arr = t[2].cpu().numpy().astype(np.int64)
     n_arr = t[3].cpu().numpy().astype(np.int64)
     bound = band_bound(m_arr, n_arr, unit_k, ct, traced)
-    plan = lb.band_plan(rows, unit_k, traced, batch=len(a_list))
+    plan = lb.band_plan(rows, unit_k, traced, batch=len(a_list),
+                        max_n=int(n_arr.max(initial=0)))
     wide = (f"band_wide_kernel<*, {str(traced).lower()}, "
             f"{str(plan['regime'] == 'wide_global').lower()}>")
+    kernel = {"warp": f"band_kernel<*, {str(traced).lower()}, "
+                      f"{plan['cells_per_lane']}>",
+              "wide_cluster": "band_cluster_kernel<*>"}
     entry = {
-        "kernel": (f"band_kernel<*, {str(traced).lower()}, "
-                   f"{plan['cells_per_lane']}>" if plan["regime"] == "warp"
-                   else wide),
+        "kernel": kernel.get(plan["regime"], wide),
         "max_abs_err": err, "ms": times[0], "ms_min": times[1],
         "ms_max": times[2], "plain_ms": plain_ms, "library_ms": None,
         **{k_: bound[k_] for k_ in ("bound_ms", "bound_by", "bound_bytes_ms",
@@ -2168,7 +2313,8 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
         "unit_k": unit_k, "band_cells": 2 * unit_k + 1, "rows": rows,
         "band_regime": plan["regime"],
         **{k_: plan[k_] for k_ in ("cells_per_lane", "lanes_per_pair",
-                                   "warps_per_pair", "threads")},
+                                   "warps_per_pair", "threads",
+                                   "ctas_per_pair") if k_ in plan},
         "host_prep_and_upload_s": round(prep_s, 4),
         "kernel_ms": round(times[0], 4),
         "kernel_ms_min_max": [round(times[1], 4), round(times[2], 4)],
@@ -2491,10 +2637,11 @@ def run_band_trace(dev, a_list, b_swapped, scale: float):
 
 def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
     """Traced distances past the band plan (the JAX package's
-    `trace_batch` engine): K4 with its band state in device memory, then
-    K10, on long ACGT pairs at an unbounded threshold; the distances equal
-    the untraced call's (K5) and every trace replays.  Then one pair
-    through `levenshtein_simd_k_with_opts` and one through
+    `trace_batch` engine): K4's cluster regime (one pair a cluster, the
+    plan printed), then K10, on long ACGT pairs at an unbounded threshold
+    (unit_k the longest b rounded up to 16); the distances equal the
+    untraced call's (K5) and every trace replays.  Then one pair through
+    `levenshtein_simd_k_with_opts` and one through
     `levenshtein_exp_with_opts`, whose last rung passes the plan."""
     import importlib
 
@@ -2520,6 +2667,12 @@ def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
         a_list, b_list, U32_MAX, costs, name, "band_trace_global")
     replay_s = time.perf_counter() - t0 - e2e_s
     check(dec.unit_k > lb.MAX_UNIT_K, f"{name} ran at unit_k={dec.unit_k}")
+    longest_b = max(max(len(a), len(b)) for a, b in zip(a_list, b_list))
+    plan = lb.band_plan(dec.padded_m, dec.unit_k, True, batch=n_pairs,
+                        max_n=longest_b)
+    check(plan["regime"] == "wide_cluster" and dec.unit_k == -(-longest_b
+                                                               // 16) * 16,
+          f"{name}: plan {plan} at unit_k={dec.unit_k}")
     # the same pairs untraced: the blocked Myers distance kernel (K5)
     dispatch_history(clear=True)
     mc.blocked_distance.launches = 0
@@ -2551,12 +2704,13 @@ def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
     check(single == (int(out[0]), traces[0]),
           f"{name}: the single-pair call != the batch's pair 0")
     # the exponential search on a pair with nothing in common: its rungs
-    # double k from 30 until the last one (k 7,680) passes the plan
-    x, y = longest_walk_pair(0, 4100)
+    # double k from 30 until the last one (k 7,680: unit_k 4,704, band
+    # 9,409) passes the shared-memory plan
+    x, y = longest_walk_pair(0, 4700)
     dispatch_history(clear=True)
     got = lev.levenshtein_exp_with_opts(x, y, True, costs)
     exp_paths = [d.path for _, d in dispatch_history()]
-    check(got == (4100, [tt.Edit(tt.EditType.Mismatch, 4100)])
+    check(got == (4700, [tt.Edit(tt.EditType.Mismatch, 4700)])
           and exp_paths[-1] == "band_trace_global"
           and "band_trace_global" not in exp_paths[:-1],
           f"{name}: levenshtein_exp_with_opts gave {str(got)[:80]} over "
@@ -2568,7 +2722,6 @@ def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
     numbers, phase, walk = band_kernel_only(
         dev, sa, sb, dec, costs, True, out, 3,
         plain_pairs=PAST_PLAN_PLAIN_PAIRS, walk_reps=5)
-    plan = lb.band_plan(dec.padded_m, dec.unit_k, True, batch=n_pairs)
     emit({"phase": "band_trace", "regime": "past_plan", "pairs": n_pairs,
           "str_len": PAST_PLAN_LEN, "edit_share": PAST_PLAN_EDIT_SHARE,
           "swap_share": PAST_PLAN_SWAP_SHARE, "k": U32_MAX,
@@ -3580,6 +3733,7 @@ def main() -> int:
     d_cases, d_err = check_distance_kernel(dev)
     s_cases, s_err = check_search_kernel(dev)
     b_cases, b_err = check_band_kernels(dev)
+    c_cases, c_err = check_band_cluster(dev)
     w_cases, w_err = check_trace_walk_kernel(dev)
     (bd_cases, bd_err), (bs_cases, bs_err) = check_blocked_kernels(dev)
     sd_cases, sd_err = check_search_diag_kernel(dev)
@@ -3594,6 +3748,7 @@ def main() -> int:
               "cases_lane_edges": b_cases["lane_edges"],
               "cases_device_memory": b_cases["device_memory"],
               "max_abs_err": b_err},
+          "band_trace_cluster": {"cases": c_cases, "max_abs_err": c_err},
           "trace_walk": {"cases": w_cases, "max_abs_err": w_err},
           "blocked_distance": {"cases": bd_cases, "max_abs_err": bd_err},
           "blocked_search": {"cases": bs_cases, "max_abs_err": bs_err},
@@ -3636,7 +3791,7 @@ def main() -> int:
     for entry, regime in ((k3, "short"), (k3_long, "long"), (k4, "short"),
                           (k4_long, "long")):
         entry.update(cases=b_cases[regime] // 2, ok=True)
-    k4_past.update(cases=b_cases["device_memory"], ok=True)
+    k4_past.update(cases=c_cases, ok=True)
     for entry in (k10, k10_long, k10_past):
         entry.update(cases=w_cases, ok=True)
 

@@ -288,7 +288,10 @@ def test_batches_past_the_band_plan_raise(c, trace, engine):
     `affine` one until the flat distance kernel, the traced ones until the
     band kernel's device-memory regime and the walk K10); each now takes
     its engine on the shortest strings past the plan and is held against
-    the compiled scalar comparator, traces replayed."""
+    the compiled scalar comparator, traces replayed.  A traced batch runs
+    at its unit_k rounded up to 16, so its strings are longer than the
+    untraced one's: n = 4,704 gives band 9,409, past a block's shared
+    memory (`_smem_bytes`: n >= 4,641)."""
     from triple_accel_tpu_torch.utils.native import (
         scalar_banded_batch_native)
 
@@ -302,15 +305,15 @@ def test_batches_past_the_band_plan_raise(c, trace, engine):
             [a], [b], k, EditCosts(*c)).tolist()
         return
     rng = np.random.default_rng(4100 + c[0])
-    a = rng.integers(65, 69, 4100).astype(np.uint8)
-    b = np.delete(a, rng.integers(0, 4100, 8))
+    a = rng.integers(65, 69, 4700).astype(np.uint8)
+    b = np.delete(a, rng.integers(0, 4700, 8))
     b[rng.integers(0, len(b), 20)] = 66
-    b = np.insert(b, rng.integers(0, len(b), 12), 67)  # n = 4,104
+    b = np.insert(b, rng.integers(0, len(b), 12), 67)  # n = 4,704
     for q in rng.integers(0, len(b) - 1, 6).tolist():
         b[q], b[q + 1] = b[q + 1], b[q]
     got, traces = tl.levenshtein_k_batch([b], [a], k, EditCosts(*c), trace,
                                          **CPU)
-    assert last_dispatch().path == engine and last_dispatch().unit_k == 8192
+    assert last_dispatch().path == engine and last_dispatch().unit_k == 4704
     assert got.tolist() == scalar_banded_batch_native(
         [b], [a], k, EditCosts(*c)).tolist()
     cost = _replay_cost(b, a, _fields(traces[0]), c)

@@ -75,6 +75,9 @@ def lib(tmp_path_factory):
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8 + [vp, i64])
+    lib.ta_rehearse_band_cluster.restype = ctypes.c_int
+    lib.ta_rehearse_band_cluster.argtypes = (
+        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
     lib.ta_rehearse_trace_walk.restype = ctypes.c_int
     lib.ta_rehearse_trace_walk.argtypes = [vp] * 6 + [i64] * 5 + [i32, i64]
     lib.ta_rehearse_blocked_distance.restype = ctypes.c_int
@@ -488,6 +491,121 @@ def test_band_rows_in_device_memory_equal_plain_version_and_oracle(lib,
         a_e, b_e = cs.walk_edge_pairs(rng, unit_k, max_m)
         _band_check(lib, a_list + a_e, b_list + b_e, unit_k, max_m, costs,
                     threads, 0, 0, scratch_pad=pad)
+
+
+def _cluster_check(lib, a_list, b_list, unit_k, max_m, costs, ctas, warps,
+                   oracle):
+    """K4's cluster regime, rehearsed at `ctas` CTAs of `warps` warps in
+    both of the rehearsal's warp orders, against the plain version:
+    distances, every code word of rows 1..m, and the walked streams; with
+    `oracle`, distances and edit lists against the oracle wherever the
+    costs stay inside the band."""
+    B = len(a_list)
+    ct = (costs[0], costs[1], costs[2], costs[3] or 0, costs[3] is not None)
+    t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m, device="cpu")
+    plain_d, plain_codes = bs.band_scan_distance(
+        *t, unit_k=unit_k, costs_t=ct, trace_on=True)
+    plain_seq, _ = bs.walk_packed_traceback(plain_codes, *t, unit_k=unit_k)
+    arrs = [x.numpy() for x in t]
+    rows, wpr = plain_codes.shape[1], plain_codes.shape[2]
+    for order in (0, 1):
+        out = np.full(B, -7, np.int32)
+        codes = np.full((B, rows, wpr), 0x3C3C3C3C, np.int32)
+        rc = lib.ta_rehearse_band_cluster(
+            *[x.ctypes.data for x in arrs], out.ctypes.data, codes.ctypes.data,
+            B, arrs[0].shape[1], arrs[1].shape[1], unit_k, rows, *ct[:4],
+            int(ct[4]), ctas, warps, order)
+        assert rc == 0
+        assert np.array_equal(out, plain_d.numpy()), (costs, order)
+        for p in range(B):
+            mp = len(a_list[p])
+            assert np.array_equal(codes[p, :mp],
+                                  plain_codes[p, :mp].numpy()), (costs, p)
+        seq, _ = bs.walk_packed_traceback(torch.from_numpy(codes), *t,
+                                          unit_k=unit_k)
+        assert torch.equal(seq, plain_seq)
+    if oracle:
+        kband = unit_k * ct[1] + ct[2]
+        decoded = bs.decode_walked_batch(plain_seq.numpy(), [False] * B)
+        for p, (a, b) in enumerate(zip(a_list, b_list)):
+            ref = levenshtein_naive_k_with_opts(a, b, kband, True,
+                                                EditCosts(*costs))
+            if ref is not None:
+                assert int(plain_d[p]) == ref[0] and decoded[p] == ref[1]
+
+
+# K4's cluster regime (band_cluster_kernel): 1, 2, 3 and 8 CTAs a cluster
+# (the widest the plan takes) of 1 or 2 warps; the longest b fills its last
+# lane to column n + 2 (the cluster's columns exactly) or stops a column
+# short; transpositions across lane, warp and CTA edges
+# (`cs.cluster_edge_pairs`); m = 0; every row phase of the code words'
+# offset (i mod 16); narrow bands (the rows past the band leave columns
+# behind) and bands wider than the matrix.  (ctas, warps, unit_k, rows,
+# longest b, random pairs: the first two are the empty ones; at 8 CTAs
+# only those, so that the plain scan's [pairs, W] rows stay under one
+# parallel grain of PyTorch's CPU ops, which the test workers' threads
+# would contend for)
+CLUSTER_MAPS = [(1, 1, 300, 220, 509, 4), (2, 1, 40, 1000, 1021, 4),
+                (3, 1, 600, 1000, 1533, 4), (8, 1, 3000, 1100, 4093, 2),
+                (2, 2, 1100, 1000, 2045, 4)]
+
+
+@pytest.mark.parametrize("ctas,warps,unit_k,max_m,max_n,n_pairs",
+                         CLUSTER_MAPS,
+                         ids=[f"{c}x{w}-uk{u}" for c, w, u, _, _, _ in
+                              CLUSTER_MAPS])
+@pytest.mark.parametrize("costs", BAND_COSTS,
+                         ids=["unit", "rdamerau", "affine", "affine_transpose"])
+def test_band_cluster_equals_plain_version(lib, ctas, warps, unit_k, max_m,
+                                           max_n, n_pairs, costs):
+    rng = np.random.default_rng(ctas * 1000 + warps * 100 + costs[0])
+    a_list, b_list = cs.cluster_pairs(rng, n_pairs, max_m, max_n, unit_k)
+    a_e, b_e = cs.cluster_edge_pairs(rng, unit_k, max_m, max_n)
+    _cluster_check(lib, a_list + a_e, b_list + b_e, unit_k, max_m, costs,
+                   ctas, warps, oracle=max_n < 600)
+
+
+@pytest.mark.parametrize("check", cs.CLUSTER_CHECKS,
+                         ids=[f"{c}x{w}-uk{u}" for u, _, _, c, w, _ in
+                              cs.CLUSTER_CHECKS])
+def test_cluster_checks_fill_their_clusters(check):
+    """Each of K4's cluster checks on the card: pairs inside the band and
+    the kernel's contract, its longest b at the cluster's edge or under it
+    (n + 3 <= 512 x CTAs x warps), transpositions ending on lanes' first
+    two columns, and a plan the wrapper takes for them."""
+    unit_k, max_m, max_n, ctas, warps, n_pairs = check
+    rng = np.random.default_rng(11)
+    a_list, b_list = cs.cluster_pairs(rng, n_pairs, max_m, max_n, unit_k)
+    a_e, b_e = cs.cluster_edge_pairs(rng, unit_k, max_m, max_n)
+    for a, b in zip(a_list + a_e, b_list + b_e):
+        assert len(a) <= len(b) <= min(len(a) + unit_k, max_n)
+        assert len(a) <= max_m
+    assert max(len(b) for b in b_list + b_e) == max_n
+    assert max_n + 3 <= 512 * ctas * warps
+    assert len(a_list[0]) == len(b_list[0]) == len(a_list[1]) == 0
+    a, b = a_e[0], b_e[0]  # no shift: swapped at q = 14, 15 (mod 16)
+    diff = np.flatnonzero(a != b)
+    assert diff.size and set((diff % 16).tolist()) <= {14, 15}
+    plan = cs.cluster_plan(max_m, unit_k, ctas, warps)
+    lb._check_plan(plan, 2 * unit_k + 1)
+    assert plan["regime"] == "wide_cluster"
+    assert plan["ctas_per_pair"] * plan["threads"] * 16 >= max_n + 3
+
+
+def test_band_cluster_rehearsal_refuses_what_the_launcher_refuses(lib):
+    z = np.zeros(64, np.uint8)
+    i0 = np.zeros(1, np.int32)
+    out = np.full(1, -7, np.int32)
+    codes = np.zeros(4, np.int32)
+    args = [z.ctypes.data, z.ctypes.data, i0.ctypes.data, i0.ctypes.data,
+            out.ctypes.data, codes.ctypes.data, 1, 16, 25, 4, 1, 1, 1, 0, 0,
+            0]
+    assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0) == 0
+    assert out[0] == 0
+    for ctas, warps in ((0, 1), (9, 1), (1, 0), (1, 21)):
+        assert lib.ta_rehearse_band_cluster(*args, ctas, warps, 0) == 1
+    args[5] = None  # no codes: the regime is traced only
+    assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0) == 1
 
 
 # K10's body on its edges: the walk edge pairs (cells 0, 15, 16, 31, 32,

@@ -233,12 +233,13 @@ _LONG_B = np.full(4150, 66, np.uint8)
 # now hold the route's result against a reference (engine None).
 def _long_traced_pair(seed):
     """The shortest pairs past the band plan at an unbounded threshold (n =
-    4,100 > 4,096: unit_k 8,192): ACGT, substitutions and adjacent swaps."""
+    4,700: a traced batch's unit_k 4,704, band 9,409, past a block's
+    shared memory): ACGT, substitutions and adjacent swaps."""
     rng = np.random.default_rng(seed)
-    a = cs.ACGT[rng.integers(0, 4, 4100)]
+    a = cs.ACGT[rng.integers(0, 4, 4700)]
     b = a.copy()
-    b[rng.integers(0, 4100, 30)] = cs.ACGT[rng.integers(0, 4, 30)]
-    for q in rng.integers(0, 4099, 6).tolist():
+    b[rng.integers(0, 4700, 30)] = cs.ACGT[rng.integers(0, 4, 30)]
+    for q in rng.integers(0, 4699, 6).tolist():
         b[q], b[q + 1] = b[q + 1], b[q]
     return a, b
 
@@ -248,7 +249,7 @@ def _check_traced_long(dist, edits, a, b, k, costs):
         scalar_banded_batch_native)
 
     assert last_dispatch().path == "band_trace_global"
-    assert last_dispatch().unit_k == 8192
+    assert last_dispatch().unit_k == 4704
     assert dist == int(scalar_banded_batch_native([a], [b], k, costs)[0])
     assert cs.replay_cost(a, b, edits, costs) == dist > 0
 

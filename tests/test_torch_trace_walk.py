@@ -195,8 +195,20 @@ def test_trace_walk_checks_its_inputs():
 
 
 def test_band_plan_takes_traced_bands_past_the_cap():
+    # the cluster regime: the `past_plan` cell, 128 pairs of b strings up
+    # to 10,010 bytes at unit_k 10,016
+    W = 2 * 10_016 + 1
+    plan = tlb.band_plan(10_016, 10_016, True, batch=128, max_n=10_010)
+    assert plan["regime"] == "wide_cluster" and plan["smem_bytes"] == 0
+    assert plan["ctas_per_pair"] * plan["threads"] * 16 >= 10_010 + 3
+    assert plan["threads"] <= 32 * tlb.CLUSTER_MAX_WARPS
+    assert 1 <= plan["ctas_per_pair"] <= tlb.CLUSTER_MAX_CTAS
+    assert plan["scratch_bytes_per_pair"] == 0
+    assert plan["code_bytes_per_pair"] == 10_016 * tbs.code_words(W) * 4
+    # past the cluster's columns: the device-memory regime
     W = 2 * 16_384 + 1
-    plan = tlb.band_plan(10_016, 16_384, True, batch=128)
+    plan = tlb.band_plan(10_016, 16_384, True, batch=128,
+                         max_n=tlb.CLUSTER_MAX_COLUMNS)
     assert plan["regime"] == "wide_global" and plan["smem_bytes"] == 0
     assert plan["threads"] == tlb.GLOBAL_THREADS == 128
     assert plan["pairs_per_block"] == 1
@@ -208,39 +220,53 @@ def test_band_plan_takes_traced_bands_past_the_cap():
     assert tlb.band_plan(10_016, 16_384) is None
     assert tlb.band_plan(8, tlb.MAX_UNIT_K, True)["regime"] == "wide"
     assert tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True)["regime"] \
-        == "wide_global"
+        == "wide_cluster"
     assert tlb.band_plan(8, tlb.MAX_TRACE_UNIT_K + 1, True) is None
-    # a check may force the regime onto a narrow band; not past its cap
+    # a check may force either regime onto a narrow band; not past its cap
     t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
                                  [np.zeros(5, np.uint8)], 4, 8, device="cpu")
-    forced = dict(tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True), threads=64)
-    assert tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
-                          plan=forced)[0].tolist() == [2]
+    forced = dict(tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True,
+                                max_n=tlb.CLUSTER_MAX_COLUMNS), threads=64)
+    cluster = cs.cluster_plan(8, 4, 1, 1)
+    for plan in (forced, cluster):
+        assert tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
+                              plan=plan)[0].tolist() == [2]
     with pytest.raises(ValueError, match="plan"):
         tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
                        plan=dict(forced, threads=48))
+    with pytest.raises(ValueError, match="cluster plan"):
+        tlb.band_distance(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
+                          plan=cluster)
     with pytest.raises(ValueError, match="band plan"):
         tlb.band_distance(*t, unit_k=2 * tlb.MAX_UNIT_K,
                           costs_t=(1, 1, 0, 0, False))
+    # the cluster's columns must hold every pair's b to column n + 2
+    t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
+                                 [np.zeros(510, np.uint8)], 508, 8,
+                                 device="cpu")
+    with pytest.raises(ValueError, match="cluster plan"):
+        tlb.band_trace(*t, unit_k=508, costs_t=(1, 1, 0, 0, False),
+                       plan=cs.cluster_plan(8, 508, 1, 1))
 
 
 def test_traced_batch_past_the_plan_equals_jax():
     """The route that raised until the walk and the band kernel's
     device-memory regime were ported: the shortest pairs past the band
-    plan (n = 4,100 > 4,096, unbounded threshold: unit_k 8,192), edited
-    ACGT copies under rDamerau costs, against the JAX package's
-    `trace_batch` engine and the compiled scalar comparator."""
+    plan (n = 4,700, unbounded threshold: unit_k 4,704, band 9,409, past
+    the 227 KB of a block's shared memory), edited ACGT copies under
+    rDamerau costs, against the JAX package's `trace_batch` engine and the
+    compiled scalar comparator."""
     rng = np.random.default_rng(4100)
-    a = cs.ACGT[rng.integers(0, 4, 4096)]
+    a = cs.ACGT[rng.integers(0, 4, 4696)]
     b = a.copy()
-    b[rng.integers(0, 4096, 40)] = cs.ACGT[rng.integers(0, 4, 40)]
-    b = np.insert(b, rng.integers(0, 4096, 4), cs.ACGT[:4])
+    b[rng.integers(0, 4696, 40)] = cs.ACGT[rng.integers(0, 4, 40)]
+    b = np.insert(b, rng.integers(0, 4696, 4), cs.ACGT[:4])
     b[100], b[101] = b[101], b[100]
     got_d, got_t = tl.levenshtein_k_batch([a], [b], tl.U32_MAX,
                                           EditCosts(1, 1, 0, 1), True,
                                           device="cpu")
     assert last_dispatch().path == "band_trace_global"
-    assert last_dispatch().unit_k == 8192
+    assert last_dispatch().unit_k == 4704
     ref_d, ref_t = jl.levenshtein_k_batch([a], [b], jl.U32_MAX,
                                           JEditCosts(1, 1, 0, 1), True)
     assert got_d.tolist() == np.asarray(ref_d).tolist()

@@ -19,11 +19,16 @@ limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
 there is no CPU mode.
 
 With `--past-plan`, only K4 past the band plan at the shape of
-`chip_smoke.py`'s `past_plan` phase (128 pairs of 10,000 bytes, band
-32,769: the device-memory regime) over `GLOBAL_THREAD_POINTS` threads a
-block, one warm-up and one timed launch each (a launch takes seconds); every
+`chip_smoke.py`'s `past_plan` phase (128 pairs of 10,000 bytes at an
+unbounded threshold: unit_k 10,000, band 20,001), in the cluster regime
+over `CLUSTER_POINTS` (CTAs a cluster x warps a CTA that hold the 10,003
+columns, the plan's first), 3 timed launches each; `--pairs N` runs N
+pairs instead (1: the single-pair call).  With `--global` as well, the
+device-memory regime there over `GLOBAL_THREAD_POINTS` threads a block,
+one warm-up and one timed launch each (a launch takes seconds).  Every
 point must give the first point's distances and codes.  This is the
-measurement behind `lev_band.GLOBAL_THREADS`.
+measurement behind `lev_band.CLUSTER_WARPS`, `_cluster_map` and
+`GLOBAL_THREADS`.
 """
 
 from __future__ import annotations
@@ -49,8 +54,13 @@ SHAPES = (
     ("band_trace_long", True, 256, 3000, 64, RDAMERAU_T),
     ("band_distance_small", False, 256, 3000, 64, AFFINE_T),
 )
-PAST_PLAN_SHAPE = ("band_trace_past_plan", True, 128, 10_000, 16_384,
+PAST_PLAN_SHAPE = ("band_trace_past_plan", True, 128, 10_000, 10_000,
                    RDAMERAU_T)
+# (CTAs a cluster, warps a CTA): the fewest warps that hold 10,003 columns
+# at each cluster size, and one warp more
+CLUSTER_POINTS = tuple((c, w + e) for c in range(2, 9)
+                       for w in (-(-20 // c),) for e in (0, 1)
+                       if w + e <= lb.CLUSTER_MAX_WARPS)
 
 
 def _time_ms(fn, reps: int = 5):
@@ -83,15 +93,26 @@ def _make_batch(dev, pairs: int, length: int, unit_k: int):
     return a_t, b_t, m, m.clone()
 
 
-def _plans(rows: int, unit_k: int, traced: bool, pairs: int, only_chosen):
-    """The chosen plan first, then every other warp-regime plan."""
-    chosen = lb.band_plan(rows, unit_k, traced, batch=pairs)
+def _plans(rows: int, unit_k: int, traced: bool, pairs: int, only_chosen,
+           max_n: int, with_global: bool = False):
+    """The chosen plan first, then every other plan of its regime (and,
+    `with_global`, the device-memory regime's)."""
+    chosen = lb.band_plan(rows, unit_k, traced, batch=pairs, max_n=max_n)
     out = [chosen]
     W = 2 * unit_k + 1
-    if chosen["regime"] == "wide_global" and not only_chosen:
-        out += [dict(chosen, threads=t, lanes_per_pair=t,
+    if chosen["regime"] == "wide_cluster" and not only_chosen:
+        for ctas, warps in CLUSTER_POINTS:
+            plan = dict(chosen, ctas_per_pair=ctas, threads=32 * warps,
+                        warps_per_pair=ctas * warps,
+                        lanes_per_pair=32 * ctas * warps)
+            if plan != chosen and 512 * ctas * warps >= max_n + 3:
+                out.append(plan)
+    if with_global and not only_chosen:
+        deep = lb.band_plan(rows, unit_k, traced,
+                            max_n=lb.CLUSTER_MAX_COLUMNS)
+        out += [dict(deep, threads=t, lanes_per_pair=t,
                      warps_per_pair=t // 32, cells_per_lane=-(-W // t))
-                for t in GLOBAL_THREAD_POINTS if t != chosen["threads"]]
+                for t in GLOBAL_THREAD_POINTS]
     if only_chosen or chosen["regime"] != "warp":
         return out
     for cells in lb.WARP_CELLS:
@@ -120,12 +141,16 @@ def main(argv=None) -> int:
         check=True).stdout.strip(), flush=True)
     past_plan = "--past-plan" in argv
     shapes = (PAST_PLAN_SHAPE,) if past_plan else SHAPES
+    if past_plan and "--pairs" in argv:
+        n_pairs = int(argv[argv.index("--pairs") + 1])
+        shapes = (PAST_PLAN_SHAPE[:2] + (n_pairs,) + PAST_PLAN_SHAPE[3:],)
     for name, traced, pairs, length, unit_k, costs_t in shapes:
         tensors = _make_batch(dev, pairs, length, unit_k)
         fn = lb.band_trace if traced else lb.band_distance
         first = first_codes = None
         for k, plan in enumerate(_plans(tensors[0].shape[1], unit_k, traced,
-                                        pairs, only_chosen)):
+                                        pairs, only_chosen, length,
+                                        "--global" in argv)):
             res = fn(*tensors, unit_k=unit_k, costs_t=costs_t, plan=plan)
             dist = (res[0] if traced else res).cpu()
             if first is None:
@@ -135,6 +160,11 @@ def main(argv=None) -> int:
                 if first_codes is None:
                     first_codes = res[1]
                 extra["same_codes"] = bool(torch.equal(res[1], first_codes))
+            if plan["regime"] == "wide_cluster":
+                extra["ctas_per_pair"] = plan["ctas_per_pair"]
+            reps = 5
+            if past_plan:
+                reps = 1 if plan["regime"] == "wide_global" else 3
             print(json.dumps({
                 "kernel": name, "pairs": pairs, "str_len": length,
                 "band": 2 * unit_k + 1, "chosen": k == 0,
@@ -145,7 +175,7 @@ def main(argv=None) -> int:
                 "same_distances": bool(torch.equal(dist, first)), **extra,
                 "kernel_ms_median_min_max": _time_ms(lambda: fn(
                     *tensors, unit_k=unit_k, costs_t=costs_t, plan=plan),
-                    1 if past_plan else 5),
+                    reps),
             }), flush=True)
             del res
         del tensors, first_codes

@@ -1,8 +1,8 @@
-"""Kernel-only times of K1, K2 and K5-K7 at the shapes chip_smoke.py's
+"""Kernel-only times of K1, K2, K4 and K5-K7 at the shapes chip_smoke.py's
 phases give them, for comparing two versions of the port in one call.
 
     python3 -m triple_accel_tpu_torch.benches.kernel_ab [--tag NAME]
-        [--kernels K1 K2 K5 K6 K7 K10]
+        [--kernels K1 K2 K4 K5 K6 K7 K10]
 
 Run from the root of a checkout (it imports that checkout's package and
 `chip_smoke.py` input generators, and only calls the wrappers' arguments
@@ -26,6 +26,12 @@ beside this one is timed by the same script:
 * K7 `search_diag`: the 24-byte needle over the 128 MiB headline haystack
   at k = 6 under the phase's two general cost models (the version's own
   `suggest_own_len_diag`);
+* K4 `band_trace` past the band plan: the `past_plan` cell (128 x
+  10,000 B ACGT at an unbounded threshold, rDamerau costs) at the band
+  the version's traced dispatch chose (`K4_past_plan`) and at the
+  longest b rounded up to 16 (`K4_past_plan_exact_band`), each at the
+  version's own plan for it; 3 launches each (a launch of the
+  device-memory regime takes seconds);
 * K10 `trace_walk`: the walks of the three traced cells of the
   `band_trace` phase (8,192 x 1000 B at k = 32, 256 x 3000 B at k = 64,
   and `past_plan`, 128 x 10,000 B at an unbounded threshold; rDamerau
@@ -53,7 +59,7 @@ def main() -> int:
     ap.add_argument("--tag", default="", help="a name for the JSON line")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K5", "K6",
                                                      "K7", "K10"],
-                    choices=["K1", "K2", "K5", "K6", "K7", "K10"])
+                    choices=["K1", "K2", "K4", "K5", "K6", "K7", "K10"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA device", file=sys.stderr)
@@ -97,6 +103,8 @@ def main() -> int:
                                          damerau=damerau), 15)
         out["K2_halo_own_len"] = [halo, own]
         del hay_d, hay
+    if "K4" in args.kernels:
+        out.update(time_k4(cs, dev, ms))
     if "K10" in args.kernels:
         out.update(time_k10(cs, dev, ms))
     if not {"K5", "K6", "K7"} & set(args.kernels):
@@ -146,6 +154,34 @@ def main() -> int:
         out[f"K7_{c}_own_len"] = own
     print(json.dumps(out), flush=True)
     return 0
+
+
+def time_k4(cs, dev, ms) -> dict:
+    """K4 at the `past_plan` cell; the inputs as chip_smoke.py makes them,
+    the band as the version's traced call picks it, and the exact band."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import last_dispatch
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    a_p, b_p = cs.make_long_pairs(cs.PAST_PLAN_PAIRS, cs.PAST_PLAN_LEN,
+                                  cs.PAST_PLAN_EDIT_SHARE, seed=3030)
+    b_p = cs.swap_adjacent_list(b_p, cs.PAST_PLAN_SWAP_SHARE,
+                                np.random.default_rng(3031))
+    sa = [a if len(a) <= len(b) else b for a, b in zip(a_p, b_p)]
+    sb = [b if len(a) <= len(b) else a for a, b in zip(a_p, b_p)]
+    costs = tt.RDAMERAU_COSTS
+    tt.levenshtein_k_batch(a_p, b_p, cs.U32_MAX, costs, trace_on=True)
+    dec = last_dispatch()
+    exact = -(-max(len(b) for b in sb) // 16) * 16
+    out = {"K4_past_plan_unit_k": [dec.unit_k, exact]}
+    for name, uk in (("K4_past_plan", dec.unit_k),
+                     ("K4_past_plan_exact_band", exact)):
+        t = lb.prepare_band_tensors(sa, sb, uk, dec.padded_m, device=dev)
+        out[name] = ms(lambda: lb.band_trace(
+            *t, unit_k=uk, costs_t=cs.costs_tuple(costs)), 3)
+        del t
+        torch.cuda.empty_cache()
+    return out
 
 
 def time_k10(cs, dev, ms) -> dict:

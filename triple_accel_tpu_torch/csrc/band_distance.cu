@@ -28,7 +28,7 @@
 // the code; chip_smoke.py's BAND_OPS_* list them) against 2 / W bytes of
 // strings, and the traced kernel writes 2 bits per cell.
 //
-// Three regimes, one function:
+// Four regimes, one function:
 //   * band_kernel<TRANS, TRACE, C>, every band up to 32 * 17 = 544 cells
 //     (all of chip_smoke.py's phases: 65, 129 and 513 cells).  A group of
 //     G = 8, 16 or 32 lanes of one warp owns one pair (32 / G pairs a
@@ -53,22 +53,44 @@
 //     word and the group's lanes join them into the row's 32-bit words by
 //     shuffles (cell c at bits 2 * (c % 16) of word c / 16, the layout of
 //     the plain version), lane w writing word w: one coalesced row.
-//   * band_wide_kernel<TRANS, TRACE, false>, wider bands (up to 8193
-//     cells): one pair a block, the band in shared memory (6 rows of W
-//     ints), each thread a contiguous run of cells, two block barriers a
-//     row.  No main path runs it.
-//   * band_wide_kernel<TRANS, TRACE, true>, traced bands of any width
-//     (chip_smoke.py's past_plan phase: 32,769 cells): the same row passes
-//     over the same state layout, kept in a per-pair scratch in device
-//     memory that the wrapper allocates, since it passes what a block's
-//     shared memory holds.  A simple regime, right first: its state
-//     streams through L1 and L2 at every row.
+//   * band_wide_kernel<TRANS, TRACE, false>, wider bands whose state fits
+//     a block's shared memory (6 rows of W ints: up to 9,291 cells): one
+//     pair a block, each thread a contiguous run of cells, two block
+//     barriers a row.  No main path runs it.
+//   * band_cluster_kernel<TRANS>, traced bands past that (chip_smoke.py's
+//     past_plan phase: unit_k 10,064, 20,129 cells) for pairs of b strings
+//     up to 16 * 32 * 20 * 8 - 3 = 81,917 bytes: one pair a thread-block
+//     cluster, the matrix's columns (not the band's cells: in columns every
+//     dependence runs left to right or down) spread over its warps, 16
+//     consecutive columns a lane in registers (cells left of column 0 are
+//     not computed: the matrix's cells, not the band's, are the work; a
+//     warp none of whose columns meets row i's band inside columns 0 ..
+//     n + 2 skips the row's cells, `cl_warp_idle`).
+//     D and the chain's input are INF outside the matrix and the band; the
+//     band row's cells left of column 0 and right of the cluster's columns
+//     get their codes from a rule (left: 1 where a[i-1] != b's pad byte,
+//     else 0; right: 1).  The warps are a pipeline one row apart: a warp
+//     hands the next one, through a ring in the next warp's shared memory
+//     (the next CTA's, by distributed shared memory), the chain entering
+//     it, D of the row before at its last two columns and its last lane's
+//     codes; acquire / release counts, released every 4 rows, at CTA scope
+//     inside a CTA.  A lane packs its 16 codes in one register; the word
+//     of row i holding its first cell joins the left lane's codes with a
+//     funnel shift (the band's cells lie one column further right each
+//     row), so a warp writes 32 consecutive words a row.
+//   * band_wide_kernel<TRANS, TRACE, true>, traced bands of any width up to
+//     unit_k 2^20 for longer b strings: the shared-memory regime's row
+//     passes over the same state, kept in a per-pair scratch in device
+//     memory that the wrapper allocates.  Simple and slow (its state
+//     streams through L1 and L2 at every row: 354x its bound at band
+//     32,769); only pairs the cluster regime cannot hold take it.
 // Every cascade is selects on non-short-circuit compares (a branch makes
 // the lanes of a warp diverge), and the min chains use Hopper's DPX
 // (__viaddmin_s32 for min(a + b, c), __vimin3_s32).  The per-lane passes
 // and the wide regime's row passes are plain functions, so the host
 // rehearsal (host_rehearsal.cpp, -DTA_HOST_REHEARSAL) runs exactly this
-// arithmetic, lanes or threads one at a time, the shuffles as arrays.
+// arithmetic, lanes or threads one at a time, the shuffles as arrays (the
+// cluster regime: its warps in pipeline order, the rings arrays).
 
 #include <stddef.h>
 
@@ -584,9 +606,399 @@ static inline bool band_warp_map_ok(int cells, int lanes, int W) {
          (lanes == 8 || lanes == 16 || lanes == 32) && cells * lanes >= W;
 }
 
+// ---------------------------------------------------------------------------
+// the cluster regime: one pair a thread-block cluster, the matrix's columns
+// in registers, the warps a pipeline one row apart
+// ---------------------------------------------------------------------------
+
+constexpr int TA_CL_COLS = 16;  // columns a lane: one code word a row
+constexpr int TA_CL_MAX_CTAS = 8;     // CTAs a cluster (the portable size)
+constexpr int TA_CL_MAX_WARPS = 20;   // warps a CTA
+constexpr int TA_CL_RING = 32;        // hand-over slots a warp boundary
+// rows a hand-over count is released for, dividing TA_CL_RING / 2 (a
+// release waits for the thread's earlier stores; one every 4 rows took a
+// single pair 18.0 ms against 19.0 every row, 18.1 every 8: PERF.md)
+constexpr int TA_CL_BATCH = 4;
+constexpr uint32_t TA_CL_ONES = 0x55555555u;  // 16 codes 1 (consume b)
+
+// One pair as a cluster sees it.  Lane k of the cluster (k = (cta * warps
+// + warp) * 32 + lane) owns columns [16k, 16k + 16); K lanes hold columns
+// [0, 16K), and 16K > n + 2.
+struct ClPair {
+  int32_t m, n, uk, W, wpr, K;
+  int32_t jf;  // the final column: band cell clip(n - m + uk, 0, W-1), row m
+};
+
+static TA_DEV ClPair cl_pair(int32_t m, int32_t n, int32_t uk, int32_t K) {
+  ClPair P;
+  P.m = m;
+  P.n = n;
+  P.uk = uk;
+  P.W = 2 * uk + 1;
+  P.wpr = (P.W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
+  P.K = K;
+  P.jf = band_final_cell(m, n, uk, P.W) + m - uk;
+  return P;
+}
+
+// What a row needs besides the registers, a bit a column of the lane
+// (jb + c at bit c): the columns inside the matrix and the band, [max(0, i
+// - unit_k), min(n, i + unit_k)] (D and the chain's input are INF
+// elsewhere), and those with j >= 2 (a transposition needs them).
+struct ClRow {
+  int32_t ach;  // a[i-1]
+  uint32_t valid, j2;
+};
+
+// Bits [lo, hi] of 16 (none where hi < lo).
+static TA_DEV uint32_t cl_bits(int32_t lo, int32_t hi) {
+  lo = lo < 0 ? 0 : lo;
+  hi = hi > 15 ? 15 : hi;
+  return hi < lo ? 0u : ((2u << hi) - 1u) & ~((1u << lo) - 1u);
+}
+
+static TA_DEV ClRow cl_row(int32_t i, int32_t ach, const ClPair& P,
+                           int32_t jb) {
+  ClRow R;
+  R.ach = ach;
+  const int32_t lo = i - P.uk, hi = i + P.uk;
+  R.valid = cl_bits((lo > 0 ? lo : 0) - jb, (hi < P.n ? hi : P.n) - jb);
+  R.j2 = cl_bits(2 - jb, 15);
+  return R;
+}
+
+// What a lane's first columns need from the left: D(i-1, jb-1), D(i-2,
+// jb-1) and D(i-2, jb-2).
+struct ClLeft {
+  int32_t d1, d0a, d0b;
+};
+
+template <bool TRANS>
+struct ClLane {
+  int32_t dp1[TA_CL_COLS];               // D of row i-1 (row i after pass 2)
+  int32_t dp0[TRANS ? TA_CL_COLS : 1];   // D of row i-2
+  int32_t bg[TA_CL_COLS];  // vertical-gap state of row i-1 (i after pass 1)
+  uint32_t h4[TA_CL_COLS / 4];  // b[j-1], the b byte of each column, packed
+  int32_t hl;                   // b[jb-2]
+  // a bit a column: b[j-1] == a[i-1] (`ma`, row i) and == a[i-2] (`mp`:
+  // row i-1's `ma`), and the transposition condition of row i (`tb`)
+  uint32_t ma, mp, tb;
+};
+
+// 16 bits, bit c set where column jb + c's b byte equals the byte x: four
+// bytes a word at once (a byte of v is 0 where it matched; the 0x80 bits
+// of `nz` mark the others, then a multiply gathers the four bits).
+static TA_DEV uint32_t cl_eq_mask(const uint32_t (&h4)[TA_CL_COLS / 4],
+                                  int32_t x) {
+  const uint32_t xx = (uint32_t)(x & 0xff) * 0x01010101u;
+  uint32_t m = 0u;
+#pragma unroll
+  for (int q = 0; q < TA_CL_COLS / 4; ++q) {
+    const uint32_t v = h4[q] ^ xx;
+    const uint32_t nz = (((v & 0x7f7f7f7fu) + 0x7f7f7f7fu) | v) & 0x80808080u;
+    const uint32_t eq = (~nz & 0x80808080u) >> 7;
+    m |= (((eq * 0x00204081u) >> 21) & 0xfu) << (4 * q);
+  }
+  return m;
+}
+
+// Byte x of the pair's b row (b at offset unit_k), 0 outside it.
+static TA_DEV int32_t cl_b_at(const uint8_t* b_row, int64_t b_len,
+                              int64_t x) {
+  return x >= 0 && x < b_len ? (int32_t)b_row[x] : 0;
+}
+
+// Row 0 and the empty history of columns jb .. jb + 15: D(0, j) inside the
+// matrix and the band (j <= n, j <= unit_k), INF elsewhere.
+template <bool TRANS>
+static TA_DEV void cl_lane_init(ClLane<TRANS>& L, const uint8_t* b_row,
+                                int64_t b_len, const ClPair& P, int32_t jb,
+                                const BandCosts& k) {
+#pragma unroll
+  for (int c = 0; c < TA_CL_COLS; ++c) {
+    const int32_t j = jb + c;
+    L.dp1[c] = (j <= P.n && j <= P.uk)
+                   ? ta_min32(j * k.gc + (j > 0 ? k.sgc : 0), TA_BAND_INF)
+                   : TA_BAND_INF;
+    if (TRANS) L.dp0[c] = TA_BAND_INF;
+    L.bg[c] = TA_BAND_INF;
+  }
+#pragma unroll
+  for (int q = 0; q < TA_CL_COLS / 4; ++q) {
+    uint32_t w = 0u;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      w |= (uint32_t)cl_b_at(b_row, b_len,
+                             (int64_t)P.uk + jb + 4 * q + r - 1) << (8 * r);
+    L.h4[q] = w;
+  }
+  L.hl = cl_b_at(b_row, b_len, (int64_t)P.uk + jb - 2);
+  L.ma = L.mp = L.tb = 0u;
+}
+
+// Row i's matches, then its transpositions: b[j-2] == a[i-1] (the match
+// bit one column left; b[jb-2] for the first) and b[j-1] == a[i-2] (row
+// i-1's match bit: none at row 1), at j >= 2.  Every row, also where the
+// warp leaves the cells alone.
+template <bool TRANS>
+static TA_DEV void cl_lane_masks(ClLane<TRANS>& L, const ClRow& R) {
+  L.mp = L.ma;
+  L.ma = cl_eq_mask(L.h4, R.ach);
+  if (TRANS) L.tb = ((L.ma << 1) | (uint32_t)(L.hl == R.ach)) & L.mp & R.j2;
+}
+
+// Whether warp g (columns 512 g .. 512 g + 511) holds no cell of row i
+// inside the band and columns 0 .. n + 2: left of the band it is done for
+// good (nothing inside the band reads its D again but masked cells), right
+// of it its D and gap state are still INF; it computes nothing, hands on
+// the chain as INF, and its codes are 1 (right of the band's cells inside
+// the matrix; left of the band no word holds them).
+static TA_DEV bool cl_warp_idle(int32_t g, int32_t i, const ClPair& P) {
+  const int32_t lo = g * 32 * TA_CL_COLS, hi = lo + 32 * TA_CL_COLS - 1;
+  const int32_t right = i + P.uk < P.n + 2 ? i + P.uk : P.n + 2;
+  return hi < i - P.uk || lo > right;
+}
+
+// D and the gap state the lane hands to the lane on its right (row i-1:
+// taken before pass 1).
+template <bool TRANS>
+static TA_DEV ClLeft cl_lane_right(const ClLane<TRANS>& L) {
+  return ClLeft{L.dp1[TA_CL_COLS - 1],
+                TRANS ? L.dp0[TA_CL_COLS - 1] : TA_BAND_INF,
+                TRANS ? L.dp0[TA_CL_COLS - 2] : TA_BAND_INF};
+}
+
+// Pass 1 of row i: the vertical gap (stored as the row's gap state), the
+// substitution, the transposition and dprime of each column, the chain
+// over the lane's own columns from INF; returns F after the lane's last
+// column.  In column coordinates every input lies left of the column or
+// above it: D(i-1, j-1), D(i-1, j) and the gap state of column j, D(i-2,
+// j-2).
+template <bool TRANS>
+static TA_DEV int32_t cl_lane_pass1(ClLane<TRANS>& L, const BandCosts& k,
+                                    const ClRow& R, const ClLeft& in) {
+  int32_t f = TA_BAND_INF;
+  const int32_t vnew = k.sgc + k.gc;
+#pragma unroll
+  for (int c = 0; c < TA_CL_COLS; ++c) {
+    const int32_t dl = c == 0 ? in.d1 : L.dp1[c - 1];
+    const int32_t sub = dl + ((L.ma >> c) & 1u ? 0 : k.mc);
+    // clamped before it is carried, so saturated cells do not creep
+    const int32_t bgap =
+        bd_addmin(L.dp1[c], vnew, bd_addmin(L.bg[c], k.gc, TA_BAND_INF));
+    int32_t dpr;
+    if (TRANS) {
+      const int32_t d0 = c >= 2 ? L.dp0[c - 2] : (c == 1 ? in.d0a : in.d0b);
+      dpr = bd_min3(sub, bgap,
+                    (L.tb >> c) & 1u ? d0 + k.tc : TA_BAND_NONE);
+    } else {
+      dpr = ta_min32(sub, bgap);
+    }
+    // outside the matrix and the band the chain's input is INF, as the
+    // plain version masks it
+    dpr = (R.valid >> c) & 1u ? dpr : TA_BAND_INF;
+    L.bg[c] = bgap;
+    f = bd_addmin(f, k.gc, dpr);
+  }
+  return f;
+}
+
+// D of the lane's column jb + c (no dynamic index: the arrays stay in
+// registers).
+template <bool TRANS>
+static TA_DEV int32_t cl_lane_pick(const ClLane<TRANS>& L, int32_t c) {
+  int32_t d = TA_BAND_INF;
+#pragma unroll
+  for (int q = 0; q < TA_CL_COLS; ++q) d = q == c ? L.dp1[q] : d;
+  return d;
+}
+
+// The scan's element of lane l of a warp: F after the lane less its
+// offset, so that the chain across lanes is a plain min-scan.
+static TA_DEV int32_t cl_key(int32_t f_out, int32_t l, int32_t gc) {
+  return f_out - (l + 1) * TA_CL_COLS * gc;
+}
+
+// F entering lane l from F entering the warp (`cin`) and the exclusive
+// min-scan of the keys; F leaving the warp from the inclusive scan of its
+// last lane (l = 32).
+static TA_DEV int32_t cl_carry(int32_t cin, int32_t ex, int32_t l,
+                               int32_t gc) {
+  return l == 0 ? cin : ta_min32(cin, ex) + l * TA_CL_COLS * gc;
+}
+
+// Pass 2 of row i: the chain from `f` (F at the lane's first column), the
+// cascade, the new row of D (INF outside the matrix and the band); returns
+// the columns' two-bit codes, column c at bits 2c.  The substitution and
+// the transposition are formed again from the row i-1 and i-2 values as
+// they are rotated out (fewer registers than keeping them from pass 1).
+template <bool TRANS>
+static TA_DEV uint32_t cl_lane_pass2(ClLane<TRANS>& L, const BandCosts& k,
+                                     const ClRow& R, const ClLeft& in,
+                                     int32_t f) {
+  uint32_t bits = 0u;
+  const int32_t hs = k.gc + k.sgc;
+  int32_t dl = in.d1;                // D(i-1, j-1)
+  int32_t o1 = in.d0a, o2 = in.d0b;  // D(i-2, j-1), D(i-2, j-2)
+#pragma unroll
+  for (int c = 0; c < TA_CL_COLS; ++c) {
+    const int32_t sub = dl + ((L.ma >> c) & 1u ? 0 : k.mc);
+    const int32_t bgap = L.bg[c];
+    const int32_t trn =
+        TRANS && ((L.tb >> c) & 1u) ? o2 + k.tc : TA_BAND_NONE;
+    const int32_t e = bd_addmin(f, hs, TA_BAND_INF);
+    const bool te = e < sub;
+    int32_t v = ta_min32(e, sub);
+    const bool tbg = bgap < v;
+    v = ta_min32(v, bgap);
+    const bool tt = TRANS & (trn <= v);
+    const int32_t d = TRANS ? ta_min32(v, trn) : v;
+    uint32_t code = tbg ? 2u : (uint32_t)te;
+    code = tt ? 3u : code;
+    bits |= code << (2 * c);
+    const bool valid = (R.valid >> c) & 1u;
+    const int32_t dpr =
+        valid ? (TRANS ? bd_min3(sub, bgap, trn) : ta_min32(sub, bgap))
+              : TA_BAND_INF;
+    dl = L.dp1[c];
+    if (TRANS) {
+      o2 = o1;
+      o1 = L.dp0[c];
+      L.dp0[c] = L.dp1[c];
+    }
+    L.dp1[c] = valid ? d : TA_BAND_INF;
+    f = bd_addmin(f, k.gc, dpr);
+  }
+  return bits;
+}
+
+// The word of row i that holds lane k's first cell, and its codes: the
+// last s codes of the lane on the left, then this lane's first 16 - s
+// (s = (unit_k - i) mod 16: band cell c is column c + i - unit_k, one
+// column further right each row).
+static TA_DEV int32_t cl_word_index(int32_t k, int32_t i, int32_t uk) {
+  return k + ((uk - i) >> 4);
+}
+
+static TA_DEV uint32_t cl_word(uint32_t left, uint32_t own, int32_t i,
+                               int32_t uk) {
+  const int32_t s2 = 2 * ((uk - i) & 15);
+#ifdef TA_HOST_REHEARSAL
+  return s2 == 0 ? own : (own << s2) | (left >> (32 - s2));
+#else
+  return __funnelshift_l(left, own, s2);
+#endif
+}
+
+// The band row's last word holds cells past W - 1: 0, as the plain
+// version's padding.
+static TA_DEV uint32_t cl_word_mask(int32_t w, const ClPair& P) {
+  const int32_t live = P.W - TA_CODES_PER_WORD * w;
+  return live >= TA_CODES_PER_WORD ? 0xffffffffu
+                                   : ((1u << (2 * live)) - 1u);
+}
+
+// Codes of the 16 cells from b's byte x0 on at row i, left of column 0:
+// there every input is INF (e too), so the cascade takes the chain where
+// the substitution misses and meets a[i-1] != b (code 1), else keeps it.
+static TA_DEV uint32_t cl_left_word(const uint8_t* b_row, int64_t b_len,
+                                    int64_t x0, int32_t ach) {
+  uint32_t word = 0u;
+#pragma unroll
+  for (int q = 0; q < TA_CODES_PER_WORD; ++q)
+    word |= (uint32_t)(cl_b_at(b_row, b_len, x0 + q) != ach) << (2 * q);
+  return word;
+}
+
+// Bit q of a 16-bit mask to bit 2q.
+static TA_DEV uint32_t cl_spread(uint32_t x) {
+  x = (x | (x << 8)) & 0x00ff00ffu;
+  x = (x | (x << 4)) & 0x0f0f0f0fu;
+  x = (x | (x << 2)) & 0x33333333u;
+  return (x | (x << 1)) & 0x55555555u;
+}
+
+// The same codes where all 16 bytes lie inside the b row (x0 >= 0, x0 +
+// 16 <= b_len, and up to 3 bytes more past them, which the row's pad
+// holds): the card reads them as five aligned words and compares four
+// bytes at once (`cl_eq_mask`).
+static TA_DEV uint32_t cl_left_word_in(const uint8_t* b_row, int64_t x0,
+                                       int32_t ach) {
+  uint32_t h4[TA_CL_COLS / 4];
+#ifdef TA_HOST_REHEARSAL
+  for (int q = 0; q < TA_CL_COLS / 4; ++q) {
+    h4[q] = 0u;
+    for (int r = 0; r < 4; ++r)
+      h4[q] |= (uint32_t)b_row[x0 + 4 * q + r] << (8 * r);
+  }
+#else
+  const uint8_t* at = b_row + x0;
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(
+      reinterpret_cast<uintptr_t>(at) & ~(uintptr_t)3);
+  const uint32_t sh = 8u * (uint32_t)(reinterpret_cast<uintptr_t>(at) & 3);
+  uint32_t v[5];
+#pragma unroll
+  for (int q = 0; q < 5; ++q) v[q] = __ldg(w + q);
+#pragma unroll
+  for (int q = 0; q < TA_CL_COLS / 4; ++q)
+    h4[q] = __funnelshift_r(v[q], v[q + 1], sh);
+#endif
+  return cl_spread(~cl_eq_mask(h4, ach) & 0xffffu);
+}
+
+// Row i's words that hold no lane's first cell: those left of the first
+// lane's, [0, nl), from b's bytes left of column 0, then those right of
+// the last lane's straddling word, [r0, wpr), all code 1 (the plan keeps
+// the chain there under INF).  The x-th of them: its index, or -1.
+static TA_DEV int32_t cl_extra_index(int32_t x, int32_t i, const ClPair& P) {
+  const int32_t q = (P.uk - i) >> 4;
+  const int32_t nl = q < 0 ? 0 : (q < P.wpr ? q : P.wpr);
+  if (x < nl) return x;
+  int32_t r0 = q + P.K + 1;
+  r0 = r0 > 0 ? r0 : 0;
+  const int32_t w = r0 + (x - nl);
+  return w < P.wpr ? w : -1;
+}
+
+static TA_DEV uint32_t cl_extra_word(int32_t w, int32_t i, int32_t ach,
+                                     const uint8_t* b_row, const ClPair& P) {
+  // a word left of the first lane's holds bytes i - 1 + 16 w .. + 15 <=
+  // unit_k - 2 of b's row: inside it, with its pad after them
+  const uint32_t word =
+      w < ((P.uk - i) >> 4)
+          ? cl_left_word_in(b_row, (int64_t)i - 1 + TA_CODES_PER_WORD * w,
+                            ach)
+          : TA_CL_ONES;
+  return word & cl_word_mask(w, P);
+}
+
+// Codes of columns -16 .. -1 of row i: what lane 0 of the cluster joins
+// with its own in its word.
+static TA_DEV uint32_t cl_left_of_zero(const uint8_t* b_row, int64_t b_len,
+                                       int32_t uk, int32_t ach) {
+  return cl_left_word(b_row, b_len, (int64_t)uk - 17, ach);
+}
+
+// The hand-over from a warp to the next (in the CTA, or the first warp of
+// the next CTA of the cluster), one slot a row: F entering the next warp's
+// first column at row i, D of row i-1 at the warp's last two columns, and
+// the codes of its last lane at row i-1.  Row m + 1 carries the codes only.
+struct ClSlot {
+  int32_t f, d1, d2;
+  uint32_t v;
+};
+
+// What the launcher takes: the band, the cluster and the lanes' columns.
+static inline bool band_cluster_ok(int unit_k, int ctas, int warps) {
+  return unit_k >= 0 && unit_k <= TA_BAND_GLOBAL_MAX_UNIT_K && ctas >= 1 &&
+         ctas <= TA_CL_MAX_CTAS && warps >= 1 && warps <= TA_CL_MAX_WARPS;
+}
+
 }  // namespace
 
 #ifndef TA_HOST_REHEARSAL
+
+#include <cooperative_groups.h>
 
 namespace {
 
@@ -750,6 +1162,238 @@ __global__ void __launch_bounds__(1024)
 
 namespace {
 
+// Where a warp's hand-overs live: the ring of the warp it receives from is
+// in its own CTA's shared memory (the sender writes it, across CTAs through
+// the cluster's distributed shared memory); `pub[w]` counts the rows put
+// into warp w's ring, `taken[w]` the rows taken from warp w's outbound
+// ring (kept in the sender's CTA, so that the sender polls locally).
+struct ClRing {
+  ClSlot slot[TA_CL_MAX_WARPS][TA_CL_RING];
+  int pub[TA_CL_MAX_WARPS];
+  int taken[TA_CL_MAX_WARPS];
+};
+
+// Acquire / release at the narrowest scope that holds both warps: the CTA
+// when they share one (an SM's own memory order), the cluster across CTAs
+// (its release also waits for the thread's earlier global stores to reach
+// the cluster, so it costs about an L2 round trip).
+static __device__ __forceinline__ int cl_ld_acquire(const int* p, bool cta) {
+  int v;
+  if (cta)
+    asm volatile("ld.acquire.cta.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  else
+    asm volatile("ld.acquire.cluster.b32 %0, [%1];"
+                 : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+static __device__ __forceinline__ void cl_st_release(int* p, int v,
+                                                     bool cta) {
+  if (cta)
+    asm volatile("st.release.cta.b32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+  else
+    asm volatile("st.release.cluster.b32 [%0], %1;"
+                 :: "l"(p), "r"(v) : "memory");
+}
+
+// All lanes of the warp: spin until the count reaches `target`.
+static __device__ __forceinline__ int cl_wait(const int* p, int target,
+                                              bool cta) {
+  int v;
+  while ((v = cl_ld_acquire(p, cta)) < target) {
+  }
+  return v;
+}
+
+}  // namespace
+
+// One pair a cluster of gridDim-consecutive CTAs (cluster size = the
+// launch's), `blockDim.x / 32` warps a CTA, 16 columns a lane.  Each warp
+// runs the pair's rows in order; it takes row i's hand-over from the warp
+// on its left once that warp's pass 1 and scan of row i are done, and
+// writes row i-1's code words then (its lane 0's word needs the left
+// warp's last codes of row i-1, which come with that hand-over).
+// The launch bound, 20 warps, holds the kernel to 96 registers a thread
+// (spilling about 90 bytes), so that two CTAs of 10 warps share an SM:
+// the `past_plan` cell's 128 pairs then fit the card in one wave (50.6 ms
+// against 53.6 at 128 registers and 16 warps; PERF.md).
+template <bool TRANS>
+__global__ void __launch_bounds__(TA_CL_MAX_WARPS * 32)
+    band_cluster_kernel(const uint8_t* __restrict__ a,
+                        const uint8_t* __restrict__ b,
+                        const int32_t* __restrict__ m,
+                        const int32_t* __restrict__ n,
+                        int32_t* __restrict__ out,
+                        uint32_t* __restrict__ codes, int64_t a_stride,
+                        int64_t b_stride, int unit_k, int64_t code_rows,
+                        BandCosts k) {
+  namespace cg = cooperative_groups;
+  __shared__ ClRing ring;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int r = (int)cluster.block_rank();
+  const int NW = blockDim.x >> 5;
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int64_t p = blockIdx.x / S;
+  const int32_t K = S * NW * 32;
+  const int32_t gwarp = r * NW + w;  // the warp's place in the pipeline
+  const int32_t kl = gwarp * 32 + lane;
+  const int32_t jb = kl * TA_CL_COLS;
+  const uint8_t* a_row = a + p * a_stride;
+  const uint8_t* b_row = b + p * b_stride;
+  // m is cut to the a row's length, as in band_kernel; n to what the
+  // cluster's columns hold (the wrapper's contract: n + 3 <= 16 K)
+  int32_t mm = m[p] < a_stride ? m[p] : (int32_t)a_stride;
+  int32_t nn = n[p] < 16 * K - 3 ? n[p] : 16 * K - 3;
+  const ClPair P = cl_pair(mm, nn, unit_k, K);
+  uint32_t* code_out = codes + p * code_rows * P.wpr;
+
+  if (t < TA_CL_MAX_WARPS) ring.pub[t] = ring.taken[t] = 0;
+  cluster.sync();  // no hand-over lands before its counters are set
+
+  // the ring this warp takes from (null: the cluster's first warp) and the
+  // one it puts into (null: the last)
+  const bool first = gwarp == 0, last = gwarp == S * NW - 1;
+  // whether the warp on the left / right is in this CTA
+  const bool in_cta = w > 0, out_cta = w + 1 < NW;
+  ClSlot* in_slots = first ? nullptr : ring.slot[w];
+  const int* in_pub = &ring.pub[w];
+  int* in_taken = nullptr;  // the sender's count of what this warp took
+  if (!first)
+    in_taken = w > 0 ? &ring.taken[w - 1]
+                     : cluster.map_shared_rank(&ring.taken[NW - 1], r - 1);
+  ClSlot* out_slots = nullptr;
+  int* out_pub = nullptr;
+  const int* out_taken = &ring.taken[w];
+  if (!last) {
+    const int dw = w + 1 < NW ? w + 1 : 0;
+    const int dr = w + 1 < NW ? r : r + 1;
+    out_slots = cluster.map_shared_rank(&ring.slot[dw][0], dr);
+    out_pub = cluster.map_shared_rank(&ring.pub[dw], dr);
+  }
+
+  ClLane<TRANS> L;
+  cl_lane_init(L, b_row, b_stride, P, jb, k);
+  const int32_t fcol = P.jf - jb;
+  if (mm == 0 && fcol >= 0 && fcol < TA_CL_COLS) out[p] = cl_lane_pick(L, fcol);
+  // the warp's left edge: D(i-1, jl-1), D(i-1, jl-2) and the same of row
+  // i-2 (INF left of column 0)
+  int32_t e1a = TA_BAND_INF, e1b = TA_BAND_INF;
+  int32_t e2a = TA_BAND_INF, e2b = TA_BAND_INF;
+  uint32_t vprev = 0u;  // the lane's codes of row i-1
+  int32_t ach = mm > 0 ? a_row[0] : 0, apv = -1;
+  int seen = 0;      // rows the receiver has taken, as last seen
+  int seen_pub = 0;  // rows handed over to this warp, as last seen
+  for (int32_t i = 1;; ++i) {
+    int32_t cin = TA_BAND_INF;
+    uint32_t vleft;  // codes left of lane 0 at row i-1
+    if (first) {
+      // a[i-2] is apv from row 2 on
+      vleft = i > 1 && lane == 0
+                  ? cl_left_of_zero(b_row, b_stride, unit_k, apv)
+                  : 0u;
+    } else {
+      if (seen_pub < i) seen_pub = cl_wait(in_pub, i, in_cta);
+      const ClSlot s = in_slots[i % TA_CL_RING];
+      __syncwarp();
+      if (lane == 0 && i % TA_CL_BATCH == 0)
+        cl_st_release(in_taken, i, in_cta);
+      cin = s.f;
+      vleft = s.v;
+      e2a = e1a;
+      e2b = e1b;
+      e1a = s.d1;
+      e1b = s.d2;
+    }
+    // row i-1's words: each lane the word of its first cell, the last lane
+    // also the one it shares with the columns past the cluster
+    const uint32_t from_left = __shfl_up_sync(0xffffffffu, vprev, 1);
+    const uint32_t left = lane == 0 ? vleft : from_left;
+    auto store_words = [&]() {
+      const int32_t wi = cl_word_index(kl, i - 1, unit_k);
+      if (i > 1 && wi >= 0 && wi < P.wpr)
+        code_out[(int64_t)(i - 2) * P.wpr + wi] =
+            cl_word(left, vprev, i - 1, unit_k) & cl_word_mask(wi, P);
+      if (i > 1 && kl == K - 1 && wi + 1 >= 0 && wi + 1 < P.wpr)
+        code_out[(int64_t)(i - 2) * P.wpr + wi + 1] =
+            cl_word(vprev, TA_CL_ONES, i - 1, unit_k) &
+            cl_word_mask(wi + 1, P);
+    };
+    if (i > mm) {  // the codes of row m go on to the next warp, and done
+      if (!last) {
+        if (seen < i - TA_CL_RING)
+          seen = cl_wait(out_taken, i - TA_CL_RING, out_cta);
+        __syncwarp();
+        if (lane == 31) {  // the last hand-over: released at once
+          out_slots[i % TA_CL_RING] = ClSlot{0, 0, 0, vprev};
+          cl_st_release(out_pub, i, out_cta);
+        }
+      }
+      store_words();
+      break;
+    }
+    // from the lane on the left, or at lane 0 from the warp on the left
+    const ClLeft own = cl_lane_right(L);
+    ClLeft in;
+    in.d1 = __shfl_up_sync(0xffffffffu, own.d1, 1);
+    in.d0a = TRANS ? __shfl_up_sync(0xffffffffu, own.d0a, 1) : 0;
+    in.d0b = TRANS ? __shfl_up_sync(0xffffffffu, own.d0b, 1) : 0;
+    if (lane == 0) in = ClLeft{e1a, e2a, e2b};
+    const ClRow R = cl_row(i, ach, P, jb);
+    const int32_t an = i < mm ? a_row[i] : 0;  // the next row's character
+    cl_lane_masks(L, R);
+    const bool idle = cl_warp_idle(gwarp, i, P);  // the whole warp
+    int32_t ex = 0, f_next = TA_BAND_INF;  // F into the next warp: lane 31
+    if (!idle) {
+      const int32_t f_out = cl_lane_pass1(L, k, R, in);
+      // inclusive min-scan of the keys over the warp, then exclusive
+      int32_t inc = cl_key(f_out, lane, k.gc);
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int32_t v = __shfl_up_sync(0xffffffffu, inc, off);
+        inc = lane >= off ? ta_min32(inc, v) : inc;
+      }
+      ex = __shfl_up_sync(0xffffffffu, inc, 1);
+      f_next = cl_carry(cin, inc, 32, k.gc);
+    }
+    if (!last) {  // hand on: F into the next warp, D of row i-1, codes
+      if (seen < i - TA_CL_RING)
+        seen = cl_wait(out_taken, i - TA_CL_RING, out_cta);
+      __syncwarp();
+      if (lane == 31) {
+        out_slots[i % TA_CL_RING] =
+            ClSlot{f_next, L.dp1[TA_CL_COLS - 1],
+                   L.dp1[TA_CL_COLS - 2], vprev};
+        // the count goes out every TA_CL_BATCH rows and at row m
+        if (i % TA_CL_BATCH == 0 || i == mm)
+          cl_st_release(out_pub, i, out_cta);
+      }
+    }
+    // the code words go out after the hand-over's release (which waits for
+    // this thread's earlier stores) and drain during pass 2: row i-1's
+    // lane words, and row i's words that no lane's first cell lies in
+    store_words();
+    for (int32_t x = kl;; x += K) {
+      const int32_t wx = cl_extra_index(x, i, P);
+      if (wx < 0) break;
+      code_out[(int64_t)(i - 1) * P.wpr + wx] =
+          cl_extra_word(wx, i, ach, b_row, P);
+    }
+    vprev = idle ? TA_CL_ONES
+                 : cl_lane_pass2(L, k, R, in, cl_carry(cin, ex, lane, k.gc));
+    // the final column lies inside the band at row m: its warp is not idle
+    if (i == mm && fcol >= 0 && fcol < TA_CL_COLS)
+      out[p] = cl_lane_pick(L, fcol);
+    apv = ach;
+    ach = an;
+  }
+  cluster.sync();  // no CTA leaves while a hand-over may still reach it
+}
+
+namespace {
+
 struct BandLaunch {
   const uint8_t* a;
   const uint8_t* b;
@@ -775,6 +1419,27 @@ static int launch_warp_c(const BandLaunch& g) {
   band_kernel<TRANS, TRACE, C><<<(unsigned)blocks, g.threads, 0, g.stream>>>(
       g.a, g.b, g.m, g.n, g.out, g.codes, g.B, g.a_stride, g.b_stride,
       g.unit_k, g.code_rows, g.costs, g.lanes);
+  return (int)cudaGetLastError();
+}
+
+template <bool TRANS>
+static int launch_cluster(const BandLaunch& g, int ctas, int warps) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(g.B * ctas), 1, 1);
+  cfg.blockDim = dim3((unsigned)(warps * 32), 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = g.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)ctas;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, band_cluster_kernel<TRANS>, g.a, g.b, g.m, g.n, g.out, g.codes,
+      g.a_stride, g.b_stride, g.unit_k, g.code_rows, g.costs);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
@@ -862,6 +1527,42 @@ extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
   if (g.codes == nullptr)
     return transpose ? launch_band<true, false>(g) : launch_band<false, false>(g);
   return transpose ? launch_band<true, true>(g) : launch_band<false, true>(g);
+}
+
+// The cluster regime of the traced kernel: `ctas` CTAs a pair (a cluster,
+// 1 to 8) of `warps` warps (1 to 16), 16 columns a lane; every pair needs
+// n + 3 <= 16 * 32 * ctas * warps columns and its chain's values past the
+// cluster's columns under INF (the plan: 255 * (rows + unit_k + 3) < INF).
+// Arguments as ta_band_distance's; `codes` must not be null.  Returns the
+// cudaError_t of the launch.
+extern "C" int ta_band_trace_cluster(const void* a, const void* b,
+                                     const void* m, const void* n, void* out,
+                                     void* codes, int64_t B, int64_t a_stride,
+                                     int64_t b_stride, int unit_k,
+                                     int64_t code_rows, int mc, int gc,
+                                     int sgc, int tc, int transpose, int ctas,
+                                     int warps, void* stream) {
+  if (B <= 0) return 0;
+  if (codes == nullptr || !band_cluster_ok(unit_k, ctas, warps) ||
+      B * ctas > 0x7fffffffLL || a_stride < 1 || b_stride < a_stride ||
+      code_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  BandLaunch g = {};
+  g.a = (const uint8_t*)a;
+  g.b = (const uint8_t*)b;
+  g.m = (const int32_t*)m;
+  g.n = (const int32_t*)n;
+  g.out = (int32_t*)out;
+  g.codes = (uint32_t*)codes;
+  g.B = B;
+  g.a_stride = a_stride;
+  g.b_stride = b_stride;
+  g.unit_k = unit_k;
+  g.code_rows = code_rows;
+  g.costs = BandCosts{mc, gc, sgc, tc};
+  g.stream = (cudaStream_t)stream;
+  return transpose ? launch_cluster<true>(g, ctas, warps)
+                   : launch_cluster<false>(g, ctas, warps);
 }
 
 #endif  // TA_HOST_REHEARSAL

@@ -17,6 +17,7 @@
 // GPU library (utils/build.py compiles the .cu files only).
 
 #define TA_HOST_REHEARSAL 1
+#include <cstring>
 #include <vector>
 
 #include "band_distance.cu"
@@ -393,6 +394,197 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                                 a_stride, b_stride, unit_k,
                                                 code_rows, k, threads, cells,
                                                 lanes, sp, scratch_stride);
+}
+
+// The cluster regime of band_distance.cu: one pair after the other; the
+// pair's S * NW warps (S CTAs of NW) as a pipeline, each warp running one
+// row at a time with its 32 lanes in turn (the shuffles arrays), the
+// hand-over rings of the CTAs' distributed shared memory arrays that start
+// as garbage, the counts released as the kernel releases them (every
+// TA_CL_BATCH rows).  The warps take turns: `order` 0, one row a turn;
+// 1, as many rows as a warp can run before it would wait (so every ring
+// fills).  A warp that would wait (a row not yet released to it, or a ring
+// slot not yet taken) sits out its turn; a round in which no warp can run
+// is a deadlock and fails the rehearsal.
+template <bool TRANS>
+struct ClWarpHost {
+  ClLane<TRANS> L[32];
+  uint32_t vprev[32];
+  int32_t e1a, e1b, e2a, e2b;
+  int32_t i;  // the next row it runs (past m + 1: done)
+  ClSlot ring[TA_CL_RING];  // what it takes from the warp on its left
+  int pub;    // rows released to it by the warp on its left
+  int taken;  // rows it has released as taken (to the warp on its left)
+};
+
+template <bool TRANS>
+static bool rehearse_cluster_step(std::vector<ClWarpHost<TRANS>>& wp, int g,
+                                  const ClPair& P, const uint8_t* a_row,
+                                  const uint8_t* b_row, int64_t b_len,
+                                  uint32_t* code_out, int32_t* out,
+                                  const BandCosts& k) {
+  ClWarpHost<TRANS>& H = wp[g];
+  const int G = (int)wp.size();
+  const bool first = g == 0, last = g == G - 1;
+  const int32_t i = H.i, uk = P.uk;
+  // where the kernel would wait: for row i's hand-over, and for the slot
+  // of row i on the right to be taken
+  if ((!first && H.pub < i) ||
+      (!last && i - TA_CL_RING > wp[g + 1].taken))
+    return false;
+  const int32_t ach = i <= P.m ? a_row[i - 1] : 0;
+  int32_t cin = TA_BAND_INF;
+  uint32_t vleft = 0u;
+  if (first) {
+    if (i > 1) vleft = cl_left_of_zero(b_row, b_len, uk, a_row[i - 2]);
+  } else {
+    const ClSlot s = H.ring[i % TA_CL_RING];
+    if (i % TA_CL_BATCH == 0) H.taken = i;
+    cin = s.f;
+    vleft = s.v;
+    H.e2a = H.e1a;
+    H.e2b = H.e1b;
+    H.e1a = s.d1;
+    H.e1b = s.d2;
+  }
+  if (i > 1) {
+    for (int l = 0; l < 32; ++l) {
+      const int32_t kl = g * 32 + l;
+      const uint32_t left = l == 0 ? vleft : H.vprev[l - 1];
+      const int32_t wi = cl_word_index(kl, i - 1, uk);
+      if (wi >= 0 && wi < P.wpr)
+        code_out[(int64_t)(i - 2) * P.wpr + wi] =
+            cl_word(left, H.vprev[l], i - 1, uk) & cl_word_mask(wi, P);
+      if (kl == P.K - 1 && wi + 1 >= 0 && wi + 1 < P.wpr)
+        code_out[(int64_t)(i - 2) * P.wpr + wi + 1] =
+            cl_word(H.vprev[l], TA_CL_ONES, i - 1, uk) &
+            cl_word_mask(wi + 1, P);
+    }
+  }
+  if (i > P.m) {
+    if (!last) {
+      ClWarpHost<TRANS>& D = wp[g + 1];
+      D.ring[i % TA_CL_RING] = ClSlot{0, 0, 0, H.vprev[31]};
+      D.pub = i;
+    }
+    H.i = i + 1;
+    return true;
+  }
+  ClLeft in[32];
+  ClRow R[32];
+  int32_t inc[32], tmp[32];
+  for (int l = 0; l < 32; ++l) {
+    in[l] = l == 0 ? ClLeft{H.e1a, H.e2a, H.e2b} : cl_lane_right(H.L[l - 1]);
+    R[l] = cl_row(i, ach, P, (g * 32 + l) * TA_CL_COLS);
+  }
+  const bool idle = cl_warp_idle(g, i, P);
+  for (int l = 0; l < 32; ++l) {
+    cl_lane_masks(H.L[l], R[l]);
+    inc[l] = idle ? 0
+                  : cl_key(cl_lane_pass1(H.L[l], k, R[l], in[l]), l, k.gc);
+  }
+  for (int off = 1; off < 32; off <<= 1) {
+    for (int l = 0; l < 32; ++l) tmp[l] = l >= off ? inc[l - off] : inc[l];
+    for (int l = 0; l < 32; ++l) inc[l] = ta_min32(inc[l], tmp[l]);
+  }
+  if (!last) {
+    ClWarpHost<TRANS>& D = wp[g + 1];
+    D.ring[i % TA_CL_RING] =
+        ClSlot{idle ? TA_BAND_INF : cl_carry(cin, inc[31], 32, k.gc),
+               H.L[31].dp1[TA_CL_COLS - 1], H.L[31].dp1[TA_CL_COLS - 2],
+               H.vprev[31]};
+    if (i % TA_CL_BATCH == 0 || i == P.m) D.pub = i;
+  }
+  for (int l = 0; l < 32; ++l) {
+    const int32_t ex = l >= 1 ? inc[l - 1] : inc[l];
+    H.vprev[l] = idle ? TA_CL_ONES
+                      : cl_lane_pass2(H.L[l], k, R[l], in[l],
+                                      cl_carry(cin, ex, l, k.gc));
+  }
+  for (int l = 0; l < 32; ++l) {
+    const int32_t kl = g * 32 + l;
+    const int32_t fcol = P.jf - kl * TA_CL_COLS;
+    if (i == P.m && fcol >= 0 && fcol < TA_CL_COLS)
+      *out = cl_lane_pick(H.L[l], fcol);
+    for (int32_t x = kl;; x += P.K) {
+      const int32_t wx = cl_extra_index(x, i, P);
+      if (wx < 0) break;
+      code_out[(int64_t)(i - 1) * P.wpr + wx] =
+          cl_extra_word(wx, i, ach, b_row, P);
+    }
+  }
+  H.i = i + 1;
+  return true;
+}
+
+template <bool TRANS>
+static int rehearse_cluster(const uint8_t* a, const uint8_t* b,
+                            const int32_t* m, const int32_t* n, int32_t* out,
+                            uint32_t* codes, int64_t B, int64_t a_stride,
+                            int64_t b_stride, int unit_k, int64_t code_rows,
+                            BandCosts k, int ctas, int warps, int order) {
+  const int G = ctas * warps;
+  const int32_t K = G * 32;
+  for (int64_t p = 0; p < B; ++p) {
+    const int32_t mm = m[p] < a_stride ? m[p] : (int32_t)a_stride;
+    const int32_t nn = n[p] < 16 * K - 3 ? n[p] : 16 * K - 3;
+    const ClPair P = cl_pair(mm, nn, unit_k, K);
+    const uint8_t* a_row = a + p * a_stride;
+    const uint8_t* b_row = b + p * b_stride;
+    uint32_t* code_out = codes + p * code_rows * P.wpr;
+    std::vector<ClWarpHost<TRANS>> wp(G);
+    for (int g = 0; g < G; ++g) {
+      ClWarpHost<TRANS>& H = wp[g];
+      std::memset(H.ring, 0xA5, sizeof(H.ring));  // garbage, not zeros
+      H.pub = H.taken = 0;
+      H.e1a = H.e1b = H.e2a = H.e2b = TA_BAND_INF;
+      H.i = 1;
+      for (int l = 0; l < 32; ++l) {
+        const int32_t jb = (g * 32 + l) * TA_CL_COLS;
+        cl_lane_init(H.L[l], b_row, b_stride, P, jb, k);
+        H.vprev[l] = 0u;
+        if (mm == 0 && P.jf - jb >= 0 && P.jf - jb < TA_CL_COLS)
+          out[p] = cl_lane_pick(H.L[l], P.jf - jb);
+      }
+    }
+    for (bool busy = true; busy;) {
+      bool ran = false;
+      busy = false;
+      for (int g = 0; g < G; ++g) {
+        for (int r = 0; wp[g].i <= mm + 1 && (order == 1 || r < 1); ++r) {
+          if (!rehearse_cluster_step(wp, g, P, a_row, b_row, b_stride,
+                                     code_out, out + p, k))
+            break;
+          ran = true;
+        }
+        busy |= wp[g].i <= mm + 1;
+      }
+      if (busy && !ran) return 2;  // every warp waits: a deadlock
+    }
+  }
+  return 0;
+}
+
+// Same arguments as ta_band_trace_cluster, host pointers, no stream, and
+// the warps' `order` (see rehearse_cluster); refuses what the launcher
+// refuses.
+extern "C" int ta_rehearse_band_cluster(const void* a, const void* b,
+                                        const void* m, const void* n,
+                                        void* out, void* codes, int64_t B,
+                                        int64_t a_stride, int64_t b_stride,
+                                        int unit_k, int64_t code_rows, int mc,
+                                        int gc, int sgc, int tc,
+                                        int transpose, int ctas, int warps,
+                                        int order) {
+  if (codes == nullptr || !band_cluster_ok(unit_k, ctas, warps) ||
+      a_stride < 1 || b_stride < a_stride || code_rows < 1)
+    return 1;
+  if (B <= 0) return 0;
+  const BandCosts k{mc, gc, sgc, tc};
+  auto run = transpose ? rehearse_cluster<true> : rehearse_cluster<false>;
+  return run((const uint8_t*)a, (const uint8_t*)b, (const int32_t*)m,
+             (const int32_t*)n, (int32_t*)out, (uint32_t*)codes, B, a_stride,
+             b_stride, unit_k, code_rows, k, ctas, warps, order);
 }
 
 // Same arguments as ta_trace_walk, host pointers, no stream, seq_t filled

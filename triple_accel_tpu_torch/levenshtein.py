@@ -13,8 +13,9 @@ engines and every host step around them:
   the batched traceback walk (ops/trace_walk.py, kernel K10) and its RLE
   decode (ops/band_scan.py);
 * `band_trace_global` — traced batches past that band plan: the traced
-  band kernel with its band state in device memory, then the same walk
-  and decode;
+  band kernel's cluster regime (one pair a thread-block cluster, the
+  matrix's columns in registers) or, for b strings longer than a cluster
+  holds, its device-memory regime, then the same walk and decode;
 * `myers_blocked_distance` — the same entry points past the band plan
   with unit or restricted-Damerau costs, untraced: exact distances of
   pairs of any length (ops/myers_chunked.py, kernel K5), so `levenshtein`
@@ -117,10 +118,11 @@ _MIN_BUCKET = 256
 # bytes of packed argmin codes one traced launch may hold on the device:
 # larger traced batches chunk on the batch axis (pairs walk independently).
 # 16 GiB, a fifth of the H100's 80 GB: past the band plan the kernel runs
-# one pair a block, so a chunk must hold 132 pairs to give every SM one,
-# and 128 pairs of 10,000 bytes at unit_k 16,384 hold 82 MB of codes each
-# (10.5 GB; a 1 GiB cap would cut them into chunks of 13).  The kernels
-# and the walk index the codes with int64, so no batch overflows an index.
+# one pair a cluster of a few SMs, so a chunk must hold a hundred pairs or
+# so to fill the card, and 128 pairs of 10,000 bytes at unit_k 10,064 hold
+# 50 MB of codes each (6.4 GB; a 1 GiB cap would cut them into chunks of
+# 21).  The kernels and the walk index the codes with int64, so no batch
+# overflows an index.
 _TRACE_CODE_BYTES_CAP = 16 << 30
 
 _UNIT = (1, 1, 0, 0, False)
@@ -295,8 +297,9 @@ def levenshtein_exp_with_opts(
     """Exponential-search distance with options (reference levenshtein.rs:
     1480-1494).  Every cost model resolves at any length: past the band
     plan untraced searches take the blocked Myers kernel or the flat
-    distance kernel for general costs, traced ones the band kernel with
-    its state in device memory."""
+    distance kernel for general costs, traced ones the band kernel's
+    cluster regime (or, for the longest strings, its device-memory
+    regime)."""
     k = 30
     while True:
         res = levenshtein_simd_k_with_opts(a, b, k, trace_on, costs,
@@ -393,9 +396,11 @@ def levenshtein_k_batch(
       plan, chunked on the batch axis by `_TRACE_CODE_BYTES_CAP`; the walk
       is kernel K10 (ops/trace_walk.py);
     * `band_trace_global` [`trace_batch`]: traced batches past the plan
-      (unit_k > 4096, up to `lev_band.MAX_TRACE_UNIT_K`): the traced band
-      kernel with each pair's band state in device memory, chunked and
-      walked the same way;
+      (band state past a block's shared memory: unit_k > 4,640 at the
+      16-rounding, up to `lev_band.MAX_TRACE_UNIT_K`): the traced band
+      kernel's cluster regime, past `lev_band.CLUSTER_MAX_COLUMNS` its
+      device-memory regime (`band_plan` picks), chunked and walked the
+      same way; traced batches run at their unit_k rounded up to 16;
     * `myers_blocked_distance` [`myers_blocked_distance`]: untraced batches
       past the plan under unit or restricted-Damerau costs: the exact
       full-matrix bit-vector distance of pairs of any length
@@ -532,7 +537,14 @@ def levenshtein_k_batch(
                 out[list(members)] = sub
             return (out, traces_all) if trace_on else out
 
-    uk_dev = round_up_pow2(unit_k, 4)
+    # the kernels take unit_k at run time: a traced batch runs K4 and K10
+    # at its unit_k rounded up to 16 (a word of codes), not to the JAX
+    # package's power of two, so no cell is computed and no code word
+    # stored that a trace within the threshold cannot reach (a cell at
+    # |j - i| > unit_k costs more than max_ks); the untraced engines keep
+    # the power of two
+    uk_dev = (-(-unit_k // 16) * 16 if trace_on
+              else round_up_pow2(unit_k, 4))
     longest = max((len(a) for a in swapped_a), default=1)
     max_m = round_up_pow2(longest, 8)
     max_k = int(max_ks.max(initial=0))
@@ -548,7 +560,8 @@ def levenshtein_k_batch(
         # the band kernel streams the strings and takes its sizes at run
         # time, so rows are padded to 16, not to a power of two
         rows = -(-max(longest, 1) // 16) * 16
-        plan = band_plan(rows, uk_dev, trace_on)
+        plan = band_plan(rows, uk_dev, trace_on,
+                         max_n=max((len(b) for b in swapped_b), default=0))
         if plan is None and trace_on:
             raise ValueError(
                 f"a traced batch whose band half-width reaches {uk_dev}: "
@@ -590,8 +603,8 @@ def levenshtein_k_batch(
             return np.where(feasible & (out <= max_ks), out, -1)
         path = "band"
         if trace_on:
-            path = ("band_trace_global" if plan["regime"] == "wide_global"
-                    else "band_trace")
+            path = ("band_trace" if plan["regime"] in ("warp", "wide")
+                    else "band_trace_global")
         DispatchDecision(
             path=path,
             cost_bucket=select_cost_bucket(max_k),
@@ -613,7 +626,9 @@ def levenshtein_k_batch(
             hi = min(lo + b_cap, B)
             bargs = prepare_band_tensors(swapped_a[lo:hi], swapped_b[lo:hi],
                                          uk_dev, rows, device=dev)
-            dist, codes = band_trace(*bargs, unit_k=uk_dev, costs_t=ct)
+            dist, codes = band_trace(
+                *bargs, unit_k=uk_dev, costs_t=ct,
+                max_n=max((len(b) for b in swapped_b[lo:hi]), default=0))
             seq, _steps = trace_walk(codes, *bargs, unit_k=uk_dev)
             del codes
             outs.append(dist.cpu().numpy().astype(np.int64))

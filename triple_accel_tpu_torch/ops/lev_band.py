@@ -22,9 +22,13 @@ is unbounded.  The band bounds the kernel's regime: up to
 `MAX_WARP_BAND` cells a group of lanes of one warp holds a pair's band in
 registers (`band_plan` picks the cells a lane, the lanes a pair and the
 threads a block from the band and the batch); wider bands, up to
-`MAX_UNIT_K`, run one pair a block with the band in shared memory; traced
-bands past that, up to `MAX_TRACE_UNIT_K`, run the same way with the band
-in a per-pair scratch in device memory.
+`MAX_UNIT_K`, run one pair a block with the band in shared memory.  Traced
+bands past that, up to `MAX_TRACE_UNIT_K`, have two regimes: pairs whose
+columns a thread-block cluster holds (n + 3 <= `CLUSTER_MAX_COLUMNS`) run
+one pair a cluster with the matrix's columns in registers (no cell left
+of column 0 is computed, and a warp wholly outside a row's band skips
+it); longer ones run one pair a block with the band in a per-pair
+scratch in device memory.
 
 Layout (the port's own, pair order): `a_t` uint8 [B, max_m], `b_t` uint8
 [B, max_m + W] with each pair's b at byte offset unit_k and 0 pads (a pad
@@ -44,6 +48,7 @@ from .band_scan import INF, band_scan_distance, code_words
 __all__ = [
     "MAX_UNIT_K",
     "MAX_TRACE_UNIT_K",
+    "CLUSTER_MAX_COLUMNS",
     "MAX_WARP_BAND",
     "band_plan",
     "select_band_dtype",
@@ -95,6 +100,32 @@ MAX_TRACE_UNIT_K = 1 << 20
 # 4,744.7, 1024 (the shared-memory regime's rule) 11,418.3.  With fewer
 # threads each runs a longer stretch of its cells, which stays in L1.
 GLOBAL_THREADS = 128
+# The cluster regime (band_cluster_kernel): one pair a cluster of `ctas`
+# CTAs of `warps` warps, 16 columns a lane, so 512 columns a warp; the
+# kernel's limits (csrc/band_distance.cu TA_CL_*): 8 CTAs a cluster (the
+# portable cluster size), 20 warps a CTA (its launch bound, 640 threads,
+# holds it to 96 registers a thread: two CTAs of 10 warps an SM).
+CLUSTER_COLS_PER_WARP = 32 * 16
+CLUSTER_MAX_CTAS = 8
+CLUSTER_MAX_WARPS = 20
+# What the regime takes: any band up to MAX_TRACE_UNIT_K whose pairs' b
+# strings are at most CLUSTER_MAX_COLUMNS - 3 = 81,917 bytes.  It keeps
+# the matrix's columns 0 .. n + 2, not the band's cells, on chip (the
+# largest cluster: 8 CTAs x 20 warps x 512 columns), so what bounds it is
+# the length of b, not the band; and it codes the band's cells right of
+# its columns as 1, which holds while the chain there stays under INF
+# (`_cluster_fits`).  Past it the device-memory regime runs.
+CLUSTER_MAX_COLUMNS = CLUSTER_MAX_CTAS * CLUSTER_MAX_WARPS * CLUSTER_COLS_PER_WARP
+# Warps a CTA, from `benches/band_sweep.py --past-plan` (NVIDIA H100 80GB
+# HBM3, 700 W; PERF.md): a batch whose clusters fill the card takes CTAs of
+# CLUSTER_WARPS warps (128 pairs of 10,000 bytes, 20 warps a pair: 2 x 10
+# 48.2 ms, 2 x 11 54.1, 5 x 4 56.1, 4 x 5 65.8, 3 x 7 71.5: two CTAs of 10
+# warps an SM put the batch on the card in one wave); a smaller one
+# spreads each pair over CTAs of CLUSTER_SPREAD_WARPS (1 pair: 5 x 4 17.7
+# ms, 7 x 3 17.9, 4 x 5 22.0, 2 x 10 27.2; 16 pairs: 5 x 4 18.3, 8 x 3
+# 22.2).
+CLUSTER_WARPS = 10
+CLUSTER_SPREAD_WARPS = 4
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -124,6 +155,29 @@ def _scratch_bytes(W: int) -> int:
     return _round_up(_smem_bytes(W), 16)
 
 
+def _cluster_fits(max_m: int, max_n: int, unit_k: int) -> bool:
+    """Whether the cluster regime takes the batch: columns 0 .. n + 2 held
+    by the largest cluster, and every chain value right of the cluster's
+    columns under INF, so that their codes are 1: there e <= mc (m + 1) +
+    2 sgc + gc unit_k (a diagonal path to (i - 1, n - 1), then one gap),
+    bounded here with every cost at 255."""
+    return (max_n + 3 <= CLUSTER_MAX_COLUMNS
+            and 255 * (max_m + unit_k + 3) < INF)
+
+
+def _cluster_map(max_n: int, batch: Optional[int]) -> Tuple[int, int]:
+    """(CTAs a cluster, warps a CTA) that hold columns 0 .. max_n + 2: CTAs
+    of CLUSTER_WARPS warps, or, for a batch whose clusters would leave SMs
+    empty, of CLUSTER_SPREAD_WARPS; within 1..CLUSTER_MAX_CTAS CTAs of at
+    most CLUSTER_MAX_WARPS."""
+    warps = -(-(max_n + 3) // CLUSTER_COLS_PER_WARP)
+    ctas = -(-warps // CLUSTER_WARPS)
+    if batch is not None and batch * ctas < SM_COUNT:
+        ctas = -(-warps // CLUSTER_SPREAD_WARPS)
+    ctas = min(max(ctas, -(-warps // CLUSTER_MAX_WARPS)), CLUSTER_MAX_CTAS)
+    return ctas, -(-warps // ctas)
+
+
 def _warp_map(W: int, batch: Optional[int]) -> Tuple[int, int, int]:
     """(cells a lane, lanes a pair, threads a block) of the warp regime."""
     maps = [(g * c, g, c) for c in WARP_CELLS for g in WARP_LANES
@@ -137,9 +191,11 @@ def _warp_map(W: int, batch: Optional[int]) -> Tuple[int, int, int]:
 
 
 def band_plan(max_m: int, unit_k: int, trace: bool = False,
-              batch: Optional[int] = None) -> Optional[dict]:
+              batch: Optional[int] = None,
+              max_n: Optional[int] = None) -> Optional[dict]:
     """How the band kernel runs a batch of `batch` pairs (None: a batch
-    that fills the card), or None when it cannot.
+    that fills the card) whose b strings are at most `max_n` long (None:
+    max_m + unit_k, the most the band admits), or None when it cannot.
 
     The limit is the band, not string length: the strings stream from
     global memory, so `max_m` does not bound the plan (it sizes the traced
@@ -150,20 +206,36 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
     one pair a block of `threads` threads, `cells_per_lane` cells a thread,
     the band state (6 * W ints) in the block's shared memory, which must
     fit the 227 KB a block may use: unit_k <= MAX_UNIT_K.  A traced batch
-    past that runs the device-memory regime (`regime` "wide_global", up
-    to MAX_TRACE_UNIT_K): the wide regime's row passes over the same
-    state, GLOBAL_THREADS threads a block, in `scratch_bytes_per_pair`
-    bytes a pair of device memory that the wrapper allocates.  Untraced
-    batches past MAX_UNIT_K have other kernels (K5, K9): None.
+    past that, up to MAX_TRACE_UNIT_K, runs one of two regimes.  Where a
+    cluster holds the pairs' columns (`_cluster_fits`: n + 3 <=
+    CLUSTER_MAX_COLUMNS) the cluster regime (`regime` "wide_cluster"):
+    one pair a cluster of `ctas_per_pair` CTAs of `threads` threads, 16
+    columns of the matrix a lane (`cells_per_lane`), no cell left of
+    column 0 computed.  Past it the device-memory regime (`regime`
+    "wide_global"): the wide regime's row passes over the same state,
+    GLOBAL_THREADS threads a block, in `scratch_bytes_per_pair` bytes a
+    pair of device memory that the wrapper allocates.  Untraced batches
+    past MAX_UNIT_K have other kernels (K5, K9): None.
     """
     if unit_k < 0 or max_m < 0:
         return None
     W = 2 * unit_k + 1
+    if max_n is None:
+        max_n = max_m + unit_k
     if W <= MAX_WARP_BAND:
         cells, lanes, threads = _warp_map(W, batch)
         plan = {"regime": "warp", "cells_per_lane": cells,
                 "lanes_per_pair": lanes, "warps_per_pair": 1,
                 "threads": threads, "pairs_per_block": threads // lanes,
+                "smem_bytes": 0}
+    elif (trace and _smem_bytes(W) > SMEM_BYTES_PER_BLOCK
+          and unit_k <= MAX_TRACE_UNIT_K
+          and _cluster_fits(max_m, max_n, unit_k)):
+        ctas, warps = _cluster_map(max_n, batch)
+        plan = {"regime": "wide_cluster", "cells_per_lane": 16,
+                "lanes_per_pair": 32 * warps * ctas,
+                "warps_per_pair": warps * ctas, "threads": 32 * warps,
+                "ctas_per_pair": ctas, "pairs_per_block": 1,
                 "smem_bytes": 0}
     else:
         smem = _smem_bytes(W)
@@ -193,7 +265,12 @@ def _check_plan(plan: dict, W: int) -> None:
     """A plan handed to a wrapper (band_plan's, or one a sweep made) is one
     the kernel takes."""
     threads = plan["threads"]
-    if plan["regime"] == "warp":
+    if plan["regime"] == "wide_cluster":
+        ok = (1 <= plan["ctas_per_pair"] <= CLUSTER_MAX_CTAS
+              and threads % 32 == 0
+              and 32 <= threads <= 32 * CLUSTER_MAX_WARPS
+              and W <= 2 * MAX_TRACE_UNIT_K + 1)
+    elif plan["regime"] == "warp":
         ok = (plan["cells_per_lane"] in WARP_CELLS
               and plan["lanes_per_pair"] in WARP_LANES
               and plan["cells_per_lane"] * plan["lanes_per_pair"] >= W
@@ -344,11 +421,27 @@ def _check_inputs(a_t, b_t, m, n, unit_k: int, costs_t: CostsT,
     return W
 
 
-def _plan_for(a_t, unit_k: int, trace: bool, plan: Optional[dict]) -> dict:
+def _plan_for(a_t, n, unit_k: int, trace: bool, plan: Optional[dict],
+              max_n: Optional[int]) -> dict:
+    """The plan of this batch (`band_plan`'s, or the one handed in, checked);
+    the cluster regime's columns are held against the batch's longest b
+    (`max_n`, read from `n` when not given)."""
     B, rows = a_t.shape
+    W = 2 * unit_k + 1
+    if max_n is None and trace and (
+            plan["regime"] == "wide_cluster" if plan is not None
+            else _smem_bytes(W) > SMEM_BYTES_PER_BLOCK):
+        max_n = int(n.max()) if B else 0  # only past the shared-memory plan
     if plan is None:
-        return band_plan(rows, unit_k, trace, batch=B)
-    _check_plan(plan, 2 * unit_k + 1)
+        plan = band_plan(rows, unit_k, trace, batch=B, max_n=max_n)
+    else:
+        _check_plan(plan, 2 * unit_k + 1)
+    if plan["regime"] == "wide_cluster" and not (
+            trace and max_n + 3 <= plan["ctas_per_pair"] * plan["threads"] * 16
+            and _cluster_fits(rows, max_n, unit_k)):
+        raise ValueError(f"the band kernel's cluster plan {plan} does not "
+                         f"take this batch (traced {trace}, b strings of "
+                         f"{max_n} bytes)")
     return plan
 
 
@@ -366,12 +459,23 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool,
     if trace:
         codes = torch.empty((B, rows, code_words(W)), dtype=torch.int32,
                             device=a_t.device)
+    mc, gc, sgc, tc, allow_transpose = costs_t
+    if plan["regime"] == "wide_cluster":
+        with torch.cuda.device(a_t.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.ta_band_trace_cluster(
+                *(t.data_ptr() for t in tensors), out.data_ptr(),
+                codes.data_ptr() if B else None, B, tensors[0].shape[1],
+                tensors[1].shape[1], unit_k, rows, mc, gc, sgc, tc,
+                int(bool(allow_transpose)), plan["ctas_per_pair"],
+                plan["threads"] // 32, stream)
+        check_launch(lib, code, "band_trace")
+        return out, codes
     scratch, stride = None, 0
     if plan["regime"] == "wide_global" and B:
         stride = _scratch_bytes(W)  # a forced plan may come from another band
         scratch = torch.empty(B * stride, dtype=torch.uint8,
                               device=a_t.device)
-    mc, gc, sgc, tc, allow_transpose = costs_t
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = lib.ta_band_distance(
@@ -403,7 +507,7 @@ def band_distance(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
     takes.  CPU tensors — and only those — take the plain PyTorch version.
     """
     _check_inputs(a_t, b_t, m, n, unit_k, costs_t, False)
-    plan = _plan_for(a_t, unit_k, False, plan)
+    plan = _plan_for(a_t, n, unit_k, False, plan, None)
     if a_t.device.type == "cpu":
         return band_scan_distance(a_t, b_t, m, n, unit_k=unit_k,
                                   costs_t=costs_t, trace_on=False)[0]
@@ -420,19 +524,21 @@ band_distance.launches = 0
 
 def band_trace(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
                n: torch.Tensor, *, unit_k: int, costs_t: CostsT,
-               plan: Optional[dict] = None):
+               plan: Optional[dict] = None, max_n: Optional[int] = None):
     """Banded distances and packed argmin codes: (dist int32 [B], codes
     int32 [B, max_m, ceil(W / 16)]).  Only code rows 0..m-1 of a pair are
     defined.  The codes stay on the device for the walk
-    (`trace_walk.trace_walk`).  Past MAX_UNIT_K the plan is the
-    device-memory regime, up to MAX_TRACE_UNIT_K.
+    (`trace_walk.trace_walk`).  Past MAX_UNIT_K the plan is the cluster
+    regime or, for b strings longer than a cluster holds, the
+    device-memory regime, up to MAX_TRACE_UNIT_K; `max_n`, the longest b
+    of the batch, is read from `n` (one copy to the host) when not given.
 
     CUDA tensors launch the hand-written kernel and count one launch in
     `band_trace.launches`; `plan` as in `band_distance`.  CPU tensors — and
     only those — take the plain PyTorch version.
     """
     _check_inputs(a_t, b_t, m, n, unit_k, costs_t, True)
-    plan = _plan_for(a_t, unit_k, True, plan)
+    plan = _plan_for(a_t, n, unit_k, True, plan, max_n)
     if a_t.device.type == "cpu":
         return band_scan_distance(a_t, b_t, m, n, unit_k=unit_k,
                                   costs_t=costs_t, trace_on=True)

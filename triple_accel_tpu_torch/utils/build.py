@@ -141,6 +141,11 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
         i32, i32, i32, i32, i32, i32, i32, i32, vp, i64, vp,
     ]
+    lib.ta_band_trace_cluster.restype = ctypes.c_int
+    lib.ta_band_trace_cluster.argtypes = [
+        vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
+        i32, i32, i32, i32, i32, i32, i32, vp,
+    ]
     lib.ta_trace_walk.restype = ctypes.c_int
     lib.ta_trace_walk.argtypes = [
         vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i32, i64, vp,
