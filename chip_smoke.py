@@ -19,8 +19,9 @@ each against its plain PyTorch version on the card:
   its short and its long regime;
 * `band_trace`: `levenshtein_k_batch(..., trace_on=True)` on 8,192 pairs of
   1000 bytes at k = 32 and on 256 pairs of 3000 bytes at k = 64: the traced
-  band kernel, the walk kernel `trace_walk` and the RLE decode, and where
-  the time goes (`e2e_split_s`); then, past the band plan, 128 pairs of
+  band kernel, the walk kernel `trace_walk` (runs of equal steps) and
+  their decode, and where the time goes (`e2e_split_s`); then, past the
+  band plan, 128 pairs of
   10,000 ACGT bytes against copies with 10% edits and 1% adjacent swaps at
   an unbounded threshold under the restricted-Damerau costs (unit_k
   10,064, the longest b rounded up to 16: the traced band kernel's
@@ -135,13 +136,14 @@ PAST_PLAN_PAIRS, PAST_PLAN_LEN = 128, 10_000
 PAST_PLAN_EDIT_SHARE, PAST_PLAN_SWAP_SHARE = 0.10, 0.01
 PAST_PLAN_PLAIN_PAIRS, PLAIN_WALK_PAIRS = 2, 64
 # K10, the traceback walk, per step of a walk: one 32-bit code word and, on
-# a diagonal step, a's and b's characters (6 bytes at most), and one byte
-# of output for every step of its [B, steps] output (the walk's -1 padding
-# included); a handful of integer operations a step, so bytes bound it.
-# Its steps depend on each other: beside the bound stands K10's measured
-# time for the batch's longest walk alone (`k10_alone`), with L2 emptied
-# before each launch by writing K10_FLUSH_BYTES (L2 is 50 MB).
-K10_CODE_BYTES, K10_CHAR_BYTES = 4, 2
+# a diagonal step, a's and b's characters (6 bytes at most); per run of
+# equal steps one 32-bit word written, per pair m and n read and its run
+# count written; a handful of integer operations a step, so bytes bound
+# it.  Its steps depend on each other: beside the bound stands K10's
+# measured time for the batch's longest walk alone (`k10_alone`), with L2
+# warm and with L2 emptied before each launch by writing K10_FLUSH_BYTES
+# (L2 is 50 MB).
+K10_CODE_BYTES, K10_CHAR_BYTES, K10_RUN_BYTES = 4, 2, 4
 K10_OPS_PER_STEP = 12
 K10_FLUSH_BYTES = 256 << 20
 LONG_PAIRS, LONG_LEN, K_LONG = 4096, 20_000, 256
@@ -825,10 +827,10 @@ def band_errors(got_d, got_codes, ref_d, ref_codes, t, unit_k: int,
                 walk: bool) -> int:
     """Largest disagreement between the kernel's and the plain version's
     distances, argmin codes (rows 1..m of each pair: the kernel writes no
-    others) and, with `walk`, the edit streams the walk kernel K10 walks
-    from the kernel's codes and the plain walk from the plain codes."""
-    from triple_accel_tpu_torch.ops.band_scan import walk_packed_traceback
-    from triple_accel_tpu_torch.ops.trace_walk import trace_walk
+    others) and, with `walk`, the runs the walk kernel K10 walks from the
+    kernel's codes and the plain walk from the plain codes."""
+    from triple_accel_tpu_torch.ops.trace_walk import (
+        trace_walk, trace_walk_plain)
 
     err = int((got_d.to(torch.int64) - ref_d.to(torch.int64)).abs().max())
     if got_codes is None:
@@ -838,11 +840,30 @@ def band_errors(got_d, got_codes, ref_d, ref_codes, t, unit_k: int,
             < t[2][:, None])[:, :, None]
     err = max(err, int(((got_codes != ref_codes) & live).any()))
     if walk:
-        seq_g, _ = trace_walk(got_codes, *t, unit_k=unit_k)
-        seq_r, _ = walk_packed_traceback(ref_codes, *t, unit_k=unit_k)
-        err = max(err, int((seq_g.to(torch.int32)
-                            - seq_r.to(torch.int32)).abs().max()))
+        err = max(err, runs_err(trace_walk(got_codes, *t, unit_k=unit_k),
+                                trace_walk_plain(ref_codes, *t,
+                                                 unit_k=unit_k)))
     return err
+
+
+def runs_err(got, ref) -> int:
+    """Largest disagreement of two walks' (runs, counts): 0 where both are
+    equal, the run counts and every packed run."""
+    (g_runs, g_counts), (r_runs, r_counts) = got, ref
+    if g_counts.shape != r_counts.shape or g_runs.shape != r_runs.shape:
+        return 1 << 30
+    err = int((g_counts.cpu().long() - r_counts.cpu().long()).abs().max()) \
+        if g_counts.numel() else 0
+    if g_runs.numel():
+        err = max(err, int((g_runs.cpu().long()
+                            - r_runs.cpu().long()).abs().max()))
+    return err
+
+
+def pair_runs(runs: torch.Tensor, counts: torch.Tensor, p: int):
+    """Pair p's runs of a walk's (runs, counts)."""
+    lo = int(counts[:p].sum())
+    return runs[lo:lo + int(counts[p])]
 
 
 def check_band_kernels(dev):
@@ -1095,23 +1116,59 @@ def check_band_cluster(dev):
     return cases, worst
 
 
+# K10's launch shapes at their edges, beside the plan's (the checks'
+# batches are few pairs: `trace_walk.WALK_FEW`): (lanes a pair, tile rows,
+# window words, threads a block): the many-pairs plan
+# (`trace_walk.WALK_MANY`), one lane staging alone with two-row tiles
+# (every transposition crosses a tile) and one-word windows (every gap
+# steps out sideways), a whole warp a pair with three-row tiles, four
+# lanes with 64-row tiles and 16-word windows in blocks of one warp, and
+# 16 lanes in blocks of 256 threads (groups left empty in a block but the
+# batch's first)
+WALK_CHECK_PLANS = ((4, 64, 2, 128), (1, 2, 1, 32), (32, 3, 2, 64),
+                    (4, 64, 16, 32), (16, 32, 8, 256))
+
+
+def walk_gap_pairs(rng, length: int, gap: int):
+    """Pairs whose walks leave a tile's window sideways: s1 + s2 against s1
+    + Y^gap + s2 (a consume-b run of `gap` steps, which moves the band cell
+    left), s1 + X^gap + s2 against s1 + s2 + s3 (an insertion run of gap
+    steps at the end, then a deletion run back to the centre), and s1 + s2
+    against a copy with adjacent swaps every 5 bytes (transpositions on
+    every row parity and tile edge).  s2 is more than 2.5 gap long, so the
+    gap runs are the cheapest alignments; n - m <= gap."""
+    s1 = ACGT[rng.integers(0, 4, length // 4)]
+    s2 = ACGT[rng.integers(0, 4, length - length // 4)]
+    s3 = ACGT[rng.integers(0, 4, gap)]
+    x = np.full(gap, ord("X"), np.uint8)
+    y = np.full(gap, ord("Y"), np.uint8)
+    sw = np.concatenate([s1, s2])
+    for q in range(0, len(sw) - 1, 5):
+        sw[q], sw[q + 1] = int(sw[q + 1]), int(sw[q])
+    return ([np.concatenate([s1, s2]), np.concatenate([s1, x, s2]),
+             np.concatenate([s1, s2])],
+            [np.concatenate([s1, y, s2]), np.concatenate([s1, s2, s3]), sw])
+
+
 def check_trace_walk_kernel(dev):
-    """The walk kernel K10 against the plain walk, exactly (the -1 padding
-    included), on codes from K4 in each of its regimes (warp, wide in
-    shared memory, device memory at a forced narrow plan and at band
-    16,385, the cluster regime at band 16,385 as the plan gives it), under
-    a cost model with transpositions
-    and one without: edited pairs with m = 0 and empty pairs
-    (`band_cases`), walks along band cells 0, 15, 16, 31, 32 and W - 1 and
-    a transposition as a walk's last step (`walk_edge_pairs`), batches
-    that are not a multiple of the kernel's 32-thread block; then the
-    longest walk the bound allows (every step a gap, m + n = steps - 1)
-    and random codes whose walks leave the matrix."""
-    from triple_accel_tpu_torch.ops.band_scan import (
-        code_words, walk_packed_traceback)
+    """The walk kernel K10 against its plain version (`trace_walk_plain`):
+    every pair's run count and packed runs, at the plan's launch shape and
+    at WALK_CHECK_PLANS.  On codes from K4 in each of its regimes (warp,
+    wide in shared memory, device memory at a forced narrow plan and at
+    band 16,385, the cluster regime at band 16,385 as the plan gives it),
+    under a cost model with transpositions and one without: edited pairs
+    with m = 0 and empty pairs (`band_cases`), walks along band cells 0,
+    15, 16, 31, 32 and W - 1 and a transposition as a walk's last step
+    (`walk_edge_pairs`); gap runs that leave the window sideways and
+    transpositions across tile edges (`walk_gap_pairs`, bands 321 and
+    2,049); batches that leave groups of a block empty; then the longest
+    walk the bound allows (every step a gap, m + n = steps - 1) and random
+    codes whose walks leave the matrix."""
+    from triple_accel_tpu_torch.ops.band_scan import code_words
     from triple_accel_tpu_torch.ops.lev_band import (
-        MAX_UNIT_K, band_plan, band_trace, prepare_band_tensors)
-    from triple_accel_tpu_torch.ops.trace_walk import trace_walk
+        MAX_UNIT_K, band_trace, prepare_band_tensors)
+    from triple_accel_tpu_torch.ops.trace_walk import (
+        trace_walk, trace_walk_plain, walk_plan)
     from triple_accel_tpu_torch.types import EditCosts, RDAMERAU_COSTS
 
     rng = np.random.default_rng(1010)
@@ -1119,14 +1176,17 @@ def check_trace_walk_kernel(dev):
 
     def compare(codes, t, unit_k, what):
         nonlocal worst, cases
-        got, steps = trace_walk(codes, *t, unit_k=unit_k)
-        ref, ref_steps = walk_packed_traceback(codes, *t, unit_k=unit_k)
-        err = int((got.to(torch.int32) - ref.to(torch.int32)).abs().max()) \
-            if got.numel() else 0
-        err = max(err, int(steps != ref_steps or got.shape != ref.shape))
-        worst = max(worst, err)
-        check(err == 0, f"trace_walk != plain walk: {what}")
-        cases += 1
+        ref = trace_walk_plain(codes, *t, unit_k=unit_k)
+        got = None
+        for shape in [None, *WALK_CHECK_PLANS]:
+            plan = None if shape is None else dict(zip(
+                ("lanes", "tile_rows", "window", "threads"), shape))
+            got = trace_walk(codes, *t, unit_k=unit_k, plan=plan)
+            err = runs_err(got, ref)
+            worst = max(worst, err)
+            check(err == 0, f"trace_walk != plain walk: {what}, plan "
+                            f"{plan or walk_plan(2 * unit_k + 1, len(t[2]))}")
+            cases += 1
         return got
 
     deep = device_memory_plan()
@@ -1143,17 +1203,25 @@ def check_trace_walk_kernel(dev):
             t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k,
                                      max_m, device=dev)
             _, codes = band_trace(*t, unit_k=unit_k, costs_t=ct, plan=plan)
-            got = compare(codes, t, unit_k, f"{regime} costs={ct}")
+            runs, counts = compare(codes, t, unit_k, f"{regime} costs={ct}")
             if ct[4]:  # the transposition pair's walk ends with one
-                row = got[len(a_list) + len(a_e) - 2]
-                check(int(row[int((row >= 0).sum()) - 1]) == 4,
+                last = pair_runs(runs, counts, len(a_list) + len(a_e) - 2)
+                check(int(last[-1]) & 7 == 4,
                       f"{regime}: the transposition is not the last step")
+        for unit_k, length, gap in ((160, 600, 150), (1024, 1200, 300)):
+            a_g, b_g = walk_gap_pairs(rng, length, gap)
+            t = prepare_band_tensors(a_g * 6, b_g * 6, unit_k, length + gap,
+                                     device=dev)
+            _, codes = band_trace(*t, unit_k=unit_k, costs_t=ct)
+            compare(codes, t, unit_k, f"gap runs at band {2 * unit_k + 1}"
+                                      f" costs={ct}")
     a, b = longest_walk_pair(16, 64)
     t = prepare_band_tensors([a] * 35, [b] * 35, 16, 64, device=dev)
     _, codes = band_trace(*t, unit_k=16,
                           costs_t=costs_tuple(EditCosts(*LONGEST_WALK_COSTS)))
-    got = compare(codes, t, 16, "the longest walk")
-    check(bool((got[:, :-1] >= 0).all()) and bool((got[:, -1] == -1).all()),
+    runs, counts = compare(codes, t, 16, "the longest walk")
+    steps = 2 * 64 + 16 + 1
+    check(int((pair_runs(runs, counts, 0) >> 3).sum()) == steps - 1,
           "the longest walk does not fill its bound but the last step")
     B, unit_k, max_m = 45, 16, 48
     W = 2 * unit_k + 1
@@ -2156,55 +2224,73 @@ def band_bound(m_arr, n_arr, unit_k: int, ct, traced: bool) -> dict:
     }
 
 
-def k10_bound(seq: torch.Tensor, steps: int) -> dict:
-    """The least time the card could take for the walks in `seq` (K10's
-    output, [B, steps]): the code words and characters the walked steps
-    read, the output written once, against K10_OPS_PER_STEP operations a
-    walked step."""
-    walked = (seq >= 0).sum(dim=1)
-    diag = ((seq == 0) | (seq == 1)).sum(dim=1)
-    n_walked, n_diag = int(walked.sum()), int(diag.sum())
+def walk_lengths(runs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    """Steps each pair walked, from a walk's (runs, counts)."""
+    pair = torch.repeat_interleave(
+        torch.arange(len(counts), device=counts.device), counts.long())
+    return torch.zeros(len(counts), dtype=torch.int64,
+                       device=counts.device).index_add_(
+        0, pair, (runs >> 3).long())
+
+
+def k10_bound(runs: torch.Tensor, counts: torch.Tensor, steps: int) -> dict:
+    """The least time the card could take for the walks of (runs, counts)
+    (K10's output): the code words and characters the walked steps read,
+    m and n read, the runs and run counts written once, against
+    K10_OPS_PER_STEP operations a walked step."""
+    length = (runs >> 3).long()
+    diag = ((runs & 7) <= 1).long()
+    n_walked, n_diag = int(length.sum()), int((length * diag).sum())
+    B = counts.shape[0]
     bytes_moved = (n_walked * K10_CODE_BYTES + n_diag * K10_CHAR_BYTES
-                   + seq.numel() + 8 * seq.shape[0])
+                   + runs.numel() * K10_RUN_BYTES + 4 * B + 8 * B)
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = n_walked * K10_OPS_PER_STEP / PEAK_INT32_OPS_PER_S * 1e3
-    longest = int(walked.max()) if seq.shape[0] else 0
+    longest = int(walk_lengths(runs, counts).max()) if B else 0
     return {
         "bound_ms": max(t_bytes, t_ops),
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
         "walked_steps": n_walked, "longest_walk": longest, "steps": steps,
+        "runs": runs.numel(),
     }
 
 
-def k10_alone(codes, t, seq, unit_k: int, reps: int) -> dict:
-    """K10 on the pair of `seq` (its output on the batch) with the longest
-    walk, alone: one lane of one warp, one chain of dependent steps.  The
-    median of `reps` launches (CUDA events around the wrapper: its -1
-    fill, the kernel and the transpose of one row), each after a write of
+def k10_alone(codes, t, runs, counts, unit_k: int, reps: int) -> dict:
+    """K10 on the pair of (runs, counts) (its output on the batch) with the
+    longest walk, alone: one group, one chain of dependent steps.  The
+    median of `reps` launches (CUDA events around the wrapper: the kernel
+    and the gather of one pair's runs) with L2 warm (the pair's codes read
+    by the launch before), and of `reps` launches each after a write of
     K10_FLUSH_BYTES that empties L2, so that its codes come from device
-    memory as the batch's do; the first launch is a warm-up."""
+    memory as the batch's do; each series after a warm-up."""
     from triple_accel_tpu_torch.ops import trace_walk as tw
 
-    walked = (seq >= 0).sum(dim=1)
-    p = int(walked.argmax())
+    lengths = walk_lengths(runs, counts)
+    p = int(lengths.argmax())
     one = [x[p:p + 1] for x in (codes, *t)]
     flush = torch.empty(K10_FLUSH_BYTES, dtype=torch.uint8,
                         device=codes.device)
-    times = []
-    for _ in range(reps + 1):
-        flush.fill_(1)
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        got, _ = tw.trace_walk(*one, unit_k=unit_k)
-        t1.record()
-        torch.cuda.synchronize()
-        times.append(t0.elapsed_time(t1))
-    check(torch.equal(got[0], seq[p]), "K10 on one pair != its batch row")
-    ms = statistics.median(times[1:])
-    return {"longest_walk_alone_ms": ms,
-            "longest_walk_alone_ns_a_step": ms * 1e6 / int(walked[p])}
+    out = {}
+    for kind, cold in (("warm", False), ("cold", True)):
+        times = []
+        for _ in range(reps + 1):
+            if cold:
+                flush.fill_(1)
+            t0 = torch.cuda.Event(enable_timing=True)
+            t1 = torch.cuda.Event(enable_timing=True)
+            t0.record()
+            got, _ = tw.trace_walk(*one, unit_k=unit_k)
+            t1.record()
+            torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+        check(torch.equal(got, pair_runs(runs, counts, p)),
+              "K10 on one pair != its runs in the batch")
+        ms = statistics.median(times[1:])
+        key = "longest_walk_alone_ms" + ("" if cold else "_warm")
+        out[key] = ms
+        out[key.replace("_ms", "_ns_a_step")] = ms * 1e6 / int(lengths[p])
+    return out
 
 
 def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
@@ -2253,32 +2339,36 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
     check(err == 0, "band kernel != plain at the main-path shape")
     walk = None
     if traced:
-        seq, steps = tw.trace_walk(got_codes, *t, unit_k=unit_k)
+        runs, counts = tw.trace_walk(got_codes, *t, unit_k=unit_k)
+        steps = tw.walk_steps(t[0].shape[1], unit_k)
         walk_times = time_launches(
             lambda: tw.trace_walk(got_codes, *t, unit_k=unit_k), walk_reps)
         n_walk = min(PLAIN_WALK_PAIRS, len(a_list))
-        seq_ref = None
+        ref = None
 
         def run_walk():
-            nonlocal seq_ref
-            seq_ref, _ = bs.walk_packed_traceback(
+            nonlocal ref
+            ref = tw.trace_walk_plain(
                 got_codes[:n_walk], *(x[:n_walk] for x in t), unit_k=unit_k)
 
         plain_walk_ms = time_once_ms(run_walk)
-        walk_err = int((seq[:n_walk].to(torch.int32)
-                        - seq_ref.to(torch.int32)).abs().max())
+        walk_err = runs_err((runs[:int(counts[:n_walk].sum())],
+                             counts[:n_walk]), ref)
         check(walk_err == 0, "trace_walk != the plain walk at the main-path "
                              "shape")
         t0 = time.perf_counter()
-        seq_np = seq.cpu().numpy()
+        runs_np, counts_np = runs.cpu().numpy(), counts.cpu().numpy()
         extra["walk_fetch_s"] = round(time.perf_counter() - t0, 4)
+        extra["walk_fetch_MB"] = round(
+            (runs_np.nbytes + counts_np.nbytes) / 1e6, 3)
         t0 = time.perf_counter()
-        bs.decode_walked_batch(seq_np, [False] * len(a_list))
+        bs.decode_walked_batch(runs_np, counts_np, [False] * len(a_list))
         extra["decode_s"] = round(time.perf_counter() - t0, 4)
         extra["code_MB"] = round(got_codes.numel() * 4 / 1e6, 1)
         extra["walk_ms"] = round(walk_times[0], 4)
         extra["walk_ms_min_max"] = [round(walk_times[1], 4),
                                     round(walk_times[2], 4)]
+        extra["walk_runs"] = runs.numel()
         extra["plain_walk_ms"] = round(plain_walk_ms, 1)
         extra["plain_walk_cut_pairs"] = n_walk
         walk = {
@@ -2287,8 +2377,8 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
             "plain_ms": plain_walk_ms,
             "plain_shape": f"the first {n_walk} pairs (steps as at the "
                            "full batch)",
-            "library_ms": None, **k10_bound(seq, steps),
-            **k10_alone(got_codes, t, seq, unit_k, walk_reps),
+            "library_ms": None, **k10_bound(runs, counts, steps),
+            **k10_alone(got_codes, t, runs, counts, unit_k, walk_reps),
         }
     m_arr = t[2].cpu().numpy().astype(np.int64)
     n_arr = t[3].cpu().numpy().astype(np.int64)
@@ -2497,11 +2587,11 @@ def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
 def band_trace_split(a_list, b_list, k: int, costs, out, traces) -> dict:
     """Where a traced call's end-to-end time goes: the call again with the
     band kernels' host prep (packing the strings, then the upload of their
-    tensors), K4 and K10 and the RLE decode timed where the entry point
-    calls them, then the fetch of the distances and the walks timed on the
-    same tensors; the rest is the entry point's list work, dispatch math
-    and its own fetch.  The entry point is unchanged; its result is
-    checked."""
+    tensors), K4 and K10 and the decode of the runs timed where the entry
+    point calls them, then the fetch of the distances and the runs timed on
+    the same tensors (`fetched_MB`: what crosses to the host); the rest is
+    the entry point's list work, dispatch math and its own fetch.  The
+    entry point is unchanged; its result is checked."""
     import triple_accel_tpu_torch as tt
     from triple_accel_tpu_torch.ops import band_scan as bs
     from triple_accel_tpu_torch.ops import lev_band as lb
@@ -2523,7 +2613,7 @@ def band_trace_split(a_list, b_list, k: int, costs, out, traces) -> dict:
 
     def timed_k10(*args, **kwargs):
         res = _timed(secs, "k10_s", k10)(*args, **kwargs)
-        keep.append(res[0])
+        keep.extend(res)
         return res
 
     with _patched(lb, prepare_band_tensors=timed_prep, band_trace=timed_k4), \
@@ -2538,12 +2628,12 @@ def band_trace_split(a_list, b_list, k: int, costs, out, traces) -> dict:
     check(np.array_equal(again[0], out) and again[1] == traces,
           "timed traced rerun != main path")
     t0 = time.perf_counter()
-    for x in keep:
-        x.cpu().numpy()
+    fetched = sum(x.cpu().numpy().nbytes for x in keep)
     secs["fetch_s"] = time.perf_counter() - t0
     secs["lists_and_rest_s"] = e2e - sum(secs.values())
     return {"e2e_s": round(e2e, 4),
-            **{k_: round(v, 4) for k_, v in secs.items()}}
+            **{k_: round(v, 4) for k_, v in secs.items()},
+            "fetched_MB": round(fetched / 1e6, 3)}
 
 
 def drive_traced(a_l, b_l, k: int, costs, name: str, path: str):

@@ -85,7 +85,7 @@ def test_band_trace_batch_equals_jax(c):
     assert seq.dtype == torch.int8
     assert np.array_equal(seq.numpy(), np.asarray(seq_ref))
     swaps = [bool(p % 2) for p in range(len(a_list))]
-    got = tbs.decode_walked_batch(seq.numpy(), swaps)
+    got = tbs.decode_walked_batch(*tbs.run_length_encode(seq), swaps)
     ref = jbs.decode_walked_batch(np.asarray(seq_ref), swaps)
     assert [_fields(t) for t in got] == [_fields(t) for t in ref]
 
@@ -112,7 +112,8 @@ def test_band_trace_equals_jax_pallas_interpret(c):
     assert d[:B].tolist() == np.asarray(d_ref)[0, :B].tolist()
     assert np.array_equal(seq.numpy()[:B], np.asarray(seq_ref)[:B])
     swaps = [False] * B
-    assert [_fields(x) for x in tbs.decode_walked_batch(seq.numpy()[:B], swaps)] \
+    assert [_fields(x) for x in tbs.decode_walked_batch(
+        *tbs.run_length_encode(seq[:B]), swaps)] \
         == [_fields(x) for x in
             jbs.decode_walked_batch(np.asarray(seq_ref)[:B], swaps)]
 
@@ -125,7 +126,7 @@ def test_batched_walk_equals_host_decode_and_oracle(c):
     d, codes = tlb.band_trace(*t, unit_k=UK, costs_t=_ct(c))
     seq, _ = tbs.walk_packed_traceback(codes, *t, unit_k=UK)
     swaps = [bool(p % 3 == 0) for p in range(len(a_list))]
-    walked = tbs.decode_walked_batch(seq.numpy(), swaps)
+    walked = tbs.decode_walked_batch(*tbs.run_length_encode(seq), swaps)
     cells = tbs.unpack_codes(codes, 2 * UK + 1).numpy()
     assert cells.shape == (len(a_list), 48, 2 * UK + 1) and cells.max() <= 3
     kband = UK * c[1] + c[2]
@@ -150,7 +151,8 @@ def test_decode_walked_batch_equals_jax_on_random_streams():
         ln = int(rng.integers(0, 41))
         seq[p, :ln] = rng.integers(0, 5, ln)
     swaps = [bool(x) for x in rng.integers(0, 2, 30)]
-    assert [_fields(t) for t in tbs.decode_walked_batch(seq, swaps)] == \
+    assert [_fields(t) for t in tbs.decode_walked_batch(
+        *tbs.run_length_encode(torch.from_numpy(seq)), swaps)] == \
         [_fields(t) for t in jbs.decode_walked_batch(seq, swaps)]
 
 

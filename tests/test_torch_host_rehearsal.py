@@ -79,7 +79,10 @@ def lib(tmp_path_factory):
     lib.ta_rehearse_band_cluster.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
     lib.ta_rehearse_trace_walk.restype = ctypes.c_int
-    lib.ta_rehearse_trace_walk.argtypes = [vp] * 6 + [i64] * 5 + [i32, i64]
+    lib.ta_rehearse_trace_walk.argtypes = (
+        [vp] * 7 + [i64] * 5 + [i32, i64] + [i32] * 3)
+    lib.ta_rehearse_trace_walk_gather.restype = ctypes.c_int
+    lib.ta_rehearse_trace_walk_gather.argtypes = [vp] * 4 + [i64] * 2
     lib.ta_rehearse_blocked_distance.restype = ctypes.c_int
     lib.ta_rehearse_blocked_distance.argtypes = (
         [vp] * 5 + [i32, i32, vp, i64, i64, i64, vp, i64, i32])
@@ -318,19 +321,35 @@ def _band_pairs(rng, n_pairs, max_m, unit_k):
     return a_list, b_list
 
 
-def _rehearse_walk(lib, codes, t, unit_k):
+def _rehearse_walk(lib, codes, t, unit_k, shape=None):
     """K10's body over int32 codes [B, rows, wpr] (numpy) and the band
-    tensors `t`: (seq [B, steps], steps), from its step-major output."""
+    tensors `t` at a launch shape (lanes, tile rows, window words; default
+    the plan's), then its gather body, as the wrapper runs them: (runs,
+    counts)."""
     arrs = [x.numpy() for x in t]
     codes = np.ascontiguousarray(codes)
     B, rows, wpr = codes.shape
+    if shape is None:
+        plan = ttw.walk_plan(2 * unit_k + 1, B)
+        shape = (plan["lanes"], plan["tile_rows"], plan["window"])
     steps = ttw.walk_steps(arrs[0].shape[1], unit_k)
-    seq_t = np.full((steps, B), -1, np.int8)  # as the wrapper fills it
+    buf = np.full((B, steps), -7, np.int32)  # garbage past each pair's runs
+    counts = np.full(B, -7, np.int32)
     rc = lib.ta_rehearse_trace_walk(
-        codes.ctypes.data, *[x.ctypes.data for x in arrs], seq_t.ctypes.data,
-        B, rows, wpr, arrs[0].shape[1], arrs[1].shape[1], unit_k, steps)
-    assert rc == 0
-    return torch.from_numpy(np.ascontiguousarray(seq_t.T)), steps
+        codes.ctypes.data, *[x.ctypes.data for x in arrs], buf.ctypes.data,
+        counts.ctypes.data, B, rows, wpr, arrs[0].shape[1], arrs[1].shape[1],
+        unit_k, steps, *shape)
+    assert rc == 0 and (counts >= 0).all()
+    ends = np.cumsum(counts, dtype=np.int64)
+    runs = np.full(int(ends[-1]) if B else 0, -7, np.int32)
+    assert lib.ta_rehearse_trace_walk_gather(
+        buf.ctypes.data, counts.ctypes.data, ends.ctypes.data,
+        runs.ctypes.data, B, steps) == 0
+    return torch.from_numpy(runs), torch.from_numpy(counts)
+
+
+def _same_runs(got, ref) -> bool:
+    return all(torch.equal(g, r) for g, r in zip(got, ref))
 
 
 def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
@@ -372,8 +391,8 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
             seq, _ = bs.walk_packed_traceback(
                 torch.from_numpy(codes), *t, unit_k=unit_k)
             assert torch.equal(seq, plain_seq)
-            assert torch.equal(_rehearse_walk(lib, codes, t, unit_k)[0],
-                               plain_seq)
+            assert _same_runs(_rehearse_walk(lib, codes, t, unit_k),
+                              bs.run_length_encode(plain_seq))
             for p in range(B):
                 mp = len(a_list[p])
                 assert np.array_equal(codes[p, :mp],
@@ -381,7 +400,8 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
     if not oracle:
         return
     kband = unit_k * ct[1] + ct[2]  # costs up to this stay inside the band
-    decoded = bs.decode_walked_batch(plain_seq.numpy(), [False] * B)
+    decoded = bs.decode_walked_batch(*bs.run_length_encode(plain_seq),
+                                     [False] * B)
     for p, (a, b) in enumerate(zip(a_list, b_list)):
         ref = levenshtein_naive_k_with_opts(a, b, kband, True,
                                             EditCosts(*costs))
@@ -526,7 +546,8 @@ def _cluster_check(lib, a_list, b_list, unit_k, max_m, costs, ctas, warps,
         assert torch.equal(seq, plain_seq)
     if oracle:
         kband = unit_k * ct[1] + ct[2]
-        decoded = bs.decode_walked_batch(plain_seq.numpy(), [False] * B)
+        decoded = bs.decode_walked_batch(*bs.run_length_encode(plain_seq),
+                                     [False] * B)
         for p, (a, b) in enumerate(zip(a_list, b_list)):
             ref = levenshtein_naive_k_with_opts(a, b, kband, True,
                                                 EditCosts(*costs))
@@ -608,14 +629,22 @@ def test_band_cluster_rehearsal_refuses_what_the_launcher_refuses(lib):
     assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0) == 1
 
 
-# K10's body on its edges: the walk edge pairs (cells 0, 15, 16, 31, 32,
-# W - 1, a transposition last, m = 0), the longest walk the bound allows,
-# and random codes whose walks leave the matrix; batches not a multiple of
-# the kernel's 32-thread block.
-@pytest.mark.parametrize("case", ["edges", "longest", "random"])
+# K10's body on its edges, at the plan's launch shape and at
+# chip_smoke.WALK_CHECK_PLANS' (the many-pairs plan, one lane staging
+# two-row tiles of one-word windows, a warp a pair with three-row tiles,
+# 64-row tiles of 16 words, 16 lanes a pair):
+# the walk edge pairs (cells 0, 15, 16, 31, 32, W - 1, a transposition
+# last, m = 0), the longest walk the bound allows, random codes whose walks
+# leave the matrix, gap runs that leave the window sideways and adjacent
+# swaps across every tile edge (`walk_gap_pairs`), bands 1, 17 and 65 with
+# m = 0 pairs, and band 20,129 (the `past_plan` cell's) at a cut of 40
+# rows with a 3,000-step gap run.
+@pytest.mark.parametrize("case", ["edges", "longest", "random", "gap_runs",
+                                  "bands", "band_20129"])
 def test_trace_walk_body_equals_plain_version(lib, case):
     rng = np.random.default_rng(len(case))
     unit_k, max_m = 16, 80
+    batches = []
     if case == "random":
         B, W = 45, 2 * unit_k + 1
         m = rng.integers(0, max_m + 1, B).astype(np.int32)
@@ -626,27 +655,70 @@ def test_trace_walk_body_equals_plain_version(lib, case):
              torch.from_numpy(m),
              torch.from_numpy((m + rng.integers(0, unit_k + 1, B))
                               .astype(np.int32)))
-        codes = torch.from_numpy(rng.integers(
+        batches.append((torch.from_numpy(rng.integers(
             -(1 << 31), 1 << 31, (B, max_m, bs.code_words(W)),
-            dtype=np.int64).astype(np.int32))
+            dtype=np.int64).astype(np.int32)), t, unit_k))
     else:
+        costs = (1, 1, 0, 1, True)
         if case == "edges":
             a_list, b_list = cs.walk_edge_pairs(rng, unit_k, max_m)
-            a_list, b_list = a_list * 5, b_list * 5  # 35 pairs
-            costs = (1, 1, 0, 1, True)
-        else:
+            cut = [(a_list * 5, b_list * 5, unit_k, max_m)]  # 35 pairs
+        elif case == "longest":
             a, b = cs.longest_walk_pair(unit_k, max_m)
-            a_list, b_list = [a] * 33, [b] * 33
+            cut = [([a] * 33, [b] * 33, unit_k, max_m)]
             costs = (3, 1, 0, 0, False)
-        t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m,
-                                    device="cpu")
-        _, codes = bs.band_scan_distance(*t, unit_k=unit_k, costs_t=costs,
-                                         trace_on=True)
-    plain, steps = bs.walk_packed_traceback(codes, *t, unit_k=unit_k)
-    got, got_steps = _rehearse_walk(lib, codes.numpy(), t, unit_k)
-    assert got_steps == steps and torch.equal(got, plain)
+        elif case == "gap_runs":
+            a_list, b_list = cs.walk_gap_pairs(rng, 600, 150)
+            cut = [(a_list * 2, b_list * 2, 160, 750)]
+        elif case == "bands":
+            cut = [(*cs.band_cases(rng, 9, 40, uk), uk, 40)
+                   for uk in (0, 8, 32)]
+        else:
+            a = cs.ACGT[rng.integers(0, 4, 40)]
+            b = np.insert(a, 17, cs.ACGT[rng.integers(0, 4, 3000)])
+            b[30], b[31] = int(b[31]), int(b[30])
+            cut = [([a, np.empty(0, np.uint8)], [b, b[:100]], 10_064, 48)]
+        for a_list, b_list, uk, mm in cut:
+            t = lb.prepare_band_tensors(a_list, b_list, uk, mm, device="cpu")
+            _, codes = bs.band_scan_distance(*t, unit_k=uk, costs_t=costs,
+                                             trace_on=True)
+            batches.append((codes, t, uk))
+    for codes, t, uk in batches:
+        plain = ttw.trace_walk_plain(codes, *t, unit_k=uk)
+        for shape in (None, *(p[:3] for p in cs.WALK_CHECK_PLANS)):
+            got = _rehearse_walk(lib, codes.numpy(), t, uk, shape)
+            assert _same_runs(got, plain), (case, uk, shape)
     if case == "longest":
-        assert int((got[0] >= 0).sum()) == steps - 1
+        steps = ttw.walk_steps(max_m, unit_k)
+        assert int((plain[0][:int(plain[1][0])] >> 3).sum()) == steps - 1
+    if case == "band_20129":
+        assert int((plain[0] >> 3).max()) > 2000  # one long gap run
+
+
+def test_trace_walk_rehearsal_refuses_what_the_launcher_refuses(lib):
+    t = lb.prepare_band_tensors([np.zeros(3, np.uint8)],
+                                [np.zeros(5, np.uint8)], 4, 8, device="cpu")
+    _, codes = bs.band_scan_distance(*t, unit_k=4, costs_t=(1, 1, 0, 0,
+                                                             False),
+                                     trace_on=True)
+    for shape in ((8, 32, 8), (1, 2, 1), (32, 1024, 256)):
+        assert _rehearse_walk(lib, codes.numpy(), t, 4, shape)[1].tolist() \
+            == [2]
+    arrs = [x.numpy() for x in t]
+    c = codes.numpy()
+    buf = np.zeros(64, np.int32)
+    for shape in ((3, 32, 8), (0, 32, 8), (64, 32, 8), (8, 1, 8),
+                  (8, 32, 0), (8, 32, 257)):
+        assert lib.ta_rehearse_trace_walk(
+            c.ctypes.data, *[x.ctypes.data for x in arrs], buf.ctypes.data,
+            buf.ctypes.data, 1, 8, 1, 8, 17, 4, 37, *shape) == 1, shape
+    # a b row too short for the band, and 2^28 steps
+    assert lib.ta_rehearse_trace_walk(
+        c.ctypes.data, *[x.ctypes.data for x in arrs], buf.ctypes.data,
+        buf.ctypes.data, 1, 8, 1, 8, 15, 4, 37, 8, 32, 8) == 1
+    assert lib.ta_rehearse_trace_walk(
+        c.ctypes.data, *[x.ctypes.data for x in arrs], buf.ctypes.data,
+        buf.ctypes.data, 1, 8, 1, 8, 17, 4, 1 << 28, 8, 32, 8) == 1
 
 
 def _blocked_distance_rehearsal(lib, t, wpt, damerau):

@@ -156,8 +156,8 @@ def test_walks_at_the_exact_band_equal_the_power_of_two(c):
         t = tlb.prepare_band_tensors(a_list, b_list, uk, 112, device="cpu")
         d, codes = tlb.band_trace(*t, unit_k=uk, costs_t=ct)
         seq, _ = tbs.walk_packed_traceback(codes, *t, unit_k=uk)
-        walked[uk] = (d, tbs.decode_walked_batch(seq.numpy(),
-                                                 [False] * len(a_list)))
+        walked[uk] = (d, tbs.decode_walked_batch(
+            *tbs.run_length_encode(seq), [False] * len(a_list)))
     inside = [p for p in range(len(a_list))
               if int(walked[64][0][p]) <= k or p == len(a_list) - 1]
     assert len(inside) > 5

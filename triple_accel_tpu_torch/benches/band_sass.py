@@ -2,7 +2,7 @@
 kernels and of the headline Myers kernels.
 
     python3 -m triple_accel_tpu_torch.benches.band_sass [--kernel band
-        blocked diag myers_distance myers_search]
+        blocked diag myers_distance myers_search trace_walk]
 
 Builds the kernels (`utils/build.py`), reads what `-Xptxas -v` reports for
 every instantiation of the kernels named (registers, stack frame and
@@ -25,7 +25,9 @@ unmasked; K2's chunk up to 4 words, its quad of 4 columns beyond): the two
 longest branch-free runs are those bodies, reported with their
 instructions a row or column and their shared-memory, global-memory,
 add-with-carry, funnel-shift and 3-input-logic instructions; every
-innermost loop besides.  One JSON line per
+innermost loop besides.  `trace_walk` (`trace_walk_kernel`, K10): every
+innermost loop (the walker's step loop among them) with those counts,
+its branches and convergence barriers (BSSY).  One JSON line per
 instantiation (per loop for the column loops).  Needs the CUDA toolkit
 (`nvcc`, `cuobjdump`); no device.
 """
@@ -147,6 +149,25 @@ def _op_kinds(run) -> dict:
     }
 
 
+def _inner_loops(body: str) -> list:
+    """Every innermost loop (a backward branch's range holding no other):
+    its instructions and memory operations (`_op_kinds`) and branches."""
+    ops = _ops(body)
+    backs = [(tgt, a) for a, op, tgt, _ in ops
+             if op.startswith("BRA") and tgt is not None and tgt < a]
+    out = []
+    for lo, hi in sorted(backs):
+        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+               for l2, h2 in backs):
+            continue
+        loop = [x for x in ops if lo <= x[0] <= hi]
+        out.append({"at": hex(lo), **_op_kinds(loop),
+                    "branches": sum(x[1].startswith("BRA") for x in loop),
+                    "convergence_barriers": sum(x[1].startswith("BSSY")
+                                                for x in loop)})
+    return out
+
+
 def _straight_bodies(body: str, steps_of, keep: int = 2) -> dict:
     """The `keep` longest runs of code with no branch in or out: the fully
     unrolled row / column bodies (a kernel may hold a guarded and an
@@ -186,7 +207,8 @@ def _straight_bodies(body: str, steps_of, keep: int = 2) -> dict:
 _KERNELS = {"band": "band_kernel", "blocked": "blocked_kernel",
             "diag": "search_diag_kernel",
             "myers_distance": "myers_distance_kernel",
-            "myers_search": "myers_search_kernel"}
+            "myers_search": "myers_search_kernel",
+            "trace_walk": "trace_walk_kernel"}
 
 
 def main(argv=None) -> int:
@@ -230,6 +252,9 @@ def main(argv=None) -> int:
                         round(c["shared_loads"] / w), 1))
                 rec = {"kernel": demangled, **regs.get(name, {}),
                        **_straight_bodies(part, steps_of)}
+            elif kind == "trace_walk" and _KERNELS[kind] in name:
+                rec = {"kernel": demangled, **regs.get(name, {}),
+                       "innermost_loops": _inner_loops(part)}
             elif _KERNELS[kind] in name:
                 per_step = 1  # K6: one word handed up a step
                 if kind == "diag":  # <R, TRANS>: 7 shuffles with TRANS

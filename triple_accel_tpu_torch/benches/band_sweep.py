@@ -2,6 +2,7 @@
 
     python3 -m triple_accel_tpu_torch.benches.band_sweep [--chosen]
     python3 -m triple_accel_tpu_torch.benches.band_sweep --past-plan
+    python3 -m triple_accel_tpu_torch.benches.band_sweep --walk
 
 Times `band_distance` and `band_trace` alone (CUDA events, one warm-up, 5
 launches: median, least and most) at the four shapes `chip_smoke.py`
@@ -29,6 +30,16 @@ one warm-up and one timed launch each (a launch takes seconds).  Every
 point must give the first point's distances and codes.  This is the
 measurement behind `lev_band.CLUSTER_WARPS`, `_cluster_map` and
 `GLOBAL_THREADS`.
+
+With `--walk`, only the walk kernel K10 at the three traced cells of
+`chip_smoke.py`'s `band_trace` phase (its inputs, K4's codes at the band
+the traced dispatch picks: `kernel_ab.traced_cells`) over `WALK_POINTS`
+(lanes a pair x rows a tile x words a window, `WALK_THREADS` threads a
+block; the plan's point first; points the launcher refuses, whose tiles
+pass a block's shared memory, are left out), 9 timed launches of the
+walk kernel alone each,
+and of the whole wrapper at the plan's point; every point must give the
+plan's run counts.  This is the measurement behind `trace_walk.walk_plan`.
 """
 
 from __future__ import annotations
@@ -61,6 +72,11 @@ PAST_PLAN_SHAPE = ("band_trace_past_plan", True, 128, 10_000, 10_000,
 CLUSTER_POINTS = tuple((c, w + e) for c in range(2, 9)
                        for w in (-(-20 // c),) for e in (0, 1)
                        if w + e <= lb.CLUSTER_MAX_WARPS)
+
+
+WALK_POINTS = tuple((lanes, rows, window) for lanes in (4, 8, 16, 32)
+                    for rows in (16, 32, 64, 128) for window in (2, 4, 8, 16))
+WALK_THREADS = (64, 128, 256)
 
 
 def _time_ms(fn, reps: int = 5):
@@ -139,6 +155,8 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip(), flush=True)
+    if "--walk" in argv:
+        return _walk_sweep(dev)
     past_plan = "--past-plan" in argv
     shapes = (PAST_PLAN_SHAPE,) if past_plan else SHAPES
     if past_plan and "--pairs" in argv:
@@ -180,6 +198,56 @@ def main(argv=None) -> int:
             del res
         del tensors, first_codes
         torch.cuda.empty_cache()
+    return 0
+
+
+def _walk_sweep(dev) -> int:
+    """K10 over WALK_POINTS x WALK_THREADS at the three traced cells: the
+    walk kernel alone (its run buffer preallocated), the plan's point
+    also through the wrapper (the kernel, the running sums of the counts,
+    their total read on the host, the gather)."""
+    import os
+
+    sys.path.insert(0, os.getcwd())  # chip_smoke.py of the checkout
+    import chip_smoke as cs
+
+    from ..ops import trace_walk as tw
+    from .kernel_ab import traced_cells
+
+    for name, codes, t, unit_k in traced_cells(cs, dev):
+        W = 2 * unit_k + 1
+        B = codes.shape[0]
+        chosen = tw.walk_plan(W, B)
+        steps = tw.walk_steps(t[0].shape[1], unit_k)
+        buf = torch.empty((B, steps), dtype=torch.int32, device=dev)
+        counts = torch.empty(B, dtype=torch.int32, device=dev)
+        tw._launch_walk(codes, *t, unit_k, chosen, buf, counts)
+        first = counts.clone()
+        print(json.dumps({
+            "kernel": name, "band": W, "pairs": B, "wrapper": True,
+            **chosen, "ms_median_min_max": _time_ms(
+                lambda: tw.trace_walk(codes, *t, unit_k=unit_k), 9)}),
+            flush=True)
+        points = [chosen] + [
+            {"lanes": lanes, "tile_rows": rows, "window": window,
+             "threads": threads}
+            for lanes, rows, window in WALK_POINTS
+            for threads in WALK_THREADS]
+        for k, plan in enumerate(points):
+            if k and plan == chosen:
+                continue
+            counts.fill_(-1)
+            try:
+                tw._launch_walk(codes, *t, unit_k, plan, buf, counts)
+            except RuntimeError:  # refused: its tiles pass shared memory
+                continue
+            print(json.dumps({
+                "kernel": name, "band": W, "pairs": B, "chosen": k == 0,
+                **plan, "same_counts": bool(torch.equal(counts, first)),
+                "ms_median_min_max": _time_ms(lambda: tw._launch_walk(
+                    codes, *t, unit_k, plan, buf, counts), 9),
+            }), flush=True)
+        del buf
     return 0
 
 

@@ -36,8 +36,9 @@ beside this one is timed by the same script:
   `band_trace` phase (8,192 x 1000 B at k = 32, 256 x 3000 B at k = 64,
   and `past_plan`, 128 x 10,000 B at an unbounded threshold; rDamerau
   costs) over the codes K4 gives at the band the traced call's dispatch
-  chose; where the checkout's `chip_smoke.py` has `k10_alone`, also the
-  longest walk of each alone.
+  chose; beside each, its longest walk alone with L2 warm and emptied
+  (both output forms of `trace_walk` are read: runs and counts, or the
+  step-major versions' [B, steps] steps).
 
 CUDA events, one warm-up, the median (least, most) of 7 launches, 9 for
 the anchored one and for K10.  Prints the card's name and power limit, then one JSON
@@ -184,13 +185,47 @@ def time_k4(cs, dev, ms) -> dict:
     return out
 
 
-def time_k10(cs, dev, ms) -> dict:
-    """K10 at the three traced cells; the inputs as chip_smoke.py makes
-    them, the band as the traced call's dispatch picks it."""
+def walk_lengths(cs, res) -> torch.Tensor:
+    """Steps each pair walked, from what a version's `trace_walk` returns:
+    (runs, counts) (`chip_smoke.walk_lengths`), or the step-major
+    versions' (seq int8 [B, steps], steps)."""
+    if isinstance(res[1], torch.Tensor):
+        return cs.walk_lengths(*res)
+    return (res[0] >= 0).sum(dim=1)
+
+
+def walk_alone_ms(cs, tw, codes, t, unit_k: int, p: int, reps: int,
+                  flush: bool) -> float:
+    """Median time of the wrapper on pair p alone (one walk, one chain of
+    dependent steps) over `reps` launches after a warm-up; with `flush`,
+    L2 is emptied before each launch by writing K10_FLUSH_BYTES, so the
+    codes come from device memory; without, they stay in L2."""
+    import statistics
+
+    one = [x[p:p + 1] for x in (codes, *t)]
+    buf = torch.empty(cs.K10_FLUSH_BYTES, dtype=torch.uint8,
+                      device=codes.device)
+    times = []
+    for _ in range(reps + 1):
+        if flush:
+            buf.fill_(1)
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        tw.trace_walk(*one, unit_k=unit_k)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+    return statistics.median(times[1:])
+
+
+def traced_cells(cs, dev):
+    """The three traced cells of chip_smoke.py's `band_trace` phase as K10
+    sees them: (name, codes, band tensors, unit_k) with the codes K4 gives
+    at the band the traced call's dispatch chose, one cell at a time."""
     import triple_accel_tpu_torch as tt
     from triple_accel_tpu_torch.dispatch import last_dispatch
     from triple_accel_tpu_torch.ops import lev_band as lb
-    from triple_accel_tpu_torch.ops import trace_walk as tw
 
     a_l, b_l = cs.make_pairs(cs.FULL_PAIRS)
     # the phase swaps over the whole batch with one generator
@@ -211,7 +246,6 @@ def time_k10(cs, dev, ms) -> dict:
               cs.U32_MAX))
     del a_l, b_l, b_all
     costs = tt.RDAMERAU_COSTS
-    out = {}
     for name, a, b, k in cells:
         tt.levenshtein_k_batch(a, b, k, costs, trace_on=True)
         dec = last_dispatch()
@@ -219,12 +253,39 @@ def time_k10(cs, dev, ms) -> dict:
                                     device=dev)
         _, codes = lb.band_trace(*t, unit_k=dec.unit_k,
                                  costs_t=cs.costs_tuple(costs))
-        out[name] = ms(lambda: tw.trace_walk(codes, *t, unit_k=dec.unit_k),
-                       9)
-        if hasattr(cs, "k10_alone"):
-            seq, _ = tw.trace_walk(codes, *t, unit_k=dec.unit_k)
-            out[f"{name}_alone"] = cs.k10_alone(codes, t, seq, dec.unit_k, 9)
+        yield name, codes, t, dec.unit_k
         del t, codes
+
+
+def time_k10(cs, dev, ms) -> dict:
+    """K10 at the three traced cells; the inputs as chip_smoke.py makes
+    them, the band as the traced call's dispatch picks it.  Beside the
+    batch: its longest walk alone with L2 warm and emptied, and (step-major
+    versions) the wrapper's own -1 fill and transpose at the batch's
+    shape."""
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+
+    out = {}
+    for name, codes, t, unit_k in traced_cells(cs, dev):
+        out[name] = ms(lambda: tw.trace_walk(codes, *t, unit_k=unit_k), 9)
+        res = tw.trace_walk(codes, *t, unit_k=unit_k)
+        lens = walk_lengths(cs, res)
+        p = int(lens.argmax())
+        steps = int(lens[p])
+        alone = {}
+        for kind, flush in (("warm", False), ("cold", True)):
+            t_ms = walk_alone_ms(cs, tw, codes, t, unit_k, p, 9, flush)
+            alone[kind] = [round(t_ms, 4), round(t_ms * 1e6 / steps, 1)]
+        out[f"{name}_alone_ms_ns_a_step"] = alone
+        out[f"{name}_longest_walk"] = steps
+        out[f"{name}_walked_steps"] = int(lens.sum())
+        if not isinstance(res[1], torch.Tensor):
+            shape = res[0].shape[::-1]
+            out[f"{name}_fill_ms"] = ms(lambda: torch.full(
+                shape, -1, dtype=torch.int8, device=dev), 9)
+            out[f"{name}_transpose_ms"] = ms(
+                lambda: res[0].t().contiguous(), 9)
+        del res
     return out
 
 

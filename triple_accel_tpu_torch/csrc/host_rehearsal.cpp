@@ -2,7 +2,8 @@
 // functions of myers_distance.cu and myers_search.cu, the lanes of
 // band_distance.cu's warp regime and the row passes of its wide regimes
 // (the band state in a block's shared memory or in a per-pair scratch),
-// the per-step walk of trace_walk.cu (the lanes of a warp in lockstep),
+// the walk of trace_walk.cu (the lanes of a pair's group in turn, their
+// copies landing at their waits),
 // the per-lane wavefront steps of myers_blocked.cu and search_diag.cu (the
 // lanes of a group in turn, the warps of a block in order) and the lanes
 // and warps of search_flat.cu,
@@ -587,34 +588,91 @@ extern "C" int ta_rehearse_band_cluster(const void* a, const void* b,
              b_stride, unit_k, code_rows, k, ctas, warps, order);
 }
 
-// Same arguments as ta_trace_walk, host pointers, no stream, seq_t filled
-// with -1 by the caller: the warps one after the other, the 32 lanes of a
-// warp in lockstep until the warp's longest walk has ended.
-extern "C" int ta_rehearse_trace_walk(const void* codes, const void* a,
-                                      const void* b, const void* m,
-                                      const void* n, void* seq_t, int64_t B,
-                                      int64_t rows, int64_t wpr,
-                                      int64_t a_stride, int64_t b_stride,
-                                      int unit_k, int64_t steps) {
-  if (B <= 0 || steps <= 0) return 0;
-  WalkArgs g;
-  if (!trace_walk_args(codes, a, b, m, n, seq_t, B, rows, wpr, a_stride,
-                       b_stride, unit_k, steps, &g))
-    return 1;
-  for (int64_t p0 = 0; p0 < B; p0 += TW_THREADS) {
-    PairWalk w[TW_THREADS];
-    for (int l = 0; l < TW_THREADS; ++l)
-      w[l] = walk_begin(g, p0 + l < B ? p0 + l : 0, p0 + l < B);
-    for (int64_t s = 0; s < steps; ++s) {
-      bool all_done = true;
-      for (int l = 0; l < TW_THREADS; ++l) all_done &= walk_done(w[l]);
-      if (all_done) break;
-      for (int l = 0; l < TW_THREADS; ++l) {
-        const int8_t v = walk_step(g, w[l]);
-        if (p0 + l < B) g.seq_t[s * B + p0 + l] = v;
-      }
+// The lanes of one group of trace_walk.cu, run in turn: a lane's copies
+// are queued when it issues them and land only at that lane's waits
+// (cp.async.wait_group 1: all but its last committed group; wait_all:
+// all), so a tile the walker reads before its copies have landed holds
+// what the buffer held before (other tiles, or the 0xA5 fill).  The host
+// thread is the walker; the hand-over of its position is the identity.
+struct HostWalkGroup {
+  struct Copy {
+    uint32_t* dst;
+    const uint32_t* src;
+  };
+  int size, lane = 0;
+  std::vector<std::vector<Copy>> open;
+  std::vector<std::vector<std::vector<Copy>>> committed;
+  explicit HostWalkGroup(int g) : size(g), open(g), committed(g) {}
+  bool walker() const { return true; }
+  int first() const { return lane; }
+  int stride() const { return size; }
+  void copy4(uint32_t* dst, const uint32_t* src) {
+    open[lane].push_back({dst, src});
+  }
+  void commit() {
+    committed[lane].push_back(open[lane]);
+    open[lane].clear();
+  }
+  void land(int l, size_t keep) {
+    auto& q = committed[l];
+    while (q.size() > keep) {
+      for (const Copy& c : q.front()) std::memcpy(c.dst, c.src, 4);
+      q.erase(q.begin());
     }
   }
+  void wait_one() { land(lane, 1); }
+  void wait_all() {  // every lane's copies, committed or not
+    for (int l = 0; l < size; ++l) {
+      committed[l].push_back(open[l]);
+      open[l].clear();
+      land(l, 0);
+    }
+  }
+  void sync() {}
+  template <class F>
+  void each_lane(F f) {
+    for (lane = 0; lane < size; ++lane) f();
+    lane = 0;
+  }
+  void bcast(int64_t&, int64_t&, int64_t&) {}
+};
+
+// Same arguments as ta_trace_walk, host pointers, no stream, no block
+// shape: the pairs one after the other, each pair's group of `lanes` lanes
+// in turn over two tile buffers that start as 0xA5 bytes and are not
+// cleared between pairs.
+extern "C" int ta_rehearse_trace_walk(const void* codes, const void* a,
+                                      const void* b, const void* m,
+                                      const void* n, void* runs,
+                                      void* counts, int64_t B, int64_t rows,
+                                      int64_t wpr, int64_t a_stride,
+                                      int64_t b_stride, int unit_k,
+                                      int64_t steps, int lanes,
+                                      int tile_rows, int window) {
+  if (B <= 0) return 0;
+  WalkArgs g;
+  if (!trace_walk_args(codes, a, b, m, n, runs, counts, B, rows, wpr,
+                       a_stride, b_stride, unit_k, steps, lanes, tile_rows,
+                       window, &g))
+    return 1;
+  std::vector<uint32_t> smem(2 * (size_t)g.buf_words, 0xA5A5A5A5u);
+  HostWalkGroup grp(lanes);
+  for (int64_t p = 0; p < B; ++p) walk_pair(g, p, smem.data(), grp);
+  return 0;
+}
+
+// Same arguments as ta_trace_walk_gather, host pointers: the pairs one
+// after the other, a warp's 32 lanes in turn.
+extern "C" int ta_rehearse_trace_walk_gather(const void* buf,
+                                             const void* counts,
+                                             const void* ends, void* out,
+                                             int64_t B, int64_t steps) {
+  if (B <= 0) return 0;
+  if (steps < 1) return 1;
+  for (int64_t p = 0; p < B; ++p)
+    for (int lane = 0; lane < 32; ++lane)
+      runs_gather((const int32_t*)buf, (const int32_t*)counts,
+                  (const int64_t*)ends, (int32_t*)out, p, steps, lane, 32);
   return 0;
 }
 

@@ -10,8 +10,8 @@ engines and every host step around them:
 * `band` / `band_trace` — the same entry points with any cost model, with
   unit costs past 191, and with `trace_on=True`: the general-cost band
   kernels (ops/lev_band.py, band up to unit_k 4096, any string length),
-  the batched traceback walk (ops/trace_walk.py, kernel K10) and its RLE
-  decode (ops/band_scan.py);
+  the batched traceback walk (ops/trace_walk.py, kernel K10, which emits
+  runs) and their decode (ops/band_scan.py);
 * `band_trace_global` — traced batches past that band plan: the traced
   band kernel's cluster regime (one pair a thread-block cluster, the
   matrix's columns in registers) or, for b strings longer than a cluster
@@ -115,8 +115,9 @@ U32_MAX = (1 << 32) - 1
 # smallest pair group worth its own kernel launch in per-bucket dispatch
 _MIN_BUCKET = 256
 
-# bytes of packed argmin codes one traced launch may hold on the device:
-# larger traced batches chunk on the batch axis (pairs walk independently).
+# bytes of packed argmin codes and of the walk's run buffer (4 bytes a
+# step) one traced launch may hold on the device: larger traced batches
+# chunk on the batch axis (pairs walk independently).
 # 16 GiB, a fifth of the H100's 80 GB: past the band plan the kernel runs
 # one pair a cluster of a few SMs, so a chunk must hold a hundred pairs or
 # so to fill the card, and 128 pairs of 10,000 bytes at unit_k 10,064 hold
@@ -383,7 +384,7 @@ def levenshtein_k_batch(
     With `trace_on`, returns (dists, traces): traces[p] is the RLE edit
     list (None where dists[p] == -1): the band kernel emits argmin codes,
     which stay on the device, a batched walk follows every pair back from
-    (m, n) at once, and only the compact edit streams reach the host.
+    (m, n) at once, and only its runs of equal steps reach the host.
 
     The ladder, and the path names in the dispatch log (the JAX package's
     names in brackets):
@@ -434,7 +435,7 @@ def levenshtein_k_batch(
         prepare_myers_inputs,
     )
     from .ops.search_flat import flat_distance, prepare_flat_distance_inputs
-    from .ops.trace_walk import trace_walk
+    from .ops.trace_walk import run_bytes_per_pair, trace_walk
 
     dev = resolve_device(device)
     if mesh is not None:
@@ -619,9 +620,11 @@ def levenshtein_k_batch(
             dist = band_distance(*bargs, unit_k=uk_dev, costs_t=ct)
             out = dist.cpu().numpy().astype(np.int64)
             return np.where(feasible & (out <= max_ks), out, -1)
-        # traced: chunk the batch so one launch's codes stay under the cap
-        b_cap = max(1, _TRACE_CODE_BYTES_CAP // plan["code_bytes_per_pair"])
-        outs, seqs = [], []
+        # traced: chunk the batch so one launch's codes and the walk's run
+        # buffer stay under the cap; the chunks' runs join end to end
+        b_cap = max(1, _TRACE_CODE_BYTES_CAP // (
+            plan["code_bytes_per_pair"] + run_bytes_per_pair(rows, uk_dev)))
+        outs, runs, counts = [], [], []
         for lo in range(0, B, b_cap):
             hi = min(lo + b_cap, B)
             bargs = prepare_band_tensors(swapped_a[lo:hi], swapped_b[lo:hi],
@@ -629,14 +632,17 @@ def levenshtein_k_batch(
             dist, codes = band_trace(
                 *bargs, unit_k=uk_dev, costs_t=ct,
                 max_n=max((len(b) for b in swapped_b[lo:hi]), default=0))
-            seq, _steps = trace_walk(codes, *bargs, unit_k=uk_dev)
+            r, c = trace_walk(codes, *bargs, unit_k=uk_dev)
             del codes
             outs.append(dist.cpu().numpy().astype(np.int64))
-            seqs.append(seq.cpu().numpy())
+            runs.append(r.cpu().numpy())
+            counts.append(c.cpu().numpy())
         out = np.concatenate(outs)
         out = np.where(feasible & (out <= max_ks), out, -1)
-        decoded = decode_walked_batch(np.concatenate(seqs, axis=0), swaps)
-        traces = [decoded[p] if out[p] >= 0 else None for p in range(B)]
+        # only the pairs within the threshold are decoded
+        traces = decode_walked_batch(np.concatenate(runs),
+                                     np.concatenate(counts), swaps,
+                                     keep=out >= 0)
         return out, traces
 
     DispatchDecision(

@@ -34,7 +34,7 @@ row i - 1, bits 2*(c % 16).
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,6 +51,8 @@ __all__ = [
     "band_trace_batch",
     "walk_steps",
     "walk_packed_traceback",
+    "RUN_COUNT_LIMIT",
+    "run_length_encode",
     "decode_walked_batch",
     "prepare_band_inputs",
     "decode_traceback",
@@ -58,6 +60,8 @@ __all__ = [
 
 INF = 1 << 30  # +infinity sentinel; all real costs stay far below
 CODES_PER_WORD = 16  # two-bit argmin codes per packed 32-bit word
+# a walk's runs are int32 `count << 3 | step`: counts below 2^28
+RUN_COUNT_LIMIT = 1 << 28
 
 CostsT = Tuple[int, int, int, int, bool]
 
@@ -223,9 +227,9 @@ def walk_packed_traceback(
     A pair walks while i > 0 or j > 0, for at most `steps` steps, as the
     JAX package's `_walk_scan` does; the loop stops once no pair walks,
     and the rest of seq stays -1.  All gather indices are int64, so no
-    batch size overflows them.  The plain version of kernel K10
-    (csrc/trace_walk.cu, wrapper ops/trace_walk.py `trace_walk`), which
-    computes the same on the card.
+    batch size overflows them.  With `run_length_encode`, the plain
+    version of kernel K10 (ops/trace_walk.py `trace_walk_plain`; the
+    kernel, csrc/trace_walk.cu, emits the same runs on the card).
     """
     W = 2 * unit_k + 1
     B, max_m = a_t.shape
@@ -269,6 +273,35 @@ def walk_packed_traceback(
     return seq_t.t().contiguous(), steps
 
 
+def run_length_encode(seq: torch.Tensor):
+    """The runs of walked step streams: seq int8 [B, steps] (reverse walk
+    order, -1 past each walk's end) -> (runs int32 [total], counts int32
+    [B]), pair p's counts[p] runs after the runs of pairs 0 .. p - 1, each
+    `count << 3 | step`, in the same (reverse) order.  Counts must stay
+    below RUN_COUNT_LIMIT, so a stream may be at most that long."""
+    B, steps = seq.shape
+    if steps >= RUN_COUNT_LIMIT:
+        raise ValueError(f"walks of {steps} steps: a run's count must stay "
+                         f"below 2^28 = {RUN_COUNT_LIMIT}")
+    dev = seq.device
+    i64 = torch.int64
+    live = seq >= 0
+    prev = torch.cat([torch.full((B, 1), -2, dtype=seq.dtype, device=dev),
+                      seq[:, :-1]], dim=1)
+    start = live & (seq != prev)
+    counts = start.sum(dim=1).to(torch.int32)
+    at = torch.nonzero(start.reshape(-1)).reshape(-1)  # pair-major order
+    # a run ends at the next run's start or at its pair's walk's end (a
+    # walk is a prefix of its row)
+    walk_end = torch.arange(B, dtype=i64, device=dev) * steps \
+        + live.sum(dim=1)
+    nxt = torch.cat([at[1:], torch.full((1,), B * steps, dtype=i64,
+                                        device=dev)])[:at.numel()]
+    end = torch.minimum(nxt, walk_end[at // max(steps, 1)])
+    step = seq.reshape(-1)[at].to(i64)
+    return (((end - at) << 3) | step).to(torch.int32), counts
+
+
 def band_trace_batch(
     a_t: torch.Tensor,
     b_t: torch.Tensor,
@@ -281,47 +314,56 @@ def band_trace_batch(
     """Plain banded distance WITH the batched traceback walk: the row
     recurrence emits packed argmin codes, then `walk_packed_traceback`
     walks every pair back at once.  Returns (dist [B] int32,
-    seq [B, steps] int8, steps); decode with `decode_walked_batch`."""
+    seq [B, steps] int8, steps); `run_length_encode` makes its runs, which
+    `decode_walked_batch` decodes."""
     dist, codes = band_scan_distance(
         a_t, b_t, m, n, unit_k=unit_k, costs_t=costs_t, trace_on=True)
     seq, steps = walk_packed_traceback(codes, a_t, b_t, m, n, unit_k=unit_k)
     return dist, seq, steps
 
 
+# a run's step (its low three bits) -> the edit of an unswapped pair; a
+# swapped pair's steps 2 and 3 trade places first
+_RUN_EDITS = (EditType.Match, EditType.Mismatch, EditType.AGap,
+              EditType.BGap, EditType.Transpose)
+
+
 def decode_walked_batch(
-    seq: np.ndarray,  # [B, steps] int8, reverse walk order, -1 padded
+    runs: np.ndarray,  # int32 [total], `count << 3 | step`, reverse order
+    counts: np.ndarray,  # int32 [B], runs a pair
     swaps: List[bool],
-) -> List[List[Edit]]:
-    """Batched RLE decode of device-walked edit streams: one numpy pass
-    finds every run boundary across the whole batch (a separator column
-    between rows prevents cross-pair runs), then Python touches only the
-    runs (a handful per pair) instead of every step."""
-    B, steps = seq.shape
-    fwd = seq[:, ::-1]  # forward order, -1 padding now at the front
-    sep = np.full((B, 1), -3, dtype=fwd.dtype)
-    flat = np.ascontiguousarray(np.hstack([sep, fwd])).reshape(-1)
-    cuts = np.flatnonzero(np.diff(flat)) + 1
-    starts = np.concatenate(([0], cuts))
-    ends = np.concatenate((cuts, [flat.size]))
-    codes = flat[starts]
-    width = steps + 1
-    out: List[List[Edit]] = [[] for _ in range(B)]
-    for s, e, c in zip(starts.tolist(), ends.tolist(), codes.tolist()):
-        if c < 0:
-            continue
-        p = s // width
-        swap = swaps[p]
-        if c == 0:
-            et = EditType.Match
-        elif c == 1:
-            et = EditType.Mismatch
-        elif c == 2:
-            et = EditType.BGap if swap else EditType.AGap
-        elif c == 3:
-            et = EditType.AGap if swap else EditType.BGap
-        else:
-            et = EditType.Transpose
-        out[p].append(Edit(edit=et, count=e - s))
+    keep: Optional[np.ndarray] = None,  # bool [B]: pairs to decode
+) -> List[Optional[List[Edit]]]:
+    """Edit lists of walked runs (K10, `trace_walk.trace_walk`): each pair's
+    runs reversed into forward order, steps 2 / 3 mapped to AGap / BGap by
+    the pair's swap.  Pairs outside `keep` give None.  One `Edit` per
+    distinct (edit, count), shared by every list that holds it (`Edit` is
+    frozen), so Python builds objects only for the distinct runs."""
+    counts = np.asarray(counts, dtype=np.int64)
+    B = counts.shape[0]
+    keep = np.ones(B, dtype=bool) if keep is None else \
+        np.asarray(keep, dtype=bool)
+    runs = np.asarray(runs, dtype=np.int64)[np.repeat(keep, counts)]
+    kc = counts[keep]
+    pair = np.repeat(np.arange(kc.shape[0]), kc)
+    step = runs & 7
+    flip = np.asarray(swaps, dtype=bool)[keep][pair] & ((step == 2)
+                                                        | (step == 3))
+    runs = runs ^ flip
+    # forward order: pair q's runs reversed in place
+    ends = np.cumsum(kc)
+    fwd = runs[(ends - kc)[pair] + ends[pair] - 1
+               - np.arange(runs.shape[0])]
+    distinct, inverse = np.unique(fwd, return_inverse=True)
+    edits = np.empty(distinct.shape[0], dtype=object)
+    edits[:] = [Edit(edit=_RUN_EDITS[v & 7], count=v >> 3)
+                for v in distinct.tolist()]
+    flat = edits[inverse.reshape(-1)]
+    out: List[Optional[List[Edit]]] = [None] * B
+    lo = 0
+    for p, hi in zip(np.flatnonzero(keep).tolist(), ends.tolist()):
+        out[p] = flat[lo:hi].tolist()
+        lo = hi
     return out
 
 

@@ -148,8 +148,11 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     ]
     lib.ta_trace_walk.restype = ctypes.c_int
     lib.ta_trace_walk.argtypes = [
-        vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i32, i64, vp,
+        vp, vp, vp, vp, vp, vp, vp, i64, i64, i64, i64, i64, i32, i64, i32,
+        i32, i32, i32, vp,
     ]
+    lib.ta_trace_walk_gather.restype = ctypes.c_int
+    lib.ta_trace_walk_gather.argtypes = [vp, vp, vp, vp, i64, i64, vp]
     lib.ta_blocked_distance.restype = ctypes.c_int
     lib.ta_blocked_distance.argtypes = [
         vp, vp, vp, vp, vp, i32, i32, vp, i64, i64, i64, vp, i64, i32, vp,
