@@ -13,6 +13,14 @@ each against its plain PyTorch version on the card:
 * `search`: `levenshtein_search_simd_with_opts` with a 24-byte needle at
   k = 3 over a 128 MiB haystack, unit costs and the restricted-Damerau
   preset (kernel `myers_search`), and the same split of each call;
+* `dictionary`: `levenshtein_search_many` on one `PackedHaystack` of its
+  own 128 MiB: 512 short needles at k = 3, unit and restricted-Damerau,
+  Best and All, then unit All again (kernel `myers_search`, a length group
+  a launch per memory chunk), 4 needles of 400 bytes (`blocked_search`)
+  and 4 under affine costs (`search_diag`, a needle at a time);
+* `sweep`: `levenshtein_search_sweep` over the search phase's input in 4
+  slabs with a checkpoint, Best and All, then a resume after two slabs,
+  against the search phase's results;
 * `band_distance`: the same 196,608 pairs with adjacent swaps added, at
   k = 32 under the restricted-Damerau costs, then 4,096 pairs of 20,000
   bytes at k = 256 under affine costs (2, 1, 2): the general band kernel in
@@ -218,6 +226,29 @@ FLAT_DIST_PLAIN_PAIRS, FLAT_DIST_PLAIN_LEN = 8, 4000
 # end position a hit, past the host replay budget
 DENSE_NEEDLE, DENSE_HAY, K_DENSE = b"ab" * 200, b"ab" * 600_000, 398
 FRONT_DOOR_GENERAL_LEN = 6000
+# the dictionary phase (its own haystack, seed DICT_SEED): DICT_PER_LEN
+# lower-case needles of each length over upper-case noise, DICT_PLANTED of
+# them (an equal share of each length) planted DICT_COPIES times with 1-2
+# substitutions, at k = K_DICT; then the K6 group (needles, length, k,
+# copies, substitutions a copy) and the general-cost group, searched a
+# needle at a time (K7)
+DICT_SEED = 5150
+DICT_LENS, DICT_PER_LEN, K_DICT = (16, 20, 24, 32), 128, 3
+DICT_PLANTED, DICT_COPIES = 64, 4
+DICT_LONG = (4, 400, 20, 2, 4)
+DICT_GENERAL = (4, 24, 6, 2, 1)
+DICT_GENERAL_COSTS = (2, 1, 2, None)
+DICT_SLOT = 512  # copies lie in distinct slots of this many bytes
+DICT_SAMPLE, DICT_PREFIX_NEEDLES = 16, 8
+# the sweep phase: slabs of SWEEP_SLAB bytes (4 over 128 MiB)
+SWEEP_SLAB = 1 << 25
+# the kernel checks of dictionary launches: a launch of DICT_CHECK_NUM
+# needles, and a group whose distances pass torch.nonzero's 2^31 - 1
+# elements (needles x (haystack + 1)), cut into launches by the plan and
+# held against the plain version DICT_EDGE_PLAIN needles at a time
+DICT_CHECK_NUM = 33
+DICT_EDGE = (32_769, 65_535, 20)  # needles, haystack bytes, needle chars
+DICT_EDGE_PLAIN = 4096
 
 
 def emit(obj) -> None:
@@ -295,6 +326,65 @@ def make_haystack(n_bytes: int):
         mut[rng.integers(0, NEEDLE_LEN, 2)] = 97
         hay[pos: pos + NEEDLE_LEN] = mut
     return needle, hay, np.sort(planted)
+
+
+def _lower_substitute(seq: np.ndarray, n_subs: int, rng) -> np.ndarray:
+    """A copy of a lower-case sequence with `n_subs` positions turned into
+    other lower-case letters."""
+    out = seq.copy()
+    q = rng.choice(len(seq), n_subs, replace=False)
+    out[q] = 97 + (out[q] - 97 + rng.integers(1, 26, n_subs)) % 26
+    return out
+
+
+def make_dictionary(n_bytes: int):
+    """The dictionary phase's input (seed DICT_SEED; the other phases'
+    haystack is untouched): upper-case noise; DICT_PER_LEN lower-case
+    needles of each of DICT_LENS; the first DICT_PLANTED // len(DICT_LENS)
+    needles of each length planted DICT_COPIES times with 1-2
+    substitutions (the first DICT_PREFIX_NEEDLES of them once inside the
+    first MiB); the K6 group (DICT_LONG) and the general-cost group
+    (DICT_GENERAL) planted with their substitutions.  Every copy lies in
+    its own slot of DICT_SLOT bytes.  Returns the haystack, the needle
+    lists and each planted needle's copy positions ({group: {needle
+    index: [start, ...]}})."""
+    rng = np.random.default_rng(DICT_SEED)
+    hay = rng.integers(65, 91, n_bytes).astype(np.uint8)
+    groups = {
+        "short": [rng.integers(97, 123, m).astype(np.uint8)
+                  for m in DICT_LENS for _ in range(DICT_PER_LEN)],
+        "long": [rng.integers(97, 123, DICT_LONG[1]).astype(np.uint8)
+                 for _ in range(DICT_LONG[0])],
+        "general": [rng.integers(97, 123, DICT_GENERAL[1]).astype(np.uint8)
+                    for _ in range(DICT_GENERAL[0])],
+    }
+    per_len = DICT_PLANTED // len(DICT_LENS)
+    planted_short = [L * DICT_PER_LEN + j for L in range(len(DICT_LENS))
+                     for j in range(per_len)]
+    copies = [("short", i, 1 + c % 2) for i in planted_short
+              for c in range(DICT_COPIES)]
+    copies += [("long", i, DICT_LONG[4]) for i in range(DICT_LONG[0])
+               for _ in range(DICT_LONG[3])]
+    copies += [("general", i, DICT_GENERAL[4]) for i in range(DICT_GENERAL[0])
+               for _ in range(DICT_GENERAL[3])]
+    prefix_slots = (1 << 20) // DICT_SLOT
+    n_slots = n_bytes // DICT_SLOT - 1
+    check(n_slots > prefix_slots + len(copies),
+          f"a {n_bytes}-byte haystack is too small for the dictionary")
+    slots = list(rng.choice(np.arange(prefix_slots, n_slots), len(copies),
+                            replace=False))
+    # the first DICT_PREFIX_NEEDLES short planted needles: one copy each
+    # inside the first MiB
+    first = rng.choice(prefix_slots, DICT_PREFIX_NEEDLES, replace=False)
+    for j in range(DICT_PREFIX_NEEDLES):
+        slots[j * DICT_COPIES] = first[j]
+    where = {g: {} for g in groups}
+    for (g, i, subs), slot in zip(copies, slots):
+        pos = int(slot) * DICT_SLOT + 16
+        nd = groups[g][i]
+        hay[pos: pos + len(nd)] = _lower_substitute(nd, subs, rng)
+        where[g].setdefault(i, []).append(pos)
+    return hay, groups, where
 
 
 def swap_adjacent(rows: np.ndarray, n_swaps: int, rng) -> None:
@@ -664,7 +754,85 @@ def check_search_kernel(dev):
         nd = prepare_myers_needles(list(needles), m, device=dev)
         run(hay, nd, own, halo, anchored, damerau, warps,
             f"edge m={m} n={n} own_len={own} halo={halo} warps={warps}")
-    return cases, worst
+    # a dictionary launch: DICT_CHECK_NUM needles of one length, a grid
+    # row each, every needle planted
+    m, n = 24, CHECK_HAY_BYTES[0]
+    hay = rng.integers(65, 69, n).astype(np.uint8)
+    needles = [rng.integers(65, 69, m).astype(np.uint8)
+               for _ in range(DICT_CHECK_NUM)]
+    for i, pos in enumerate(rng.integers(0, n - m, DICT_CHECK_NUM)):
+        hay[pos: pos + m] = needles[i]
+    nd = prepare_myers_needles(needles, m, device=dev)
+    halo = search_halo(window_span(m, k, 1, 0), n)
+    for damerau in (False, True):
+        run(hay, nd, suggest_own_len(n, halo), halo, False, damerau, None,
+            f"{DICT_CHECK_NUM} needles in one launch")
+    edge = check_dictionary_edge(dev, rng)
+    return cases + edge[0], max(worst, edge[1]), edge[2]
+
+
+def check_dictionary_edge(dev, rng):
+    """A dictionary group whose distances pass torch.nonzero's 2^31 - 1
+    elements (DICT_EDGE): the launches of `_many_launch_plan`, each's hits
+    collected as the dictionary collects them, and every launch's
+    distances held against the plain version (DICT_EDGE_PLAIN needles at
+    a time).  Returns (cases, worst error, the launches' needle counts)."""
+    import importlib
+
+    from triple_accel_tpu_torch.ops.myers_search import (
+        collect_hits, myers_search, myers_search_plain,
+        prepare_myers_needles, search_halo, suggest_own_len)
+    from triple_accel_tpu_torch.ops.search_common import window_span
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    num, n, m = DICT_EDGE
+    k = K_SEARCH
+    # past the byte budget, so that the element cap cuts the group: a
+    # launch of 32,767 needles holds 2^31 - 2^16 distances
+    saved, lev._MANY_LAUNCH_BYTES = lev._MANY_LAUNCH_BYTES, 1 << 40
+    try:
+        plan = lev._many_launch_plan(num, n, False, 32,
+                                     suggest_own_len(n, 32))
+    finally:
+        lev._MANY_LAUNCH_BYTES = saved
+    hay = rng.integers(65, 69, n).astype(np.uint8)
+    needles = rng.integers(65, 69, (num, m)).astype(np.uint8)
+    # planted copies across the launches' edge and at both ends
+    for i in (0, 1, num // 2, num - 3, num - 2, num - 1):
+        pos = int(rng.integers(0, n - m))
+        hay[pos: pos + m] = needles[i]
+    hay_d = torch.from_numpy(hay).to(dev)
+    halo = search_halo(window_span(m, k, 1, 0), n)
+    own_len = suggest_own_len(n, halo)
+    check(halo == 32 and len(plan) == 2
+          and (plan[0][1] - plan[0][0]) * (n + 1) > (1 << 31) - 2 * (n + 1)
+          and num * (n + 1) > (1 << 31) - 1,
+          f"the nonzero edge case is not cut at the edge: {plan}")
+    nd = prepare_myers_needles(list(needles), m, device=dev)
+    cases, worst, hits = 0, 0, 0
+    for lo, hi in plan:
+        dist = myers_search(hay_d, nd[lo:hi], own_len=own_len, halo=halo)
+        ni, _, _ = collect_hits(dist, k)
+        hits += ni.size
+        ref_hits = 0
+        for s in range(lo, hi, DICT_EDGE_PLAIN):
+            e = min(s + DICT_EDGE_PLAIN, hi)
+            ref = myers_search_plain(hay_d, nd[s:e], own_len=own_len,
+                                     halo=halo)
+            err = int((dist[s - lo: e - lo].to(torch.int64)
+                       - ref.to(torch.int64)).abs().max())
+            ref_hits += int((ref <= k).sum())
+            worst = max(worst, err)
+            check(err == 0, f"myers_search != plain in the dictionary "
+                            f"launch [{lo}, {hi}) at needles [{s}, {e})")
+            del ref
+        check(ni.size == ref_hits,
+              f"collect_hits over [{lo}, {hi}) found {ni.size} hits, the "
+              f"plain version {ref_hits}")
+        del dist
+        cases += 1
+    check(hits >= 6, f"the planted copies gave {hits} hits")
+    return cases, worst, [hi - lo for lo, hi in plan]
 
 
 def band_cases(rng, n_pairs: int, max_m: int, unit_k: int):
@@ -1426,6 +1594,28 @@ def check_blocked_kernels(dev):
         check(err == 0, f"blocked_search != plain at the map {lanes} lanes "
                         f"x {wpt} words, m={m}, {kw}")
         s_cases += 1
+    # a dictionary launch: 3 needles of 400 chars, planted, both cost
+    # models, at a halo of the plan's quantum
+    m, n, k = 400, CHECK_HAY_BYTES[1], 40
+    hay = ACGT[rng.integers(0, 4, n)]
+    needles = [ACGT[rng.integers(0, 4, m)] for _ in range(3)]
+    for i, pos in enumerate(rng.integers(0, n - m, 3)):
+        copy = needles[i].copy()
+        substitute_acgt(copy, rng.choice(m, 8, replace=False), rng)
+        hay[pos: pos + m] = copy
+    nd = prepare_myers_needles(needles, m, device=dev)
+    hay_d = torch.from_numpy(hay).to(dev)
+    for damerau in (False, True):
+        kw = dict(own_len=2048, damerau=damerau,
+                  halo=-(-window_span(m, k, 1, 0) // 256) * 256)
+        got = mc.blocked_search(hay_d, nd, **kw)
+        torch.cuda.synchronize()
+        err = int((got.to(torch.int64) - mc.blocked_search_plain(
+            hay_d, nd, **kw).to(torch.int64)).abs().max())
+        s_worst = max(s_worst, err)
+        check(err == 0, f"blocked_search != plain on 3 needles of {m} "
+                        f"chars, damerau={damerau}")
+        s_cases += 1
     return (d_cases, worst), (s_cases, s_worst)
 
 
@@ -2178,7 +2368,334 @@ def run_search(dev, needle, hay, planted, gen_s: float, native_loaded: bool):
         "plain_ms_rdamerau": plain_ms[True],
         "bound_ms_rdamerau": max(t_bytes, t_ops[True]),
         "bound_operations_ms_rdamerau": t_ops[True],
-    }
+    }, results, e2e
+
+
+# ---------------------------------------------------------------------------
+# dictionary search and resumable sweeps
+# ---------------------------------------------------------------------------
+
+def dictionary_calls(groups):
+    """(name, needles, k, search type, costs) of the dictionary phase, in
+    order: the short needles under unit and rDamerau costs, Best and All,
+    unit All again on the same PackedHaystack, the K6 group and the
+    general-cost group."""
+    from triple_accel_tpu_torch.types import (
+        EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType)
+
+    short = groups["short"]
+    return [
+        ("unit_Best", short, K_DICT, SearchType.Best, LEVENSHTEIN_COSTS),
+        ("unit_All", short, K_DICT, SearchType.All, LEVENSHTEIN_COSTS),
+        ("rdamerau_Best", short, K_DICT, SearchType.Best, RDAMERAU_COSTS),
+        ("rdamerau_All", short, K_DICT, SearchType.All, RDAMERAU_COSTS),
+        ("unit_All_repeat", short, K_DICT, SearchType.All,
+         LEVENSHTEIN_COSTS),
+        ("long_All", groups["long"], DICT_LONG[2], SearchType.All,
+         LEVENSHTEIN_COSTS),
+        ("general_All", groups["general"], DICT_GENERAL[2], SearchType.All,
+         EditCosts(*DICT_GENERAL_COSTS)),
+    ]
+
+
+def dictionary_plan(needles, n: int, k: int, costs) -> dict:
+    """{needle length: needles a launch, in launch order} of one
+    dictionary call under unit or rDamerau costs, from the entry point's
+    own plan."""
+    import importlib
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    out = {}
+    for m in sorted({len(nd) for nd in needles}):
+        num = sum(len(nd) == m for nd in needles)
+        engine, _, _, halo, own_len = lev._myers_search_plan(m, n, k, costs,
+                                                             False)
+        out[m] = [hi - lo for lo, hi in lev._many_launch_plan(
+            num, n, engine == "myers_search_blocked", halo, own_len)]
+    return out
+
+
+def dictionary_split(groups, hay) -> dict:
+    """Where a dictionary's time goes: on a fresh PackedHaystack, unit All
+    over the short needles, the K6 group and the general-cost group, with
+    the upload, the kernel wrappers, the hit fetch, the length replay and
+    `_postprocess_sparse` timed where the entry point calls them."""
+    import importlib
+
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops import myers_search as ms_mod
+    from triple_accel_tpu_torch.ops import search_diag as sd
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    calls = {c[0]: c for c in dictionary_calls(groups)}
+    out = {}
+    ph = lev.PackedHaystack(hay)
+    for name in ("unit_All", "long_All", "general_All"):
+        secs = {}
+        _, nds, k, st, costs = calls[name]
+        with _patched(lev, _upload_haystack=_timed(
+                secs, "upload_s", lev._upload_haystack),
+                _resolve_hits_batch=_timed(
+                    secs, "replay_s", lev._resolve_hits_batch),
+                _resolve_hits_flat=_timed(
+                    secs, "replay_s", lev._resolve_hits_flat),
+                _postprocess_sparse=_timed(
+                    secs, "postprocess_s", lev._postprocess_sparse)), \
+                _patched(ms_mod, myers_search=_timed(
+                    secs, "k2_s", ms_mod.myers_search),
+                    collect_hits=_timed(
+                        secs, "hit_fetch_s", ms_mod.collect_hits)), \
+                _patched(mc, blocked_search=_timed(
+                    secs, "k6_s", mc.blocked_search)), \
+                _patched(sd, search_diag=_timed(
+                    secs, "k7_s", sd.search_diag)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lev.levenshtein_search_many(nds, ph, k, st, costs)
+            e2e = time.perf_counter() - t0
+        secs["rest_s"] = e2e - sum(secs.values())
+        out[name] = {"e2e_s": round(e2e, 4),
+                     **{k_: round(v, 4) for k_, v in secs.items()}}
+    return out
+
+
+def run_dictionary(dev, hay_mb: int, native_loaded: bool):
+    """Dictionary search at full size: one PackedHaystack of hay_mb MiB,
+    512 short needles in four length groups (K2, a group a launch per
+    memory chunk), 4 long ones (K6), 4 under general costs (K7, a needle
+    at a time).  Returns the launches of K2, K6 and K7 on this path."""
+    import importlib
+
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops import myers_search as ms_mod
+    from triple_accel_tpu_torch.ops import search_diag as sd
+    from triple_accel_tpu_torch.oracle import (
+        levenshtein_search_naive_with_opts)
+    from triple_accel_tpu_torch.types import (
+        LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType)
+    from triple_accel_tpu_torch.utils.native import search_all_native
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    t_phase = t0 = time.perf_counter()
+    hay, groups, where = make_dictionary(hay_mb << 20)
+    gen_s = time.perf_counter() - t0
+    n = len(hay)
+    calls = dictionary_calls(groups)
+    torch.cuda.synchronize()
+    prior_peak = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+
+    results, e2e, launches, paths = {}, {}, {}, {}
+    ph = lev.PackedHaystack(hay)
+    kernels = (ms_mod.myers_search, mc.blocked_search, sd.search_diag)
+    for fn in kernels:  # counts start at 0 just before the path
+        fn.launches = 0
+    for name, nds, k, st, costs in calls:
+        before = [fn.launches for fn in kernels]
+        dispatch_history(clear=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        results[name] = lev.levenshtein_search_many(nds, ph, k, st, costs)
+        torch.cuda.synchronize()
+        e2e[name] = time.perf_counter() - t0
+        launches[name] = [fn.launches - b for fn, b in zip(kernels, before)]
+        paths[name] = [d.path for _, d in dispatch_history()]
+    total = [fn.launches for fn in kernels]  # and are read just after it
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    check(ph.uploads == 1, f"{ph.uploads} uploads of the PackedHaystack")
+
+    # launches and dispatch names against the entry point's own plan
+    plans = {}
+    for name, nds, k, st, costs in calls:
+        if name == "general_All":
+            want, names = [0, 0, len(nds)], {"search_diag"}
+        else:
+            plans[name] = dictionary_plan(nds, n, k, costs)
+            count = sum(len(v) for v in plans[name].values())
+            blocked = name == "long_All"
+            want = [0, count, 0] if blocked else [count, 0, 0]
+            names = {"myers_search_many_blocked" if blocked
+                     else "myers_search_many"}
+            check(len(paths[name]) == min(count, 64),
+                  f"{name}: {len(paths[name])} dispatch entries for "
+                  f"{count} launches")
+        check(launches[name] == want,
+              f"{name}: launches {launches[name]} != the plan's {want}")
+        check(set(paths[name]) == names,
+              f"{name}: the dictionary took {set(paths[name])}")
+
+    # every planted copy found, Best equal to All's minimum
+    for name, g, m_k, st_pair in (
+            ("unit", "short", 2, ("unit_Best", "unit_All")),
+            ("rdamerau", "short", 2, ("rdamerau_Best", "rdamerau_All")),
+            ("long", "long", DICT_LONG[4], (None, "long_All")),
+            ("general", "general", 2 * DICT_GENERAL[4],
+             (None, "general_All"))):
+        all_r = results[st_pair[1]]
+        for i, starts in where[g].items():
+            nd = groups[g][i]
+            by_end = {mt.end: mt for mt in all_r[i]}
+            for pos in starts:
+                mt = by_end.get(pos + len(nd))
+                check(mt is not None and mt.k <= m_k,
+                      f"{name}: needle {i}'s copy at {pos} not found "
+                      f"with k <= {m_k}")
+        if st_pair[0] is None:
+            continue
+        for i, (best, all_m) in enumerate(zip(results[st_pair[0]], all_r)):
+            ends = {mt.end for mt in all_m}
+            kmin = min((mt.k for mt in all_m), default=None)
+            check(bool(best) == bool(all_m)
+                  and all(mt.k == kmin and mt.end in ends for mt in best),
+                  f"{name}: Best of needle {i} is not All's minimum")
+    check(results["unit_All_repeat"] == results["unit_All"],
+          "the repeated call on the same PackedHaystack differs")
+
+    # a sample of each call against the single-needle entry point
+    rng = np.random.default_rng(DICT_SEED + 1)
+    single_ms = {}
+    for name, nds, k, st, costs in calls:
+        planted = sorted(where["short"]) if nds is groups["short"] else []
+        pick = list(planted[: DICT_SAMPLE // 2])
+        rest = sorted(set(range(len(nds))) - set(pick))
+        pick += list(rng.choice(rest, min(len(rest), DICT_SAMPLE - len(pick)),
+                                replace=False))
+        times = []
+        for i in pick:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            one = lev.levenshtein_search_simd_with_opts(nds[i], hay, k, st,
+                                                        costs, False)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            check(one == results[name][i],
+                  f"{name}: needle {i} != its single-needle search")
+        single_ms[name] = round(statistics.median(times) * 1e3, 4)
+
+    # All mode over the first MiB against the compiled scalar search (or,
+    # without the native library, the Python oracle over 64 KiB)
+    prefix = min((1 << 20) if native_loaded else (1 << 16), n)
+    sample = [groups["short"][i] for i in sorted(where["short"])
+              [:DICT_PREFIX_NEEDLES]]
+    for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS):
+        got = lev.levenshtein_search_many(sample, hay[:prefix], K_DICT,
+                                          SearchType.All, costs)
+        for nd, ms in zip(sample, got):
+            if native_loaded:
+                ends, ks, lens = search_all_native(nd, hay[:prefix], K_DICT,
+                                                   costs)
+                exp = list(zip((ends - lens).tolist(), ends.tolist(),
+                               ks.tolist()))
+            else:
+                exp = [(mt.start, mt.end, mt.k)
+                       for mt in levenshtein_search_naive_with_opts(
+                           nd, hay[:prefix], K_DICT, SearchType.All, costs,
+                           False)]
+            check([(mt.start, mt.end, mt.k) for mt in ms] == exp,
+                  "dictionary All mode on the prefix != reference")
+            check(len(ms) > 0 or not native_loaded,
+                  "a needle planted in the prefix has no match there")
+
+    split = dictionary_split(groups, hay)
+    counts = {c[0]: len(c[1]) for c in calls}
+    emit({
+        "phase": "dictionary", "haystack_bytes": n,
+        "needles": {name: counts[name] for name in counts},
+        "lengths": list(DICT_LENS), "k": K_DICT,
+        "planted_needles": DICT_PLANTED, "copies": DICT_COPIES,
+        "long_group": dict(zip(("needles", "len", "k", "copies", "subs"),
+                               DICT_LONG)),
+        "general_group": dict(zip(("needles", "len", "k", "copies", "subs"),
+                                  DICT_GENERAL)),
+        "general_costs": list(DICT_GENERAL_COSTS),
+        "uploads": ph.uploads,
+        "launch_budget_bytes": lev._MANY_LAUNCH_BYTES,
+        # launches and the most needles a launch, by needle length
+        "chunk_plan": {name: {str(m): [len(v), max(v)]
+                              for m, v in plans[name].items()}
+                       for name in ("unit_All", "long_All")},
+        "launches_k2_k6_k7": {**launches, "total": total},
+        "dispatch": {name: sorted(set(v)) for name, v in paths.items()},
+        "matches": {name: sum(len(r) for r in res)
+                    for name, res in results.items()},
+        "reference_prefix_bytes": prefix,
+        "datagen_s": round(gen_s, 3),
+        "e2e_s": {k_: round(v, 4) for k_, v in e2e.items()},
+        "needles_per_s": {k_: round(counts[k_] / v, 1)
+                          for k_, v in e2e.items()},
+        "needle_GBps": {k_: round(counts[k_] * n / v / 1e9, 3)
+                        for k_, v in e2e.items()},
+        "single_call_ms_per_needle": single_ms,
+        "e2e_split_s": split,
+        "peak_device_MB": round(peak_mb),
+        "peak_device_MB_at_start": round(base_mb),
+        "phase_s": round(time.perf_counter() - t_phase, 1),
+    })
+    return {"myers_search": total[0], "blocked_search": total[1],
+            "search_diag": total[2], "prior_peak": prior_peak}
+
+
+def run_sweep(dev, needle, hay, mono: dict, mono_e2e: dict):
+    """The resumable sweep over the search phase's needle and haystack at
+    k = K_SEARCH in slabs of SWEEP_SLAB bytes, unit Best and All with a
+    checkpoint, against the search phase's monolithic results; then a
+    resume from a checkpoint seeded with the first two slabs' matches."""
+    import tempfile
+
+    from triple_accel_tpu_torch.sweep import levenshtein_search_sweep
+    from triple_accel_tpu_torch.types import LEVENSHTEIN_COSTS, SearchType
+    from triple_accel_tpu_torch.utils.checkpoint import SweepCheckpoint
+
+    n = len(hay)
+    slab = min(SWEEP_SLAB, max(1 << 16, n // 4))
+    e2e = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "sweep.npz")
+        for st in (SearchType.Best, SearchType.All):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = levenshtein_search_sweep(needle, hay, K_SEARCH, st,
+                                           LEVENSHTEIN_COSTS,
+                                           slab_chars=slab,
+                                           checkpoint_path=ck)
+            torch.cuda.synchronize()
+            e2e[st.name] = time.perf_counter() - t0
+            check(got == mono[("unit", st)],
+                  f"the {st.name} sweep != the monolithic search")
+            check(not os.path.exists(ck), "the checkpoint outlived the sweep")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = levenshtein_search_sweep(needle, hay, K_SEARCH, SearchType.All,
+                                       LEVENSHTEIN_COSTS, slab_chars=slab)
+        torch.cuda.synchronize()
+        e2e["All_no_checkpoint"] = time.perf_counter() - t0
+        check(got == mono[("unit", SearchType.All)],
+              "the All sweep without a checkpoint != the monolithic search")
+        full = mono[("unit", SearchType.All)]
+        seeded = SweepCheckpoint.load_or_create(ck)
+        seeded.advance(2 * slab, [mt for mt in full if mt.end <= 2 * slab])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed = levenshtein_search_sweep(needle, hay, K_SEARCH,
+                                           SearchType.All, LEVENSHTEIN_COSTS,
+                                           slab_chars=slab,
+                                           checkpoint_path=ck)
+        torch.cuda.synchronize()
+        e2e["All_resumed_after_2_slabs"] = time.perf_counter() - t0
+        check(resumed == full, "the resumed sweep != the monolithic search")
+        check(not os.path.exists(ck), "the checkpoint outlived the resume")
+    mono_s = {st: mono_e2e[f"unit_{st}"] for st in ("Best", "All")}
+    emit({"phase": "sweep", "haystack_bytes": n, "needle_len": len(needle),
+          "k": K_SEARCH, "slab_chars": slab, "slabs": -(-n // slab),
+          "matches": {st.name: len(mono[("unit", st)])
+                      for st in (SearchType.Best, SearchType.All)},
+          "resumed_from_offset": 2 * slab,
+          "e2e_s": {k_: round(v, 4) for k_, v in e2e.items()},
+          "monolithic_e2e_s": {k_: round(v, 4) for k_, v in mono_s.items()},
+          "sweep_over_monolithic": {
+              st: round(e2e[st] / mono_s[st], 3) for st in mono_s}})
 
 
 # ---------------------------------------------------------------------------
@@ -3821,7 +4338,7 @@ def main() -> int:
     # 3. kernels against their plain versions, on the card
     t0 = time.perf_counter()
     d_cases, d_err = check_distance_kernel(dev)
-    s_cases, s_err = check_search_kernel(dev)
+    s_cases, s_err, edge_plan = check_search_kernel(dev)
     b_cases, b_err = check_band_kernels(dev)
     c_cases, c_err = check_band_cluster(dev)
     w_cases, w_err = check_trace_walk_kernel(dev)
@@ -3831,7 +4348,13 @@ def main() -> int:
     fd_cases, fd_err = check_flat_distance_kernel(dev)
     emit({"phase": "kernel_checks", "tolerance": "exact (integers)",
           "myers_distance": {"cases": d_cases, "max_abs_err": d_err},
-          "myers_search": {"cases": s_cases, "max_abs_err": s_err},
+          "myers_search": {"cases": s_cases, "max_abs_err": s_err,
+                           "dictionary_launch_needles": DICT_CHECK_NUM,
+                           "nonzero_edge": {
+                               "needles": DICT_EDGE[0],
+                               "haystack_bytes": DICT_EDGE[1],
+                               "needle_len": DICT_EDGE[2],
+                               "launches": edge_plan}},
           "band_distance_and_band_trace": {
               "cases_short": b_cases["short"], "cases_long": b_cases["long"],
               "cases_widest_band": b_cases["wide"],
@@ -3865,8 +4388,15 @@ def main() -> int:
     t0 = time.perf_counter()
     needle, hay, planted = make_haystack(hay_mb << 20)
     gen_s = time.perf_counter() - t0
-    k2 = run_search(dev, needle, hay, planted, gen_s, native_loaded)
+    k2, mono, mono_e2e = run_search(dev, needle, hay, planted, gen_s,
+                                    native_loaded)
     k2.update(cases=s_cases, ok=True)
+
+    # dictionary search over one resident haystack, and the resumable
+    # sweep over the search phase's input
+    dict_launches = run_dictionary(dev, hay_mb, native_loaded)
+    k2["launches_dictionary"] = dict_launches["myers_search"]
+    run_sweep(dev, needle, hay, mono, mono_e2e)
 
     # 6, 7. general costs, long strings, tracebacks
     b_rows = np.stack(b_list)
@@ -3892,12 +4422,14 @@ def main() -> int:
     k5 = run_blocked_distance(dev, scale, native_loaded)
     k5.update(cases=bd_cases, ok=True)
     k6, k6_chunked = run_blocked_search(dev, hay_mb, native_loaded)
+    k6["launches_dictionary"] = dict_launches["blocked_search"]
     for entry in (k6, k6_chunked):
         entry.update(cases=bs_cases, ok=True)
 
     # 11, 12, 13. general costs: search with short and long needles and
     # the dense-hit route, distance past the band plan
     k7 = run_search_general(dev, needle, hay, planted, native_loaded)
+    k7["launches_dictionary"] = dict_launches["search_diag"]
     k7.update(cases=sd_cases, ok=True)
     k8 = run_flat_search(dev, native_loaded)
     k8.update(cases=fs_cases, ok=True)
@@ -3909,7 +4441,10 @@ def main() -> int:
 
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_start, 1),
-          "peak_device_MB": round(torch.cuda.max_memory_allocated() / 2**20)})
+          # the dictionary phase restarts the card's peak count
+          "peak_device_MB": round(max(
+              dict_launches["prior_peak"],
+              torch.cuda.max_memory_allocated()) / 2**20)})
     emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k4_past, k10,
                       k10_long, k10_past, k5, k6, k6_chunked, k7, k8, k9]})
     print(smi_line(), flush=True)

@@ -301,3 +301,33 @@ def test_k7_k8_k9_bounds_count_bytes_and_operations():
     k9 = cs.band_bound(m_arr, n_arr, 1 << 15, (2, 1, 2, 0, False), False)
     assert k9["cells"] == 300 * 311
     assert cs.K9_OPS_PER_CELL == cs.BAND_OPS_PER_CELL
+
+
+def test_dictionary_copies_lie_where_they_were_planted():
+    """The dictionary phase's input: every copy in its own slot with its
+    substitutions, the prefix needles once inside the first MiB, upper-case
+    noise elsewhere; and its launch plan read from the entry point's."""
+    n = 3 << 20
+    hay, groups, where = cs.make_dictionary(n)
+    assert [len(groups[g]) for g in ("short", "long", "general")] == [
+        len(cs.DICT_LENS) * cs.DICT_PER_LEN, cs.DICT_LONG[0],
+        cs.DICT_GENERAL[0]]
+    assert len(where["short"]) == cs.DICT_PLANTED
+    starts = []
+    for g, subs in (("long", [cs.DICT_LONG[4]]),
+                    ("general", [cs.DICT_GENERAL[4]]), ("short", [1, 2])):
+        for i, poss in where[g].items():
+            nd = groups[g][i]
+            for pos in poss:
+                assert int((hay[pos: pos + len(nd)] != nd).sum()) in subs
+                starts.append(pos)
+    assert len(set(p // cs.DICT_SLOT for p in starts)) == len(starts)
+    prefix = sorted(where["short"])[: cs.DICT_PREFIX_NEEDLES]
+    assert all(min(where["short"][i]) + 32 <= 1 << 20 for i in prefix)
+    lower = hay >= 97
+    assert int(lower.sum()) == sum(
+        len(groups[g][i]) * len(p) for g in where for i, p in where[g].items())
+    plan = cs.dictionary_plan(groups["short"] + groups["long"], n, 3,
+                              LEVENSHTEIN_COSTS)
+    assert sorted(plan) == [16, 20, 24, 32, 400]
+    assert all(sum(v) == cs.DICT_PER_LEN for m, v in plan.items() if m < 400)

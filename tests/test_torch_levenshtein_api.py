@@ -5,7 +5,8 @@ kernels' plain PyTorch versions compute) and must equal, exactly, the
 same-named function of the JAX package on its default CPU path and the
 scalar oracle.  Also: the dispatch log names the engine, every route that
 is not ported raises NotImplementedError (and the seven that raised until
-their engines were ported return the reference's results), and
+their engines were ported return the reference's results; dictionary
+search, ported too, raises only for its `mesh=` forms), and
 results do not depend on the native host library.  The general-cost and traced distance routes have
 their own files (test_torch_band_distance.py, test_torch_band_trace.py),
 Hamming has test_torch_hamming.py.
@@ -349,8 +350,12 @@ def _search_dense_hits():
     (_search_general_costs, None),
     (_search_long_needle, None),
     (_search_dense_hits, None),
-    (lambda: tl.levenshtein_search_many([b"ab"], b"abab", 1), "search_many"),
-    (lambda: tl.PackedHaystack(b"abab"), "PackedHaystack"),
+    # dictionary search is ported: its mesh= forms raise
+    (lambda: tl.levenshtein_search_many([b"ab"], b"abab", 1, mesh=object(),
+                                        **CPU), "parallel/sharded.py"),
+    (lambda: tl.PackedHaystack(b"abab", **CPU).pack_sharded(object(), 1, 0,
+                                                           256),
+     "sharded_pack_segs"),
     (lambda: tl.levenshtein_search_sharded(b"ab", b"abab", 1), "sharded"),
     (lambda: tt.hamming_search_sharded(b"ab", b"abab", 1, None), "hamming"),
 ], ids=[

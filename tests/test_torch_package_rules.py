@@ -3,6 +3,7 @@ nothing of the JAX package; it imports cleanly where there is no GPU, no
 `nvcc` and no `triton`; and its entry points raise without a card instead
 of moving to the CPU on their own."""
 
+import importlib
 import os
 import pkgutil
 import re
@@ -31,7 +32,7 @@ def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
     for new in ("ops.band_scan", "ops.lev_band", "ops.hamming_ops",
                 "oracle.hamming", "hamming", "ops.myers_chunked",
                 "ops.search_scan", "ops.search_diag", "ops.search_flat",
-                "ops.trace_walk"):
+                "ops.trace_walk", "sweep", "utils.checkpoint"):
         assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
@@ -95,6 +96,11 @@ def test_source_imports_no_jax(path):
     # a traced long pair past the band plan
     lambda: tt.levenshtein_k_batch([b"a" * 5000], [b"b" * 5100], 10**6,
                                    trace_on=True),
+    # dictionary search and the resumable sweep
+    lambda: tt.levenshtein_search_many([b"abc", b"ab"], b"xxabcxx", 1),
+    lambda: tt.PackedHaystack(b"xxabcxx"),
+    lambda: importlib.import_module("triple_accel_tpu_torch.sweep")
+    .levenshtein_search_sweep(b"abc", b"xxabcxx" * 10, 1, slab_chars=16),
 ])
 def test_default_device_raises_without_a_card(call):
     if torch.cuda.is_available():

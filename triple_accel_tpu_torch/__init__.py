@@ -14,11 +14,13 @@ of any length on the general band kernels and the walk kernel, unit and
 restricted-Damerau costs of any length on the blocked Myers kernel, any
 cost model past the band plan on the row kernel), search
 (`levenshtein_search*` under every cost model, needles of any length,
-anchored or not, with the device resolution of dense hits) and Hamming
-distance and search.  Not carried yet: `levenshtein_search_many` /
-`PackedHaystack` and every `mesh=` route (each raises `NotImplementedError` naming the JAX engine), and the
-resumable sweep.  Entry points run on "cuda" unless the caller passes
-`device=`; without a card they raise.
+anchored or not, with the device resolution of dense hits), dictionary
+search (`levenshtein_search_many` over a `PackedHaystack` uploaded once,
+a same-length group of needles a kernel launch), the resumable slab-wise
+sweep (submodule `sweep`, checkpoints in `utils.checkpoint`) and Hamming
+distance and search.  Not carried yet: every `mesh=` route (each raises
+`NotImplementedError` naming the JAX engine).  Entry points run on "cuda"
+unless the caller passes `device=`; without a card they raise.
 """
 
 from .types import (

@@ -4,7 +4,7 @@ and of K8 (`flat_search`) and K9 (`flat_distance`) over their launch
 shape.
 
     python3 -m triple_accel_tpu_torch.benches.search_sweep [--mb 128]
-        [--blocked | --diag | --cap | --flat | --long]
+        [--blocked | --diag | --cap | --flat | --long | --many]
 
 Times the search kernel alone (CUDA events, one warm-up, 9 launches:
 median, least and most) for unit and restricted-Damerau costs at several
@@ -37,8 +37,12 @@ bytes with 10% substitutions under affine costs, the full matrix) over
 threads a block x columns a lane, and K8 over its owned length (1 to 4
 blocks an SM in one wave), 5 launches a point: the measurement behind
 `SEARCH_SHAPES` (one shape for each of K8's two kernel variants),
-`DIST_COLS` and `DIST_MAX_THREADS`.  Prints the card's name and power
-limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
+`DIST_COLS` and `DIST_MAX_THREADS`.  `--many`: dictionary search end to
+end (`levenshtein_search_many`, All mode, on a resident `PackedHaystack`)
+of MANY_NEEDLES 24-char needles at k = 3 over the headline haystack, by
+needles a launch (`--counts`; `_MANY_LAUNCH_BYTES` set for each), 3 calls
+a point: the measurement behind `_MANY_LAUNCH_BYTES`.  Prints the card's
+name and power limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
 there is no CPU mode.
 """
 
@@ -80,6 +84,7 @@ FLAT_COSTS = ((2, 1, 2, 0, False), (3, 2, 1, 2, True))
 FLAT_PAIRS, FLAT_PAIR_LEN, FLAT_SUB_SHARE = 256, 20_000, 0.1
 FLAT_THREADS, FLAT_COLS = (128, 256, 512), (4, 8, 16)
 FLAT_BLOCKS_PER_SM = (1, 2, 3, 4)
+MANY_NEEDLES, MANY_COUNTS = 120, (1, 2, 4, 8, 12, 15)
 
 
 def _smi() -> str:
@@ -285,6 +290,54 @@ def long_sweep(dev, rng, lens) -> None:
                 }), flush=True)
 
 
+def many_sweep(dev, rng, n: int, counts) -> None:
+    """Dictionary search end to end by needles a launch."""
+    import importlib
+    import time
+
+    from ..types import SearchType
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    hay = rng.integers(65, 91, n).astype(np.uint8)
+    needles = [rng.integers(97, 123, NEEDLE_LEN).astype(np.uint8)
+               for _ in range(MANY_NEEDLES)]
+    for i in range(0, MANY_NEEDLES, 4):  # a planted copy every 4th needle
+        pos = int(rng.integers(0, n - NEEDLE_LEN))
+        hay[pos: pos + NEEDLE_LEN] = needles[i]
+    ph = lev.PackedHaystack(hay, device=dev)
+    ph.device_haystack()
+    per_needle = 4 * (n + 32) + n + 1  # _many_launch_plan's K2 bytes
+    saved = lev._MANY_LAUNCH_BYTES
+    try:
+        for c in counts:
+            lev._MANY_LAUNCH_BYTES = c * per_needle
+            lev.levenshtein_search_many(needles[:c], ph, 3, SearchType.All)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                lev.levenshtein_search_many(needles, ph, 3, SearchType.All)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            med = statistics.median(times)
+            print(json.dumps({
+                "kernel": "myers_search (dictionary)", "haystack_bytes": n,
+                "needles": MANY_NEEDLES, "needle_len": NEEDLE_LEN, "k": 3,
+                "needles_a_launch": c,
+                "launches": len(lev._many_launch_plan(
+                    MANY_NEEDLES, n, False, 32, 2048)),
+                "e2e_s_median_min_max": [round(med, 4),
+                                         round(min(times), 4),
+                                         round(max(times), 4)],
+                "needles_per_s": round(MANY_NEEDLES / med, 1),
+                "peak_device_MB": round(
+                    torch.cuda.max_memory_allocated() / 2**20),
+            }), flush=True)
+    finally:
+        lev._MANY_LAUNCH_BYTES = saved
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--mb", type=int, default=128, help="haystack MiB")
@@ -298,6 +351,10 @@ def main() -> int:
                     help="sweep K8 and K9 over their launch shape instead")
     ap.add_argument("--long", action="store_true",
                     help="time K2 against K6 over needle lengths instead")
+    ap.add_argument("--many", action="store_true",
+                    help="time dictionary search by needles a launch")
+    ap.add_argument("--counts", type=int, nargs="+", default=MANY_COUNTS,
+                    help="--many: the needles a launch to time")
     ap.add_argument("--lens", type=int, nargs="+", default=LONG_LENS,
                     help="--long: the needle lengths to time")
     ap.add_argument("--own-lens", type=int, nargs="+", default=K2_OWN_LENS,
@@ -323,6 +380,9 @@ def main() -> int:
         return 0
     if args.long:
         long_sweep(dev, rng, args.lens)
+        return 0
+    if args.many:
+        many_sweep(dev, rng, n, args.counts)
         return 0
     m = NEEDLE_LEN
     needle = rng.integers(97, 123, m).astype(np.uint8)

@@ -930,6 +930,28 @@ def _postprocess_sparse(
     return [mt for mt in res if mt.k == curr_k]
 
 
+def _search_iter_len(m: int, n: int, k: int, costs: EditCosts,
+                     anchored: bool) -> int:
+    """Haystack bytes a search reads: all of them, or, anchored, the
+    m + k columns an anchored match can end in (the reference's own cap,
+    levenshtein.rs:1650-1661)."""
+    if anchored:
+        return min(m + max(0, k - costs.start_gap_cost) // costs.gap_cost, n)
+    return n
+
+
+def _upload_haystack(haystack: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """The RAW haystack on `dev`: the only large host->device transfer of a
+    search (segments read their own halo from it, and only the hits come
+    back), at a 16-byte aligned address as the kernels read it."""
+    from .ops.myers_search import _aligned
+
+    hay_np = np.ascontiguousarray(haystack)
+    if not hay_np.flags.writeable:  # torch refuses read-only buffers
+        hay_np = hay_np.copy()
+    return _aligned(torch.from_numpy(hay_np).to(dev))
+
+
 def levenshtein_search_simd_with_opts(
     needle: BytesLike,
     haystack: BytesLike,
@@ -968,19 +990,12 @@ def levenshtein_search_simd_with_opts(
     anchored or not.  Both return the match lengths with the distances,
     so only the hits come back and no replay runs.  A needle of a given
     length always takes the same engine, on the CPU and on the card.
-    """
-    from .ops.myers_chunked import blocked_search, suggest_own_len_blocked
-    from .ops.myers_search import (
-        ROUTE_MAX_NEEDLE,
-        collect_hits,
-        myers_search,
-        prepare_myers_needles,
-        search_halo,
-        suggest_own_len,
-    )
-    from .ops.search_common import window_span
-    from .utils.native import native_available
 
+    The call uploads the haystack (an anchored one only up to where an
+    anchored match can end), then runs the engines' second part on it
+    (`_search_resident`); `levenshtein_search_many` runs the same second
+    part on a haystack uploaded once for many needles.
+    """
     dev = resolve_device(device)
     needle = to_bytes_array(needle)
     haystack = to_bytes_array(haystack)
@@ -995,42 +1010,87 @@ def levenshtein_search_simd_with_opts(
         return levenshtein_search_naive_with_opts(
             needle, haystack, k, search_type, costs, anchored
         )
-
     ct = _costs_tuple(costs)
-    damerau = ct == _RDAMERAU
-    if not (ct == _UNIT or damerau):
+    if not (ct == _UNIT or ct == _RDAMERAU):
         return _search_general(needle, haystack, k, search_type, costs,
                                anchored, dev)
-    blocked = m > ROUTE_MAX_NEEDLE[damerau]
+    iter_len = _search_iter_len(m, n, k, costs, anchored)
+    hay_d = _upload_haystack(haystack[:iter_len], dev)
+    return _search_myers_resident(needle, haystack, hay_d, k, search_type,
+                                  costs, anchored)
 
+
+def _search_resident(needle: np.ndarray, haystack: np.ndarray,
+                     hay_d: torch.Tensor, k: int, search_type: SearchType,
+                     costs: EditCosts, anchored: bool) -> List[Match]:
+    """`levenshtein_search_simd_with_opts` for a needle of at least one
+    char over a haystack already on the device: `hay_d` holds at least the
+    bytes the search reads (`_search_iter_len`), `haystack` is the same
+    bytes on the host (the length replay reads them)."""
+    ct = _costs_tuple(costs)
+    if ct == _UNIT or ct == _RDAMERAU:
+        return _search_myers_resident(needle, haystack, hay_d, k,
+                                      search_type, costs, anchored)
+    return _search_general_resident(needle, haystack, hay_d, k, search_type,
+                                    costs, anchored)
+
+
+def _myers_search_plan(m: int, n: int, k: int, costs: EditCosts,
+                       anchored: bool):
+    """(engine, span, iter_len, halo, own_len) of a unit or
+    restricted-Damerau search: the one plan both the single call and a
+    dictionary group use, so a dictionary needle's kernel row equals its
+    single call's.  `engine` is the dispatch log's name."""
+    from .ops.myers_chunked import suggest_own_len_blocked
+    from .ops.myers_search import ROUTE_MAX_NEEDLE, search_halo, suggest_own_len
+    from .ops.search_common import window_span
+
+    damerau = _costs_tuple(costs) == _RDAMERAU
+    blocked = m > ROUTE_MAX_NEEDLE[damerau]
     span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
+    iter_len = _search_iter_len(m, n, k, costs, anchored)
     if anchored:
         # anchored searches run as ONE segment starting at the anchor
         # (halo = 0; a segment boundary would break the absolute row-0
         # cost D[0][j] = j); iter_len is capped at m + k columns
-        iter_len = min(
-            m + max(0, k - costs.start_gap_cost) // costs.gap_cost, n
-        )
         halo = 0
         own_len = max(iter_len, 1)
+    # a larger overlap than the span is still exact: every cost-<=k
+    # candidate's window is contained a fortiori.  K2 rounds the span to
+    # its 32-byte sectors; K6 keeps the JAX package's quantum of 256,
+    # which its own_len rule was measured at
+    elif blocked:
+        halo = min(-(-span // 256) * 256, iter_len)
+        own_len = suggest_own_len_blocked(iter_len, halo)
     else:
-        iter_len = n
-        # a larger overlap than the span is still exact: every cost-<=k
-        # candidate's window is contained a fortiori.  K2 rounds the span
-        # to its 32-byte sectors; K6 keeps the JAX package's quantum of 256,
-        # which its own_len rule was measured at
-        if blocked:
-            halo = min(-(-span // 256) * 256, iter_len)
-            own_len = suggest_own_len_blocked(iter_len, halo)
-        else:
-            halo = search_halo(span, iter_len)
-            own_len = suggest_own_len(iter_len, halo)
+        halo = search_halo(span, iter_len)
+        own_len = suggest_own_len(iter_len, halo)
     if blocked:
-        path = "myers_search_blocked"
+        engine = "myers_search_blocked"
     else:
-        path = "myers_search_rdamerau" if damerau else "myers_search"
+        engine = "myers_search_rdamerau" if damerau else "myers_search"
+    return engine, span, iter_len, halo, own_len
+
+
+def _search_myers_resident(needle: np.ndarray, haystack: np.ndarray,
+                           hay_d: torch.Tensor, k: int,
+                           search_type: SearchType, costs: EditCosts,
+                           anchored: bool) -> List[Match]:
+    """The unit / restricted-Damerau half of `_search_resident`: K2 (or K6
+    past `ROUTE_MAX_NEEDLE`), the hit fetch, then `_hits_to_matches`."""
+    from .ops.myers_chunked import blocked_search
+    from .ops.myers_search import (
+        collect_hits,
+        myers_search,
+        prepare_myers_needles,
+    )
+
+    m, n = len(needle), len(haystack)
+    damerau = _costs_tuple(costs) == _RDAMERAU
+    engine, span, iter_len, halo, own_len = _myers_search_plan(
+        m, n, k, costs, anchored)
     DispatchDecision(
-        path=path,
+        path=engine,
         cost_bucket="u8",
         unit_k=halo,
         max_k=k,
@@ -1038,21 +1098,28 @@ def levenshtein_search_simd_with_opts(
         padded_n=halo + own_len,
     ).log("levenshtein_search_simd_with_opts")
 
-    # the RAW haystack is the only large host->device transfer; segments
-    # read their own halo from it, and only the hits come back
-    hay_np = np.ascontiguousarray(haystack[:iter_len])
-    if not hay_np.flags.writeable:  # torch refuses read-only buffers
-        hay_np = hay_np.copy()
-    hay_d = torch.from_numpy(hay_np).to(dev)
-    needles_d = prepare_myers_needles([needle], m, device=dev)
-    search = blocked_search if blocked else myers_search
-    dist = search(hay_d, needles_d, own_len=own_len, halo=halo,
+    needles_d = prepare_myers_needles([needle], m, device=hay_d.device)
+    search = (blocked_search if engine == "myers_search_blocked"
+              else myers_search)
+    dist = search(hay_d[:iter_len], needles_d, own_len=own_len, halo=halo,
                   anchored=anchored, damerau=damerau)
     _, gpos, d_arr = collect_hits(dist, min(k, (1 << 31) - 1))
     del dist
     # segment 0 starts at byte 0 with a fresh state, so there is no
     # synthetic front pad a NUL needle byte could match: kernel distances
     # <= k are exact as they are
+    return _hits_to_matches(needle, haystack, hay_d, gpos, d_arr, k,
+                            search_type, costs, anchored, span)
+
+
+def _hits_to_matches(needle: np.ndarray, haystack: np.ndarray,
+                     hay_d: torch.Tensor, gpos: np.ndarray, d_arr: np.ndarray,
+                     k: int, search_type: SearchType, costs: EditCosts,
+                     anchored: bool, span: int) -> List[Match]:
+    """One needle's kernel hits (sorted end positions, distances <= k) to
+    its Match list: Best's filter, the length resolution, the Best / All
+    rules."""
+    from .utils.native import native_available
 
     if search_type == SearchType.Best and gpos.size:
         # Best-mode results can only contain candidates at the global
@@ -1070,7 +1137,7 @@ def levenshtein_search_simd_with_opts(
     budget = _RESOLVE_CELLS_BUDGET
     if not native_available():
         budget //= 100  # the Python replay is about 100x slower
-    if _resolve_cells(gpos, span, m) > budget:
+    if _resolve_cells(gpos, span, len(needle)) > budget:
         # degenerate-dense hit stream: the lengths come from the flat
         # kernel on the device, over the hit-bearing segments only
         cands = _resolve_hits_flat(needle, hay_d, gpos, k, costs, span)
@@ -1083,9 +1150,22 @@ def _search_general(needle: np.ndarray, haystack: np.ndarray, k: int,
                     search_type: SearchType, costs: EditCosts,
                     anchored: bool, dev: torch.device) -> List[Match]:
     """Search under a cost model other than unit or restricted-Damerau
-    (the JAX package's `levenshtein.py:1838-1981`): K7 for needles of up
+    (the JAX package's `levenshtein.py:1838-1981`): the upload, then
+    `_search_general_resident`."""
+    iter_len = _search_iter_len(len(needle), len(haystack), k, costs,
+                                anchored)
+    hay_d = _upload_haystack(haystack[:iter_len], dev)
+    return _search_general_resident(needle, haystack, hay_d, k, search_type,
+                                    costs, anchored)
+
+
+def _search_general_resident(needle: np.ndarray, haystack: np.ndarray,
+                             hay_d: torch.Tensor, k: int,
+                             search_type: SearchType, costs: EditCosts,
+                             anchored: bool) -> List[Match]:
+    """The general-cost half of `_search_resident`: K7 for needles of up
     to `K7_MAX_NEEDLE` chars, K8 past it, each giving the distance AND the
-    match length of every owned end position, from one device copy of the
+    match length of every owned end position, from the device copy of the
     raw haystack.  The hits are picked on the device and only they come
     back: segment 0 starts at byte 0, so no synthetic pad needs a replay,
     and the end-0 candidate is K7's column 0, or added here for K8 (whose
@@ -1105,14 +1185,9 @@ def _search_general(needle: np.ndarray, haystack: np.ndarray, k: int,
     m, n = len(needle), len(haystack)
     ct = _costs_tuple(costs)
     span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
-    if anchored:
-        # ONE segment from the anchor: row 0 is the absolute prefix cost
-        iter_len = min(
-            m + max(0, k - costs.start_gap_cost) // costs.gap_cost, n)
-        halo = 0
-    else:
-        iter_len = n
-        halo = span
+    iter_len = _search_iter_len(m, n, k, costs, anchored)
+    # ONE segment from the anchor: row 0 is the absolute prefix cost
+    halo = 0 if anchored else span
     diag = m <= K7_MAX_NEEDLE
     if anchored:
         own_len = max(iter_len, 1)
@@ -1129,11 +1204,8 @@ def _search_general(needle: np.ndarray, haystack: np.ndarray, k: int,
         padded_m=m,
         padded_n=halo + own_len,
     ).log("levenshtein_search_simd_with_opts")
-    hay_np = np.ascontiguousarray(haystack[:iter_len])
-    if not hay_np.flags.writeable:  # torch refuses read-only buffers
-        hay_np = hay_np.copy()
-    hay_d = torch.from_numpy(hay_np).to(dev)
-    needle_d = prepare_flat_needle(needle, device=dev)
+    hay_d = hay_d[:iter_len]
+    needle_d = prepare_flat_needle(needle, device=hay_d.device)
     kk = min(k, (1 << 31) - 1)
     if diag:
         dist, length = search_diag(hay_d, needle_d, own_len=own_len,
@@ -1186,17 +1258,216 @@ def levenshtein_search(needle: BytesLike, haystack: BytesLike, *,
 
 
 # ---------------------------------------------------------------------------
-# Names of the JAX package that the port does not carry yet
+# Dictionary search: many needles over one resident haystack
 # ---------------------------------------------------------------------------
 
-def levenshtein_search_many(*args, **kwargs):
-    """Dictionary search (many needles, one resident haystack): not ported."""
-    raise _not_ported(
-        "levenshtein_search_many",
-        "levenshtein.levenshtein_search_many over the multi-needle grid of "
-        "ops/pallas/search_myers.py myers_search_pallas",
+def _canonical_device(dev: torch.device) -> torch.device:
+    """`dev` with its index filled in (dropped for the CPU), so that "cuda"
+    and "cuda:0" compare equal on a one-card machine."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return torch.device("cpu") if dev.type == "cpu" else dev
+
+
+class PackedHaystack:
+    """A haystack held on the device for repeated dictionary searches.
+
+    The serving pattern: build once, then call `levenshtein_search_many`
+    with it many times.  The constructor takes a COPY of the bytes (a
+    snapshot: mutating the caller's array afterwards changes no answer),
+    and `device_haystack()` uploads that copy once, at first use, onto the
+    device resolved at construction (`device=None`: "cuda"); every later
+    search, of any needle length and cost model, reads the same tensor.
+    `uploads` counts the uploads (at most one).
+
+    The JAX package also keeps repacked segment layouts per (G, halo,
+    own_len) (`pack`); the port's kernels read the raw haystack, so there
+    is nothing to repack and no `pack`.
+    """
+
+    def __init__(self, haystack: BytesLike, *, device=None):
+        self.device = _canonical_device(resolve_device(device))
+        self.haystack = np.array(to_bytes_array(haystack), dtype=np.uint8,
+                                 copy=True)
+        self._hay_dev: Optional[torch.Tensor] = None
+        self.uploads = 0
+
+    def __len__(self) -> int:
+        return len(self.haystack)
+
+    def device_haystack(self) -> torch.Tensor:
+        """The raw haystack on the device (uploaded once, memoized), at a
+        16-byte aligned address as the kernels read it."""
+        if self._hay_dev is None:
+            self._hay_dev = _upload_haystack(self.haystack, self.device)
+            self.uploads += 1
+        return self._hay_dev
+
+    def pack_sharded(self, *args, **kwargs):
+        """A haystack sharded across devices: not ported."""
+        raise _not_ported(
+            "PackedHaystack.pack_sharded",
+            "parallel/sharded.py sharded_pack_segs",
+        )
+
+
+# Device memory one dictionary launch may hold: its int32 distances, the
+# `dist <= k` mask and, for K6, the strips' boundary rows.
+# benches/search_sweep.py --many, 120 needles of 24 chars at k = 3, All
+# mode end to end (NVIDIA H100 80GB HBM3, 700 W), needles/s by needles a
+# launch: 128 MiB 910.1 at 1, 860.4 at 2, 912.6 at 8, 927.8 at 15 (peak
+# 768 -> 9,732 MB: one needle keeps the card busy); 8 MiB 2,920.7 at 1,
+# 7,537.7 at 8, 9,322.1 at 30 (1,208 MB), 10,374.5 at 120 (4,810 MB);
+# 1 MiB 3,072.6 at 1, 14,798.1 at 8, 23,834.2 at 30, 22,612.0 at 120.
+# A launch's fixed cost only matters for small haystacks, and 1 GiB gives
+# them 25 (8 MiB) to 200 (1 MiB) needles a launch.
+_MANY_LAUNCH_BYTES = 1 << 30
+# Elements of one launch's distances: PyTorch's CUDA `torch.nonzero` has
+# refused tensors of more than 2^31 - 1 elements (15 needles at 128 MiB).
+_MANY_LAUNCH_ELEMENTS = (1 << 31) - 1
+# Needles of one launch: both kernels run a needle a grid row (gridDim.y).
+_MANY_LAUNCH_NEEDLES = 65535
+
+
+def _many_launch_plan(num: int, n: int, blocked: bool, halo: int,
+                      own_len: int) -> List[Tuple[int, int]]:
+    """[lo, hi) needle ranges of a dictionary group's launches: each
+    launch's distances, mask and K6 scratch stay under
+    `_MANY_LAUNCH_BYTES`, its distances under `_MANY_LAUNCH_ELEMENTS`
+    and its needles under `_MANY_LAUNCH_NEEDLES`; at least one needle a
+    launch."""
+    from .ops.search_common import seg_count
+
+    per_needle = 4 * (n + 32) + (n + 1)
+    if blocked:
+        per_needle += seg_count(n, own_len) * (halo + own_len + 16)
+    cap = min(_MANY_LAUNCH_BYTES // per_needle,
+              _MANY_LAUNCH_ELEMENTS // (n + 1), _MANY_LAUNCH_NEEDLES)
+    cap = max(1, cap)
+    return [(lo, min(lo + cap, num)) for lo in range(0, num, cap)]
+
+
+def levenshtein_search_many(
+    needles: Sequence[BytesLike],
+    haystack,
+    k: int,
+    search_type: SearchType = SearchType.Best,
+    costs: EditCosts = LEVENSHTEIN_COSTS,
+    mesh=None,
+    *,
+    device=None,
+) -> List[List[Match]]:
+    """Dictionary search: every needle against one haystack, unanchored
+    (the JAX package's `levenshtein_search_many`).
+
+    The haystack is uploaded once for the whole call (and once for every
+    call, when `haystack` is a `PackedHaystack`; bytes-like input builds
+    a transient one).  Unit and restricted-Damerau costs: needles are
+    grouped by length, and a group runs as ONE kernel launch over all its
+    needles (a needle a grid row), K2 up to `ROUTE_MAX_NEEDLE` chars
+    (logged `myers_search_many`) and K6 past it
+    (`myers_search_many_blocked`), at the halo and owned length the single
+    call picks for that needle; a group whose distances pass device
+    memory's budget runs in several launches (`_many_launch_plan`), a log
+    entry each.  The hits come back once a launch and split per needle
+    by a sorted search; each needle then takes the single call's tail.
+    Every other cost model, empty needles and an empty haystack run
+    needle by needle through the single call's second part over the same
+    resident haystack.
+
+    Returns one Match list per needle, in the input order, each equal to
+    `levenshtein_search_simd_with_opts(needle, haystack, k, search_type,
+    costs, False)`.  A `PackedHaystack` on another device than `device`
+    raises `ValueError`; `mesh=` is not ported.
+    """
+    from .ops.myers_chunked import blocked_search
+    from .ops.myers_search import (
+        collect_hits,
+        myers_search,
+        prepare_myers_needles,
     )
 
+    dev = _canonical_device(resolve_device(device))
+    if mesh is not None:
+        raise _not_ported(
+            "levenshtein_search_many(mesh=...)",
+            "levenshtein.levenshtein_search_many(mesh=) over "
+            "parallel/sharded.py",
+        )
+    needles = [to_bytes_array(nd) for nd in needles]
+    if isinstance(haystack, PackedHaystack):
+        packed = haystack
+        if packed.device != dev:
+            raise ValueError(
+                f"the PackedHaystack lies on {packed.device}, the search "
+                f"was asked to run on {dev}")
+    else:
+        packed = PackedHaystack(haystack, device=dev)
+    hay = packed.haystack
+    n = len(hay)
+    costs.check_search()
+    results: List[Optional[List[Match]]] = [None] * len(needles)
+    ct = _costs_tuple(costs)
+    damerau = ct == _RDAMERAU
+    oracle = forced_path() == "oracle"
+
+    by_len: dict = {}
+    for i, nd in enumerate(needles):
+        by_len.setdefault(len(nd), []).append(i)
+    for m, idxs in sorted(by_len.items()):
+        if m == 0:
+            for i in idxs:
+                results[i] = _empty_needle_matches(n, k, search_type, costs,
+                                                   False)
+            continue
+        if oracle:
+            for i in idxs:
+                results[i] = levenshtein_search_naive_with_opts(
+                    needles[i], hay, k, search_type, costs, False)
+            continue
+        if n == 0 or ct not in (_UNIT, _RDAMERAU):
+            for i in idxs:
+                results[i] = _search_resident(
+                    needles[i], hay, packed.device_haystack(), k,
+                    search_type, costs, False)
+            continue
+        engine, span, _, halo, own_len = _myers_search_plan(
+            m, n, k, costs, False)
+        blocked = engine == "myers_search_blocked"
+        search = blocked_search if blocked else myers_search
+        hay_d = packed.device_haystack()
+        for lo, hi in _many_launch_plan(len(idxs), n, blocked, halo,
+                                        own_len):
+            part = idxs[lo:hi]
+            DispatchDecision(
+                path=("myers_search_many_blocked" if blocked
+                      else "myers_search_many"),
+                cost_bucket="u8",
+                unit_k=halo,
+                max_k=k,
+                padded_m=m,
+                padded_n=len(part),
+            ).log("levenshtein_search_many")
+            needles_d = prepare_myers_needles([needles[i] for i in part], m,
+                                              device=dev)
+            dist = search(hay_d, needles_d, own_len=own_len, halo=halo,
+                          damerau=damerau)
+            ni, gpos, d_arr = collect_hits(dist, min(k, (1 << 31) - 1))
+            del dist
+            # hits come sorted by (needle, end): one sorted search splits
+            # them (a mask a needle would cost hits x needles)
+            cut = np.searchsorted(ni, np.arange(len(part) + 1))
+            for slot, i in enumerate(part):
+                s, e = cut[slot], cut[slot + 1]
+                results[i] = _hits_to_matches(
+                    needles[i], hay, hay_d, gpos[s:e], d_arr[s:e], k,
+                    search_type, costs, False, span)
+    return results  # type: ignore[return-value]
+
+
+# ---------------------------------------------------------------------------
+# Names of the JAX package that the port does not carry yet
+# ---------------------------------------------------------------------------
 
 def levenshtein_search_sharded(*args, **kwargs):
     """Search over a haystack sharded across devices: not ported."""
@@ -1205,14 +1476,3 @@ def levenshtein_search_sharded(*args, **kwargs):
         "parallel/sharded.py sharded_myers_search_mins with ppermute halo "
         "exchange",
     )
-
-
-class PackedHaystack:
-    """Device-resident packed haystack for dictionary search: not ported."""
-
-    def __init__(self, *args, **kwargs):
-        raise _not_ported(
-            "PackedHaystack",
-            "levenshtein.PackedHaystack over ops/pallas/search_myers.py "
-            "device_pack_segs",
-        )
