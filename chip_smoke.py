@@ -21,6 +21,20 @@ each against its plain PyTorch version on the card:
 * `sweep`: `levenshtein_search_sweep` over the search phase's input in 4
   slabs with a checkpoint, Best and All, then a resume after two slabs,
   against the search phase's results;
+* `mesh`: every `mesh=` route on `make_mesh()` (every visible card) and
+  on 4 shards of one card, over the phases' inputs above (and the later
+  `blocked_distance` and `flat_distance` phases' pairs, made once for
+  both), each equal to the meshless call and the earlier results:
+  `levenshtein_k_batch` on K1, K3 (a cut), K5 and K9,
+  `levenshtein_search_sharded` on K2 (with copies of the needle ending
+  on and around each shard edge), K6, K7 and K8, the dictionary on one
+  `PackedHaystack` twice, `match_count_psum` over a batch on the card,
+  Hamming and the sweep, with the seconds of each route's second call
+  (the routes in the reverse order of the first calls) beside the
+  meshless call's and each kernel's launches a mesh (4 shards of one card
+  measure the halo ring's overhead, not scaling;
+  `benches/mesh_cards.py` runs the same phase on every card of a
+  machine, and `allgather_matches` across a process a card);
 * `band_distance`: the same 196,608 pairs with adjacent swaps added, at
   k = 32 under the restricted-Damerau costs, then 4,096 pairs of 20,000
   bytes at k = 256 under affine costs (2, 1, 2): the general band kernel in
@@ -2634,7 +2648,9 @@ def run_dictionary(dev, hay_mb: int, native_loaded: bool):
         "phase_s": round(time.perf_counter() - t_phase, 1),
     })
     return {"myers_search": total[0], "blocked_search": total[1],
-            "search_diag": total[2], "prior_peak": prior_peak}
+            "search_diag": total[2], "prior_peak": prior_peak,
+            "hay": hay, "short": groups["short"],
+            "unit_All": results["unit_All"], "unit_All_s": e2e["unit_All"]}
 
 
 def run_sweep(dev, needle, hay, mono: dict, mono_e2e: dict):
@@ -2696,6 +2712,269 @@ def run_sweep(dev, needle, hay, mono: dict, mono_e2e: dict):
           "monolithic_e2e_s": {k_: round(v, 4) for k_, v in mono_s.items()},
           "sweep_over_monolithic": {
               st: round(e2e[st] / mono_s[st], 3) for st in mono_s}})
+
+
+# ---------------------------------------------------------------------------
+# the mesh routes
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # shards of the one-card mesh: the ring's overhead
+MESH_BAND_PAIRS = 1 << 14  # the band engine's cut of the distance pairs
+MESH_PREFIX = 1 << 24  # the long-needle calls' haystack prefix
+MESH_K6_LEN, MESH_K6_K = 3000, 150
+MESH_K8_LEN, MESH_K8_K = 600, 30
+MESH_PLANT_OFFSETS = (-2, -1, 0, 1, 2)
+
+
+def mesh_kernels():
+    """{name: wrapper} of every kernel a mesh route can launch."""
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.ops import myers_distance as md
+    from triple_accel_tpu_torch.ops import myers_search as ms_mod
+    from triple_accel_tpu_torch.ops import search_diag as sd
+    from triple_accel_tpu_torch.ops import search_flat as sf
+
+    return {"myers_distance": md.myers_distance,
+            "myers_search": ms_mod.myers_search,
+            "band_distance": lb.band_distance,
+            "blocked_distance": mc.blocked_distance,
+            "blocked_search": mc.blocked_search,
+            "search_diag": sd.search_diag, "flat_search": sf.flat_search,
+            "flat_distance": sf.flat_distance}
+
+
+def mesh_plant(hay, needle, bounds, off: int):
+    """Copies of the needle ending `off` bytes past each inner shard edge
+    (the owner-by-end rule's edge cases), written into `hay`; returns the
+    bytes they replaced and their end positions."""
+    m = len(needle)
+    saved, ends = [], []
+    for lo, _ in bounds[1:]:
+        end = lo + off
+        saved.append((end - m, hay[end - m:end].copy()))
+        hay[end - m:end] = needle
+        ends.append(end)
+    return saved, ends
+
+
+def run_mesh(dev, a_list, b_list, k1_out, needle, hay, mono, dct, pairs5,
+             pairs9):
+    """Every `mesh=` route at the full width of the phases before it (and
+    of the `blocked_distance` and `flat_distance` phases' inputs, `pairs5`
+    and `pairs9`), on `make_mesh()` (every visible card) and on
+    MESH_SHARDS shards of one card, each against the meshless call (and
+    the earlier phases' results), with the seconds of each call, warm,
+    and each kernel's launches by mesh.  Returns {kernel: {mesh:
+    launches}}."""
+    import importlib
+    import tempfile
+
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.parallel import (
+        make_mesh, match_count_psum, shard_bounds)
+    from triple_accel_tpu_torch.sweep import levenshtein_search_sweep
+    from triple_accel_tpu_torch.types import (
+        EditCosts, LEVENSHTEIN_COSTS, RDAMERAU_COSTS, SearchType)
+
+    lev = importlib.import_module("triple_accel_tpu_torch.levenshtein")
+    ham = importlib.import_module("triple_accel_tpu_torch.hamming")
+    t_phase = time.perf_counter()
+    meshes = {f"cards_{torch.cuda.device_count()}": make_mesh(),
+              f"shards_{MESH_SHARDS}_on_one_card":
+                  make_mesh([dev] * MESH_SHARDS)}
+    kernels = mesh_kernels()
+    launches = {name: {key: 0 for key in meshes} for name in kernels}
+    seconds, first_s, paths = {}, {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    def same(got, ref) -> bool:
+        return (got == ref if isinstance(ref, list)
+                else np.array_equal(got, ref))
+
+    def drive(item, call, ref, meshless=False, on=None):
+        """`call(None)` (with `meshless`), then `call(mesh)` on each mesh
+        (or on the one named `on`), each equal to `ref` (None: to the
+        meshless call's result), every kernel a mesh call launches at
+        least once a shard, its launches counted from 0 just before it and
+        read just after it.  Then every route again in the reverse order:
+        those warm seconds are the ones kept (the first calls' go under
+        `seconds_first`)."""
+        routes = ([("meshless", None)] if meshless else []) + [
+            (key, mesh) for key, mesh in meshes.items() if on in (None, key)]
+        first, warm = {}, {}
+        for key, mesh in routes:
+            for fn in kernels.values():
+                fn.launches = 0
+            dispatch_history(clear=True)
+            got, first[key] = timed(lambda: call(mesh))
+            counts = {n: fn.launches for n, fn in kernels.items()}
+            ref = got if ref is None else ref
+            check(same(got, ref),
+                  f"mesh phase {item} on {key} != the meshless call")
+            if mesh is None:
+                continue
+            ran = {n: c for n, c in counts.items() if c}
+            check(ran and all(c >= mesh.size for c in ran.values()),
+                  f"mesh phase {item} on {key}: launches {ran}, not at "
+                  f"least one a shard")
+            for n, c in counts.items():
+                launches[n][key] += c
+            paths.setdefault(item, {})[key] = {
+                "dispatch": sorted({d.path for _, d in dispatch_history()}),
+                "launches": ran}
+        for key, mesh in reversed(routes):
+            got, warm[key] = timed(lambda: call(mesh))
+            check(same(got, ref), f"mesh phase {item} on {key}, called "
+                                  "again, != the meshless call")
+        seconds[item] = {k_: round(warm[k_], 4) for k_, _ in routes}
+        first_s[item] = {k_: round(first[k_], 4) for k_, _ in routes}
+
+    # K1: the distance phase's pairs, against its result
+    drive("distance_k1", lambda mesh: tt.levenshtein_k_batch(
+        a_list, b_list, K_DIST, mesh=mesh), k1_out, meshless=True)
+    # K3: a cut of the same pairs under rDamerau costs
+    a3, b3 = a_list[:MESH_BAND_PAIRS], b_list[:MESH_BAND_PAIRS]
+    drive("band_k3", lambda mesh: tt.levenshtein_k_batch(
+        a3, b3, K_DIST, RDAMERAU_COSTS, mesh=mesh), None, meshless=True)
+    # K5 and K9: the blocked_distance and flat_distance phases' inputs
+    # (unit costs; affine), at an unbounded threshold
+    a5, b5 = pairs5
+    drive("blocked_k5", lambda mesh: tt.levenshtein_k_batch(
+        a5, b5, U32_MAX, mesh=mesh), None, meshless=True)
+    a9, b9 = pairs9
+    drive("flat_k9", lambda mesh: tt.levenshtein_k_batch(
+        a9, b9, U32_MAX, EditCosts(*AFFINE), mesh=mesh), None,
+        meshless=True)
+    # the global count of distances <= k, summed over the shards of a
+    # batch that lies on the card
+    k1_d = torch.from_numpy(np.asarray(k1_out)).to(dev)
+    want = int((k1_d <= K_DIST).sum())
+    psum = {key: match_count_psum(mesh, k1_d, K_DIST)
+            for key, mesh in meshes.items()}
+    check(all(v == want for v in psum.values()),
+          f"match_count_psum {psum} != {want}")
+
+    # K2: the search phase's four calls, against its results
+    def search(costs, st, h=hay, nd=needle, k=K_SEARCH):
+        return lambda mesh: (
+            lev.levenshtein_search_simd_with_opts(nd, h, k, st, costs, False)
+            if mesh is None else
+            lev.levenshtein_search_sharded(nd, h, k, mesh, st, costs))
+
+    for cname, costs in (("unit", LEVENSHTEIN_COSTS),
+                         ("rdamerau", RDAMERAU_COSTS)):
+        for st in (SearchType.Best, SearchType.All):
+            drive(f"search_k2_{cname}_{st.name}", search(costs, st),
+                  mono[(cname, st)], meshless=True)
+    # copies of the needle ending on and around the inner shard edges of
+    # the one-card mesh, each found once at cost 0
+    bounds = shard_bounds(len(hay), MESH_SHARDS)
+    for off in MESH_PLANT_OFFSETS:
+        saved, ends = mesh_plant(hay, needle, bounds, off)
+        try:
+            ref = lev.levenshtein_search_simd_with_opts(
+                needle, hay, K_SEARCH, SearchType.All, LEVENSHTEIN_COSTS,
+                False)
+            by_end = {mt.end: mt for mt in ref}
+            check(all(e in by_end and by_end[e].k == 0 for e in ends),
+                  f"a copy ending at a shard edge {off:+d} was not found")
+            drive(f"edge_copies_{off:+d}", search(LEVENSHTEIN_COSTS,
+                                                  SearchType.All), ref)
+        finally:
+            for start, old in saved:
+                hay[start:start + len(old)] = old
+    # K7: a general-cost call; K6 and K8: long needles over a prefix
+    gen = EditCosts(*GENERAL_COSTS[0])
+    drive("search_k7", search(gen, SearchType.All, k=K_GENERAL),
+          lev.levenshtein_search_simd_with_opts(
+              needle, hay, K_GENERAL, SearchType.All, gen, False),
+          meshless=True)
+    prefix = hay[:MESH_PREFIX]
+    for item, m, k, costs in (("search_k6", MESH_K6_LEN, MESH_K6_K,
+                               LEVENSHTEIN_COSTS),
+                              ("search_k8", MESH_K8_LEN, MESH_K8_K, gen)):
+        nd = prefix[len(prefix) // 3:len(prefix) // 3 + m].copy()
+        nd[::97] = ACGT[0]  # a few edits against its source
+        drive(item, search(costs, SearchType.All, h=prefix, nd=nd, k=k),
+              lev.levenshtein_search_simd_with_opts(
+                  nd, prefix, k, SearchType.All, costs, False),
+              meshless=True)
+
+    # the dictionary: its 512 short needles on one PackedHaystack, twice
+    # a mesh (the first call packs it, the second uploads nothing)
+    ph = lev.PackedHaystack(dct["hay"])
+    uploads = {}
+    for key, mesh in meshes.items():
+        before = ph.uploads
+        drive(f"dictionary_{key}", lambda mesh: lev.levenshtein_search_many(
+            dct["short"], ph, K_DICT, SearchType.All, LEVENSHTEIN_COSTS,
+            mesh=mesh), dct["unit_All"], on=key)
+        uploads[key] = ph.uploads - before
+        check(uploads[key] == mesh.size,
+              f"the sharded dictionary on {key} uploaded {uploads[key]} "
+              f"times, not once a shard")
+    seconds["dictionary_meshless"] = {"meshless": round(dct["unit_All_s"],
+                                                        4)}
+
+    # Hamming (plain ops: no kernel counted), each call timed warm
+    a2, b2 = np.stack(a_list), np.stack(b_list)
+    hsecs = {}
+
+    def warm_timed(name, fn, ref=None):
+        got = fn()
+        check(ref is None or same(got, ref), f"hamming {name}")
+        got, hsecs[name] = timed(fn)
+        check(ref is None or same(got, ref), f"hamming {name}, again")
+        return got
+
+    ref_h = warm_timed("batch_meshless", lambda: ham.hamming_batch(a2, b2),
+                       (a2 != b2).sum(axis=1))
+    refs = {st: warm_timed(f"search_{st.name}_meshless",
+                           lambda st=st: ham.hamming_search_simd_with_opts(
+                               needle, hay, HAMMING_K, st))
+            for st in (SearchType.Best, SearchType.All)}
+    check(all(refs.values()), "the Hamming search found nothing")
+    for key, mesh in meshes.items():
+        warm_timed(f"batch_{key}",
+                   lambda: ham.hamming_batch(a2, b2, mesh=mesh), ref_h)
+        for st in (SearchType.Best, SearchType.All):
+            warm_timed(f"search_{st.name}_{key}",
+                       lambda st=st: ham.hamming_search_sharded(
+                           needle, hay, HAMMING_K, mesh, st), refs[st])
+    seconds["hamming"] = {k_: round(v, 4) for k_, v in hsecs.items()}
+
+    # the sweep in 4 slabs, each slab sharded
+    slab = min(SWEEP_SLAB, max(1 << 16, len(hay) // 4))
+    with tempfile.TemporaryDirectory() as tmp:
+        for st in (SearchType.Best, SearchType.All):
+            ck = os.path.join(tmp, f"mesh_{st.name}.npz")
+            drive(f"sweep_{st.name}", lambda mesh, st=st, ck=ck:
+                  levenshtein_search_sweep(needle, hay, K_SEARCH, st,
+                                           LEVENSHTEIN_COSTS,
+                                           slab_chars=slab,
+                                           checkpoint_path=ck, mesh=mesh),
+                  mono[("unit", st)])
+    emit({"phase": "mesh", "card": smi_line(),
+          "meshes": {k_: m_.size for k_, m_ in meshes.items()},
+          "note": f"{MESH_SHARDS} shards on one card measure the halo "
+                  "ring's and the per-shard launches' overhead, not "
+                  "scaling; `seconds` are each route's second call, the "
+                  "routes in the reverse order of the first calls",
+          "seconds": seconds, "seconds_first": first_s,
+          "dispatch_and_launches": paths, "dictionary_uploads": uploads,
+          "match_count_psum": psum,
+          "launches": {n: v for n, v in launches.items()
+                       if any(v.values())},
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -3422,9 +3701,28 @@ BLOCKED_PLAIN_PAIRS, BLOCKED_PLAIN_COLS = 16, 2000
 LONG_SEARCH_PLAIN_BYTES, LONG_SEARCH_PLAIN_OWN = 64 << 10, 1024
 
 
-def run_blocked_distance(dev, scale: float, native_loaded: bool):
+def blocked_pairs(scale: float):
+    """The `blocked_distance` phase's pairs (BLOCKED_PAIRS at full scale)
+    and the seconds they took to make."""
+    t0 = time.perf_counter()
+    pairs = make_long_pairs(max(64, int(BLOCKED_PAIRS * scale)), BLOCKED_LEN,
+                            BLOCKED_EDIT_SHARE, seed=2020)
+    return pairs, time.perf_counter() - t0
+
+
+def flat_distance_pairs(scale: float):
+    """The `flat_distance` phase's pairs (FLAT_DIST_PAIRS at full scale)
+    and the seconds they took to make."""
+    t0 = time.perf_counter()
+    pairs = make_long_pairs(max(16, round(FLAT_DIST_PAIRS * scale)),
+                            FLAT_DIST_LEN, FLAT_DIST_EDIT_SHARE, seed=5050)
+    return pairs, time.perf_counter() - t0
+
+
+def run_blocked_distance(dev, pairs, gen_s: float, native_loaded: bool):
     """Exact distances past the band plan: unit costs, then rDamerau on the
-    same pairs with adjacent swaps added."""
+    same pairs with adjacent swaps added.  `pairs` and `gen_s` come from
+    `blocked_pairs`."""
     import triple_accel_tpu_torch as tt
     from triple_accel_tpu_torch.dispatch import dispatch_history
     from triple_accel_tpu_torch.ops import myers_chunked as mc
@@ -3433,13 +3731,12 @@ def run_blocked_distance(dev, scale: float, native_loaded: bool):
 
     check(native_loaded, "the blocked phases need the compiled comparators "
                          "of native/ (a Python oracle takes hours there)")
-    n_pairs = max(64, int(BLOCKED_PAIRS * scale))
+    a_list, b_list = pairs
+    n_pairs = len(a_list)
     t_phase = t0 = time.perf_counter()
-    a_list, b_list = make_long_pairs(n_pairs, BLOCKED_LEN, BLOCKED_EDIT_SHARE,
-                                     seed=2020)
     b_swapped = swap_adjacent_list(b_list, BLOCKED_SWAP_SHARE,
                                    np.random.default_rng(2021))
-    gen_s = time.perf_counter() - t0
+    gen_s += time.perf_counter() - t0
 
     def drive(b_l, costs, what):
         dispatch_history(clear=True)
@@ -4084,10 +4381,11 @@ def run_flat_search(dev, native_loaded: bool):
     }
 
 
-def run_flat_distance(dev, scale: float, native_loaded: bool):
+def run_flat_distance(dev, pairs, gen_s: float, native_loaded: bool):
     """General-cost distance past the band plan (K9): long ACGT pairs with
     10% edits at an unbounded threshold under affine costs, so the band is
-    the whole length; against the compiled scalar distance on a sample."""
+    the whole length; against the compiled scalar distance on a sample.
+    `pairs` and `gen_s` come from `flat_distance_pairs`."""
     from triple_accel_tpu_torch.dispatch import dispatch_history
     from triple_accel_tpu_torch.levenshtein import (
         _costs_tuple, levenshtein_k_batch)
@@ -4098,11 +4396,9 @@ def run_flat_distance(dev, scale: float, native_loaded: bool):
 
     check(native_loaded, "the general-cost phases need the compiled "
                          "comparators of native/")
-    t_phase = t0 = time.perf_counter()
-    n_pairs = max(16, round(FLAT_DIST_PAIRS * scale))
-    a_list, b_list = make_long_pairs(n_pairs, FLAT_DIST_LEN,
-                                     FLAT_DIST_EDIT_SHARE, seed=5050)
-    gen_s = time.perf_counter() - t0
+    t_phase = time.perf_counter()
+    a_list, b_list = pairs
+    n_pairs = len(a_list)
     costs = EditCosts(*AFFINE)
     ct = _costs_tuple(costs)
     dispatch_history(clear=True)
@@ -4279,10 +4575,14 @@ def front_door(dev):
          ValueError),
         (lambda: tt.levenshtein_k_batch([b"a"], [], 1), ValueError),
         (lambda: tt.hamming(b"abcd", b"abc"), ValueError),
+        # a mesh that is not a parallel.Mesh, one that mixes the CPU and
+        # the card, and a device= that is not the mesh's first device
         (lambda: tt.levenshtein_k_batch([b"ab"], [b"ba"], 1, mesh=object()),
-         NotImplementedError),
-        (lambda: tt.hamming_search_sharded(b"ab", b"abab", 1, None),
-         NotImplementedError),
+         TypeError),
+        (lambda: tt.parallel.make_mesh(["cpu", dev]), ValueError),
+        (lambda: tt.hamming_search_sharded(b"ab", b"abab", 1,
+                                           tt.parallel.make_mesh(),
+                                           device="cpu"), ValueError),
     ):
         try:
             fn()
@@ -4398,6 +4698,14 @@ def main() -> int:
     k2["launches_dictionary"] = dict_launches["myers_search"]
     run_sweep(dev, needle, hay, mono, mono_e2e)
 
+    # every mesh= route, on the card's mesh and on shards of one card;
+    # the long-pair phases' inputs are made here, once, for both
+    pairs5, gen5 = blocked_pairs(scale)
+    pairs9, gen9 = flat_distance_pairs(scale)
+    mesh_launches = run_mesh(dev, a_list, b_list, k1_out, needle, hay, mono,
+                             dict_launches, pairs5, pairs9)
+    del dict_launches["hay"], dict_launches["short"]
+
     # 6, 7. general costs, long strings, tracebacks
     b_rows = np.stack(b_list)
     swap_adjacent(b_rows, SWAPS_PER_PAIR, np.random.default_rng(4321))
@@ -4419,7 +4727,7 @@ def main() -> int:
     run_hamming(dev, a_list, b_list, needle, hay, planted)
 
     # 9, 10. unbounded lengths and long needles
-    k5 = run_blocked_distance(dev, scale, native_loaded)
+    k5 = run_blocked_distance(dev, pairs5, gen5, native_loaded)
     k5.update(cases=bd_cases, ok=True)
     k6, k6_chunked = run_blocked_search(dev, hay_mb, native_loaded)
     k6["launches_dictionary"] = dict_launches["blocked_search"]
@@ -4433,7 +4741,7 @@ def main() -> int:
     k7.update(cases=sd_cases, ok=True)
     k8 = run_flat_search(dev, native_loaded)
     k8.update(cases=fs_cases, ok=True)
-    k9 = run_flat_distance(dev, scale, native_loaded)
+    k9 = run_flat_distance(dev, pairs9, gen9, native_loaded)
     k9.update(cases=fd_cases, ok=True)
 
     # 14. front door
@@ -4445,6 +4753,11 @@ def main() -> int:
           "peak_device_MB": round(max(
               dict_launches["prior_peak"],
               torch.cuda.max_memory_allocated()) / 2**20)})
+    for entry, name in ((k1, "myers_distance"), (k2, "myers_search"),
+                        (k3, "band_distance"), (k5, "blocked_distance"),
+                        (k6, "blocked_search"), (k7, "search_diag"),
+                        (k8, "flat_search"), (k9, "flat_distance")):
+        entry["launches_mesh"] = mesh_launches[name]
     emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k4_past, k10,
                       k10_long, k10_past, k5, k6, k6_chunked, k7, k8, k9]})
     print(smi_line(), flush=True)

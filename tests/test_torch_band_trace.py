@@ -243,11 +243,21 @@ def test_k_batch_traced_bucketed_and_chunked_equals_oracle(monkeypatch):
 
 
 def test_k_batch_traced_empty_batch_and_mesh():
+    from triple_accel_tpu_torch.parallel import make_mesh
+
     dists, traces = tl.levenshtein_k_batch([], [], 3, trace_on=True, **CPU)
     assert dists.shape == (0,) and traces == []
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, trace_on=True,
-                               mesh=object(), **CPU)
+    # a traced batch on a mesh runs on the mesh's first device, as the JAX
+    # package's does, and says so in the log
+    mesh = make_mesh(["cpu"] * 4)
+    dispatch_history(clear=True)
+    d_m, tr_m = tl.levenshtein_k_batch([b"ab", b"kitten"], [b"ba", b"sit"],
+                                       4, trace_on=True, mesh=mesh, **CPU)
+    assert [d.path for _, d in dispatch_history()] == [
+        "trace_mesh_ignored", "band_trace"]
+    d_1, tr_1 = tl.levenshtein_k_batch([b"ab", b"kitten"], [b"ba", b"sit"],
+                                       4, trace_on=True, **CPU)
+    assert d_m.tolist() == d_1.tolist() == [2, 4] and tr_m == tr_1
 
 
 @pytest.mark.parametrize("a,b", [

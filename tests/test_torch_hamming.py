@@ -188,18 +188,52 @@ def test_forced_oracle_path(monkeypatch):
             Match(start=2, end=5, k=1)]
 
 
-@pytest.mark.parametrize("call,engine", [
-    (lambda: th.hamming_search_sharded(b"ab", b"abab", 1, object()),
-     "sharded_hamming_search_mins"),
-    (lambda: tt.hamming_search_sharded(b"ab", b"abab", 1, object()),
-     "sharded_hamming_search_mins"),
-    (lambda: th.hamming_batch(np.zeros((1, 2), np.uint8),
-                              np.zeros((1, 2), np.uint8), mesh=object(),
-                              **CPU), "batch_sharding"),
+def _cpu_mesh(D):
+    from triple_accel_tpu_torch.parallel import make_mesh
+
+    return make_mesh(["cpu"] * D)
+
+
+def _search_sharded():
+    rng = np.random.default_rng(61)
+    needle = rng.integers(65, 68, 6).astype(np.uint8)
+    hay = rng.integers(65, 68, 300).astype(np.uint8)
+    hay[97:103] = needle  # straddles the shard edge at 100
+    for st in (SearchType.Best, SearchType.All):
+        got = th.hamming_search_sharded(needle, hay, 2, _cpu_mesh(3), st,
+                                        **CPU)
+        assert got == th.hamming_search_simd_with_opts(needle, hay, 2, st,
+                                                       **CPU)
+        assert _tuples(got) == _tuples(jh.hamming_search_simd_with_opts(
+            needle, hay, 2, JSearchType[st.name]))
+
+
+def _top_level_search_sharded():
+    # a needle longer than a shard, and shards without a start position
+    needle, hay = b"abcab", b"xxabcabyyabcab"
+    got = tt.hamming_search_sharded(needle, hay, 1, _cpu_mesh(5),
+                                    SearchType.All, **CPU)
+    assert got == [Match(start=2, end=7, k=0), Match(start=9, end=14, k=0)]
+
+
+def _batch_mesh():
+    rng = np.random.default_rng(62)
+    a = rng.integers(0, 3, (11, 9)).astype(np.uint8)
+    b = rng.integers(0, 3, (11, 9)).astype(np.uint8)
+    lengths = rng.integers(0, 10, 11)
+    for D in (1, 4, 13):  # 13 devices: two blocks empty
+        got = th.hamming_batch(a, b, lengths, mesh=_cpu_mesh(D), **CPU)
+        assert np.array_equal(got, th.hamming_batch(a, b, lengths, **CPU))
+    assert last_dispatch().path == "torch"
+
+
+@pytest.mark.parametrize("call", [
+    _search_sharded, _top_level_search_sharded, _batch_mesh,
 ], ids=["search_sharded", "top_level_search_sharded", "batch_mesh"])
-def test_unported_hamming_routes_raise(call, engine):
-    with pytest.raises(NotImplementedError, match=engine):
-        call()
+def test_unported_hamming_routes_raise(call):
+    """The routes that raised NotImplementedError until the mesh layer was
+    ported: each equals its meshless call on a CPU mesh."""
+    call()
 
 
 @pytest.mark.parametrize("call", [

@@ -4,9 +4,9 @@ Every public function the port carries is run with device="cpu" (so the
 kernels' plain PyTorch versions compute) and must equal, exactly, the
 same-named function of the JAX package on its default CPU path and the
 scalar oracle.  Also: the dispatch log names the engine, every route that
-is not ported raises NotImplementedError (and the seven that raised until
-their engines were ported return the reference's results; dictionary
-search, ported too, raises only for its `mesh=` forms), and
+was not ported raised NotImplementedError until its engine was ported,
+and now returns the reference's results (the `mesh=` routes on a CPU
+mesh, against the meshless call), and
 results do not depend on the native host library.  The general-cost and traced distance routes have
 their own files (test_torch_band_distance.py, test_torch_band_trace.py),
 Hamming has test_torch_hamming.py.
@@ -336,11 +336,88 @@ def _search_dense_hits():
                                        ends.tolist(), ks.tolist()))
 
 
+def _cpu_mesh(D=3):
+    from triple_accel_tpu_torch.parallel import make_mesh
+
+    return make_mesh(["cpu"] * D)
+
+
+def _k_batch_mesh():
+    a_list, b_list = _mixed_batch(np.random.default_rng(31), 40)
+    dispatch_history(clear=True)
+    got = tl.levenshtein_k_batch(a_list, b_list, 6, mesh=_cpu_mesh(), **CPU)
+    assert [d.path for _, d in dispatch_history()] == ["myers_sharded"]
+    assert np.array_equal(got, tl.levenshtein_k_batch(a_list, b_list, 6,
+                                                      **CPU))
+
+
+def _k_batch_traced_mesh():
+    a_list, b_list = _mixed_batch(np.random.default_rng(32), 12)
+    dispatch_history(clear=True)
+    d_m, tr_m = tl.levenshtein_k_batch(a_list, b_list, 6, trace_on=True,
+                                       mesh=_cpu_mesh(), **CPU)
+    assert [d.path for _, d in dispatch_history()] == [
+        "trace_mesh_ignored", "band_trace"]
+    d_1, tr_1 = tl.levenshtein_k_batch(a_list, b_list, 6, trace_on=True,
+                                       **CPU)
+    assert np.array_equal(d_m, d_1) and tr_m == tr_1
+
+
+def _search_inputs():
+    rng = np.random.default_rng(33)
+    needle = rng.integers(65, 69, 9).astype(np.uint8)
+    hay = rng.integers(65, 69, 400).astype(np.uint8)
+    hay[130:139] = needle  # straddles the shard edge at 134
+    return needle, hay
+
+
+def _search_many_mesh():
+    needle, hay = _search_inputs()
+    needles = [needle, hay[10:17].copy(), b"", needle[:4]]
+    for st in (SearchType.Best, SearchType.All):
+        got = tl.levenshtein_search_many(needles, hay, 2, st,
+                                         mesh=_cpu_mesh(), **CPU)
+        assert got == tl.levenshtein_search_many(needles, hay, 2, st, **CPU)
+
+
+def _packed_haystack_mesh():
+    needle, hay = _search_inputs()
+    ph = tl.PackedHaystack(hay, **CPU)
+    mesh = _cpu_mesh()
+    wins = ph.pack_sharded(mesh, 16)
+    assert ph.uploads == 3 and ph.pack_sharded(mesh, 12) is wins
+    assert [w.shape[0] for w in wins.windows] == [134, 150, 148]
+    got = tl.levenshtein_search_many([needle], ph, 2, SearchType.All,
+                                     mesh=mesh, **CPU)
+    assert ph.uploads == 3
+    assert got[0] == tl.levenshtein_search_simd_with_opts(
+        needle, hay, 2, SearchType.All, **CPU)
+
+
+def _search_sharded():
+    needle, hay = _search_inputs()
+    for st in (SearchType.Best, SearchType.All):
+        got = tl.levenshtein_search_sharded(needle, hay, 2, _cpu_mesh(), st,
+                                            **CPU)
+        assert got == tl.levenshtein_search_simd_with_opts(needle, hay, 2,
+                                                           st, **CPU)
+        assert _as_tuples(got) == _as_tuples(
+            levenshtein_search_naive_with_opts(
+                needle, hay, 2, JSearchType[st.name], J_LEV, False))
+
+
+def _hamming_search_sharded():
+    needle, hay = _search_inputs()
+    got = tt.hamming_search_sharded(needle, hay, 3, _cpu_mesh(),
+                                    SearchType.All, **CPU)
+    ref = importlib.import_module("triple_accel_tpu_torch.hamming") \
+        .hamming_search_simd_with_opts(needle, hay, 3, SearchType.All, **CPU)
+    assert got == ref and any(mt.start == 130 and mt.k == 0 for mt in got)
+
+
 @pytest.mark.parametrize("call,engine", [
-    (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, mesh=object(),
-                                    **CPU), "sharded"),
-    (lambda: tl.levenshtein_k_batch([b"ab"], [b"ba"], 2, trace_on=True,
-                                    mesh=object(), **CPU), "sharded"),
+    (_k_batch_mesh, None),
+    (_k_batch_traced_mesh, None),
     # past the band plan (band half-width over 4096) every cost model has
     # an engine, traced or not
     (_levenshtein_past_band_plan, None),
@@ -350,14 +427,11 @@ def _search_dense_hits():
     (_search_general_costs, None),
     (_search_long_needle, None),
     (_search_dense_hits, None),
-    # dictionary search is ported: its mesh= forms raise
-    (lambda: tl.levenshtein_search_many([b"ab"], b"abab", 1, mesh=object(),
-                                        **CPU), "parallel/sharded.py"),
-    (lambda: tl.PackedHaystack(b"abab", **CPU).pack_sharded(object(), 1, 0,
-                                                           256),
-     "sharded_pack_segs"),
-    (lambda: tl.levenshtein_search_sharded(b"ab", b"abab", 1), "sharded"),
-    (lambda: tt.hamming_search_sharded(b"ab", b"abab", 1, None), "hamming"),
+    # the mesh routes, on a CPU mesh of 3 shards against the meshless call
+    (_search_many_mesh, None),
+    (_packed_haystack_mesh, None),
+    (_search_sharded, None),
+    (_hamming_search_sharded, None),
 ], ids=[
     "k_batch_mesh", "k_batch_traced_mesh", "levenshtein_past_band_plan",
     "rdamerau_past_band_plan", "affine_past_band_plan",
@@ -366,14 +440,11 @@ def _search_dense_hits():
     "hamming_search_sharded",
 ])
 def test_unported_routes_raise(call, engine):
-    """A route that is not ported raises NotImplementedError naming the JAX
-    engine; the cases with engine None are routes ported since, which
-    check their results instead."""
-    if engine is None:
-        call()
-        return
-    with pytest.raises(NotImplementedError, match=engine):
-        call()
+    """Every route that raised NotImplementedError until its engine was
+    ported now checks its results (engine None for each: no route of the
+    JAX package is left unported)."""
+    assert engine is None
+    call()
 
 
 def test_forced_oracle_and_debug_log(monkeypatch, capsys):

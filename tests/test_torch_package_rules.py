@@ -32,7 +32,8 @@ def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
     for new in ("ops.band_scan", "ops.lev_band", "ops.hamming_ops",
                 "oracle.hamming", "hamming", "ops.myers_chunked",
                 "ops.search_scan", "ops.search_diag", "ops.search_flat",
-                "ops.trace_walk", "sweep", "utils.checkpoint"):
+                "ops.trace_walk", "sweep", "utils.checkpoint", "parallel",
+                "parallel.mesh", "parallel.sharded", "parallel.multihost"):
         assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
@@ -101,6 +102,10 @@ def test_source_imports_no_jax(path):
     lambda: tt.PackedHaystack(b"xxabcxx"),
     lambda: importlib.import_module("triple_accel_tpu_torch.sweep")
     .levenshtein_search_sweep(b"abc", b"xxabcxx" * 10, 1, slab_chars=16),
+    # the mesh layer: the default mesh is every visible card
+    lambda: tt.parallel.make_mesh(),
+    lambda: tt.levenshtein_search_sharded(b"abc", b"xxabcxx", 1),
+    lambda: tt.hamming_search_sharded(b"abc", b"xxabcxx", 1),
 ])
 def test_default_device_raises_without_a_card(call):
     if torch.cuda.is_available():

@@ -274,12 +274,22 @@ def test_forced_oracle_path(monkeypatch):
 
 
 def test_mesh_and_a_device_mismatch_raise():
-    with pytest.raises(NotImplementedError, match="parallel/sharded.py"):
-        tl.levenshtein_search_many([b"ab"], b"abab", 1, mesh=object(), **CPU)
+    from triple_accel_tpu_torch.parallel import make_mesh
+
+    needles, hay = _inputs(8, (9, 24))
+    mesh = make_mesh(["cpu"] * 3)
+    ph = tl.PackedHaystack(hay, **CPU)
+    for st in (SearchType.Best, SearchType.All):
+        dispatch_history(clear=True)
+        got = tl.levenshtein_search_many(needles, ph, 3, st, mesh=mesh, **CPU)
+        assert {d.path for _, d in dispatch_history()} == {
+            "myers_search_many_sharded"}
+        assert got == tl.levenshtein_search_many(needles, hay, 3, st, **CPU)
+    assert ph.uploads == 3  # one pack: a device's window each
     ph = tl.PackedHaystack(b"abab", **CPU)
-    with pytest.raises(NotImplementedError, match="sharded_pack_segs"):
-        ph.pack_sharded(object(), 1, 0, 256)
     ph.device = torch.device("cuda", 0)  # as if built on a card
+    with pytest.raises(ValueError, match="PackedHaystack lies on"):
+        tl.levenshtein_search_many([b"ab"], ph, 1, mesh=mesh, **CPU)
     with pytest.raises(ValueError, match="PackedHaystack lies on"):
         tl.levenshtein_search_many([b"ab"], ph, 1, **CPU)
     assert ph.uploads == 0

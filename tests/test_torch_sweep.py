@@ -8,7 +8,7 @@ scalar oracle and the port's monolithic search, in Best and All mode.
 Also: a resume from a seeded checkpoint, Best's running threshold shrinking
 across slabs (the case of test_aux.py), the checkpoint's round trip and
 its atomic write, checkpoints written by either package resumed by the
-other, and `mesh=`.
+other, and `mesh=` (every slab sharded, equal to the meshless sweep).
 """
 
 import importlib
@@ -175,6 +175,12 @@ def test_sweep_short_inputs_and_the_default_threshold():
 
 
 def test_sweep_mesh_raises():
-    with pytest.raises(NotImplementedError, match="levenshtein_search_sharded"):
-        levenshtein_search_sweep(b"ab", b"abab" * 10, 1, slab_chars=8,
-                                 mesh=object(), **CPU)
+    """`mesh=` runs every slab sharded across the mesh (it raised until
+    the mesh layer was ported): equal to the meshless sweep."""
+    from triple_accel_tpu_torch.parallel import make_mesh
+
+    needle, hay = _workload(4, n=1500)
+    for st in (SearchType.Best, SearchType.All):
+        got = levenshtein_search_sweep(needle, hay, 6, st, slab_chars=300,
+                                       mesh=make_mesh(["cpu"] * 3), **CPU)
+        assert got == levenshtein_search_sweep(needle, hay, 6, st, **CPU)

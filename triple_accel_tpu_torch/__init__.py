@@ -17,10 +17,14 @@ cost model past the band plan on the row kernel), search
 anchored or not, with the device resolution of dense hits), dictionary
 search (`levenshtein_search_many` over a `PackedHaystack` uploaded once,
 a same-length group of needles a kernel launch), the resumable slab-wise
-sweep (submodule `sweep`, checkpoints in `utils.checkpoint`) and Hamming
-distance and search.  Not carried yet: every `mesh=` route (each raises
-`NotImplementedError` naming the JAX engine).  Entry points run on "cuda"
-unless the caller passes `device=`; without a card they raise.
+sweep (submodule `sweep`, checkpoints in `utils.checkpoint`), Hamming
+distance and search, and every `mesh=` route: a `parallel.Mesh` is one
+process over a tuple of devices (`parallel.make_mesh()`: every visible
+card), pair batches split into a block a device, one haystack into
+shards with a halo ring (`levenshtein_search_sharded`,
+`hamming_search_sharded`), and `parallel.allgather_matches` joins the
+Match lists of several processes.  Entry points run on "cuda" unless the
+caller passes `device=` (or a CPU mesh); without a card they raise.
 """
 
 from .types import (
@@ -40,6 +44,7 @@ from .types import (
 from . import oracle
 from . import hamming
 from . import levenshtein
+from . import parallel
 
 from .hamming import (
     hamming_batch,
@@ -80,6 +85,7 @@ __all__ = [
     "check_no_null_bytes",
     "to_bytes_array",
     "oracle",
+    "parallel",
     "hamming",
     "hamming_batch",
     "hamming_search_sharded",

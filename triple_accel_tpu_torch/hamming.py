@@ -14,7 +14,9 @@ dispatch for a whole [B, L] batch.
 
 Device rule: every entry point takes a keyword-only `device=`; None means
 "cuda", and a CUDA device without a card raises (`dispatch.resolve_device`).
-`mesh=` and `hamming_search_sharded` are not ported.
+`hamming_batch(mesh=)` splits the batch into contiguous blocks, one a
+device of a `parallel.Mesh`, and `hamming_search_sharded` splits one
+haystack into shards, each with the m - 1 bytes after it.
 """
 
 from __future__ import annotations
@@ -51,13 +53,6 @@ __all__ = [
     "hamming_search_simd_with_opts",
     "default_hamming_k",
 ]
-
-
-def _not_ported(what: str, engine: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to triple_accel_tpu_torch yet: the JAX "
-        f"package runs it on {engine}"
-    )
 
 
 def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
@@ -108,15 +103,17 @@ def hamming_batch(
     """Batched Hamming distance: one device dispatch for [B, L] pairs.
 
     `lengths` masks each pair's valid prefix (defaults to the full width).
-    Returns int32 [B].  `mesh` (batch sharding across devices) is not
-    ported.
+    Returns int32 [B].  `mesh` (a `parallel.Mesh`) splits the batch into
+    contiguous blocks, one a device (`parallel.batch_sharding`), with no
+    communication; results equal the meshless call.  `device=`, if given,
+    must be the mesh's first device.
     """
     from .ops.hamming_ops import hamming_kernel
+    from .parallel.mesh import batch_sharding, mesh_device
+    from .parallel.sharded import run_sharded
 
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise _not_ported("hamming_batch(mesh=...)",
-                          "parallel/mesh.py batch_sharding")
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh,
+                                                                  device)
     a = np.ascontiguousarray(a)
     b = np.ascontiguousarray(b)
     if a.shape != b.shape:
@@ -124,14 +121,25 @@ def hamming_batch(
     B0 = a.shape[0]
     if lengths is None:
         lengths = np.full(B0, a.shape[1], dtype=np.int32)
+    lengths = np.asarray(lengths, dtype=np.int32)
     DispatchDecision(
-        path="torch", cost_bucket="u32", unit_k=0, max_k=0,
-        padded_m=B0, padded_n=a.shape[1],
+        path="torch" if mesh is None else "torch_sharded", cost_bucket="u32",
+        unit_k=0, max_k=0, padded_m=B0, padded_n=a.shape[1],
     ).log("hamming_batch")
-    out = hamming_kernel(
-        _to_device(a, dev), _to_device(b, dev),
-        _to_device(np.asarray(lengths, dtype=np.int32), dev))
-    return out.cpu().numpy()
+
+    def launch(block, d):
+        lo, hi = block
+        return hamming_kernel(_to_device(a[lo:hi], d),
+                              _to_device(b[lo:hi], d),
+                              _to_device(lengths[lo:hi], d))
+
+    if mesh is None:
+        return launch((0, B0), dev).cpu().numpy()
+    parts = run_sharded(mesh, launch,
+                        [(lo, hi) if hi > lo else None
+                         for lo, hi in batch_sharding(mesh, B0)])
+    return np.concatenate([np.empty(0, np.int32)]
+                          + [p for p in parts if p is not None])
 
 
 def hamming_search_simd_with_opts(
@@ -209,9 +217,73 @@ def hamming_search(needle: BytesLike, haystack: BytesLike, *,
     return hamming_search_simd(needle, haystack, device=device)
 
 
-def hamming_search_sharded(*args, **kwargs):
-    """Hamming search of one haystack sharded across devices: not ported."""
-    raise _not_ported(
-        "hamming_search_sharded",
-        "parallel/sharded.py sharded_hamming_search_mins",
+def hamming_search_sharded(
+    needle: BytesLike,
+    haystack: BytesLike,
+    k: int,
+    mesh=None,
+    search_type: SearchType = SearchType.Best,
+    *,
+    device=None,
+) -> List[Match]:
+    """Hamming search of ONE haystack sharded across a mesh (the JAX
+    package's `hamming_search_sharded`): exactly
+    `hamming_search_simd_with_opts`'s result.  `mesh=None` takes every
+    visible card (`parallel.make_mesh()`).
+
+    The haystack splits into D shards of ceil(n / D) bytes; device d gets
+    [shard d | the m - 1 bytes after it] (`parallel.right_halo_windows`,
+    copied device to device from as many right neighbours as it spans)
+    and counts mismatches at the start positions of its own shard, so
+    start positions partition exactly and no hit needs an owner rule.
+    Best keeps the positions at the minimum over every shard.  `device=`,
+    if given, must be the mesh's first device.
+    """
+    from .ops.hamming_ops import collect_hamming_hits, hamming_search_counts
+    from .parallel.mesh import make_mesh, mesh_device
+    from .parallel.sharded import (
+        right_halo_windows,
+        run_sharded,
+        shard_bounds,
+        upload_shards,
     )
+
+    if mesh is None:
+        mesh = make_mesh()
+    mesh_device(mesh, device)
+    needle = to_bytes_array(needle)
+    haystack = to_bytes_array(haystack)
+    m, n = len(needle), len(haystack)
+    if m > n or m == 0:
+        return []
+    if forced_path() == "oracle":
+        return hamming_search_naive_with_opts(needle, haystack, k,
+                                              search_type)
+    bounds = shard_bounds(n, mesh.size)
+    DispatchDecision(
+        path="torch_sharded", cost_bucket="u32", unit_k=m - 1, max_k=k,
+        padded_m=m, padded_n=bounds[0][1],
+    ).log("hamming_search_sharded")
+    windows = right_halo_windows(mesh, upload_shards(mesh, haystack, bounds),
+                                 m - 1)
+    # a window shorter than the needle owns no start position
+    blocks = [w if w.shape[0] >= m else None for w in windows]
+    counts = run_sharded(
+        mesh, lambda w, d: hamming_search_counts(_to_device(needle, d), w),
+        blocks, fetch=lambda c: c)
+    kk = min(k, m)
+    if search_type == SearchType.Best:
+        # the streaming threshold ends at the minimum over every shard,
+        # and keeps exactly the positions there
+        kk = min(int(c.min()) for c in counts if c is not None)
+        if kk > min(k, m):
+            return []
+    hits = run_sharded(
+        mesh, lambda c, d: c, counts,
+        fetch=lambda c: collect_hamming_hits(c, kk, False))
+    out: List[Match] = []
+    for (lo, _), h in zip(bounds, hits):
+        if h is not None:
+            out.extend(Match(start=lo + p, end=lo + p + m, k=c)
+                       for p, c in zip(h[0].tolist(), h[1].tolist()))
+    return out

@@ -36,9 +36,13 @@ engines and every host step around them:
   (ops/search_diag.py, K7), longer ones on the row kernel
   (ops/search_flat.py, K8), both with the match lengths on the device.
 
-Every other route of the JAX package (meshes, dictionary search, sharded
-search) raises `NotImplementedError` naming the JAX engine that is still to
-be ported.  Nothing falls back to the oracle, the plain
+Dictionary search (`levenshtein_search_many` over a `PackedHaystack`) runs
+K2 / K6 a length group a launch.  Every `mesh=` route runs the same
+engines a shard per device of a `parallel.Mesh`: `levenshtein_k_batch`
+a contiguous block of the batch a device, `levenshtein_search_sharded`
+and `levenshtein_search_many(mesh=)` a haystack shard a device behind a
+device-to-device halo ring (parallel/sharded.py), each logged with
+`_sharded` appended.  Nothing falls back to the oracle, the plain
 PyTorch versions or the CPU: the same dispatch runs on both devices.
 
 Device rule: every entry point takes a keyword-only `device=`; None means
@@ -68,6 +72,8 @@ from .oracle.levenshtein import (
     levenshtein_search_naive,
     levenshtein_search_naive_with_opts,
 )
+from .parallel.mesh import canonical_device, make_mesh, mesh_device
+from .parallel.sharded import HaloWindows, collect_owned_hits, run_sharded
 from .types import (
     BytesLike,
     Edit,
@@ -128,13 +134,6 @@ _TRACE_CODE_BYTES_CAP = 16 << 30
 
 _UNIT = (1, 1, 0, 0, False)
 _RDAMERAU = (1, 1, 0, 1, True)
-
-
-def _not_ported(what: str, engine: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to triple_accel_tpu_torch yet: the JAX "
-        f"package runs it on {engine}"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -415,34 +414,34 @@ def levenshtein_k_batch(
       models measured on a v5e (`_flat_beats_scan`); here that scan is
       only the plain version, so there is nothing to choose between and
       the guard is not ported.
-    `mesh=` is not ported.
+
+    `mesh=` (a `parallel.Mesh`) splits an untraced batch into contiguous
+    blocks, one a device (`parallel.batch_sharding`): the engine is chosen
+    once for the whole batch, exactly as above, and each device runs it on
+    its block at the batch's threshold, band and row count, with zero
+    collectives; the log names it with `_sharded` appended (the JAX
+    package's `myers_sharded`, `band_sharded` / `band_tiled_sharded`,
+    `myers_blocked_sharded`, `flat_distance_sharded`).  A bucketed batch
+    stays on the mesh bucket by bucket.  Traced batches run on the mesh's
+    first device, logged `trace_mesh_ignored` as in the JAX package.
+    Results never depend on the mesh.  `device=`, if given, must be the
+    mesh's first device.
     """
     from .ops.band_scan import decode_walked_batch
     from .ops.lev_band import (
         MAX_TRACE_UNIT_K,
-        band_distance,
         band_plan,
         band_trace,
         prepare_band_tensors,
     )
-    from .ops.myers_chunked import (
-        blocked_distance,
-        prepare_blocked_distance_inputs,
-    )
-    from .ops.myers_distance import (
-        myers_distance,
-        myers_plan,
-        prepare_myers_inputs,
-    )
-    from .ops.search_flat import flat_distance, prepare_flat_distance_inputs
     from .ops.trace_walk import run_bytes_per_pair, trace_walk
+    from .parallel.mesh import batch_sharding
+    from .parallel.sharded import run_sharded
 
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise _not_ported(
-            "levenshtein_k_batch(mesh=...)",
-            "parallel/sharded.py sharded_myers_distance",
-        )
+    if mesh is None:
+        dev = resolve_device(device)
+    else:
+        dev = mesh_device(mesh, device)
 
     a_list = [to_bytes_array(x) for x in a_batch]
     b_list = [to_bytes_array(x) for x in b_batch]
@@ -529,7 +528,7 @@ def levenshtein_k_batch(
                 sub = levenshtein_k_batch(
                     [a_list[p] for p in members],
                     [b_list[p] for p in members],
-                    k, costs, trace_on, device=dev,
+                    k, costs, trace_on, mesh=mesh, device=dev,
                 )
                 if trace_on:
                     sub, sub_traces = sub
@@ -551,123 +550,143 @@ def levenshtein_k_batch(
     max_k = int(max_ks.max(initial=0))
     ct = _costs_tuple(costs)
 
-    use_myers = (
-        not trace_on
-        and ct == _UNIT
-        and forced_path() != "band"
-        and myers_plan(max_k) is not None
-    )
-    if not use_myers:
-        # the band kernel streams the strings and takes its sizes at run
-        # time, so rows are padded to 16, not to a power of two
-        rows = -(-max(longest, 1) // 16) * 16
-        plan = band_plan(rows, uk_dev, trace_on,
-                         max_n=max((len(b) for b in swapped_b), default=0))
-        if plan is None and trace_on:
-            raise ValueError(
-                f"a traced batch whose band half-width reaches {uk_dev}: "
-                f"the traced band kernel takes unit_k <= {MAX_TRACE_UNIT_K}")
-        if plan is None:
-            if ct not in (_UNIT, _RDAMERAU) or forced_path() == "band":
-                # any cost model: the row kernel, banded by the batch's
-                # unit_k (exact for every pair within its threshold)
-                DispatchDecision(
-                    path="flat_distance",
-                    cost_bucket=select_cost_bucket(max_k),
-                    unit_k=uk_dev,
-                    max_k=max_k,
-                    padded_m=max_m,
-                    padded_n=B,
-                ).log("levenshtein_k_batch")
-                fargs = prepare_flat_distance_inputs(swapped_a, swapped_b,
-                                                     device=dev)
-                dist = flat_distance(*fargs, costs_t=ct, unit_k=uk_dev)
-                out = dist.cpu().numpy().astype(np.int64)
-                return np.where(feasible & (out <= max_ks), out, -1)
-            # unit and rDamerau costs: the full-matrix bit-vector distance
-            # of any length (the reference's own headline call shape,
-            # levenshtein.rs:1397-1423 over its unbounded band)
-            DispatchDecision(
-                path="myers_blocked_distance",
-                cost_bucket=select_cost_bucket(max_k),
-                unit_k=uk_dev,
-                max_k=max_k,
-                padded_m=max_m,
-                padded_n=B,
-            ).log("levenshtein_k_batch")
-            bargs = prepare_blocked_distance_inputs(swapped_a, swapped_b,
-                                                    device=dev)
-            dist = blocked_distance(*bargs, damerau=ct == _RDAMERAU)
-            out = dist.cpu().numpy().astype(np.int64)
-            # empty-a pairs come back 0 from the kernel: D[0][n] = n gaps
-            out = np.where(m_len == 0, n_len, out)
-            return np.where(feasible & (out <= max_ks), out, -1)
-        path = "band"
-        if trace_on:
-            path = ("band_trace" if plan["regime"] in ("warp", "wide")
-                    else "band_trace_global")
+    def _log(path, padded_m):
         DispatchDecision(
             path=path,
             cost_bucket=select_cost_bucket(max_k),
             unit_k=uk_dev,
             max_k=max_k,
-            padded_m=rows,
+            padded_m=padded_m,
             padded_n=B,
         ).log("levenshtein_k_batch")
-        if not trace_on:
-            bargs = prepare_band_tensors(swapped_a, swapped_b, uk_dev, rows,
-                                         device=dev)
-            dist = band_distance(*bargs, unit_k=uk_dev, costs_t=ct)
-            out = dist.cpu().numpy().astype(np.int64)
-            return np.where(feasible & (out <= max_ks), out, -1)
-        # traced: chunk the batch so one launch's codes and the walk's run
-        # buffer stay under the cap; the chunks' runs join end to end
-        b_cap = max(1, _TRACE_CODE_BYTES_CAP // (
-            plan["code_bytes_per_pair"] + run_bytes_per_pair(rows, uk_dev)))
-        outs, runs, counts = [], [], []
-        for lo in range(0, B, b_cap):
-            hi = min(lo + b_cap, B)
-            bargs = prepare_band_tensors(swapped_a[lo:hi], swapped_b[lo:hi],
-                                         uk_dev, rows, device=dev)
-            dist, codes = band_trace(
-                *bargs, unit_k=uk_dev, costs_t=ct,
-                max_n=max((len(b) for b in swapped_b[lo:hi]), default=0))
-            r, c = trace_walk(codes, *bargs, unit_k=uk_dev)
-            del codes
-            outs.append(dist.cpu().numpy().astype(np.int64))
-            runs.append(r.cpu().numpy())
-            counts.append(c.cpu().numpy())
-        out = np.concatenate(outs)
-        out = np.where(feasible & (out <= max_ks), out, -1)
-        # only the pairs within the threshold are decoded
-        traces = decode_walked_batch(np.concatenate(runs),
-                                     np.concatenate(counts), swaps,
-                                     keep=out >= 0)
-        return out, traces
 
-    DispatchDecision(
-        path="myers",
-        cost_bucket=select_cost_bucket(max_k),
-        unit_k=uk_dev,
-        max_k=max_k,
-        padded_m=max_m,
-        padded_n=B,
-    ).log("levenshtein_k_batch")
+    if not trace_on:
+        # one engine for the whole batch, then the batch on one device or
+        # a contiguous block a device of the mesh
+        path, padded_m, launch = _distance_engine(
+            ct, max_k, max_ks, feasible, uk_dev, max_m, longest, swapped_b)
+        if mesh is None:
+            _log(path, padded_m)
+            out = launch(swapped_a, swapped_b, dev).cpu().numpy()
+        else:
+            _log(path + "_sharded", padded_m)
+            blocks = [(lo, hi) if hi > lo else None
+                      for lo, hi in batch_sharding(mesh, B)]
+            parts = run_sharded(
+                mesh, lambda blk, d: launch(swapped_a[blk[0]:blk[1]],
+                                            swapped_b[blk[0]:blk[1]], d,
+                                            blk),
+                blocks)
+            out = np.concatenate([p for p in parts if p is not None])
+        out = out.astype(np.int64)
+        if path == "myers_blocked_distance":
+            # empty-a pairs come back 0 from the kernel: D[0][n] = n gaps
+            out = np.where(m_len == 0, n_len, out)
+        return np.where(feasible & (out <= max_ks), out, -1)
 
-    # the kernel takes k at run time, so the exact batch maximum stands in
-    # for the JAX package's pow2-rounded static k; the per-pair band still
-    # comes from the per-pair threshold
-    margs = prepare_myers_inputs(
-        swapped_a,
-        swapped_b,
-        max_k,
-        max_m,
-        ks=np.where(feasible, max_ks, max_k),
-        device=dev,
+    if mesh is not None:
+        # traced batches run on the mesh's first device, as the JAX
+        # package's do (its walk is host-decode dominated); the log says so
+        _log("trace_mesh_ignored", max_m)
+    # the band kernel streams the strings and takes its sizes at run
+    # time, so rows are padded to 16, not to a power of two
+    rows = -(-max(longest, 1) // 16) * 16
+    plan = band_plan(rows, uk_dev, True,
+                     max_n=max((len(b) for b in swapped_b), default=0))
+    if plan is None:
+        raise ValueError(
+            f"a traced batch whose band half-width reaches {uk_dev}: "
+            f"the traced band kernel takes unit_k <= {MAX_TRACE_UNIT_K}")
+    _log("band_trace" if plan["regime"] in ("warp", "wide")
+         else "band_trace_global", rows)
+    # chunk the batch so one launch's codes and the walk's run buffer stay
+    # under the cap; the chunks' runs join end to end
+    b_cap = max(1, _TRACE_CODE_BYTES_CAP // (
+        plan["code_bytes_per_pair"] + run_bytes_per_pair(rows, uk_dev)))
+    outs, runs, counts = [], [], []
+    for lo in range(0, B, b_cap):
+        hi = min(lo + b_cap, B)
+        bargs = prepare_band_tensors(swapped_a[lo:hi], swapped_b[lo:hi],
+                                     uk_dev, rows, device=dev)
+        dist, codes = band_trace(
+            *bargs, unit_k=uk_dev, costs_t=ct,
+            max_n=max((len(b) for b in swapped_b[lo:hi]), default=0))
+        r, c = trace_walk(codes, *bargs, unit_k=uk_dev)
+        del codes
+        outs.append(dist.cpu().numpy().astype(np.int64))
+        runs.append(r.cpu().numpy())
+        counts.append(c.cpu().numpy())
+    out = np.concatenate(outs)
+    out = np.where(feasible & (out <= max_ks), out, -1)
+    # only the pairs within the threshold are decoded
+    traces = decode_walked_batch(np.concatenate(runs),
+                                 np.concatenate(counts), swaps,
+                                 keep=out >= 0)
+    return out, traces
+
+
+def _distance_engine(ct, max_k: int, max_ks: np.ndarray,
+                     feasible: np.ndarray, uk_dev: int, max_m: int,
+                     longest: int, swapped_b):
+    """The untraced engine of a `levenshtein_k_batch` batch, chosen once
+    for the whole batch: (dispatch path, padded rows for the log,
+    launch).  `launch(a, b, device, block=None)` packs pairs (all of the
+    batch's, or the rows [lo, hi) of `block`) onto `device` and returns
+    their distances there, not yet fetched; every block runs at the
+    batch's max_k, unit_k and max_m."""
+    from .ops.lev_band import band_distance, band_plan, prepare_band_tensors
+    from .ops.myers_chunked import (
+        blocked_distance,
+        prepare_blocked_distance_inputs,
     )
-    distm = myers_distance(*margs, k=max_k)
-    out = distm.cpu().numpy().astype(np.int64)
-    return np.where(feasible & (out <= max_ks), out, -1)
+    from .ops.myers_distance import (
+        myers_distance,
+        myers_plan,
+        prepare_myers_inputs,
+    )
+    from .ops.search_flat import flat_distance, prepare_flat_distance_inputs
+
+    if (ct == _UNIT and forced_path() != "band"
+            and myers_plan(max_k) is not None):
+        # the kernel takes k at run time, so the exact batch maximum
+        # stands in for the JAX package's pow2-rounded static k; the
+        # per-pair band still comes from the per-pair threshold
+        ks = np.where(feasible, max_ks, max_k)
+
+        def launch(a, b, dev, block=None):
+            lo, hi = block or (0, len(a))
+            margs = prepare_myers_inputs(a, b, max_k, max_m, ks=ks[lo:hi],
+                                         device=dev)
+            return myers_distance(*margs, k=max_k)
+
+        return "myers", max_m, launch
+
+    rows = -(-max(longest, 1) // 16) * 16
+    plan = band_plan(rows, uk_dev, False,
+                     max_n=max((len(b) for b in swapped_b), default=0))
+    if plan is not None:
+        def launch(a, b, dev, block=None):
+            bargs = prepare_band_tensors(a, b, uk_dev, rows, device=dev)
+            return band_distance(*bargs, unit_k=uk_dev, costs_t=ct)
+
+        return "band", rows, launch
+    if ct not in (_UNIT, _RDAMERAU) or forced_path() == "band":
+        # any cost model: the row kernel, banded by the batch's unit_k
+        # (exact for every pair within its threshold)
+        def launch(a, b, dev, block=None):
+            fargs = prepare_flat_distance_inputs(a, b, device=dev)
+            return flat_distance(*fargs, costs_t=ct, unit_k=uk_dev)
+
+        return "flat_distance", max_m, launch
+
+    # unit and rDamerau costs: the full-matrix bit-vector distance of any
+    # length (the reference's own headline call shape, levenshtein.rs:
+    # 1397-1423 over its unbounded band)
+    def launch(a, b, dev, block=None):
+        bargs = prepare_blocked_distance_inputs(a, b, device=dev)
+        return blocked_distance(*bargs, damerau=ct == _RDAMERAU)
+
+    return "myers_blocked_distance", max_m, launch
 
 
 # ---------------------------------------------------------------------------
@@ -840,32 +859,51 @@ def _resolve_hits_anchored(
     return _select_hit_candidates(ends, ks, lens, gpos)
 
 
-def _resolve_hits_flat(
-    needle: np.ndarray,
-    hay_d: torch.Tensor,
-    gpos: np.ndarray,
-    k: int,
-    costs: EditCosts,
-    span: int,
-) -> List[Tuple[int, int, int]]:
+def _resolve_hits_flat(needle: np.ndarray, wins, views: list,
+                       gpos: np.ndarray, k: int, costs: EditCosts,
+                       span: int) -> List[Tuple[int, int, int]]:
     """Length resolution of a degenerate-dense hit stream ON THE DEVICE
     (the JAX package's `_resolve_hits_flat`): the flat search kernel,
     which tracks match lengths in its DP, reruns ONLY the segments that
     hold hits, and 8 bytes a hit come back.  Work is proportional to the
     hit-bearing part of the haystack and the host replay's cost never
-    applies.  `hay_d` is the haystack already on the device.  The end-0
-    candidate is (m*gap + start_gap, 0) by definition."""
+    applies.  Each shard of `wins` reruns the hits it owns (global end
+    positions) over its own window (`views`, as `_shard_views` cut them),
+    every launch issued before the first fetch.  The end-0 candidate is
+    (m*gap + start_gap, 0) by definition."""
+    blocks = []
+    for d, view in enumerate(views):
+        lo, hi = wins.bounds[d]
+        mine = gpos[(gpos >= (lo if d == 0 else lo + 1)) & (gpos <= hi)]
+        blocks.append(None if view is None or not mine.size
+                      else (view[0], mine - lo + view[1], lo - view[1]))
+    parts = run_sharded(
+        wins.mesh,
+        lambda blk, dev: (_flat_resolve_launch(needle, blk[0], blk[1], k,
+                                               costs, span), blk[2]),
+        blocks,
+        fetch=lambda out: [(p + out[1], dd, ll) for p, dd, ll
+                           in _flat_resolve_fetch(out[0])])
+    return [c for part in parts if part is not None for c in part]
+
+
+def _flat_resolve_launch(needle: np.ndarray, hay_d: torch.Tensor,
+                         gpos: np.ndarray, k: int, costs: EditCosts,
+                         span: int):
+    """The launch half of `_resolve_hits_flat`: the flat kernel over the
+    hit-bearing segments, its results left on the device."""
     from .ops.search_flat import (
         flat_search,
         prepare_flat_needle,
         suggest_own_len_flat,
     )
 
-    if gpos.size == 0:
-        return []
-    m = len(needle)
-    iter_len = hay_d.shape[0]
     gpos = np.asarray(gpos, np.int64)
+    m = len(needle)
+    cands: List[Tuple[int, int, int]] = []
+    if gpos.size == 0:
+        return cands, k, None
+    iter_len = hay_d.shape[0]
     halo = min(span, iter_len)
     own_len = suggest_own_len_flat(iter_len, halo,
                                    transpose=costs.allow_transpose)
@@ -880,24 +918,33 @@ def _resolve_hits_flat(
         padded_m=m,
         padded_n=halo + own_len,
     ).log("_resolve_hits_flat")
-    cands: List[Tuple[int, int, int]] = []
     d0 = m * costs.gap_cost + costs.start_gap_cost
     if gpos[0] == 0 and d0 <= k:
         cands.append((0, d0, 0))
-    if pos.size:
-        needle_d = prepare_flat_needle(needle, device=hay_d.device)
-        dist, length = flat_search(
-            hay_d, needle_d, own_len=own_len, halo=halo,
-            costs_t=_costs_tuple(costs),
-            segments=torch.from_numpy(c_sel).to(hay_d.device))
-        x_d = torch.from_numpy(x_of).to(hay_d.device)
-        o_d = torch.from_numpy(pos - c_of * own_len - 1).to(hay_d.device)
-        dd = dist[x_d, o_d].cpu().numpy().astype(np.int64)
-        ll = length[x_d, o_d].cpu().numpy().astype(np.int64)
-        keep = dd <= k
-        cands.extend(zip(pos[keep].tolist(), dd[keep].tolist(),
-                         ll[keep].tolist()))
-    return cands
+    if not pos.size:
+        return cands, k, None
+    needle_d = prepare_flat_needle(needle, device=hay_d.device)
+    dist, length = flat_search(
+        hay_d, needle_d, own_len=own_len, halo=halo,
+        costs_t=_costs_tuple(costs),
+        segments=torch.from_numpy(c_sel).to(hay_d.device))
+    x_d = torch.from_numpy(x_of).to(hay_d.device)
+    o_d = torch.from_numpy(pos - c_of * own_len - 1).to(hay_d.device)
+    return cands, k, (pos, dist[x_d, o_d], length[x_d, o_d])
+
+
+def _flat_resolve_fetch(launched) -> List[Tuple[int, int, int]]:
+    """The fetch half of `_resolve_hits_flat`: (end, dist, length) of the
+    hits the flat kernel confirms."""
+    cands, k, sel = launched
+    if sel is None:
+        return cands
+    pos, dist, length = sel
+    dd = dist.cpu().numpy().astype(np.int64)
+    ll = length.cpu().numpy().astype(np.int64)
+    keep = dd <= k
+    return cands + list(zip(pos[keep].tolist(), dd[keep].tolist(),
+                            ll[keep].tolist()))
 
 
 def _resolve_cells(gpos: np.ndarray, span: int, m: int) -> int:
@@ -993,8 +1040,9 @@ def levenshtein_search_simd_with_opts(
 
     The call uploads the haystack (an anchored one only up to where an
     anchored match can end), then runs the engines' second part on it
-    (`_search_resident`); `levenshtein_search_many` runs the same second
-    part on a haystack uploaded once for many needles.
+    as one window (`_search_windows`); `levenshtein_search_many` runs the
+    same second part on a haystack uploaded once for many needles, and
+    `levenshtein_search_sharded` on a window a device of a mesh.
     """
     dev = resolve_device(device)
     needle = to_bytes_array(needle)
@@ -1010,29 +1058,10 @@ def levenshtein_search_simd_with_opts(
         return levenshtein_search_naive_with_opts(
             needle, haystack, k, search_type, costs, anchored
         )
-    ct = _costs_tuple(costs)
-    if not (ct == _UNIT or ct == _RDAMERAU):
-        return _search_general(needle, haystack, k, search_type, costs,
-                               anchored, dev)
     iter_len = _search_iter_len(m, n, k, costs, anchored)
-    hay_d = _upload_haystack(haystack[:iter_len], dev)
-    return _search_myers_resident(needle, haystack, hay_d, k, search_type,
-                                  costs, anchored)
-
-
-def _search_resident(needle: np.ndarray, haystack: np.ndarray,
-                     hay_d: torch.Tensor, k: int, search_type: SearchType,
-                     costs: EditCosts, anchored: bool) -> List[Match]:
-    """`levenshtein_search_simd_with_opts` for a needle of at least one
-    char over a haystack already on the device: `hay_d` holds at least the
-    bytes the search reads (`_search_iter_len`), `haystack` is the same
-    bytes on the host (the length replay reads them)."""
-    ct = _costs_tuple(costs)
-    if ct == _UNIT or ct == _RDAMERAU:
-        return _search_myers_resident(needle, haystack, hay_d, k,
-                                      search_type, costs, anchored)
-    return _search_general_resident(needle, haystack, hay_d, k, search_type,
-                                    costs, anchored)
+    wins = HaloWindows.resident(_upload_haystack(haystack[:iter_len], dev))
+    return _search_windows(needle, haystack, wins, k, search_type, costs,
+                           anchored)
 
 
 def _myers_search_plan(m: int, n: int, k: int, costs: EditCosts,
@@ -1072,53 +1101,146 @@ def _myers_search_plan(m: int, n: int, k: int, costs: EditCosts,
     return engine, span, iter_len, halo, own_len
 
 
-def _search_myers_resident(needle: np.ndarray, haystack: np.ndarray,
-                           hay_d: torch.Tensor, k: int,
-                           search_type: SearchType, costs: EditCosts,
-                           anchored: bool) -> List[Match]:
-    """The unit / restricted-Damerau half of `_search_resident`: K2 (or K6
-    past `ROUTE_MAX_NEEDLE`), the hit fetch, then `_hits_to_matches`."""
-    from .ops.myers_chunked import blocked_search
-    from .ops.myers_search import (
-        collect_hits,
-        myers_search,
-        prepare_myers_needles,
-    )
+def _search_windows(needle: np.ndarray, haystack: np.ndarray, wins, k: int,
+                    search_type: SearchType, costs: EditCosts,
+                    anchored: bool = False) -> List[Match]:
+    """The second part of every search of one needle of at least one char
+    over `haystack` (on the host: the length replay reads it), whose
+    windows are already on the devices (`parallel.HaloWindows`): the
+    meshless call's one window, or a mesh's shard a device with a left
+    halo that covers the needle's span.  The single call's engine and
+    plan run on every window (K2, or K6 past `ROUTE_MAX_NEEDLE`, under
+    unit and restricted-Damerau costs; K7 up to `K7_MAX_NEEDLE` chars and
+    K8 past it under any other), every launch issued before the first
+    fetch; each shard keeps the hits that end inside it (owner by end),
+    and one tail over all shards gives the Match list.  Anchored
+    searches run on the meshless call's one window."""
+    from .ops.search_common import window_span
 
     m, n = len(needle), len(haystack)
-    damerau = _costs_tuple(costs) == _RDAMERAU
-    engine, span, iter_len, halo, own_len = _myers_search_plan(
-        m, n, k, costs, anchored)
+    unit_like = _costs_tuple(costs) in (_UNIT, _RDAMERAU)
+    span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
+    views = _shard_views(wins, span)
+    longest = max(v[0].shape[0] for v in views if v is not None)
+    if unit_like:
+        engine, _, _, halo, own_len = _myers_search_plan(m, longest, k,
+                                                         costs, anchored)
+    else:
+        diag, halo, own_len = _general_plan(
+            m, _search_iter_len(m, longest, k, costs, anchored), k, costs,
+            anchored)
+        engine = "search_diag" if diag else "flat_search"
     DispatchDecision(
-        path=engine,
-        cost_bucket="u8",
+        path=engine + ("_sharded" if wins.sharded else ""),
+        cost_bucket=("u8" if unit_like
+                     else select_cost_bucket(min(k, U32_MAX))),
         unit_k=halo,
         max_k=k,
         padded_m=m,
         padded_n=halo + own_len,
-    ).log("levenshtein_search_simd_with_opts")
+    ).log("levenshtein_search_sharded" if wins.sharded
+          else "levenshtein_search_simd_with_opts")
 
-    needles_d = prepare_myers_needles([needle], m, device=hay_d.device)
-    search = (blocked_search if engine == "myers_search_blocked"
-              else myers_search)
-    dist = search(hay_d[:iter_len], needles_d, own_len=own_len, halo=halo,
-                  anchored=anchored, damerau=damerau)
-    _, gpos, d_arr = collect_hits(dist, min(k, (1 << 31) - 1))
-    del dist
+    if not unit_like:
+        # K7 or K8 a window, the lengths on the device; K8's virtual end 0
+        # is shard 0's and `_general_tail` adds it once
+        parts = run_sharded(
+            wins.mesh,
+            lambda view, dev: _general_launch(needle, view[0], k, costs,
+                                              anchored),
+            views, fetch=lambda out: _general_fetch(out, k))
+        ends, dd, ll = collect_owned_hits(parts, _halo_eff(views),
+                                          wins.bounds)
+        return _general_tail(ends, dd, ll, diag, m, k, search_type, costs)
+    ((gpos, d_arr),) = _myers_hits(
+        [needle], m, wins, views,
+        _myers_window_plans(m, views, k, costs, anchored), k, costs, anchored)
     # segment 0 starts at byte 0 with a fresh state, so there is no
     # synthetic front pad a NUL needle byte could match: kernel distances
     # <= k are exact as they are
-    return _hits_to_matches(needle, haystack, hay_d, gpos, d_arr, k,
+    return _hits_to_matches(needle, haystack, wins, views, gpos, d_arr, k,
                             search_type, costs, anchored, span)
 
 
-def _hits_to_matches(needle: np.ndarray, haystack: np.ndarray,
-                     hay_d: torch.Tensor, gpos: np.ndarray, d_arr: np.ndarray,
+def _shard_views(wins, halo: int) -> list:
+    """(window view, halo bytes it holds) of every shard that owns bytes,
+    cut to at least `halo` bytes of left halo; None for an empty shard.
+    Shard 0 always runs: over an empty haystack it alone owns end 0."""
+    return [wins.view(d, halo) if d == 0 or wins.owned_bytes(d) else None
+            for d in range(wins.mesh.size)]
+
+
+def _halo_eff(views: list) -> List[int]:
+    """The left halo bytes each view holds (0 for a shard that ran
+    nothing)."""
+    return [v[1] if v is not None else 0 for v in views]
+
+
+def _myers_window_plans(m: int, views: list, k: int, costs: EditCosts,
+                        anchored: bool = False) -> list:
+    """(K2 or K6 wrapper, halo, own_len) for each view (None for an empty
+    shard): the plan the single call picks for a haystack of the window's
+    length, made once for all of a group's launches."""
+    from .ops.myers_chunked import blocked_search
+    from .ops.myers_search import myers_search
+
+    plans = []
+    for v in views:
+        if v is None:
+            plans.append(None)
+            continue
+        engine, _, _, halo, own_len = _myers_search_plan(
+            m, v[0].shape[0], k, costs, anchored)
+        plans.append((blocked_search if engine == "myers_search_blocked"
+                      else myers_search, halo, own_len))
+    return plans
+
+
+def _myers_hits(needles: List[np.ndarray], m: int, wins, views: list,
+                plans: list, k: int, costs: EditCosts,
+                anchored: bool = False) -> List[Tuple[np.ndarray, np.ndarray]]:
+    """(sorted end positions, distances) of each same-length needle's
+    hits: one K2 or K6 launch a window (`plans`, from
+    `_myers_window_plans`) for all the needles, every launch issued before
+    the first fetch, the owned hits kept."""
+    from .ops.myers_search import collect_hits, prepare_myers_needles
+
+    kk = min(k, (1 << 31) - 1)
+    damerau = _costs_tuple(costs) == _RDAMERAU
+
+    def launch(block, dev):
+        (hay_v, _), (search, halo, own_len) = block
+        return search(hay_v, prepare_myers_needles(needles, m, device=dev),
+                      own_len=own_len, halo=halo, anchored=anchored,
+                      damerau=damerau)
+
+    def fetch(dist):
+        ni, gpos, d_arr = collect_hits(dist, kk)
+        return gpos, ni, d_arr
+
+    blocks = [None if v is None else (v, p) for v, p in zip(views, plans)]
+    gpos, ni, d_arr = collect_owned_hits(
+        run_sharded(wins.mesh, launch, blocks, fetch), _halo_eff(views),
+        wins.bounds)
+    if wins.mesh.size > 1:
+        # shard order sorts each needle's ends; a stable sort by needle
+        # brings each needle's hits together
+        order = np.argsort(ni, kind="stable")
+        gpos, ni, d_arr = gpos[order], ni[order], d_arr[order]
+    # hits come sorted by (needle, end): one sorted search splits them (a
+    # mask a needle would cost hits x needles)
+    cut = np.searchsorted(ni, np.arange(len(needles) + 1))
+    return [(gpos[s:e], d_arr[s:e]) for s, e in zip(cut[:-1], cut[1:])]
+
+
+def _hits_to_matches(needle: np.ndarray, haystack: np.ndarray, wins,
+                     views: list, gpos: np.ndarray, d_arr: np.ndarray,
                      k: int, search_type: SearchType, costs: EditCosts,
                      anchored: bool, span: int) -> List[Match]:
     """One needle's kernel hits (sorted end positions, distances <= k) to
-    its Match list: Best's filter, the length resolution, the Best / All
-    rules."""
+    its Match list: Best's filter (the minimum over every shard's hits),
+    the length resolution, the Best / All rules.  A dense hit stream is
+    resolved over the windows `wins` / `views` it came from."""
     from .utils.native import native_available
 
     if search_type == SearchType.Best and gpos.size:
@@ -1140,52 +1262,22 @@ def _hits_to_matches(needle: np.ndarray, haystack: np.ndarray,
     if _resolve_cells(gpos, span, len(needle)) > budget:
         # degenerate-dense hit stream: the lengths come from the flat
         # kernel on the device, over the hit-bearing segments only
-        cands = _resolve_hits_flat(needle, hay_d, gpos, k, costs, span)
+        cands = _resolve_hits_flat(needle, wins, views, gpos, k, costs, span)
     else:
         cands = _resolve_hits_batch(needle, haystack, gpos, k, costs, span)
     return _postprocess_sparse(cands, k, search_type)
 
 
-def _search_general(needle: np.ndarray, haystack: np.ndarray, k: int,
-                    search_type: SearchType, costs: EditCosts,
-                    anchored: bool, dev: torch.device) -> List[Match]:
-    """Search under a cost model other than unit or restricted-Damerau
-    (the JAX package's `levenshtein.py:1838-1981`): the upload, then
-    `_search_general_resident`."""
-    iter_len = _search_iter_len(len(needle), len(haystack), k, costs,
-                                anchored)
-    hay_d = _upload_haystack(haystack[:iter_len], dev)
-    return _search_general_resident(needle, haystack, hay_d, k, search_type,
-                                    costs, anchored)
-
-
-def _search_general_resident(needle: np.ndarray, haystack: np.ndarray,
-                             hay_d: torch.Tensor, k: int,
-                             search_type: SearchType, costs: EditCosts,
-                             anchored: bool) -> List[Match]:
-    """The general-cost half of `_search_resident`: K7 for needles of up
-    to `K7_MAX_NEEDLE` chars, K8 past it, each giving the distance AND the
-    match length of every owned end position, from the device copy of the
-    raw haystack.  The hits are picked on the device and only they come
-    back: segment 0 starts at byte 0, so no synthetic pad needs a replay,
-    and the end-0 candidate is K7's column 0, or added here for K8 (whose
-    column 0 is virtual)."""
+def _general_plan(m: int, iter_len: int, k: int, costs: EditCosts,
+                  anchored: bool) -> Tuple[bool, int, int]:
+    """(K7 or not, halo, own_len) of a general-cost search reading
+    `iter_len` bytes."""
     from .ops.search_common import window_span
-    from .ops.search_diag import (
-        K7_MAX_NEEDLE,
-        search_diag,
-        suggest_own_len_diag,
-    )
-    from .ops.search_flat import (
-        flat_search,
-        prepare_flat_needle,
-        suggest_own_len_flat,
-    )
+    from .ops.search_diag import K7_MAX_NEEDLE, suggest_own_len_diag
+    from .ops.search_flat import suggest_own_len_flat
 
-    m, n = len(needle), len(haystack)
-    ct = _costs_tuple(costs)
-    span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
-    iter_len = _search_iter_len(m, n, k, costs, anchored)
+    span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost),
+               iter_len)
     # ONE segment from the anchor: row 0 is the absolute prefix cost
     halo = 0 if anchored else span
     diag = m <= K7_MAX_NEEDLE
@@ -1196,31 +1288,44 @@ def _search_general_resident(needle: np.ndarray, haystack: np.ndarray,
     else:
         own_len = suggest_own_len_flat(iter_len, halo,
                                        transpose=costs.allow_transpose)
-    DispatchDecision(
-        path="search_diag" if diag else "flat_search",
-        cost_bucket=select_cost_bucket(min(k, U32_MAX)),
-        unit_k=halo,
-        max_k=k,
-        padded_m=m,
-        padded_n=halo + own_len,
-    ).log("levenshtein_search_simd_with_opts")
-    hay_d = hay_d[:iter_len]
+    return diag, halo, own_len
+
+
+def _general_launch(needle: np.ndarray, hay_d: torch.Tensor, k: int,
+                    costs: EditCosts, anchored: bool):
+    """K7 or K8 over every byte of `hay_d`: (K7 or not, distances,
+    lengths), left on the device."""
+    from .ops.search_diag import search_diag
+    from .ops.search_flat import flat_search, prepare_flat_needle
+
+    diag, halo, own_len = _general_plan(len(needle), hay_d.shape[0], k,
+                                        costs, anchored)
     needle_d = prepare_flat_needle(needle, device=hay_d.device)
+    search = search_diag if diag else flat_search
+    dist, length = search(hay_d, needle_d, own_len=own_len, halo=halo,
+                          costs_t=_costs_tuple(costs), anchored=anchored)
+    return diag, dist, length
+
+
+def _general_fetch(launched, k: int):
+    """The hits of `_general_launch`'s output on the host: (end positions,
+    distances, lengths) int64, ends ascending; K8's virtual end 0 is not
+    among them."""
+    diag, dist, length = launched
     kk = min(k, (1 << 31) - 1)
-    if diag:
-        dist, length = search_diag(hay_d, needle_d, own_len=own_len,
-                                   halo=halo, costs_t=ct, anchored=anchored)
-        (pos_d,) = torch.nonzero(dist <= kk, as_tuple=True)
-        ends = pos_d.cpu().numpy().astype(np.int64)
-    else:
-        dist, length = flat_search(hay_d, needle_d, own_len=own_len,
-                                   halo=halo, costs_t=ct, anchored=anchored)
-        dist, length = dist.reshape(-1), length.reshape(-1)
-        (pos_d,) = torch.nonzero(dist <= kk, as_tuple=True)
-        ends = pos_d.cpu().numpy().astype(np.int64) + 1
+    dist, length = dist.reshape(-1), length.reshape(-1)
+    (pos_d,) = torch.nonzero(dist <= kk, as_tuple=True)
+    ends = pos_d.cpu().numpy().astype(np.int64) + (0 if diag else 1)
     dd = dist[pos_d].cpu().numpy().astype(np.int64)
     ll = length[pos_d].cpu().numpy().astype(np.int64)
-    del dist, length
+    return ends, dd, ll
+
+
+def _general_tail(ends: np.ndarray, dd: np.ndarray, ll: np.ndarray,
+                  diag: bool, m: int, k: int, search_type: SearchType,
+                  costs: EditCosts) -> List[Match]:
+    """A general-cost search's hits to its Match list: K8's end-0
+    candidate, Best's filter, the Best / All rules."""
     d0 = m * costs.gap_cost + costs.start_gap_cost
     if not diag and d0 <= k:  # the end-0 candidate, K8's virtual column
         ends = np.concatenate(([0], ends))
@@ -1261,14 +1366,6 @@ def levenshtein_search(needle: BytesLike, haystack: BytesLike, *,
 # Dictionary search: many needles over one resident haystack
 # ---------------------------------------------------------------------------
 
-def _canonical_device(dev: torch.device) -> torch.device:
-    """`dev` with its index filled in (dropped for the CPU), so that "cuda"
-    and "cuda:0" compare equal on a one-card machine."""
-    if dev.type == "cuda" and dev.index is None:
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device("cpu") if dev.type == "cpu" else dev
-
-
 class PackedHaystack:
     """A haystack held on the device for repeated dictionary searches.
 
@@ -1278,7 +1375,8 @@ class PackedHaystack:
     and `device_haystack()` uploads that copy once, at first use, onto the
     device resolved at construction (`device=None`: "cuda"); every later
     search, of any needle length and cost model, reads the same tensor.
-    `uploads` counts the uploads (at most one).
+    `uploads` counts the uploads: one for the device copy, and D for
+    each sharded pack on a mesh of D devices (`pack_sharded`).
 
     The JAX package also keeps repacked segment layouts per (G, halo,
     own_len) (`pack`); the port's kernels read the raw haystack, so there
@@ -1286,10 +1384,11 @@ class PackedHaystack:
     """
 
     def __init__(self, haystack: BytesLike, *, device=None):
-        self.device = _canonical_device(resolve_device(device))
+        self.device = canonical_device(resolve_device(device))
         self.haystack = np.array(to_bytes_array(haystack), dtype=np.uint8,
                                  copy=True)
         self._hay_dev: Optional[torch.Tensor] = None
+        self._sharded: dict = {}
         self.uploads = 0
 
     def __len__(self) -> int:
@@ -1303,12 +1402,27 @@ class PackedHaystack:
             self.uploads += 1
         return self._hay_dev
 
-    def pack_sharded(self, *args, **kwargs):
-        """A haystack sharded across devices: not ported."""
-        raise _not_ported(
-            "PackedHaystack.pack_sharded",
-            "parallel/sharded.py sharded_pack_segs",
-        )
+    def pack_sharded(self, mesh, halo: int):
+        """The haystack sharded on `mesh` (a `parallel.Mesh`): shard d,
+        ceil(n / D) bytes, with up to `halo` bytes of its left neighbours
+        before it, resident on mesh.devices[d] (`parallel.HaloWindows`:
+        one upload a device, the halo by the device-to-device ring).
+        Memoized per mesh: a pack serves every later call whose halo is at
+        most its own (the kernels start further in), and only a larger
+        halo repacks.  `uploads` grows by D a pack.
+
+        The JAX package's pack also takes G and own_len, which shape its
+        TPU segment layout; the port's kernels read the windows as they
+        are, so the windows are the whole pack."""
+        from .parallel.sharded import HaloWindows
+
+        key = mesh.devices
+        wins = self._sharded.get(key)
+        if wins is None or wins.halo < halo:
+            wins = HaloWindows(mesh, self.haystack, halo)
+            self._sharded[key] = wins
+            self.uploads += mesh.size
+        return wins
 
 
 # Device memory one dictionary launch may hold: its int32 distances, the
@@ -1372,28 +1486,34 @@ def levenshtein_search_many(
     entry each.  The hits come back once a launch and split per needle
     by a sorted search; each needle then takes the single call's tail.
     Every other cost model, empty needles and an empty haystack run
-    needle by needle through the single call's second part over the same
-    resident haystack.
+    needle by needle through the single call's second part
+    (`_search_windows`) over the same resident haystack.
 
     Returns one Match list per needle, in the input order, each equal to
     `levenshtein_search_simd_with_opts(needle, haystack, k, search_type,
     costs, False)`.  A `PackedHaystack` on another device than `device`
-    raises `ValueError`; `mesh=` is not ported.
-    """
-    from .ops.myers_chunked import blocked_search
-    from .ops.myers_search import (
-        collect_hits,
-        myers_search,
-        prepare_myers_needles,
-    )
+    raises `ValueError`.
 
-    dev = _canonical_device(resolve_device(device))
-    if mesh is not None:
-        raise _not_ported(
-            "levenshtein_search_many(mesh=...)",
-            "levenshtein.levenshtein_search_many(mesh=) over "
-            "parallel/sharded.py",
-        )
+    `mesh=` (a `parallel.Mesh`) serves the dictionary sharded: the
+    `PackedHaystack`'s windows stay resident on the mesh
+    (`pack_sharded`, packed once at the largest halo the call needs), a
+    same-length unit or rDamerau group is one K2 (or K6) launch per device
+    per memory chunk (logged `myers_search_many_sharded` /
+    `myers_search_many_blocked_sharded`), the chunks planned against the
+    longest shard window, and the hits are kept by the owner-by-end rule;
+    the rest goes a needle at a time through the same second part on the
+    same windows.  The meshless call is the one-window case of the same
+    code.  Results equal the meshless call.
+    The JAX signature's `G` and `own_len` shape its TPU segment layout and
+    have no counterpart.  `device=`, if given, must be the mesh's first
+    device, and so must the `PackedHaystack`'s.
+    """
+    from .ops.search_common import window_span
+
+    if mesh is None:
+        dev = canonical_device(resolve_device(device))
+    else:
+        dev = mesh_device(mesh, device)
     needles = [to_bytes_array(nd) for nd in needles]
     if isinstance(haystack, PackedHaystack):
         packed = haystack
@@ -1407,13 +1527,14 @@ def levenshtein_search_many(
     n = len(hay)
     costs.check_search()
     results: List[Optional[List[Match]]] = [None] * len(needles)
-    ct = _costs_tuple(costs)
-    damerau = ct == _RDAMERAU
+    unit_like = _costs_tuple(costs) in (_UNIT, _RDAMERAU)
     oracle = forced_path() == "oracle"
-
     by_len: dict = {}
     for i, nd in enumerate(needles):
         by_len.setdefault(len(nd), []).append(i)
+    spans = {m: min(window_span(m, k, costs.gap_cost, costs.start_gap_cost),
+                    n) for m in by_len if m}
+    wins = None
     for m, idxs in sorted(by_len.items()):
         if m == 0:
             for i in idxs:
@@ -1425,54 +1546,102 @@ def levenshtein_search_many(
                 results[i] = levenshtein_search_naive_with_opts(
                     needles[i], hay, k, search_type, costs, False)
             continue
-        if n == 0 or ct not in (_UNIT, _RDAMERAU):
+        if wins is None:
+            # the resident haystack: one window, or a mesh's shards packed
+            # at the widest span the call needs
+            wins = (HaloWindows.resident(packed.device_haystack())
+                    if mesh is None
+                    else packed.pack_sharded(mesh, max(spans.values())))
+        if n == 0 or not unit_like:
             for i in idxs:
-                results[i] = _search_resident(
-                    needles[i], hay, packed.device_haystack(), k,
-                    search_type, costs, False)
+                results[i] = _search_windows(needles[i], hay, wins, k,
+                                             search_type, costs)
             continue
-        engine, span, _, halo, own_len = _myers_search_plan(
-            m, n, k, costs, False)
+        span = spans[m]
+        views = _shard_views(wins, span)
+        # one chunk plan for every window, against the longest
+        longest = max(v[0].shape[0] for v in views if v is not None)
+        engine, _, _, halo, own_len = _myers_search_plan(m, longest, k,
+                                                         costs, False)
         blocked = engine == "myers_search_blocked"
-        search = blocked_search if blocked else myers_search
-        hay_d = packed.device_haystack()
-        for lo, hi in _many_launch_plan(len(idxs), n, blocked, halo,
+        plans = _myers_window_plans(m, views, k, costs)
+        for lo, hi in _many_launch_plan(len(idxs), longest, blocked, halo,
                                         own_len):
             part = idxs[lo:hi]
             DispatchDecision(
-                path=("myers_search_many_blocked" if blocked
-                      else "myers_search_many"),
+                path=(("myers_search_many_blocked" if blocked
+                       else "myers_search_many")
+                      + ("_sharded" if wins.sharded else "")),
                 cost_bucket="u8",
                 unit_k=halo,
                 max_k=k,
                 padded_m=m,
                 padded_n=len(part),
             ).log("levenshtein_search_many")
-            needles_d = prepare_myers_needles([needles[i] for i in part], m,
-                                              device=dev)
-            dist = search(hay_d, needles_d, own_len=own_len, halo=halo,
-                          damerau=damerau)
-            ni, gpos, d_arr = collect_hits(dist, min(k, (1 << 31) - 1))
-            del dist
-            # hits come sorted by (needle, end): one sorted search splits
-            # them (a mask a needle would cost hits x needles)
-            cut = np.searchsorted(ni, np.arange(len(part) + 1))
-            for slot, i in enumerate(part):
-                s, e = cut[slot], cut[slot + 1]
+            hits = _myers_hits([needles[i] for i in part], m, wins, views,
+                               plans, k, costs)
+            for i, (gpos, d_arr) in zip(part, hits):
                 results[i] = _hits_to_matches(
-                    needles[i], hay, hay_d, gpos[s:e], d_arr[s:e], k,
+                    needles[i], hay, wins, views, gpos, d_arr, k,
                     search_type, costs, False, span)
     return results  # type: ignore[return-value]
 
 
 # ---------------------------------------------------------------------------
-# Names of the JAX package that the port does not carry yet
+# Search over a haystack sharded across a mesh
 # ---------------------------------------------------------------------------
 
-def levenshtein_search_sharded(*args, **kwargs):
-    """Search over a haystack sharded across devices: not ported."""
-    raise _not_ported(
-        "levenshtein_search_sharded",
-        "parallel/sharded.py sharded_myers_search_mins with ppermute halo "
-        "exchange",
-    )
+def levenshtein_search_sharded(
+    needle: BytesLike,
+    haystack: BytesLike,
+    k: int,
+    mesh=None,
+    search_type: SearchType = SearchType.Best,
+    costs: EditCosts = LEVENSHTEIN_COSTS,
+    *,
+    device=None,
+) -> List[Match]:
+    """Unanchored search of ONE haystack sharded across a mesh (the JAX
+    package's `levenshtein_search_sharded`, the SP/ring strategy): the
+    result is exactly `levenshtein_search_simd_with_opts(needle, haystack,
+    k, search_type, costs, False)`'s, only the placement differs.
+    `mesh=None` takes every visible card (`parallel.make_mesh()`).
+
+    The haystack splits into D shards of ceil(n / D) bytes; device d gets
+    [left halo | shard d] (`parallel.HaloWindows`: one upload a shard,
+    the halo, the needle's widest match window, copied device to device
+    from as many left neighbours as it spans) and runs the single call's
+    engine and plan on its window (`_search_windows`, whose one-window
+    case is the single call): K2, or K6 past `ROUTE_MAX_NEEDLE`,
+    under unit and rDamerau costs (logged `myers_search_sharded`,
+    `myers_search_rdamerau_sharded`, `myers_search_blocked_sharded`), K7
+    up to 512 chars and K8 past that under any other cost model
+    (`search_diag_sharded`, `flat_search_sharded`).  The JAX package sends
+    every general-cost needle to its flat kernel on a mesh; every engine
+    is exact, so the port keeps the single call's choice.  A shard keeps
+    the hits that end inside it (owner by end), Best's minimum is taken
+    over all shards, and the length replay reads the host haystack; a
+    dense hit stream gets its lengths from K8 a shard over that shard's
+    window.
+
+    Anchored search is not offered, as in the JAX package: only shard 0
+    could hold an anchored match.  `device=`, if given, must be the
+    mesh's first device.
+    """
+    from .ops.search_common import window_span
+
+    if mesh is None:
+        mesh = make_mesh()
+    mesh_device(mesh, device)
+    needle = to_bytes_array(needle)
+    haystack = to_bytes_array(haystack)
+    m, n = len(needle), len(haystack)
+    if m == 0:
+        return _empty_needle_matches(n, k, search_type, costs, False)
+    costs.check_search()
+    if forced_path() == "oracle":
+        return levenshtein_search_naive_with_opts(
+            needle, haystack, k, search_type, costs, False)
+    span = min(window_span(m, k, costs.gap_cost, costs.start_gap_cost), n)
+    wins = HaloWindows(mesh, haystack, span)
+    return _search_windows(needle, haystack, wins, k, search_type, costs)

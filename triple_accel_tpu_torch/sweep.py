@@ -52,18 +52,22 @@ def levenshtein_search_sweep(
     `checkpoint_path` a killed sweep resumes from the last finished slab
     (the checkpoint is deleted on success).  In Best mode the running
     minimum cost shrinks the later slabs' threshold and is saved with the
-    cursor.  `mesh=` (every slab sharded across devices) is not ported.
+    cursor.  `mesh=` (a `parallel.Mesh`) runs every slab through
+    `levenshtein_search_sharded` on the mesh; the checkpoint's keys and
+    the streaming rules do not change, so a sweep resumes on another mesh
+    size, or on none.  `device=`, if given, must be the mesh's first
+    device.
     """
-    from .levenshtein import _not_ported, levenshtein_search_simd_with_opts
+    from .levenshtein import (
+        levenshtein_search_sharded,
+        levenshtein_search_simd_with_opts,
+    )
     from .ops.search_common import window_span
+    from .parallel.mesh import mesh_device
     from .utils.checkpoint import SweepCheckpoint
 
-    dev = resolve_device(device)
-    if mesh is not None:
-        raise _not_ported(
-            "levenshtein_search_sweep(mesh=...)",
-            "levenshtein_search_sharded, a slab at a time",
-        )
+    dev = resolve_device(device) if mesh is None else mesh_device(mesh,
+                                                                  device)
     needle = to_bytes_array(needle)
     haystack = to_bytes_array(haystack)
     m, n = len(needle), len(haystack)
@@ -71,6 +75,9 @@ def levenshtein_search_sweep(
         k = default_search_k(m)
 
     def _search(hay, kk, st):
+        if mesh is not None:
+            return levenshtein_search_sharded(needle, hay, kk, mesh, st,
+                                              costs)
         return levenshtein_search_simd_with_opts(needle, hay, kk, st, costs,
                                                  False, device=dev)
 
