@@ -60,8 +60,18 @@ each against its plain PyTorch version on the card:
 * `blocked_search`: `levenshtein_search_simd_with_opts` with a 3,000-byte
   needle at k = 150 over a 128 MiB ACGT haystack holding 16 copies with 1%
   substitutions, unit and restricted-Damerau costs, Best and All, then an
-  anchored search at a copy planted at 0 (kernel `blocked_search`).
+  anchored search at a copy planted at 0 (kernel `blocked_search`);
+* `ir` (right after the build): `utils/inspect_ir.py`'s PTX and SASS of
+  K1, and the assembler's registers, stack frame and spill bytes of every
+  instantiation of every kernel;
+* `profile`: the `distance` phase's call once more under
+  `utils.profiling.trace`, whose Chrome trace must hold K1's kernel as a
+  CUDA event, with the five device operations that took most time;
+* `fuzz` (last): `benches/gpu_fuzz.py` at full size, every public path on
+  random inputs against the oracle and the compiled CPU comparators, 0
+  mismatches and every engine of the ladder reached.
 
+The bounds beside every kernel's time come from `utils/profiling.py`.
 Every phase prints one JSON line and any failure ends the run with a
 non-zero exit code; nothing is caught and carried past.  Needs one CUDA
 device and `nvcc`; without a device it exits non-zero before printing any
@@ -75,6 +85,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -83,6 +94,9 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+
+from triple_accel_tpu_torch.benches.gpu_fuzz import replay_cost
+from triple_accel_tpu_torch.utils import profiling as prof
 
 FULL_PAIRS = 196_608
 FULL_HAY_MB = 128
@@ -96,58 +110,6 @@ N_PLANTED = 64
 CHECK_HAY_BYTES = ((3 << 20) + 1234, (1 << 20) + 777)
 CHECK_PAIRS = 2048
 
-# Peak rates of one H100 SXM (NVIDIA's data sheet): 3.35 TB/s of HBM, and
-# 67 TFLOP/s of float32 outside the tensor cores = 128 lanes x 2 (FMA) per
-# SM and clock; an SM has half as many 32-bit integer lanes and an integer
-# instruction counts once, so 67 / 4 = 16.75 T 32-bit integer operations a
-# second.
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_INT32_OPS_PER_S = 67e12 / 4
-
-# 32-bit integer operations the two functions need, counted as the card
-# would issue them at its best: one instruction for any logic function of
-# three inputs, one for a funnel shift across two registers, an add with
-# carry in one instruction, and the narrowest 32-bit word count that holds
-# the band (K1) or the needle (K2).  None of the kernel's own overhead
-# (ring upkeep, rotates, byte extraction, 64-bit words) is in here.
-#
-# K1, per row and 32 band bits, 12: the two shifts-right with fill (2),
-# x = Eq & Ph and the add with carry (2), X = (sum ^ Ph) | Eq (1),
-# Xh = Eq | Mh (1), Pv and Mv (2), their shifts-left with fill (2), Ph and
-# Mh (2).  Per row besides: the anchor update (two bit picks and a 3-input
-# add) 3 and one for fetching Eq; the virtual-column masks apply to the
-# first ukL rows only and are left out.
-K1_OPS_PER_ROW_WORD32 = 12
-K1_OPS_PER_ROW = 4
-# K2, per column and 32 needle bits: the Peq lookup (1), x = Eq & Pv, the
-# add, Xh, Ph, Mh (5), the two shifts-left, D0, Pv, Mv (5) = 11; with the
-# restricted-Damerau seeds two more shifts and two 3-input logic
-# instructions = 15.  Per column besides, 4: the score kept scaled by the
-# last row's bit (two bit picks, one 3-input add) and one shift to emit it.
-K2_OPS_PER_COL_WORD32 = {False: 11, True: 15}
-K2_OPS_PER_COL = 4
-# The band kernels, per band cell that lies inside the DP matrix
-# (0 <= j <= n), counted for a loop that visits those cells only, with INF
-# sentinels beside the band's ends: no validity test, no validity select
-# and no INF clamp is in here, they are the kernel's own overhead.  Hopper's
-# fused add-min (min(a + b, c), one DPX instruction) counts as one.  7: the
-# character compare and the predicated add of the mismatch cost that form
-# sub (2); dp1_up + start + gap and min(bgap_up + gap, that) as one fused
-# add-min, the vertical gap (2); dprime = min(sub, vertical) (1); the
-# running prefix-min of dprime - c*gap as one fused add-min (1); the
-# horizontal candidate prefix + c*gap + start folded into the cascade's min
-# as one fused add-min (1).  The strings' bytes are counted as fetched for
-# free.
-BAND_OPS_PER_CELL = 7
-# with transposition, 3 more: the two character compares, the second one
-# anding its predicate with the first (2), and min(dp0 + cost, cell) as one
-# predicated fused add-min (1); the row / column guards are sentinels
-BAND_OPS_TRANSPOSE = 3
-# with the argmin code, 6 more: the compares of the cascade that a plain
-# min does not need (2, a third with transposition), two selects that form
-# the code, shift and or into the packed word (2)
-BAND_OPS_CODE = {False: 6, True: 7}
-
 # the band phases (sizes of the full run)
 TRACE_PAIRS = 8192
 # the traced phase past the band plan: long ACGT pairs with 10% edits and
@@ -157,16 +119,8 @@ TRACE_PAIRS = 8192
 PAST_PLAN_PAIRS, PAST_PLAN_LEN = 128, 10_000
 PAST_PLAN_EDIT_SHARE, PAST_PLAN_SWAP_SHARE = 0.10, 0.01
 PAST_PLAN_PLAIN_PAIRS, PLAIN_WALK_PAIRS = 2, 64
-# K10, the traceback walk, per step of a walk: one 32-bit code word and, on
-# a diagonal step, a's and b's characters (6 bytes at most); per run of
-# equal steps one 32-bit word written, per pair m and n read and its run
-# count written; a handful of integer operations a step, so bytes bound
-# it.  Its steps depend on each other: beside the bound stands K10's
-# measured time for the batch's longest walk alone (`k10_alone`), with L2
-# warm and with L2 emptied before each launch by writing K10_FLUSH_BYTES
-# (L2 is 50 MB).
-K10_CODE_BYTES, K10_CHAR_BYTES, K10_RUN_BYTES = 4, 2, 4
-K10_OPS_PER_STEP = 12
+# K10's longest walk alone is timed with L2 warm and with L2 emptied
+# before each launch by writing K10_FLUSH_BYTES (L2 is 50 MB)
 K10_FLUSH_BYTES = 256 << 20
 LONG_PAIRS, LONG_LEN, K_LONG = 4096, 20_000, 256
 TRACE_LONG_PAIRS, TRACE_LONG_LEN, K_TRACE_LONG = 256, 3000, 64
@@ -187,40 +141,6 @@ COPY_FREE_BYTES = 1 << 20  # the haystack's tail holds no planted copy
 FRONT_DOOR_LEN, FRONT_DOOR_NEEDLE = 50_000, 2000
 ACGT = np.frombuffer(b"ACGT", dtype=np.uint8)
 U32_MAX = (1 << 32) - 1
-# K5, the blocked distance, per column and 32 needle bits: K2's recurrence
-# (K2_OPS_PER_COL_WORD32: 11, 15 with the restricted-Damerau seeds) over
-# the pair's whole needle; per column besides, 3: the score's two bit picks
-# and one 3-input add.  No emit: the score is read once, at the pair's n.
-K5_OPS_PER_COL_WORD32 = K2_OPS_PER_COL_WORD32
-K5_OPS_PER_COL = 3
-# K6, the blocked search, computes K2's function for any needle length:
-# K2's counts, over ceil(m / 32) words, for every column of the haystack
-# once (a segment's halo re-read is the kernel's overhead, not the
-# function's).
-K6_OPS_PER_COL_WORD32 = K2_OPS_PER_COL_WORD32
-K6_OPS_PER_COL = K2_OPS_PER_COL
-# K7, general-cost search with match lengths, per DP cell (a needle row at
-# a haystack column), counted for the scalar core's column recurrence at
-# the card's best, with Hopper's fused add-min as one: the horizontal
-# chain's cost as an add and a fused add-min (2) and its length as a
-# compare, a max for the tie, a select and the add of one (4); the vertical
-# chain the same without that add (5); the substitution's character
-# compare, the predicated add of the mismatch cost and its length's add
-# (3); the cascade's two replacements, each a compare of costs, a compare
-# of lengths, their combination and two selects (10): 24.  With
-# transposition 6 more: two character compares (2), the add of its cost
-# (1), the <= (1) and two selects (2).  The halo a segment re-reads is the
-# kernel's overhead, not the function's.
-K7_OPS_PER_CELL = 24
-K7_OPS_TRANSPOSE = 6
-# K8 computes K7's function for needles of any length: K7's counts (its
-# row-wise prefix scan is the kernel's way, not the function's).
-K8_OPS_PER_CELL = K7_OPS_PER_CELL
-K8_OPS_TRANSPOSE = K7_OPS_TRANSPOSE
-# K9 computes K3's function, the general-cost distance without lengths,
-# over the cells of its band: K3's counts (BAND_OPS_*), through band_bound.
-K9_OPS_PER_CELL = BAND_OPS_PER_CELL
-K9_OPS_TRANSPOSE = BAND_OPS_TRANSPOSE
 # the general-cost phases (sizes of the full run): the search phase's
 # needle and haystack at k = 6 under two of benches/tpu_fuzz.py's general
 # cost models; a long needle over a cut of the long-needle haystack; long
@@ -535,45 +455,6 @@ def long_search_intervals(planted: np.ndarray, m: int, k: int, n: int):
     starts = np.append(np.maximum(planted - span, 0), n - COPY_FREE_BYTES)
     ends = np.append(np.minimum(planted + m + span, n), n)
     return merge_intervals(starts, ends)
-
-
-def k5_bound(m_arr: np.ndarray, n_arr: np.ndarray, damerau: bool) -> dict:
-    """The least time the card could take for K5 on these pairs: every
-    byte of both strings read, two lengths read and one distance written a
-    pair, against K2's recurrence over each pair's needle words at each of
-    its columns (K5_OPS_*)."""
-    words32 = -(-m_arr.astype(np.int64) // 32)
-    ops = int((n_arr.astype(np.int64)
-               * (words32 * K5_OPS_PER_COL_WORD32[damerau]
-                  + K5_OPS_PER_COL)).sum())
-    bytes_moved = int(m_arr.sum()) + int(n_arr.sum()) + 12 * m_arr.size
-    return _bound(bytes_moved, ops)
-
-
-def k6_bound(iter_len: int, m: int, damerau: bool) -> dict:
-    """The same for K6 on one needle: the haystack read once, one int
-    written a column, the needle read; K2's operations a column."""
-    ops = iter_len * (-(-m // 32) * K6_OPS_PER_COL_WORD32[damerau]
-                      + K6_OPS_PER_COL)
-    return _bound(iter_len + 4 * (iter_len + 1) + m, ops)
-
-
-def search_lengths_bound(positions: int, m: int, transpose: bool,
-                         per_cell: int, per_trans: int) -> dict:
-    """The least time the card could take for K7 or K8 on one needle:
-    every haystack byte of `positions` read once and a distance and a
-    length written for each, the needle read, against the operations of
-    the positions' m cells (K7_OPS_* / K8_OPS_*)."""
-    ops = positions * m * (per_cell + (per_trans if transpose else 0))
-    return _bound(positions + 8 * (positions + 1) + m, ops)
-
-
-def _bound(bytes_moved: int, ops: int) -> dict:
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops}
 
 
 # ---------------------------------------------------------------------------
@@ -2202,14 +2083,7 @@ def run_distance(dev, a_list, b_list, gen_s: float, native_loaded: bool):
     err = int((plain.to(torch.int64) - got.to(torch.int64)).abs().max())
     check(err == 0, "myers_distance != plain at the main-path shape")
 
-    m_arr = margs[2].cpu().numpy().astype(np.int64)
-    _, wp = md.myers_plan(K_DIST)
-    bytes_moved = int((2 * m_arr + wp).sum()) + 16 * n_pairs
-    band_words32 = -(-(K_DIST + 1) // 32)
-    ops = int(m_arr.sum()) * (
-        K1_OPS_PER_ROW_WORD32 * band_words32 + K1_OPS_PER_ROW)
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_INT32_OPS_PER_S * 1e3
+    bound = prof.k1_bound(margs[2].cpu().numpy(), K_DIST)
     emit({
         "phase": "distance", "pairs": n_pairs, "str_len": STR_LEN,
         "k": K_DIST, "dispatch": "myers", "launches": launches,
@@ -2228,10 +2102,7 @@ def run_distance(dev, a_list, b_list, gen_s: float, native_loaded: bool):
         "replaces": "triple_accel_tpu/ops/pallas/lev_myers.py:86",
         "launches": launches, "max_abs_err": err, "ms": ms,
         "ms_min": ms_min, "ms_max": ms_max,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-        "library_ms": None,
+        "plain_ms": plain_ms, **bound, "library_ms": None,
     }
 
 
@@ -2337,11 +2208,7 @@ def run_search(dev, needle, hay, planted, gen_s: float, native_loaded: bool):
         del plain, got
     err = max(errs.values())
 
-    words32 = -(-NEEDLE_LEN // 32)
-    bytes_moved = n + 4 * (n + 1) + NEEDLE_LEN
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = {d: n * (K2_OPS_PER_COL_WORD32[d] * words32 + K2_OPS_PER_COL)
-             / PEAK_INT32_OPS_PER_S * 1e3 for d in (False, True)}
+    bounds = {d: prof.k2_bound(n, NEEDLE_LEN, d) for d in (False, True)}
     emit({
         "phase": "search", "haystack_bytes": n, "needle_len": NEEDLE_LEN,
         "k": K_SEARCH, "planted": N_PLANTED,
@@ -2371,17 +2238,14 @@ def run_search(dev, needle, hay, planted, gen_s: float, native_loaded: bool):
         "ms": kernel_ms[False][0], "ms_min": kernel_ms[False][1],
         "ms_max": kernel_ms[False][2],
         "plain_ms": plain_ms[False],
-        "bound_ms": max(t_bytes, t_ops[False]),
-        "bound_by": "bytes" if t_bytes >= t_ops[False] else "operations",
-        "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops[False],
-        "library_ms": None,
+        **bounds[False], "library_ms": None,
         # the restricted-Damerau launches of the same path, same shape
         "ms_rdamerau": kernel_ms[True][0],
         "ms_rdamerau_min": kernel_ms[True][1],
         "ms_rdamerau_max": kernel_ms[True][2],
         "plain_ms_rdamerau": plain_ms[True],
-        "bound_ms_rdamerau": max(t_bytes, t_ops[True]),
-        "bound_operations_ms_rdamerau": t_ops[True],
+        "bound_ms_rdamerau": bounds[True]["bound_ms"],
+        "bound_operations_ms_rdamerau": bounds[True]["bound_operations_ms"],
     }, results, e2e
 
 
@@ -2981,77 +2845,6 @@ def run_mesh(dev, a_list, b_list, k1_out, needle, hay, mono, dct, pairs5,
 # the band phases: general costs, long strings, tracebacks
 # ---------------------------------------------------------------------------
 
-def band_valid_cells(m_arr: np.ndarray, n_arr: np.ndarray, unit_k: int) -> int:
-    """Band cells of rows 1..m that lie inside the DP matrix, summed over
-    the pairs: row i holds columns max(0, i - unit_k) .. min(n, i + unit_k)."""
-    pairs, counts = np.unique(np.stack([m_arr, n_arr], axis=1), axis=0,
-                              return_counts=True)
-    total = 0
-    for (m, n), cnt in zip(pairs.tolist(), counts.tolist()):
-        i = np.arange(1, m + 1, dtype=np.int64)
-        width = np.minimum(n, i + unit_k) - np.maximum(0, i - unit_k) + 1
-        total += cnt * int(np.clip(width, 0, None).sum())
-    return total
-
-
-def band_bound(m_arr, n_arr, unit_k: int, ct, traced: bool) -> dict:
-    """The least time the card could take for this batch: every string
-    byte and length read once, every distance (and packed code word of
-    rows 1..m) written once, against the operations of the cells inside
-    the matrix."""
-    from triple_accel_tpu_torch.ops.band_scan import code_words
-
-    cells = band_valid_cells(m_arr, n_arr, unit_k)
-    per_cell = BAND_OPS_PER_CELL
-    if ct[4]:
-        per_cell += BAND_OPS_TRANSPOSE
-    if traced:
-        per_cell += BAND_OPS_CODE[bool(ct[4])]
-    bytes_moved = int((m_arr + n_arr).sum()) + 12 * m_arr.size
-    if traced:
-        bytes_moved += int(m_arr.sum()) * code_words(2 * unit_k + 1) * 4
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = cells * per_cell / PEAK_INT32_OPS_PER_S * 1e3
-    return {
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-        "cells": cells, "ops_per_cell": per_cell,
-    }
-
-
-def walk_lengths(runs: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
-    """Steps each pair walked, from a walk's (runs, counts)."""
-    pair = torch.repeat_interleave(
-        torch.arange(len(counts), device=counts.device), counts.long())
-    return torch.zeros(len(counts), dtype=torch.int64,
-                       device=counts.device).index_add_(
-        0, pair, (runs >> 3).long())
-
-
-def k10_bound(runs: torch.Tensor, counts: torch.Tensor, steps: int) -> dict:
-    """The least time the card could take for the walks of (runs, counts)
-    (K10's output): the code words and characters the walked steps read,
-    m and n read, the runs and run counts written once, against
-    K10_OPS_PER_STEP operations a walked step."""
-    length = (runs >> 3).long()
-    diag = ((runs & 7) <= 1).long()
-    n_walked, n_diag = int(length.sum()), int((length * diag).sum())
-    B = counts.shape[0]
-    bytes_moved = (n_walked * K10_CODE_BYTES + n_diag * K10_CHAR_BYTES
-                   + runs.numel() * K10_RUN_BYTES + 4 * B + 8 * B)
-    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    t_ops = n_walked * K10_OPS_PER_STEP / PEAK_INT32_OPS_PER_S * 1e3
-    longest = int(walk_lengths(runs, counts).max()) if B else 0
-    return {
-        "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "bound_bytes_ms": t_bytes, "bound_operations_ms": t_ops,
-        "walked_steps": n_walked, "longest_walk": longest, "steps": steps,
-        "runs": runs.numel(),
-    }
-
-
 def k10_alone(codes, t, runs, counts, unit_k: int, reps: int) -> dict:
     """K10 on the pair of (runs, counts) (its output on the batch) with the
     longest walk, alone: one group, one chain of dependent steps.  The
@@ -3062,7 +2855,7 @@ def k10_alone(codes, t, runs, counts, unit_k: int, reps: int) -> dict:
     memory as the batch's do; each series after a warm-up."""
     from triple_accel_tpu_torch.ops import trace_walk as tw
 
-    lengths = walk_lengths(runs, counts)
+    lengths = prof.walk_lengths(runs, counts)
     p = int(lengths.argmax())
     one = [x[p:p + 1] for x in (codes, *t)]
     flush = torch.empty(K10_FLUSH_BYTES, dtype=torch.uint8,
@@ -3173,12 +2966,13 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
             "plain_ms": plain_walk_ms,
             "plain_shape": f"the first {n_walk} pairs (steps as at the "
                            "full batch)",
-            "library_ms": None, **k10_bound(runs, counts, steps),
+            "library_ms": None, **prof.k10_bound(runs, counts, steps),
             **k10_alone(got_codes, t, runs, counts, unit_k, walk_reps),
         }
     m_arr = t[2].cpu().numpy().astype(np.int64)
     n_arr = t[3].cpu().numpy().astype(np.int64)
-    bound = band_bound(m_arr, n_arr, unit_k, ct, traced)
+    bound = (prof.k4_bound if traced else prof.k3_bound)(m_arr, n_arr,
+                                                     unit_k, ct)
     plan = lb.band_plan(rows, unit_k, traced, batch=len(a_list),
                         max_n=int(n_arr.max(initial=0)))
     wide = (f"band_wide_kernel<*, {str(traced).lower()}, "
@@ -3240,41 +3034,6 @@ def oracle_sample(a_list, b_list, k: int, costs, out, traces, n_sample: int,
             check(traces[p] == exp[1],
                   f"{what}: pair {p}: edits differ from the oracle's")
     return n_sample
-
-
-def replay_cost(a, b, edits, costs) -> int:
-    """Cost of an RLE edit list under `costs` if it turns `a` into `b`
-    exactly, else -1.  AGap runs consume b, BGap runs consume a; a gap run
-    pays the start cost once.  Equal to the distance for cost models without
-    a start cost (the reference keeps one argmin code per cell, so with a
-    start cost its traceback may cost more than the distance it belongs
-    to)."""
-    mc, gc, sgc = costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost
-    i = j = cost = 0
-    for e in edits:
-        c, kind = e.count, e.edit.name
-        if kind == "Match":
-            if not np.array_equal(a[i:i + c], b[j:j + c]):
-                return -1
-            i, j = i + c, j + c
-        elif kind == "Mismatch":
-            if len(a[i:i + c]) != c or len(b[j:j + c]) != c \
-                    or (a[i:i + c] == b[j:j + c]).any():
-                return -1
-            i, j, cost = i + c, j + c, cost + c * mc
-        elif kind == "AGap":
-            j, cost = j + c, cost + sgc + c * gc
-        elif kind == "BGap":
-            i, cost = i + c, cost + sgc + c * gc
-        else:  # Transpose: c adjacent swaps, two characters each
-            x, y = a[i:i + 2 * c], b[j:j + 2 * c]
-            if len(x) != 2 * c or len(y) != 2 * c \
-                    or not np.array_equal(x[0::2], y[1::2]) \
-                    or not np.array_equal(x[1::2], y[0::2]):
-                return -1
-            i, j = i + 2 * c, j + 2 * c
-            cost += c * costs.transpose_cost_or_zero
-    return cost if i == len(a) and j == len(b) else -1
 
 
 def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
@@ -3790,8 +3549,8 @@ def run_blocked_distance(dev, pairs, gen_s: float, native_loaded: bool):
               "kernel-only rerun != main path result")
         times[damerau] = time_launches(
             lambda: mc.blocked_distance(*t, damerau=damerau), 7)
-        bounds[damerau] = k5_bound(t[2].cpu().numpy(), t[3].cpu().numpy(),
-                                   damerau)
+        bounds[damerau] = prof.k5_bound(t[2].cpu().numpy(),
+                                        t[3].cpu().numpy(), damerau)
         if not damerau:
             # the plain version at a cut of the unit-cost tensors
             cut = BLOCKED_PLAIN_COLS
@@ -3994,9 +3753,9 @@ def run_blocked_search(dev, hay_mb: int, native_loaded: bool):
     plain_a = time_once_ms(run_plain_a)
     err_a = int((got.to(torch.int64) - ref.to(torch.int64)).abs().max())
     check(err_a == 0, "blocked_search != plain at the anchored shape")
-    bound = k6_bound(n, m, False)
-    bound_r = k6_bound(n, m, True)
-    bound_a = k6_bound(it_a, m, False)
+    bound = prof.k6_bound(n, m, False)
+    bound_r = prof.k6_bound(n, m, True)
+    bound_a = prof.k6_bound(it_a, m, False)
     plan_rows = len(set(needle.tolist())) + 1
     plan = mc.blocked_plan(m, plan_rows, search=True,
                            segments=-(-n // own_len))
@@ -4175,8 +3934,7 @@ def run_search_general(dev, needle, hay, planted, native_loaded: bool):
         own_len = sd.suggest_own_len_diag(n, halo)
         kw = dict(own_len=own_len, halo=halo, costs_t=ct)
         times[c] = time_launches(lambda: sd.search_diag(hay_d, nd, **kw), 5)
-        bounds[c] = search_lengths_bound(n, m, bool(ct[4]), K7_OPS_PER_CELL,
-                                         K7_OPS_TRANSPOSE)
+        bounds[c] = prof.k7_bound(n, m, bool(ct[4]))
         cut = hay_d[:DIAG_PLAIN_BYTES]
         got = sd.search_diag(cut, nd, **kw)
         ref = None
@@ -4321,8 +4079,7 @@ def run_flat_search(dev, native_loaded: bool):
         owns[c] = sf.suggest_own_len_flat(n, halo, transpose=bool(ct[4]))
         kw = dict(own_len=owns[c], halo=halo, costs_t=ct)
         times[c] = time_launches(lambda: sf.flat_search(hay_d, nd, **kw), 3)
-        bounds[c] = search_lengths_bound(n, m, bool(ct[4]), K8_OPS_PER_CELL,
-                                         K8_OPS_TRANSPOSE)
+        bounds[c] = prof.k8_bound(n, m, bool(ct[4]))
     c0, c1 = GENERAL_COSTS
     # the plain version over the first segments, at the first costs
     kw["costs_t"] = _costs_tuple(EditCosts(*c0))
@@ -4434,7 +4191,7 @@ def run_flat_distance(dev, pairs, gen_s: float, native_loaded: bool):
                                                    unit_k=uk), 3)
     m_arr = np.array([len(x) for x in sa], np.int64)
     n_arr = np.array([len(y) for y in sb], np.int64)
-    bound = band_bound(m_arr, n_arr, uk, ct, False)
+    bound = prof.k9_bound(m_arr, n_arr, uk, ct)
     cut = sf.prepare_flat_distance_inputs(
         [x[:FLAT_DIST_PLAIN_LEN] for x in sa[:FLAT_DIST_PLAIN_PAIRS]],
         [y[:FLAT_DIST_PLAIN_LEN] for y in sb[:FLAT_DIST_PLAIN_PAIRS]],
@@ -4598,6 +4355,90 @@ def front_door(dev):
                                            for x in long_pair_ms]}})
 
 
+def run_ir() -> None:
+    """`utils/inspect_ir.py` on the build at hand: K1's PTX and SASS, both
+    non-empty and naming the kernel, and the assembler's registers, stack
+    frame and spill bytes of every kernel's instantiations."""
+    from triple_accel_tpu_torch.utils import build, inspect_ir
+
+    t0 = time.perf_counter()
+    name = "myers_distance_kernel"
+    ptx = inspect_ir.dump_lowered(name)
+    sass = inspect_ir.dump_lowered(name, compiled=True)
+    check(".entry" in ptx and name in ptx, "the PTX does not name K1")
+    n_sass = len(re.findall(r"/\*[0-9a-f]{4,}\*/\s+\S", sass))
+    check(n_sass > 0 and name in sass, "the SASS does not name K1")
+    resources = {
+        name: [r.get(k_) for k_ in ("registers", "stack_frame_bytes",
+                                    "spill_store_bytes", "spill_load_bytes")]
+        for name, r in inspect_ir.resources_by_kernel(
+            build.build_info()["compiler_output"]).items()}
+    for label, names in inspect_ir.KERNELS.items():
+        check(all(any(k_.startswith(n + "<") or k_ == n for k_ in resources)
+                  for n in names), f"{label}: no resource lines")
+    emit({"phase": "ir", "kernel": name, "ptx_lines": ptx.count("\n"),
+          "sass_instructions": n_sass,
+          "resources_note": "registers, stack frame, spill store and spill "
+                            "load bytes of each instantiation (-Xptxas -v)",
+          "resources": resources,
+          "seconds": round(time.perf_counter() - t0, 1)})
+
+
+def run_profile(dev, a_list, b_list, k1_out) -> None:
+    """One `levenshtein_k_batch` call of the `distance` phase's shape under
+    `utils.profiling.trace`: the Chrome trace must hold K1's kernel as a
+    CUDA event; its five device operations that took most time."""
+    import tempfile
+
+    import triple_accel_tpu_torch as tt
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with prof.trace("levenshtein_k_batch", tmp):
+            out = tt.levenshtein_k_batch(a_list, b_list, K_DIST, device=dev)
+        seconds = time.perf_counter() - t0
+        files = os.listdir(tmp)
+        check(len(files) == 1, f"trace files: {files}")
+        path = os.path.join(tmp, files[0])
+        trace_mb = os.path.getsize(path) / 2**20
+        ops = prof.device_time_by_name(path)
+    check(np.array_equal(out, k1_out), "profiled call != distance phase")
+    k1_us = sum(v for n, v in ops.items() if "myers_distance_kernel" in n)
+    check(k1_us > 0, "the trace holds no myers_distance_kernel CUDA event")
+    top = sorted(ops.items(), key=lambda kv: -kv[1])[:5]
+    emit({"phase": "profile", "pairs": len(a_list),
+          "call_and_trace_s": round(seconds, 3),
+          "trace_MB": round(trace_mb, 2), "device_ops": len(ops),
+          "myers_distance_kernel_us": round(k1_us, 1),
+          "top5_device_us": [[n, round(v, 1)] for n, v in top]})
+
+
+def run_fuzz(dev) -> None:
+    """`benches/gpu_fuzz.py` at full size on the card: every section, 0
+    mismatches and every engine of the ladder reached; each kernel's
+    launches in the run."""
+    from triple_accel_tpu_torch.benches import gpu_fuzz
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import trace_walk as tw
+
+    kernels = {**mesh_kernels(), "band_trace": lb.band_trace,
+               "trace_walk": tw.trace_walk}
+    for fn in kernels.values():
+        fn.launches = 0  # 0 just before the fuzz ...
+    res = gpu_fuzz.run(dev)
+    launches = {n: fn.launches for n, fn in kernels.items()}  # ... after
+    missing = sorted(gpu_fuzz.LADDER - set(res["engines_reached"]))
+    emit({"phase": "fuzz", "cases": res["cases"],
+          "mismatches": res["mismatches"],
+          "sections": len(res["sections"]),
+          "engines_reached": res["engines_reached"],
+          "engines_missing": missing, "launches": launches,
+          "seconds": res["seconds"]})
+    check(res["mismatches"] == 0, f"fuzz: {res['mismatches']} mismatches")
+    check(not missing, f"fuzz: engines not reached: {missing}")
+    check(all(launches.values()), f"fuzz: kernels not launched: {launches}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -4634,6 +4475,7 @@ def main() -> int:
           "seconds": round(info["seconds"], 2), "sources": info["sources"],
           "library": os.path.basename(info["path"]), "ptxas": ptxas})
     check(info["built"], "the kernels were not built from this checkout")
+    run_ir()
 
     # 3. kernels against their plain versions, on the card
     t0 = time.perf_counter()
@@ -4746,6 +4588,10 @@ def main() -> int:
 
     # 14. front door
     front_door(dev)
+
+    # 15, 16. the distance call under the profiler; the differential fuzz
+    run_profile(dev, a_list, b_list, k1_out)
+    run_fuzz(dev)
 
     emit({"phase": "done",
           "seconds": round(time.perf_counter() - t_start, 1),

@@ -28,6 +28,10 @@ from triple_accel_tpu_torch.types import EditCosts
 
 from test_torch_band_distance import COSTS, COST_IDS, _ct, _pairs
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
 

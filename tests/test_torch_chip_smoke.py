@@ -13,6 +13,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 from triple_accel_tpu_torch.oracle import levenshtein_naive_k_with_opts
@@ -23,6 +24,11 @@ from triple_accel_tpu_torch.types import (
     LEVENSHTEIN_COSTS,
     RDAMERAU_COSTS,
 )
+from triple_accel_tpu_torch.utils import profiling as prof
+
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
 
 COSTS = [LEVENSHTEIN_COSTS, RDAMERAU_COSTS, EditCosts(*cs.AFFINE),
          EditCosts(3, 2, 1, 2)]
@@ -109,26 +115,26 @@ def test_band_valid_cells_equals_brute_force(unit_k):
         1 for mm, nn in zip(m.tolist(), n.tolist())
         for i in range(1, mm + 1) for c in range(2 * unit_k + 1)
         if 0 <= i + c - unit_k <= nn)
-    assert cs.band_valid_cells(m, n, unit_k) == brute
+    assert prof.band_valid_cells(m, n, unit_k) == brute
 
 
 def test_band_bound_counts_bytes_and_operations():
     m = np.array([10, 0]); n = np.array([12, 3])
     ct = (1, 1, 0, 1, True)
-    plain = cs.band_bound(m, n, 4, ct, traced=False)
-    traced = cs.band_bound(m, n, 4, ct, traced=True)
-    cells = cs.band_valid_cells(m, n, 4)
+    plain = prof.band_bound(m, n, 4, ct, traced=False)
+    traced = prof.band_bound(m, n, 4, ct, traced=True)
+    cells = prof.band_valid_cells(m, n, 4)
     assert plain["cells"] == traced["cells"] == cells
-    assert plain["ops_per_cell"] == (cs.BAND_OPS_PER_CELL
-                                     + cs.BAND_OPS_TRANSPOSE)
-    assert traced["ops_per_cell"] == plain["ops_per_cell"] + cs.BAND_OPS_CODE[
+    assert plain["ops_per_cell"] == (prof.BAND_OPS_PER_CELL
+                                     + prof.BAND_OPS_TRANSPOSE)
+    assert traced["ops_per_cell"] == plain["ops_per_cell"] + prof.BAND_OPS_CODE[
         True]
     # strings, two lengths and one distance a pair; traced: one packed code
     # word (band 9 < 16 cells) for each of the 10 rows
     assert plain["bound_bytes_ms"] == pytest.approx(
-        (25 + 24) / cs.PEAK_BYTES_PER_S * 1e3)
+        (25 + 24) / prof.PEAK_BYTES_PER_S * 1e3)
     assert traced["bound_bytes_ms"] == pytest.approx(
-        (25 + 24 + 40) / cs.PEAK_BYTES_PER_S * 1e3)
+        (25 + 24 + 40) / prof.PEAK_BYTES_PER_S * 1e3)
     assert plain["bound_ms"] == max(plain["bound_bytes_ms"],
                                     plain["bound_operations_ms"])
 
@@ -204,21 +210,21 @@ def test_long_haystack_copies_are_found_where_they_were_planted(
 def test_k5_and_k6_bounds_count_bytes_and_operations():
     m = np.array([64, 65, 0])
     n = np.array([100, 10, 5])
-    b = cs.k5_bound(m, n, False)
+    b = prof.k5_bound(m, n, False)
     ops = 100 * (2 * 11 + 3) + 10 * (3 * 11 + 3) + 5 * 3
-    assert cs.K5_OPS_PER_COL_WORD32 == {False: 11, True: 15}
+    assert prof.K5_OPS_PER_COL_WORD32 == {False: 11, True: 15}
     assert b["bound_operations_ms"] == pytest.approx(
-        ops / cs.PEAK_INT32_OPS_PER_S * 1e3)
+        ops / prof.PEAK_INT32_OPS_PER_S * 1e3)
     assert b["bound_bytes_ms"] == pytest.approx(
-        (129 + 115 + 36) / cs.PEAK_BYTES_PER_S * 1e3)
+        (129 + 115 + 36) / prof.PEAK_BYTES_PER_S * 1e3)
     assert b["bound_ms"] == max(b["bound_bytes_ms"],
                                 b["bound_operations_ms"])
-    r = cs.k6_bound(1000, 3000, True)
+    r = prof.k6_bound(1000, 3000, True)
     assert r["bound_operations_ms"] == pytest.approx(
-        1000 * (94 * 15 + 4) / cs.PEAK_INT32_OPS_PER_S * 1e3)
+        1000 * (94 * 15 + 4) / prof.PEAK_INT32_OPS_PER_S * 1e3)
     assert r["bound_by"] == "operations"
     # the full-size distance phase's reckoning: about 9 ms
-    full = cs.k5_bound(np.full(1024, 20_000), np.full(1024, 20_000), False)
+    full = prof.k5_bound(np.full(1024, 20_000), np.full(1024, 20_000), False)
     assert 8 < full["bound_ms"] < 11
 
 
@@ -285,22 +291,22 @@ def test_band_entry_pairs_run_along_the_band_edge():
 
 
 def test_k7_k8_k9_bounds_count_bytes_and_operations():
-    b = cs.search_lengths_bound(1000, 24, False, cs.K7_OPS_PER_CELL,
-                                cs.K7_OPS_TRANSPOSE)
+    b = prof.search_lengths_bound(1000, 24, False, prof.K7_OPS_PER_CELL,
+                                  prof.K7_OPS_TRANSPOSE)
     assert b["bound_operations_ms"] == pytest.approx(
-        1000 * 24 * 24 / cs.PEAK_INT32_OPS_PER_S * 1e3)
+        1000 * 24 * 24 / prof.PEAK_INT32_OPS_PER_S * 1e3)
     assert b["bound_bytes_ms"] == pytest.approx(
-        (1000 + 8 * 1001 + 24) / cs.PEAK_BYTES_PER_S * 1e3)
-    bt = cs.search_lengths_bound(1000, 24, True, cs.K8_OPS_PER_CELL,
-                                 cs.K8_OPS_TRANSPOSE)
+        (1000 + 8 * 1001 + 24) / prof.PEAK_BYTES_PER_S * 1e3)
+    bt = prof.search_lengths_bound(1000, 24, True, prof.K8_OPS_PER_CELL,
+                                   prof.K8_OPS_TRANSPOSE)
     assert bt["bound_operations_ms"] == pytest.approx(
         b["bound_operations_ms"] * 30 / 24)
     assert b["bound_by"] == "operations"
     # K9 counts K3's function over the band's cells: the whole matrix here
     m_arr, n_arr = np.array([300, 0]), np.array([310, 5])
-    k9 = cs.band_bound(m_arr, n_arr, 1 << 15, (2, 1, 2, 0, False), False)
+    k9 = prof.band_bound(m_arr, n_arr, 1 << 15, (2, 1, 2, 0, False), False)
     assert k9["cells"] == 300 * 311
-    assert cs.K9_OPS_PER_CELL == cs.BAND_OPS_PER_CELL
+    assert prof.K9_OPS_PER_CELL == prof.BAND_OPS_PER_CELL
 
 
 def test_dictionary_copies_lie_where_they_were_planted():

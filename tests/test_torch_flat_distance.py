@@ -27,6 +27,10 @@ from triple_accel_tpu_torch.oracle import levenshtein_naive_k_with_opts
 from triple_accel_tpu_torch.types import EditCosts
 from triple_accel_tpu_torch.utils.native import scalar_banded_batch_native
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
 

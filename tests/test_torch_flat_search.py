@@ -35,6 +35,10 @@ from triple_accel_tpu_torch.types import (
     SearchType,
 )
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
 

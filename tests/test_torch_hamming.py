@@ -20,6 +20,10 @@ from triple_accel_tpu_torch.dispatch import last_dispatch
 from triple_accel_tpu_torch.ops import hamming_ops as tho
 from triple_accel_tpu_torch.types import Match, SearchType, alloc_str, fill_str
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jh = importlib.import_module("triple_accel_tpu.hamming")
 th = importlib.import_module("triple_accel_tpu_torch.hamming")
 

@@ -50,6 +50,10 @@ from triple_accel_tpu_torch.types import (
     SearchType,
 )
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "triple_accel_tpu_torch", "csrc")
 

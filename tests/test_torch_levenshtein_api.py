@@ -16,6 +16,7 @@ import importlib
 
 import numpy as np
 import pytest
+import torch
 
 import chip_smoke as cs
 from triple_accel_tpu.oracle import (
@@ -41,6 +42,10 @@ from triple_accel_tpu.types import (
     RDAMERAU_COSTS as J_RDAM,
     SearchType as JSearchType,
 )
+
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
 
 # the packages' top-level `levenshtein` names are the blessed functions, so
 # the submodules are fetched by their dotted names

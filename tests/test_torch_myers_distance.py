@@ -28,6 +28,10 @@ from triple_accel_tpu_torch.ops.myers_distance import (
     prepare_myers_inputs,
 )
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 
 def _corpus(rng, n_pairs, max_m, k, lo=65, hi=70, nul=False):
     a_list, b_list = [], []

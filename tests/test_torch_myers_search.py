@@ -36,6 +36,10 @@ from triple_accel_tpu_torch.ops.myers_search import (
 )
 from triple_accel_tpu_torch.ops.search_common import seg_count, window_span
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 
 def _oracle_map(needle, hay, k, costs, anchored):
     return {

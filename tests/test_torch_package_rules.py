@@ -3,6 +3,7 @@ nothing of the JAX package; it imports cleanly where there is no GPU, no
 `nvcc` and no `triton`; and its entry points raise without a card instead
 of moving to the CPU on their own."""
 
+import ast
 import importlib
 import os
 import pkgutil
@@ -14,6 +15,10 @@ import pytest
 import torch
 
 import triple_accel_tpu_torch as tt
+
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "triple_accel_tpu_torch")
@@ -33,7 +38,8 @@ def test_fresh_import_pulls_in_neither_jax_nor_the_jax_package():
                 "oracle.hamming", "hamming", "ops.myers_chunked",
                 "ops.search_scan", "ops.search_diag", "ops.search_flat",
                 "ops.trace_walk", "sweep", "utils.checkpoint", "parallel",
-                "parallel.mesh", "parallel.sharded", "parallel.multihost"):
+                "parallel.mesh", "parallel.sharded", "parallel.multihost",
+                "utils.profiling", "utils.inspect_ir", "benches.gpu_fuzz"):
         assert f"triple_accel_tpu_torch.{new}" in mods
     assert "triple_accel_tpu_torch.utils.build" in mods
     code = (
@@ -206,3 +212,196 @@ def test_build_raises_without_nvcc(monkeypatch):
         "band_distance.cu", "myers_blocked.cu", "myers_distance.cu",
         "myers_search.cu", "search_diag.cu", "search_flat.cu",
         "trace_walk.cu"]
+
+
+# Public surface: every public name of a JAX module (its `__all__`, or its
+# public functions and classes, and the names it re-exports under another
+# name) exists in the port's module of the same path (or in the port's
+# modules named here, where the kernels' wrappers moved), or stands below
+# with the reason it has no counterpart.
+JAX_PKG = os.path.join(ROOT, "triple_accel_tpu")
+_PORT_HOMES = {
+    "ops/pallas/__init__.py": ["ops/__init__.py"],
+    "ops/pallas/lev_band.py": ["ops/lev_band.py"],
+    "ops/pallas/lev_myers.py": ["ops/myers_distance.py"],
+    "ops/pallas/myers_chunked.py": ["ops/myers_chunked.py"],
+    "ops/pallas/search_flat.py": ["ops/search_flat.py"],
+    "ops/pallas/search_kernel.py": ["ops/search_diag.py"],
+    "ops/pallas/search_myers.py": ["ops/myers_search.py",
+                                   "ops/myers_chunked.py"],
+    "ops/search_scan.py": ["ops/search_common.py"],
+}
+_TWO_PHASE = ("the TPU's two-phase hit fetch of 128-lane block minima; the "
+              "port finds hits with torch.nonzero on the card")
+_WRAPPER = "the TPU kernel's wrapper; the port's is "
+_LANES = "the TPU's 128 lanes; the port's kernels pick their own lane maps"
+_SHARD_MAP = ("a Pallas kernel under shard_map; the port runs each engine's "
+              "own wrapper a shard (parallel.sharded.run_sharded)")
+_RAW = ("a TPU window or segment layout; the port's kernels read the raw "
+        "haystack (a shard's window) in place")
+LEFT_OUT = {
+    "BLOCK": _TWO_PHASE,
+    "hamming_search_block_mins": _TWO_PHASE,
+    "hamming_gather_blocks": _TWO_PHASE,
+    "postprocess_hamming_native": "the port resolves Hamming hits on the "
+                                  "card (hamming._resolve_counts_matches)",
+    "LANES": _LANES,
+    "PACK": "10 codes an int32 word, exact in f32 for the TPU's MXU; the "
+            "port packs 16 (ops.band_scan.code_words)",
+    "packed_code_rows": "code rows rounded to 8 sublanes; the port's are "
+                        "ops.band_scan.code_words",
+    "band_distance_pallas": _WRAPPER + "ops.lev_band.band_distance",
+    "band_distance_pallas_tiled": _WRAPPER + "ops.lev_band.band_distance",
+    "band_trace_pallas": _WRAPPER + "ops.lev_band.band_trace",
+    "band_trace_pallas_tiled": _WRAPPER + "ops.lev_band.band_trace",
+    "band_vmem_plan": "sized to the TPU's scoped VMEM; the port's plan is "
+                      "ops.lev_band.band_plan",
+    "prepare_pallas_inputs": "128-lane upload buffers; the port's are "
+                             "ops.lev_band.prepare_band_tensors",
+    "prepare_tiled_inputs": "VMEM row strips; the port's band kernels "
+                            "stream the strings from device memory",
+    "suggest_strip": "VMEM row strips; the port's band kernels stream the "
+                     "strings from device memory",
+    "suggest_trace_strip": "VMEM row strips of the traced kernel; the "
+                           "port's streams its codes to device memory",
+    "myers_chain_plan": "interleaved chains hide the TPU VPU's latency; K1 "
+                        "runs one pair a thread",
+    "myers_device_pack": "the TPU upload layout (4 chars an int32); the "
+                         "port's is ops.myers_distance.prepare_myers_inputs",
+    "myers_distance_pallas": _WRAPPER + "ops.myers_distance.myers_distance",
+    "TC": "text columns a grid step on the TPU; K5 / K6 walk the text in "
+          "one launch",
+    "blocked_distance_chunked": _WRAPPER + "ops.myers_chunked."
+                                           "blocked_distance",
+    "blocked_search_chunked": _WRAPPER + "ops.myers_chunked.blocked_search",
+    "blocked_search_chunked_mins": _TWO_PHASE,
+    "blocked_search_chunked_mins_from_hay": _TWO_PHASE,
+    "prepare_chunked_needles": "strip-major needle bands in 128 lanes; K6 "
+                               "reads the needles as bytes",
+    "RJ": "haystack columns a launch on the TPU; K8 walks its strips in "
+          "one launch",
+    "TI": "needle rows a grid step on the TPU; K8 / K9 keep a row in "
+          "registers",
+    "flat_search_gather_selected": "the dense-hit route's TPU form; the "
+                                   "port's is levenshtein."
+                                   "_flat_resolve_launch",
+    "flat_search_mins": _TWO_PHASE,
+    "flat_search_mins_from_hay": _TWO_PHASE,
+    "windows_to_seg_lead": _RAW,
+    "SBLOCK": _TWO_PHASE,
+    "search_gather_blocks": _TWO_PHASE,
+    "search_pallas": _WRAPPER + "ops.search_diag.search_diag",
+    "search_pallas_block_mins": _TWO_PHASE,
+    "blocked_search_block_mins": _TWO_PHASE,
+    "blocked_search_pallas": _WRAPPER + "ops.myers_chunked.blocked_search",
+    "blocked_seg_budget": "a segment budget of the TPU's VMEM; K6 sizes "
+                          "segments by suggest_own_len_blocked",
+    "device_grouped_transpose": _RAW,
+    "device_pack_segs": _RAW,
+    "device_windows": _RAW,
+    "myers_blocked_plan": "the TPU's strip plan; the port's is "
+                          "ops.myers_chunked.blocked_plan",
+    "myers_search_block_mins_from_hay": _TWO_PHASE,
+    "myers_search_pallas": _WRAPPER + "ops.myers_search.myers_search",
+    "prepare_blocked_needles": "strip-major needle bands in 128 lanes; K6 "
+                               "reads the needles as bytes",
+    "prepare_blocked_search_inputs": _RAW,
+    "prepare_myers_search_inputs": _RAW,
+    "prepare_myers_segs": _RAW,
+    "search_chain_plan": "interleaved chains hide the TPU VPU's latency; K2 "
+                         "runs a lane a segment",
+    "assemble_sharded_search": "stitches the TPU shards' owned (distance, "
+                               "length) blocks; the port's shards return "
+                               "hits (parallel.sharded.collect_owned_hits)",
+    "collect_sharded_hits": "the TPU shards' two-phase hit fetch; the "
+                            "port's is parallel.sharded.collect_owned_hits",
+    "pad_batch_for_mesh": "pads a batch to 128-lane blocks and 2 grid steps "
+                          "a device; the port's blocks are "
+                          "parallel.mesh.batch_sharding's",
+    "sharded_pack_segs": _RAW,
+    "sharded_distance_step": _SHARD_MAP,
+    "sharded_search_step": _SHARD_MAP,
+    "sharded_band_distance": _SHARD_MAP,
+    "sharded_blocked_search_mins": _SHARD_MAP,
+    "sharded_chunked_distance": _SHARD_MAP,
+    "sharded_chunked_search_mins": _SHARD_MAP,
+    "sharded_flat_distance": _SHARD_MAP,
+    "sharded_flat_search_mins": _SHARD_MAP,
+    "sharded_hamming_search_mins": _SHARD_MAP,
+    "sharded_myers_distance": _SHARD_MAP,
+    "sharded_myers_search_mins": _SHARD_MAP,
+    "sharded_myers_search_mins_packed": _SHARD_MAP,
+}
+
+
+def _jax_modules():
+    out = []
+    for base, _, files in os.walk(JAX_PKG):
+        out += [os.path.relpath(os.path.join(base, f), JAX_PKG)
+                for f in files if f.endswith(".py")]
+    return sorted(out)
+
+
+def _public_names(path):
+    """A module's `__all__` (else its public functions and classes), and
+    the names it re-exports from the package under another name."""
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    names, listed = set(), False
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and any(
+                isinstance(t, ast.Name) and t.id == "__all__"
+                for t in node.targets):
+            names |= set(ast.literal_eval(node.value))
+            listed = True
+        elif isinstance(node, ast.ImportFrom) and node.level:
+            names |= {a.asname for a in node.names
+                      if a.asname and not a.asname.startswith("_")}
+    if not listed:
+        names |= {n.name for n in tree.body
+                  if isinstance(n, (ast.FunctionDef, ast.ClassDef))
+                  and not n.name.startswith("_")}
+    return names
+
+
+def _defined_names(path):
+    """Names a module binds at top level; a package also its submodules."""
+    if not os.path.exists(path):
+        return set()
+    tree = ast.parse(open(path, encoding="utf-8").read())
+    out = set()
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out |= {t.id for t in node.targets if isinstance(t, ast.Name)}
+        elif isinstance(node, ast.AnnAssign) and isinstance(node.target,
+                                                             ast.Name):
+            out.add(node.target.id)
+        elif isinstance(node, ast.ImportFrom):
+            out |= {a.asname or a.name for a in node.names}
+    if path.endswith("__init__.py"):
+        out |= {os.path.splitext(f)[0]
+                for f in os.listdir(os.path.dirname(path))}
+    return out
+
+
+@pytest.mark.parametrize("rel", _jax_modules())
+def test_every_public_jax_name_is_ported_or_left_out_with_a_reason(rel):
+    public = _public_names(os.path.join(JAX_PKG, rel))
+    ported = set().union(*(_defined_names(os.path.join(PKG, home))
+                           for home in [rel] + _PORT_HOMES.get(rel, [])))
+    missing = sorted(public - ported - set(LEFT_OUT))
+    assert not missing, f"{rel}: no counterpart and no reason: {missing}"
+    if rel == "__init__.py":  # the reference's top-level callables
+        assert {"hamming_fn", "levenshtein_fn"} <= public & ported
+
+
+def test_names_left_out_have_no_counterpart():
+    """The list stays true: each name on it is public in a JAX module and
+    has no counterpart where that module's names go."""
+    unported = set()
+    for rel in _jax_modules():
+        homes = [rel] + _PORT_HOMES.get(rel, [])
+        unported |= _public_names(os.path.join(JAX_PKG, rel)) - set().union(
+            *(_defined_names(os.path.join(PKG, h)) for h in homes))
+    assert sorted(set(LEFT_OUT) - unported) == []

@@ -33,6 +33,10 @@ from triple_accel_tpu_torch import parallel as tp
 from triple_accel_tpu_torch.dispatch import dispatch_history
 from triple_accel_tpu_torch.types import EditCosts, Match, RDAMERAU_COSTS
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 jh = importlib.import_module("triple_accel_tpu.hamming")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")

@@ -32,6 +32,10 @@ from triple_accel_tpu_torch.ops.search_scan import chunk_haystack, search_scan
 from triple_accel_tpu_torch.oracle import levenshtein_search_naive_with_opts
 from triple_accel_tpu_torch.types import EditCosts, SearchType
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
 

@@ -19,6 +19,7 @@ import importlib
 import jax
 import numpy as np
 import pytest
+import torch
 
 from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
 from triple_accel_tpu.parallel import make_mesh as jax_mesh
@@ -30,6 +31,10 @@ from triple_accel_tpu_torch.parallel import make_mesh
 from triple_accel_tpu_torch.sweep import levenshtein_search_sweep
 from triple_accel_tpu_torch.types import EditCosts, SearchType
 from triple_accel_tpu_torch.utils.checkpoint import SweepCheckpoint
+
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
 
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 jh = importlib.import_module("triple_accel_tpu.hamming")

@@ -16,6 +16,7 @@ import os
 
 import numpy as np
 import pytest
+import torch
 
 from triple_accel_tpu.oracle import levenshtein_search_naive_with_opts
 from triple_accel_tpu.sweep import levenshtein_search_sweep as jax_sweep
@@ -34,6 +35,10 @@ from triple_accel_tpu_torch.types import (
     SearchType,
 )
 from triple_accel_tpu_torch.utils.checkpoint import SweepCheckpoint
+
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
 
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
 

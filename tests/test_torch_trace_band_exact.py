@@ -29,6 +29,10 @@ from triple_accel_tpu_torch.types import EditCosts
 from test_torch_band_distance import COSTS, COST_IDS, _ct
 from test_torch_band_trace import _fields, _oracle, _replay_cost
 
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
+
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
 

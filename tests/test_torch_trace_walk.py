@@ -38,10 +38,15 @@ from triple_accel_tpu_torch.ops import band_scan as tbs
 from triple_accel_tpu_torch.ops import lev_band as tlb
 from triple_accel_tpu_torch.ops import trace_walk as ttw
 from triple_accel_tpu_torch.types import EditCosts
+from triple_accel_tpu_torch.utils import profiling as prof
 from triple_accel_tpu_torch.types import LEVENSHTEIN_COSTS as _LEV
 from triple_accel_tpu_torch.utils.native import scalar_banded_batch_native
 
 from test_torch_band_distance import COSTS, COST_IDS, _ct, _pairs
+
+# one intra-op thread: the test workers run side by side on the
+# machine's cores
+torch.set_num_threads(1)
 
 jl = importlib.import_module("triple_accel_tpu.levenshtein")
 tl = importlib.import_module("triple_accel_tpu_torch.levenshtein")
@@ -520,7 +525,7 @@ def test_walk_gap_pairs_and_run_helpers():
                        dtype=torch.int8)
     runs, counts = tbs.run_length_encode(seq)
     assert cs.pair_runs(runs, counts, 2).tolist() == [3 << 3 | 4, 1 << 3 | 1]
-    assert cs.walk_lengths(runs, counts).tolist() == [3, 0, 4]
+    assert prof.walk_lengths(runs, counts).tolist() == [3, 0, 4]
     assert cs.runs_err((runs, counts), (runs.clone(), counts.clone())) == 0
     other = runs.clone()
     other[1] += 8
@@ -539,13 +544,13 @@ def test_walk_cells_longest_pair_and_k10_bound():
     seqs = torch.tensor([[2, 2, 0, 1, 0, -1, -1], [-1] * 7], dtype=torch.int8)
     runs, counts = tbs.run_length_encode(seqs)
     assert counts.tolist() == [4, 0]
-    bound = cs.k10_bound(runs, counts, 7)
+    bound = prof.k10_bound(runs, counts, 7)
     assert bound["walked_steps"] == 5 and bound["longest_walk"] == 5
     assert bound["runs"] == 4
     assert bound["bound_bytes_ms"] == pytest.approx(
-        (5 * cs.K10_CODE_BYTES + 3 * cs.K10_CHAR_BYTES
-         + 4 * cs.K10_RUN_BYTES + 2 * 4 + 16) / cs.PEAK_BYTES_PER_S * 1e3)
+        (5 * prof.K10_CODE_BYTES + 3 * prof.K10_CHAR_BYTES
+         + 4 * prof.K10_RUN_BYTES + 2 * 4 + 16) / prof.PEAK_BYTES_PER_S * 1e3)
     assert bound["bound_by"] == "bytes"
     assert bound["bound_operations_ms"] == pytest.approx(
-        5 * cs.K10_OPS_PER_STEP / cs.PEAK_INT32_OPS_PER_S * 1e3)
+        5 * prof.K10_OPS_PER_STEP / prof.PEAK_INT32_OPS_PER_S * 1e3)
     assert bound["bound_ms"] == bound["bound_bytes_ms"]

@@ -47,11 +47,13 @@ from . import levenshtein
 from . import parallel
 
 from .hamming import (
+    hamming as hamming_fn,
     hamming_batch,
     hamming_search,
     hamming_search_sharded,
 )
 from .levenshtein import (
+    levenshtein as levenshtein_fn,
     levenshtein_exp,
     levenshtein_exp_batch,
     levenshtein_k_batch,

@@ -2,7 +2,7 @@
 kernels and of the headline Myers kernels.
 
     python3 -m triple_accel_tpu_torch.benches.band_sass [--kernel band
-        blocked diag myers_distance myers_search trace_walk]
+        blocked diag flat myers_distance myers_search trace_walk]
 
 Builds the kernels (`utils/build.py`), reads what `-Xptxas -v` reports for
 every instantiation of the kernels named (registers, stack frame and
@@ -27,9 +27,15 @@ instructions a row or column and their shared-memory, global-memory,
 add-with-carry, funnel-shift and 3-input-logic instructions; every
 innermost loop besides.  `trace_walk` (`trace_walk_kernel`, K10): every
 innermost loop (the walker's step loop among them) with those counts,
-its branches and convergence barriers (BSSY).  One JSON line per
-instantiation (per loop for the column loops).  Needs the CUDA toolkit
-(`nvcc`, `cuobjdump`); no device.
+its branches and convergence barriers (BSSY).  `flat`
+(`flat_kernel<SEARCH, TRANS, C>`, K8 with SEARCH, K9 without): the row
+loop, the innermost loop that shuffles once the spin loops of its
+hand-over waits (loops holding no shuffle) are set aside, with the
+instructions of a lane's C columns and a cell, its spin loops and the
+`_loop_counts` above.  One JSON line per instantiation (per loop for the
+column loops).  The SASS and the compiler's report come from
+`utils/inspect_ir.py`.  Needs the CUDA toolkit (`nvcc`, `cuobjdump`); no
+device.
 """
 
 from __future__ import annotations
@@ -39,35 +45,12 @@ import collections
 import json
 import os
 import re
-import subprocess
 import sys
 
-from ..utils import build
+from ..utils import build, inspect_ir
 
 _INSN = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z0-9_.]+)"
                    r"([^;]*);")
-
-
-def _ptxas(log: str) -> dict:
-    """Mangled entry name -> registers, stack frame and spill bytes,
-    barriers."""
-    out, cur = {}, None
-    for line in log.splitlines():
-        m = re.search(r"Compiling entry function '([^']+)'", line)
-        if m:
-            cur = m.group(1)
-            out[cur] = {}
-        elif cur and "spill stores" in line:
-            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
-            out[cur]["stack_frame_bytes"] = nums[0]
-            out[cur]["spill_store_bytes"] = nums[1]
-            out[cur]["spill_load_bytes"] = nums[2]
-        elif cur and "Used" in line and "registers" in line:
-            out[cur]["registers"] = int(
-                re.search(r"Used (\d+) registers", line).group(1))
-            bar = re.search(r"used (\d+) barriers", line)
-            out[cur]["barriers"] = int(bar.group(1)) if bar else 0
-    return out
 
 
 def _ops(body: str):
@@ -133,6 +116,32 @@ def _column_loops(body: str, shuffles_a_step: int) -> list:
         out.append({"steps": steps, **c,
                     "instructions_a_step": round(c["instructions"]
                                                  / max(steps, 1), 1)})
+    return out
+
+
+def _row_loops(body: str, cols: int) -> list:
+    """The loops that shuffle and hold no smaller loop that shuffles (the
+    spin loops inside them hold no shuffle): their counts, the spin loops
+    inside, and the instructions of a lane's `cols` columns a cell."""
+    ops = _ops(body)
+    backs = [(tgt, a) for a, op, tgt, _ in ops
+             if op.startswith("BRA") and tgt is not None and tgt < a]
+
+    def shuffles(lo, hi):
+        return any(lo <= x[0] < hi and x[1].startswith("SHFL") for x in ops)
+
+    holders = [(lo, hi) for lo, hi in backs if shuffles(lo, hi)]
+    out = []
+    for lo, hi in sorted(holders):
+        if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+               for l2, h2 in holders):
+            continue
+        c = _loop_counts(ops, lo, hi)
+        spins = sum(1 for l2, h2 in backs
+                    if lo <= l2 and h2 < hi and (l2, h2) != (lo, hi))
+        out.append({"at": hex(lo), **c, "spin_loops": spins,
+                    "instructions_a_cell": round(c["instructions"] / cols,
+                                                 1)})
     return out
 
 
@@ -205,7 +214,7 @@ def _straight_bodies(body: str, steps_of, keep: int = 2) -> dict:
 
 # the kernel each --kernel choice names (its mangled names hold it)
 _KERNELS = {"band": "band_kernel", "blocked": "blocked_kernel",
-            "diag": "search_diag_kernel",
+            "diag": "search_diag_kernel", "flat": "flat_kernel",
             "myers_distance": "myers_distance_kernel",
             "myers_search": "myers_search_kernel",
             "trace_walk": "trace_walk_kernel"}
@@ -221,18 +230,13 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     build.load_kernels(rebuild=True)
     info = build.build_info()
-    regs = _ptxas(info["compiler_output"])
-    tool = os.path.join(os.path.dirname(build.find_nvcc()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", info["path"]], capture_output=True,
-                          text=True, check=True).stdout
+    regs = inspect_ir.ptxas_resources(info["compiler_output"])
     if args.dump:
         os.makedirs(args.dump, exist_ok=True)
         with open(os.path.join(args.dump, "ptxas.txt"), "w") as fh:
             fh.write(info["compiler_output"])
-    for part in re.split(r"\n\s+Function : ", sass)[1:]:
-        name = part.split("\n", 1)[0].strip()
-        demangled = subprocess.run(["c++filt", name], capture_output=True,
-                                   text=True).stdout.strip().split("(")[0]
+    for fn in inspect_ir.sass_functions(info["path"]):
+        name, demangled, part = fn["name"], fn["kernel"], fn["sass"]
         for kind in args.kernel:
             if kind == "band":
                 if "band_kernel" not in name and "band_wide_kernel" not in name:
@@ -252,6 +256,10 @@ def main(argv=None) -> int:
                         round(c["shared_loads"] / w), 1))
                 rec = {"kernel": demangled, **regs.get(name, {}),
                        **_straight_bodies(part, steps_of)}
+            elif kind == "flat" and _KERNELS[kind] in name:
+                cols = int(re.search(r"(\d+)>$", demangled).group(1))
+                rec = {"kernel": demangled, **regs.get(name, {}),
+                       "row_loops": _row_loops(part, cols)}
             elif kind == "trace_walk" and _KERNELS[kind] in name:
                 rec = {"kernel": demangled, **regs.get(name, {}),
                        "innermost_loops": _inner_loops(part)}

@@ -54,6 +54,8 @@ import sys
 import numpy as np
 import torch
 
+from ..utils import profiling as prof
+
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -185,12 +187,12 @@ def time_k4(cs, dev, ms) -> dict:
     return out
 
 
-def walk_lengths(cs, res) -> torch.Tensor:
+def walk_lengths(res) -> torch.Tensor:
     """Steps each pair walked, from what a version's `trace_walk` returns:
-    (runs, counts) (`chip_smoke.walk_lengths`), or the step-major
+    (runs, counts) (`utils.profiling.walk_lengths`), or the step-major
     versions' (seq int8 [B, steps], steps)."""
     if isinstance(res[1], torch.Tensor):
-        return cs.walk_lengths(*res)
+        return prof.walk_lengths(*res)
     return (res[0] >= 0).sum(dim=1)
 
 
@@ -269,7 +271,7 @@ def time_k10(cs, dev, ms) -> dict:
     for name, codes, t, unit_k in traced_cells(cs, dev):
         out[name] = ms(lambda: tw.trace_walk(codes, *t, unit_k=unit_k), 9)
         res = tw.trace_walk(codes, *t, unit_k=unit_k)
-        lens = walk_lengths(cs, res)
+        lens = walk_lengths(res)
         p = int(lens.argmax())
         steps = int(lens[p])
         alone = {}

@@ -23,10 +23,12 @@ from dataclasses import dataclass
 import torch
 
 from .oracle.levenshtein import compute_max_k, compute_unit_k  # re-export
+from .types import EditCosts
 
 __all__ = [
     "compute_max_k",
     "compute_unit_k",
+    "dispatch_unit_k",
     "select_cost_bucket",
     "forced_path",
     "debug_dispatch",
@@ -44,6 +46,16 @@ _COST_BUCKETS = (
     ("u16", (1 << 16) - 2),
     ("u32", (1 << 32) - 2),
 )
+
+
+def dispatch_unit_k(a_len: int, b_len: int, k: int, costs: EditCosts) -> int:
+    """Band half-width as computed by the SIMD dispatcher.
+
+    Unlike the scalar core's unit_k, the dispatcher additionally caps at
+    max_len (reference levenshtein.rs:760-763).
+    """
+    max_k = compute_max_k(a_len, b_len, k, costs)
+    return min(compute_unit_k(max_k, costs), max(a_len, b_len))
 
 
 def select_cost_bucket(max_k: int) -> str:

@@ -122,9 +122,15 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     t0 = time.perf_counter()
     built = False
     log = ""
+    log_path = lib_path[:-len(".so")] + ".log"
     if rebuild or not os.path.exists(lib_path):
         log = _build(lib_path)
         built = True
+        with open(log_path, "w") as fh:  # the report, for a later load
+            fh.write(log)
+    elif os.path.exists(log_path):
+        with open(log_path) as fh:
+            log = fh.read()
     lib = ctypes.CDLL(lib_path)
     vp, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
     lib.ta_myers_distance.restype = ctypes.c_int
@@ -191,7 +197,9 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
 
 def build_info() -> dict:
     """What the last `load_kernels()` did: library path, whether it was
-    built in this process, seconds taken, sources, compiler output."""
+    built in this process, seconds taken, sources, compiler output (that
+    of the build that made the library, also when it was loaded from the
+    build directory)."""
     return dict(_INFO)
 
 
