@@ -49,6 +49,16 @@ each against its plain PyTorch version on the card:
   10,064, the longest b rounded up to 16: the traced band kernel's
   cluster regime, then the same walk), and one single-pair call of the
   same kind;
+* `band_wide`: the band kernels' block regime (bands of 545 - 9,281
+  cells) through the entry points: `levenshtein_k_batch` on 4,096 pairs of
+  5,000 ACGT bytes with 10% edits at k = 1000 (band 2,049), unit costs,
+  then restricted-Damerau with 1% adjacent swaps; the first 512 of them
+  traced (band 2,017, then the walk and the decode); 256 pairs of 20,000
+  bytes with 5% edits at k = 4000 under affine costs (2, 1, 2) (band
+  8,193); `levenshtein()` and `rdamerau()` on one pair of 1,900 bytes
+  (band 4,097); and once the traced kernel's device-memory regime (2
+  pairs of 90,000 bytes, 2% edits, k = 5000: b past the cluster's
+  columns), held against the plain version on a 2,000-byte prefix;
 * `hamming`: `hamming_batch` on the distance pairs and a Hamming search of
   the search needle over the 128 MiB haystack (plain PyTorch ops: the JAX
   package has no hand-written kernel there either);
@@ -119,6 +129,24 @@ TRACE_PAIRS = 8192
 PAST_PLAN_PAIRS, PAST_PLAN_LEN = 128, 10_000
 PAST_PLAN_EDIT_SHARE, PAST_PLAN_SWAP_SHARE = 0.10, 0.01
 PAST_PLAN_PLAIN_PAIRS, PLAIN_WALK_PAIRS = 2, 64
+# the wide-band phase (sizes of the full run): K3 / K4's block regime
+# through the entry points a user calls.  (a) ACGT pairs with 10% edits
+# at k = 1000 (band 2,049), unit costs, then rDamerau with 1% adjacent
+# swaps added; (b) the first of them traced (band 2,017); (c) long pairs
+# with 5% edits under affine costs at k = 4000 (band 8,193, the untraced
+# regime's widest); (d) one pair through `levenshtein()` / `rdamerau()`
+# (band 4,097); (e) the device-memory regime once: 2 traced pairs past
+# the cluster regime's columns, held against the plain version on a
+# prefix of WIDE_DEEP_CUT bytes.  The compiled comparators check the
+# first WIDE_NATIVE_PAIRS pairs of every untraced case (unit costs: all
+# pairs), on CPU threads beside the card's work.
+WIDE_PAIRS, WIDE_LEN, WIDE_EDIT_SHARE, K_WIDE = 4096, 5000, 0.10, 1000
+WIDE_SWAP_SHARE, WIDE_TRACE_PAIRS = 0.01, 512
+WIDE_AFFINE = (256, 20_000, 0.05, 4000)  # pairs, bytes, edit share, k
+WIDE_FRONT = (1900, 0.10)  # bytes, edit share
+WIDE_DEEP = (2, 90_000, 0.02, 5000)  # pairs, bytes, edit share, k
+WIDE_DEEP_CUT = 2000
+WIDE_NATIVE_PAIRS, WIDE_PLAIN_PAIRS = 64, 2
 # K10's longest walk alone is timed with L2 warm and with L2 emptied
 # before each launch by writing K10_FLUSH_BYTES (L2 is 50 MB)
 K10_FLUSH_BYTES = 256 << 20
@@ -871,6 +899,42 @@ def band_lane_cases():
     return sorted(set(cases))
 
 
+def band_block_cases():
+    """(band W, cells a lane, warps a pair) for the block regime of the
+    band kernel: one cell short of a warp's cells at 1, 2, 3, 16, 17 and
+    18 warps (the two launch bounds' edges), one cell into the last of
+    them (bands up to MAX_WIDE_BAND), and the maps
+    the plan picks for the bands past 544 cells that `levenshtein_k_batch`
+    and the front door run (2^k + 1 untraced; traced 2,017 and 9,281, the
+    widest) at a one-pair and at a full batch."""
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    cases = []
+    for c in lb.BLOCK_CELLS:
+        for nw in range(1, lb.BLOCK_MAX_WARPS[c] + 1):
+            if nw not in (1, 2, 3, 16, 17, 18):
+                continue
+            cases.append((32 * c * nw - 1, c, nw))
+            if nw > 1:
+                cases.append((32 * c * (nw - 1) + 1, c, nw))
+    # the plan takes no band past MAX_WIDE_BAND (a wrapper refuses it)
+    cases = [x for x in cases if x[0] <= lb.MAX_WIDE_BAND]
+    for W in (545, 1025, 2017, 2049, 4097, 8193, 9281):
+        for batch in (1, None):
+            plan = lb.band_plan(8, (W - 1) // 2, batch=batch)
+            cases.append((W, plan["cells_per_lane"], plan["warps_per_pair"]))
+    return sorted(set(cases))
+
+
+def block_plan(max_m: int, unit_k: int, cells: int, warps: int) -> dict:
+    """A block-regime plan of the band kernel at a given map."""
+    from triple_accel_tpu_torch.ops.lev_band import band_plan
+
+    return dict(band_plan(max_m, 272), regime="wide",
+                cells_per_lane=cells, lanes_per_pair=32 * warps,
+                warps_per_pair=warps, threads=32 * warps, pairs_per_block=1)
+
+
 def lane_plan(max_m: int, unit_k: int, cells: int, lanes: int,
               threads: int) -> dict:
     """A warp-regime plan of the band kernel at a given lane map."""
@@ -932,8 +996,9 @@ def pair_runs(runs: torch.Tensor, counts: torch.Tensor, p: int):
 def check_band_kernels(dev):
     """The band kernels over a seeded grid of cost models, band widths and
     lengths: the short regime, the long one (rows >= 16384, band 513), the
-    wide regime (bands 1025 and 8193, the widest the plan takes: 200 KB of
-    dynamic shared memory a block), the traced kernel's device-memory
+    block regime (bands 1025 and 8193 at the plan's maps, then every map
+    of `band_block_cases` on its warp edges, with swaps on the diagonals
+    of the warp edges), the traced kernel's device-memory
     regime (forced onto bands 65, 1025 and 16,385; its cluster regime has
     `check_band_cluster`), and every lane map of the warp
     regime at its lane and group edges (`band_lane_cases`), at a batch
@@ -952,7 +1017,7 @@ def check_band_kernels(dev):
     short = [(4, 64, 2048), (32, 1024, 1024), (100, 700, 512),
              (512, 2000, 96)]
     long_ = [(256, 16_400, 16)]
-    wide = [(MAX_UNIT_K, 1500, 12)]
+    wide = [(512, 1100, 12), (MAX_UNIT_K, 1500, 12)]
     cases = {"short": 0, "long": 0, "wide": 0}
     worst = 0
     for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS, EditCosts(*AFFINE),
@@ -1006,6 +1071,30 @@ def check_band_kernels(dev):
                             f"costs={ct} unit_k={unit_k} max_m={max_m}")
             cases["device_memory"] += 1
             del got_codes, ref_codes
+    cases["block_edges"] = 0
+    for q, (W, cells, warps) in enumerate(band_block_cases()):
+        unit_k, max_m = (W - 1) // 2, 60
+        ct = costs_tuple((RDAMERAU_COSTS, EditCosts(*AFFINE))[q % 2])
+        a_list, b_list = band_cases(rng, 24, max_m, unit_k)
+        a_e, b_e = lane_edge_pairs(rng, unit_k, 32 * cells, max_m)
+        t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k, max_m,
+                                 device=dev)
+        plan = block_plan(max_m, unit_k, cells, warps)
+        got_d = band_distance(*t, unit_k=unit_k, costs_t=ct, plan=plan)
+        got_dt, got_codes = band_trace(*t, unit_k=unit_k, costs_t=ct,
+                                       plan=plan)
+        torch.cuda.synchronize()
+        ref_d, ref_codes = band_scan_distance(
+            *t, unit_k=unit_k, costs_t=ct, trace_on=True)
+        err = max(
+            band_errors(got_d, None, ref_d, None, t, unit_k, False),
+            band_errors(got_dt, got_codes, ref_d, ref_codes, t, unit_k,
+                        walk=True))
+        worst = max(worst, err)
+        check(err == 0, f"band kernels != plain at costs={ct} W={W} "
+                        f"{warps} warps x 32 lanes x {cells} cells")
+        cases["block_edges"] += 2
+        del got_codes, ref_codes
     cases["lane_edges"] = 0
     for q, (W, cells, lanes) in enumerate(band_lane_cases()):
         unit_k, max_m = (W - 1) // 2, 60
@@ -1217,7 +1306,7 @@ def check_trace_walk_kernel(dev):
     """The walk kernel K10 against its plain version (`trace_walk_plain`):
     every pair's run count and packed runs, at the plan's launch shape and
     at WALK_CHECK_PLANS.  On codes from K4 in each of its regimes (warp,
-    wide in shared memory, device memory at a forced narrow plan and at
+    block, device memory at a forced narrow plan and at
     band 16,385, the cluster regime at band 16,385 as the plan gives it),
     under a cost model with transpositions and one without: edited pairs
     with m = 0 and empty pairs (`band_cases`), walks along band cells 0,
@@ -2975,13 +3064,16 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
                                                      unit_k, ct)
     plan = lb.band_plan(rows, unit_k, traced, batch=len(a_list),
                         max_n=int(n_arr.max(initial=0)))
-    wide = (f"band_wide_kernel<*, {str(traced).lower()}, "
-            f"{str(plan['regime'] == 'wide_global').lower()}>")
-    kernel = {"warp": f"band_kernel<*, {str(traced).lower()}, "
-                      f"{plan['cells_per_lane']}>",
-              "wide_cluster": "band_cluster_kernel<*>"}
+    tr = str(traced).lower()
+    kernel = {"warp": f"band_kernel<*, {tr}, {plan['cells_per_lane']}>",
+              "wide_cluster": "band_cluster_kernel<*>",
+              "wide_global": f"band_wide_kernel<*, {tr}>",
+              # a version without the block regime: the shared-memory body
+              "wide": (f"band_block_kernel<*, {tr}, {plan['cells_per_lane']}>"
+                       if hasattr(lb, "BLOCK_CELLS")
+                       else f"band_wide_kernel<*, {tr}, false>")}
     entry = {
-        "kernel": kernel.get(plan["regime"], wide),
+        "kernel": kernel[plan["regime"]],
         "max_abs_err": err, "ms": times[0], "ms_min": times[1],
         "ms_max": times[2], "plain_ms": plain_ms, "library_ms": None,
         **{k_: bound[k_] for k_ in ("bound_ms", "bound_by", "bound_bytes_ms",
@@ -3040,35 +3132,15 @@ def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
                       native_loaded: bool, scale: float):
     """General-cost distances without traceback, short and long regime."""
     import triple_accel_tpu_torch as tt
-    from triple_accel_tpu_torch.dispatch import dispatch_history
     from triple_accel_tpu_torch.ops import lev_band as lb
     from triple_accel_tpu_torch.ops import myers_distance as md
     from triple_accel_tpu_torch.utils.native import (
         scalar_banded_batch_native)
 
-    def drive(a_l, b_l, k, costs, what):
-        dispatch_history(clear=True)
-        lb.band_distance.launches = 0  # 0 just before the path ...
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = tt.levenshtein_k_batch(a_l, b_l, k, costs)
-        torch.cuda.synchronize()
-        e2e_s = time.perf_counter() - t0
-        launches = lb.band_distance.launches  # ... read just after it
-        hist = dispatch_history()
-        check(launches >= 1, f"{what}: no band_distance kernel launched")
-        check({d.path for _, d in hist} == {"band"},
-              f"{what}: dispatch took {[d.path for _, d in hist]}")
-        check(out.shape == (len(a_l),) and out.dtype == np.int64,
-              f"{what}: result has the wrong shape or type")
-        check(bool(((out >= 0) & (out <= k)).all()),
-              f"{what}: an edited pair came back outside [0, {k}]")
-        return out, e2e_s, launches, hist[-1][1]
-
     # short regime: the distance phase's pairs, adjacent swaps added
     n_pairs = len(a_list)
-    out, e2e_s, launches, dec = drive(a_list, b_swapped, K_DIST,
-                                      tt.RDAMERAU_COSTS, "band_distance")
+    out, e2e_s, launches, dec = drive_untraced(
+        a_list, b_swapped, K_DIST, tt.RDAMERAU_COSTS, "band_distance")
     n_oracle = oracle_sample(a_list, b_swapped, K_DIST, tt.RDAMERAU_COSTS,
                              out, None, 64, "band_distance")
     plain_lev = tt.levenshtein_k_batch(a_list[:4096], b_swapped[:4096],
@@ -3108,8 +3180,8 @@ def run_band_distance(dev, a_list, b_swapped, k1_pairs, k1_out,
     la_list, lb_list = make_edited_pairs(n_long, LONG_LEN, 40, 16, seed=99)
     gen_s = time.perf_counter() - t0
     affine = tt.EditCosts(*AFFINE)
-    out, e2e_s, launches, dec = drive(la_list, lb_list, K_LONG, affine,
-                                      "band_distance (long)")
+    out, e2e_s, launches, dec = drive_untraced(la_list, lb_list, K_LONG,
+                                               affine, "band_distance (long)")
     check(dec.unit_k == 256 and dec.padded_m >= 16_384,
           f"long regime ran at unit_k={dec.unit_k} rows={dec.padded_m}")
     if native_loaded:
@@ -3362,8 +3434,7 @@ def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
           f"{exp_paths}")
     split = band_trace_split(a_list, b_list, U32_MAX, costs, out, traces)
     # kernel only, at the tensors the main path gives it (m <= n)
-    sa = [a if len(a) <= len(b) else b for a, b in zip(a_list, b_list)]
-    sb = [b if len(a) <= len(b) else a for a, b in zip(a_list, b_list)]
+    sa, sb = shorter_first(a_list, b_list)
     numbers, phase, walk = band_kernel_only(
         dev, sa, sb, dec, costs, True, out, 3,
         plain_pairs=PAST_PLAN_PLAIN_PAIRS, walk_reps=5)
@@ -3389,6 +3460,311 @@ def run_band_trace_past_plan(dev, scale: float, native_loaded: bool):
                            "triple_accel_tpu/ops/band_scan.py:233 "
                            "band_trace_batch (XLA scan past W 2048)"))),
             walk_entry("trace_walk_past_plan", walks, walk)]
+
+
+def native_beside(pool, fn, a_l, b_l, *args, parts: int = 6):
+    """A compiled comparator `fn(a, b, *args)` over the pairs, in `parts`
+    slices on the threads of `pool` (the library releases the GIL), so it
+    runs beside the card's work (not beside a timed end-to-end call: its
+    packing holds the GIL); returns a function that joins the slices (None
+    where the library is missing)."""
+    step = max(1, -(-len(a_l) // parts))
+    futs = [pool.submit(fn, a_l[i:i + step], b_l[i:i + step], *args)
+            for i in range(0, len(a_l), step)]
+
+    def join():
+        got = [f.result() for f in futs]
+        return None if any(g is None for g in got) else np.concatenate(got)
+
+    return join
+
+
+def shorter_first(a_l, b_l):
+    """The pairs as the entry points hand them to the kernel: m <= n."""
+    return ([a if len(a) <= len(b) else b for a, b in zip(a_l, b_l)],
+            [b if len(a) <= len(b) else a for a, b in zip(a_l, b_l)])
+
+
+def drive_untraced(a_l, b_l, k: int, costs, name: str):
+    """One untraced call of `levenshtein_k_batch` with K3's launch count set
+    to 0 just before it and read just after: (distances, e2e seconds,
+    launches, the dispatch decision).  Checks the route (`band`) and that
+    every pair came back as an int64 distance within the threshold."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    dispatch_history(clear=True)
+    lb.band_distance.launches = 0  # 0 just before the path ...
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tt.levenshtein_k_batch(a_l, b_l, k, costs)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    launches = lb.band_distance.launches  # ... read just after it
+    hist = dispatch_history()
+    check(launches >= 1 and {d.path for _, d in hist} == {"band"},
+          f"{name}: {launches} launches over {[d.path for _, d in hist]}")
+    check(out.shape == (len(a_l),) and out.dtype == np.int64,
+          f"{name}: result has the wrong shape or type")
+    check(bool(((out >= 0) & (out <= k)).all()),
+          f"{name}: an edited pair came back outside [0, {k}]")
+    return out, e2e_s, launches, hist[-1][1]
+
+
+def run_band_wide(dev, scale: float, native_loaded: bool):
+    """K3 / K4's block regime (bands of 545 - 9,281 cells) through the entry
+    points, cases (a) - (d) of WIDE_*, then K4's device-memory regime once
+    (e).  Every distance within the threshold and every trace is checked;
+    returns the `kernels` entries."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import dispatch_history
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+    from triple_accel_tpu_torch.utils.native import (
+        myers_distance_batch_native, scalar_banded_batch_native)
+
+    t_phase = time.perf_counter()
+    pool = ThreadPoolExecutor(max_workers=6)
+    entries = []
+
+    def pow2(x):  # the untraced engines' band: unit_k up to a power of two
+        return 1 << (x - 1).bit_length()
+
+    def plan_of(dec, n_pairs, traced, max_n):
+        plan = lb.band_plan(dec.padded_m, dec.unit_k, traced, batch=n_pairs,
+                            max_n=max_n)
+        return {k_: plan[k_] for k_ in ("regime", "cells_per_lane",
+                                        "warps_per_pair", "threads")}
+
+    # (a) unit costs, then rDamerau with swaps, band 2,049
+    n_a = max(64, int(WIDE_PAIRS * scale))
+    t0 = time.perf_counter()
+    a_l, b_l = make_long_pairs(n_a, WIDE_LEN, WIDE_EDIT_SHARE, seed=6060)
+    b_sw = swap_adjacent_list(b_l, WIDE_SWAP_SHARE,
+                              np.random.default_rng(6061))
+    gen_s = time.perf_counter() - t0
+    for costs, b_rows, name in ((tt.LEVENSHTEIN_COSTS, b_l,
+                                 "band_distance_wide"),
+                                (tt.RDAMERAU_COSTS, b_sw,
+                                 "band_distance_wide_rdamerau")):
+        unit = costs == tt.LEVENSHTEIN_COSTS
+        out, e2e_s, launches, dec = drive_untraced(a_l, b_rows, K_WIDE,
+                                                   costs, name)
+        # the comparators start after the timed call, beside the kernel's
+        if unit:
+            ref = native_beside(pool, myers_distance_batch_native, a_l,
+                                b_rows, K_WIDE)
+        else:
+            ref = native_beside(pool, scalar_banded_batch_native,
+                                a_l[:WIDE_NATIVE_PAIRS],
+                                b_rows[:WIDE_NATIVE_PAIRS], K_WIDE, costs)
+        plan = plan_of(dec, n_a, False, WIDE_LEN * 2)
+        check(dec.unit_k == pow2(K_WIDE) and plan["regime"] == "wide",
+              f"{name}: unit_k {dec.unit_k}, plan {plan}")
+        sa, sb = shorter_first(a_l, b_rows)
+        numbers, phase, _ = band_kernel_only(
+            dev, sa, sb, dec, costs, False, out, 7,
+            plain_pairs=WIDE_PLAIN_PAIRS)
+        got = ref()
+        if native_loaded:
+            check(got is not None and np.array_equal(out[:len(got)], got),
+                  f"{name}: != the compiled comparator")
+        entries.append(band_entry(name, "wide", False, "402", launches,
+                                  numbers))
+        emit({"phase": "band_wide", "case": "a", "name": name,
+              "pairs": n_a, "str_len": WIDE_LEN, "k": K_WIDE,
+              "costs": "LEVENSHTEIN_COSTS" if unit else "RDAMERAU_COSTS",
+              "reference": (("myers_distance_batch_native, every pair"
+                             if unit else
+                             f"ta_scalar_banded_batch, the first "
+                             f"{WIDE_NATIVE_PAIRS} pairs")
+                            if native_loaded else "none (no native library)"),
+              "datagen_s": round(gen_s, 2), "e2e_s": round(e2e_s, 4),
+              "pairs_per_s_e2e": round(n_a / e2e_s, 1),
+              "pairs_per_s_kernel": round(n_a / (numbers["ms"] * 1e-3), 1),
+              "launches": launches, **plan, **phase})
+
+    # (b) the first pairs of (a) traced, rDamerau, band 2,017
+    n_b = max(32, int(WIDE_TRACE_PAIRS * scale))
+    ta_l, tb_l = a_l[:n_b], b_sw[:n_b]
+    name = "band_trace_wide"
+    out, traces, e2e_s, launches, walks, dec = drive_traced(
+        ta_l, tb_l, K_WIDE, tt.RDAMERAU_COSTS, name, "band_trace")
+    plan = plan_of(dec, n_b, True, WIDE_LEN * 2)
+    check(dec.unit_k == -(-K_WIDE // 16) * 16 and plan["regime"] == "wide",
+          f"{name}: unit_k {dec.unit_k}, plan {plan}")
+    split = band_trace_split(ta_l, tb_l, K_WIDE, tt.RDAMERAU_COSTS, out,
+                             traces)
+    ref = native_beside(pool, scalar_banded_batch_native,
+                        ta_l[:WIDE_NATIVE_PAIRS], tb_l[:WIDE_NATIVE_PAIRS],
+                        K_WIDE, tt.RDAMERAU_COSTS)
+    sa, sb = shorter_first(ta_l, tb_l)
+    numbers, phase, walk = band_kernel_only(
+        dev, sa, sb, dec, tt.RDAMERAU_COSTS, True, out, 7,
+        plain_pairs=WIDE_PLAIN_PAIRS, walk_reps=5)
+    got = ref()
+    if native_loaded:
+        check(got is not None and np.array_equal(out[:len(got)], got),
+              f"{name}: != the compiled comparator")
+    entries.append(band_entry(name, "wide", True, "773", launches, numbers))
+    entries.append(walk_entry("trace_walk_wide", walks, walk))
+    emit({"phase": "band_wide", "case": "b", "name": name, "pairs": n_b,
+          "str_len": WIDE_LEN, "k": K_WIDE, "costs": "RDAMERAU_COSTS",
+          "traces_replayed": n_b, "launches": launches,
+          "walk_launches": walks, "e2e_s": round(e2e_s, 4),
+          "pairs_per_s_e2e": round(n_b / e2e_s, 1),
+          "pairs_per_s_kernel": round(n_b / (numbers["ms"] * 1e-3), 1),
+          "e2e_split_s": split, **plan, **phase})
+
+    # (c) affine costs at k = 4000, band 8,193
+    n_c, length, share, k_c = WIDE_AFFINE
+    n_c = max(16, int(n_c * scale))
+    affine = tt.EditCosts(*AFFINE)
+    name = "band_distance_wide_affine"
+    t0 = time.perf_counter()
+    a_l, b_l = make_long_pairs(n_c, length, share, seed=6062)
+    gen_s = time.perf_counter() - t0
+    out, e2e_s, launches, dec = drive_untraced(a_l, b_l, k_c, affine, name)
+    ref = native_beside(pool, scalar_banded_batch_native,
+                        a_l[:WIDE_NATIVE_PAIRS], b_l[:WIDE_NATIVE_PAIRS],
+                        k_c, affine)
+    plan = plan_of(dec, n_c, False, length * 2)
+    # affine (2, 1, 2): unit_k = (k - start) / gap
+    check(dec.unit_k == pow2(k_c - 2) and plan["regime"] == "wide",
+          f"{name}: unit_k {dec.unit_k}, plan {plan}")
+    sa, sb = shorter_first(a_l, b_l)
+    numbers, phase, _ = band_kernel_only(dev, sa, sb, dec, affine, False,
+                                         out, 7, plain_pairs=WIDE_PLAIN_PAIRS)
+    got = ref()
+    if native_loaded:
+        check(got is not None and np.array_equal(out[:len(got)], got),
+              f"{name}: != the compiled comparator")
+    entries.append(band_entry(name, "wide", False, "402", launches, numbers))
+    emit({"phase": "band_wide", "case": "c", "name": name, "pairs": n_c,
+          "str_len": length, "k": k_c, "costs": list(AFFINE),
+          "datagen_s": round(gen_s, 2), "e2e_s": round(e2e_s, 4),
+          "pairs_per_s_e2e": round(n_c / e2e_s, 1),
+          "pairs_per_s_kernel": round(n_c / (numbers["ms"] * 1e-3), 1),
+          "launches": launches, **plan, **phase})
+
+    # (d) the front door on one pair, band 4,097
+    length, share = WIDE_FRONT
+    (a,), (b,) = make_long_pairs(1, length, share, seed=6063)
+    b_swp = swap_adjacent_list([b], WIDE_SWAP_SHARE,
+                               np.random.default_rng(6064))[0]
+    for fn, costs, y, ref_fn in (
+            (tt.levenshtein, tt.LEVENSHTEIN_COSTS, b,
+             lambda: myers_distance_batch_native([a], [b], U32_MAX)),
+            (tt.rdamerau, tt.RDAMERAU_COSTS, b_swp,
+             lambda: scalar_banded_batch_native([a], [b_swp], U32_MAX,
+                                                tt.RDAMERAU_COSTS))):
+        secs = []
+        for _ in range(5):
+            dispatch_history(clear=True)
+            lb.band_distance.launches = 0  # 0 just before the path ...
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            d = fn(a, y)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            launches = lb.band_distance.launches  # ... read just after it
+            hist = dispatch_history()
+            check(launches == 1 and [h.path for _, h in hist] == ["band"],
+                  f"front door {fn.__name__}: {launches} launches over "
+                  f"{[h.path for _, h in hist]}")
+        dec = hist[-1][1]
+        plan = plan_of(dec, 1, False, max(len(a), len(y)))
+        check(dec.unit_k == pow2(max(len(a), len(y)))
+              and plan["regime"] == "wide",
+              f"front door {fn.__name__}: unit_k {dec.unit_k}, plan {plan}")
+        if native_loaded:
+            exp = ref_fn()
+            check(exp is not None and int(exp[0]) == d,
+                  f"front door {fn.__name__}: {d} != comparator {exp}")
+        sa, sb = shorter_first([a], [y])
+        numbers, phase, _ = band_kernel_only(
+            dev, sa, sb, dec, costs, False, np.array([d]), 15)
+        emit({"phase": "band_wide", "case": "d",
+              "name": f"front_door_{fn.__name__}", "pairs": 1,
+              "str_len": [len(a), len(y)], "distance": d,
+              "e2e_s": round(statistics.median(secs), 4),
+              "e2e_s_first": round(secs[0], 4), "launches": launches,
+              "kernel_ms": round(numbers["ms"], 4),
+              "kernel_ms_min_max": [round(numbers["ms_min"], 4),
+                                    round(numbers["ms_max"], 4)],
+              "bound_ms": numbers["bound_ms"],
+              "note": "one pair: latency-bound, no roofline applies",
+              **plan, **phase})
+
+    # (e) the device-memory regime once: b past the cluster's columns
+    n_e, length, share, k_e = WIDE_DEEP
+    name = "band_trace_device_memory"
+    a_l, b_l = make_long_pairs(n_e, length, share, seed=6065)
+    out, traces, e2e_s, launches, walks, dec = drive_traced(
+        a_l, b_l, k_e, tt.RDAMERAU_COSTS, name, "band_trace_global")
+    sa, sb = shorter_first(a_l, b_l)
+    plan = lb.band_plan(dec.padded_m, dec.unit_k, True, batch=n_e,
+                        max_n=max(len(x) for x in sb))
+    check(plan["regime"] == "wide_global", f"{name}: plan {plan}")
+    mc.blocked_distance.launches = 0
+    untraced = tt.levenshtein_k_batch(a_l, b_l, k_e, tt.RDAMERAU_COSTS)
+    check(mc.blocked_distance.launches >= 1,
+          f"{name}: the untraced call did not take K5")
+    check(np.array_equal(untraced, out),
+          f"{name}: traced distances != the untraced call's (K5)")
+    ct = costs_tuple(tt.RDAMERAU_COSTS)
+    t = lb.prepare_band_tensors(sa, sb, dec.unit_k, dec.padded_m, device=dev)
+    kw = dict(unit_k=dec.unit_k, costs_t=ct)
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    got_d, got_codes = lb.band_trace(*t, **kw)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    check(np.array_equal(got_d.cpu().numpy().astype(np.int64), out),
+          f"{name}: kernel-only rerun != main path result")
+    bound = prof.k4_bound(t[2].cpu().numpy(), t[3].cpu().numpy(),
+                          dec.unit_k, ct)
+    del got_codes, t
+    # the same launch shape against the plain version on a prefix
+    cut = lb.prepare_band_tensors(
+        [x[:WIDE_DEEP_CUT] for x in sa], [y[:WIDE_DEEP_CUT] for y in sb],
+        dec.unit_k, WIDE_DEEP_CUT, device=dev)
+    cut_d, cut_codes = lb.band_trace(*cut, plan=plan, **kw)
+    ref = None
+
+    def run_plain():
+        nonlocal ref
+        from triple_accel_tpu_torch.ops import band_scan as bs
+        ref = bs.band_scan_distance(*cut, trace_on=True, **kw)
+
+    plain_ms = time_once_ms(run_plain)
+    err = band_errors(cut_d, cut_codes, ref[0], ref[1], cut, dec.unit_k,
+                      False)
+    check(err == 0, f"{name}: != plain on the {WIDE_DEEP_CUT}-byte prefix")
+    entries.append(band_entry(name, "wide_global", True, "773", launches, {
+        "kernel": "band_wide_kernel<*, true>", "max_abs_err": err,
+        "ms": ms, "plain_ms": plain_ms,
+        "plain_shape": f"the first {WIDE_DEEP_CUT} bytes of each string, "
+                       "the same band and plan",
+        "library_ms": None,
+        **{k_: bound[k_] for k_ in ("bound_ms", "bound_by", "bound_bytes_ms",
+                                    "bound_operations_ms")}}))
+    emit({"phase": "band_wide", "case": "e", "name": name, "pairs": n_e,
+          "str_len": length, "k": k_e, "costs": "RDAMERAU_COSTS",
+          "unit_k": dec.unit_k, "band_cells": 2 * dec.unit_k + 1,
+          "traces_replayed": n_e, "launches": launches,
+          "walk_launches": walks, "reference": "K5 on every pair",
+          "code_MB": round(n_e * plan["code_bytes_per_pair"] / 1e6, 1),
+          "e2e_s": round(e2e_s, 4), "kernel_ms": round(ms, 4),
+          "plain_ms_at_cut": round(plain_ms, 1),
+          "regime": plan["regime"], "threads": plan["threads"]})
+    pool.shutdown()
+    emit({"phase": "band_wide", "case": "done",
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return entries
 
 
 def run_hamming(dev, a_list, b_list, needle, hay, planted):
@@ -4499,7 +4875,8 @@ def main() -> int:
                                "launches": edge_plan}},
           "band_distance_and_band_trace": {
               "cases_short": b_cases["short"], "cases_long": b_cases["long"],
-              "cases_widest_band": b_cases["wide"],
+              "cases_wide": b_cases["wide"],
+              "cases_block_edges": b_cases["block_edges"],
               "cases_lane_edges": b_cases["lane_edges"],
               "cases_device_memory": b_cases["device_memory"],
               "max_abs_err": b_err},
@@ -4558,6 +4935,12 @@ def main() -> int:
     k4, k10, k4_long, k10_long = run_band_trace(dev, a_list, b_swapped,
                                                 scale)
     k4_past, k10_past = run_band_trace_past_plan(dev, scale, native_loaded)
+    wide = run_band_wide(dev, scale, native_loaded)
+    for entry in wide:
+        entry.update(ok=True, cases=(
+            w_cases if entry["name"].startswith("trace_walk")
+            else b_cases["device_memory"] if entry["regime"] == "wide_global"
+            else (b_cases["wide"] + b_cases["block_edges"]) // 2))
     for entry, regime in ((k3, "short"), (k3_long, "long"), (k4, "short"),
                           (k4_long, "long")):
         entry.update(cases=b_cases[regime] // 2, ok=True)
@@ -4605,7 +4988,8 @@ def main() -> int:
                         (k8, "flat_search"), (k9, "flat_distance")):
         entry["launches_mesh"] = mesh_launches[name]
     emit({"kernels": [k1, k2, k3, k3_long, k4, k4_long, k4_past, k10,
-                      k10_long, k10_past, k5, k6, k6_chunked, k7, k8, k9]})
+                      k10_long, k10_past, *wide, k5, k6, k6_chunked, k7, k8,
+                      k9]})
     print(smi_line(), flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -199,10 +199,14 @@ def _covers_and_fits(plan, W):
         assert plan["pairs_per_block"] * plan["lanes_per_pair"] \
             == plan["threads"] and plan["smem_bytes"] == 0
     else:
+        # the block regime: the band in the registers of one block's warps
         assert plan["regime"] == "wide" and W > tlb.MAX_WARP_BAND
         assert plan["lanes_per_pair"] == plan["threads"] \
             == 32 * plan["warps_per_pair"] and plan["pairs_per_block"] == 1
-        assert 6 * W * 4 < plan["smem_bytes"]
+        assert plan["cells_per_lane"] in tlb.BLOCK_CELLS
+        assert plan["warps_per_pair"] \
+            <= tlb.BLOCK_MAX_WARPS[plan["cells_per_lane"]]
+        assert W <= tlb.MAX_WIDE_BAND and plan["smem_bytes"] < 1024
 
 
 @pytest.mark.parametrize("unit_k", [4, 8, 32, 64, 256, 512, 2048, 4096])

@@ -79,6 +79,9 @@ def lib(tmp_path_factory):
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8 + [vp, i64])
+    lib.ta_rehearse_band_block.restype = ctypes.c_int
+    lib.ta_rehearse_band_block.argtypes = (
+        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
     lib.ta_rehearse_band_cluster.restype = ctypes.c_int
     lib.ta_rehearse_band_cluster.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
@@ -357,14 +360,15 @@ def _same_runs(got, ref) -> bool:
 
 
 def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
-                lanes, oracle=True, scratch_pad=None):
+                lanes, oracle=True, scratch_pad=None, block=None):
     """The rehearsal (untraced and traced) at one launch plan against the
     plain version (distances, codes of rows 1..m, walked streams, K10's
     body walking the rehearsal's codes) and, with `oracle`, the oracle
     wherever the costs stay inside the band.  `scratch_pad` (bytes past
-    the state a pair, a multiple of 16): the wide regime with its state in
-    a per-pair scratch, as the wrapper allocates it for the device-memory
-    regime."""
+    the state a pair, a multiple of 16): the device-memory regime with its
+    state in a per-pair scratch, as the wrapper allocates it.  `block`
+    (cells a lane, warps a pair, order of the warps in a round): the block
+    regime (`threads`, `cells` and `lanes` are not read)."""
     B = len(a_list)
     ct = (costs[0], costs[1], costs[2], costs[3] or 0, costs[3] is not None)
     t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m, device="cpu")
@@ -381,12 +385,15 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
     for traced in (False, True):
         out = np.full(B, -7, np.int32)
         codes = np.zeros((B, rows, wpr), np.int32)
-        rc = lib.ta_rehearse_band(
-            *[x.ctypes.data for x in arrs], out.ctypes.data,
-            codes.ctypes.data if traced else None, B, arrs[0].shape[1],
-            arrs[1].shape[1], unit_k, rows, *ct[:4], int(ct[4]), threads,
-            cells, lanes, None if scratch is None else scratch.ctypes.data,
-            stride)
+        head = (*[x.ctypes.data for x in arrs], out.ctypes.data,
+                codes.ctypes.data if traced else None, B, arrs[0].shape[1],
+                arrs[1].shape[1], unit_k, rows, *ct[:4], int(ct[4]))
+        if block is not None:
+            rc = lib.ta_rehearse_band_block(*head, *block)
+        else:
+            rc = lib.ta_rehearse_band(
+                *head, threads, cells, lanes,
+                None if scratch is None else scratch.ctypes.data, stride)
         assert rc == 0
         assert np.array_equal(out, plain_d.numpy()), costs
         if traced:
@@ -413,9 +420,25 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
             assert int(plain_d[p]) == ref[0] and decoded[p] == ref[1]
 
 
-# The wide regime (one pair a block, cells in shared memory): band
-# half-widths around the 16-codes-a-word and the threads-a-block steps;
-# thread counts that leave threads idle, cut runs unevenly, or span warps
+def _block_map(unit_k, threads, costs):
+    """(cells, warps, order) of the block regime for a case given in threads
+    a block: 9 or 17 cells a lane in turns over the cost models, the
+    warps of `threads` up to the instantiation's most (1024 threads: 16
+    warps of 9 cells or 18 of 17, nearly all of them past the band), at
+    least as many as hold the band; the warps of a round in either
+    order."""
+    q = BAND_COSTS.index(costs)
+    cells = lb.BLOCK_CELLS[q % 2]
+    warps = min(threads // 32, lb.BLOCK_MAX_WARPS[cells])
+    warps = max(warps, -(-(2 * unit_k + 1) // (32 * cells)))
+    return cells, warps, (q // 2 + threads // 32) % 2
+
+
+# The block regime (one pair a block of warps, the warp regime's lanes
+# joined across warps by slots in shared memory; the cases the wide regime
+# had when it kept the band in shared memory): band half-widths around the
+# 16-codes-a-word steps; warps that lie wholly past the band, a band inside
+# one warp, one that spans warps
 @pytest.mark.parametrize("unit_k,max_m,threads", [
     (0, 20, 32), (4, 40, 32), (7, 40, 32), (8, 40, 64), (32, 70, 32),
     (64, 40, 96), (100, 30, 1024),
@@ -426,7 +449,33 @@ def test_band_rows_equal_plain_version_and_oracle(lib, unit_k, max_m, threads,
                                                   costs):
     rng = np.random.default_rng(31 * unit_k + max_m + costs[0])
     a_list, b_list = _band_pairs(rng, 40, max_m, unit_k)
-    _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, 0, 0)
+    _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, 0, 0,
+                block=_block_map(unit_k, threads, costs))
+
+
+# The block regime at its warp edges: the band one cell past a warp (545:
+# 2 warps of 17 cells, 289 and 577: 2 and 3 of 9) and one short of a warp
+# (543, 287, 1,087: the last cell of the last warp is a ghost), with
+# adjacent swaps on the diagonals of the warp edges, pairs at the band's
+# edge (n - m == unit_k), m == 0 and NUL bytes, under the four cost
+# models; the warps of a round in either order.  Few pairs and rows: the
+# plain version's tensors stay under 32,768 elements.
+BLOCK_EDGES = [(545, 17, 2), (543, 17, 1), (1087, 17, 2), (289, 9, 2),
+               (287, 9, 1), (577, 9, 3)]
+
+
+@pytest.mark.parametrize("W,cells,warps", BLOCK_EDGES,
+                         ids=[f"W{w}-{n}x{c}" for w, c, n in BLOCK_EDGES])
+def test_band_block_warp_edges_equal_plain_version(lib, W, cells, warps):
+    unit_k = (W - 1) // 2
+    rng = np.random.default_rng(W * 31 + cells)
+    for q, costs in enumerate(BAND_COSTS):
+        max_m = int(rng.integers(8, 13))
+        a_list, b_list = _band_pairs(rng, 3, max_m, unit_k)
+        a_e, b_e = cs.lane_edge_pairs(rng, unit_k, 32 * cells, max_m)
+        _band_check(lib, a_list + a_e[:3], b_list + b_e[:3], unit_k, max_m,
+                    costs, 0, 0, 0, oracle=False,
+                    block=(cells, warps, q % 2))
 
 
 LANE_CASES = cs.band_lane_cases()
@@ -459,15 +508,20 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
     args = [z.ctypes.data, z.ctypes.data, i0.ctypes.data, i0.ctypes.data,
             out.ctypes.data, None, 1, 16, 25]
     no_scratch = (None, 0)
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0, 0,
-                                *no_scratch) == 0
+    # the block regime: 9 or 17 cells a lane, 1 to 16 or 18 warps that
+    # hold the band (the band in shared memory is no longer taken)
+    assert lib.ta_rehearse_band_block(*args, 4, 16, 1, 1, 0, 0, 0, 9, 1,
+                                      0) == 0
     assert out[0] == 0
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 48, 0, 0,
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0, 0,
                                 *no_scratch) == 1
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 2048, 0, 0,
-                                *no_scratch) == 1
-    assert lib.ta_rehearse_band(*args, 8192, 16, 1, 1, 0, 0, 0, 32, 0, 0,
-                                *no_scratch) == 1
+    for cells, warps in ((9, 0), (5, 1), (9, 17), (17, 19)):
+        assert lib.ta_rehearse_band_block(*args, 4, 16, 1, 1, 0, 0, 0,
+                                          cells, warps, 0) == 1
+    assert lib.ta_rehearse_band_block(*args, 8192, 16, 1, 1, 0, 0, 0, 17,
+                                      18, 0) == 1  # 9,792 cells < 16,385
+    assert lib.ta_rehearse_band_block(*args, 144, 16, 1, 1, 0, 0, 0, 9, 1,
+                                      0) == 1  # 288 cells < W = 289
     # the warp regime: a known lane map that holds the band, <= 256 threads
     out[0] = -7
     assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8,
@@ -480,7 +534,7 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
     assert lib.ta_rehearse_band(*args, 12, 16, 1, 1, 0, 0, 0, 32, 3,
                                 8, *no_scratch) == 1  # 24 cells < W = 25
     # the device-memory regime: the state's bytes a pair or more, in steps
-    # of 16, the wide regime only, any band up to its cap
+    # of 16, no warp-regime map, any band up to its cap
     need = lb._scratch_bytes(2 * 8192 + 1)
     scratch = np.zeros(need + 16, np.uint8)
     big = [z.ctypes.data, np.zeros(8192 + 16 + 16385, np.uint8).ctypes.data,
@@ -500,8 +554,8 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
                                 1 << 40) == 1
 
 
-# The device-memory regime (band_wide_kernel<*, *, true>): the wide
-# regime's row passes over a per-pair scratch that starts as garbage,
+# The device-memory regime (band_wide_kernel<*, *>): the thread-a-run
+# row passes over a per-pair scratch that starts as garbage,
 # forced onto narrow bands (the plan takes it past unit_k 4096 only), one
 # stride the state's own size and one with room after it.
 @pytest.mark.parametrize("costs", BAND_COSTS,

@@ -7,8 +7,9 @@ kernels and of the headline Myers kernels.
 Builds the kernels (`utils/build.py`), reads what `-Xptxas -v` reports for
 every instantiation of the kernels named (registers, stack frame and
 spill bytes, barriers) and, from `cuobjdump -sass` of the library, its hot loop:
-`band` (the default): the row loop of each `band_kernel<TRANS, TRACE, C>`,
-the code between its one backward branch and that branch's target;
+`band` (the default): the row loop of each `band_kernel<TRANS, TRACE, C>`
+and `band_block_kernel<TRANS, TRACE, C>`, the code between its one
+backward branch and that branch's target;
 `blocked` (`blocked_kernel<W, DAMERAU, SEARCH>`, K5 / K6) and `diag`
 (`search_diag_kernel<R, TRANS>`, K7): the column loops, every innermost
 loop (a backward branch's range holding no other) that shuffles, with the
@@ -239,10 +240,12 @@ def main(argv=None) -> int:
         name, demangled, part = fn["name"], fn["kernel"], fn["sass"]
         for kind in args.kernel:
             if kind == "band":
-                if "band_kernel" not in name and "band_wide_kernel" not in name:
+                if not any(k_ in name for k_ in (
+                        "band_kernel", "band_block_kernel",
+                        "band_wide_kernel")):
                     continue
                 rec = {"kernel": demangled, **regs.get(name, {})}
-                if "band_kernel" in name and "wide" not in name:
+                if "band_wide_kernel" not in name:
                     rec.update(_row_loop(part))
             elif kind in ("myers_distance", "myers_search") \
                     and _KERNELS[kind] in name:

@@ -3,6 +3,7 @@
     python3 -m triple_accel_tpu_torch.benches.band_sweep [--chosen]
     python3 -m triple_accel_tpu_torch.benches.band_sweep --past-plan
     python3 -m triple_accel_tpu_torch.benches.band_sweep --walk
+    python3 -m triple_accel_tpu_torch.benches.band_sweep --wide
 
 Times `band_distance` and `band_trace` alone (CUDA events, one warm-up, 5
 launches: median, least and most) at the four shapes `chip_smoke.py`
@@ -30,6 +31,14 @@ one warm-up and one timed launch each (a launch takes seconds).  Every
 point must give the first point's distances and codes.  This is the
 measurement behind `lev_band.CLUSTER_WARPS`, `_cluster_map` and
 `GLOBAL_THREADS`.
+
+With `--wide`, only the block regime (bands past 544 cells) at
+`WIDE_BANDS` (545 cells, the bands the untraced engines run, and the
+widest traced one), untraced under rDamerau costs and traced, each at a
+batch that fills the card (`WIDE_FULL_PAIRS` pairs, `WIDE_TRACE_PAIRS`
+traced) and at one pair, over `lev_band.BLOCK_CELLS` cells a lane at the
+fewest warps a pair that hold the band (the plan's point first), 5 timed
+launches each.  This is the measurement behind `lev_band.NINE_CELL_WARPS`.
 
 With `--walk`, only the walk kernel K10 at the three traced cells of
 `chip_smoke.py`'s `band_trace` phase (its inputs, K4's codes at the band
@@ -67,6 +76,9 @@ SHAPES = (
 )
 PAST_PLAN_SHAPE = ("band_trace_past_plan", True, 128, 10_000, 10_000,
                    RDAMERAU_T)
+# the block regime: bands, rows a pair, pairs that fill the card
+WIDE_BANDS = (545, 1025, 2049, 4097, 8193, 9281)
+WIDE_LEN, WIDE_FULL_PAIRS, WIDE_TRACE_PAIRS = 2000, 1024, 256
 # (CTAs a cluster, warps a CTA): the fewest warps that hold 10,003 columns
 # at each cluster size, and one warp more
 CLUSTER_POINTS = tuple((c, w + e) for c in range(2, 9)
@@ -157,6 +169,8 @@ def main(argv=None) -> int:
         check=True).stdout.strip(), flush=True)
     if "--walk" in argv:
         return _walk_sweep(dev)
+    if "--wide" in argv:
+        return _wide_sweep(dev)
     past_plan = "--past-plan" in argv
     shapes = (PAST_PLAN_SHAPE,) if past_plan else SHAPES
     if past_plan and "--pairs" in argv:
@@ -198,6 +212,52 @@ def main(argv=None) -> int:
             del res
         del tensors, first_codes
         torch.cuda.empty_cache()
+    return 0
+
+
+def _wide_sweep(dev) -> int:
+    """The block regime over cells a lane at each band, traced or not, at a
+    full batch and at one pair; every point gives the plan's distances
+    (and codes)."""
+    for W in WIDE_BANDS:
+        unit_k = (W - 1) // 2
+        for traced in (False, True):
+            fn = lb.band_trace if traced else lb.band_distance
+            full = WIDE_TRACE_PAIRS if traced else WIDE_FULL_PAIRS
+            for pairs in (full, 1):
+                tensors = _make_batch(dev, pairs, WIDE_LEN, unit_k)
+                rows = tensors[0].shape[1]
+                chosen = lb.band_plan(rows, unit_k, traced, batch=pairs)
+                plans = [chosen] + [
+                    dict(chosen, cells_per_lane=c, warps_per_pair=nw,
+                         lanes_per_pair=32 * nw, threads=32 * nw)
+                    for c in lb.BLOCK_CELLS
+                    for nw in (-(-W // (32 * c)),)
+                    if nw <= lb.BLOCK_MAX_WARPS[c]
+                    and c != chosen["cells_per_lane"]]
+                first = None
+                for k, plan in enumerate(plans):
+                    res = fn(*tensors, unit_k=unit_k, costs_t=RDAMERAU_T,
+                             plan=plan)
+                    res = res if traced else (res, None)
+                    if first is None:
+                        first = res
+                    same = bool(torch.equal(res[0], first[0])) and (
+                        not traced or bool(torch.equal(res[1], first[1])))
+                    print(json.dumps({
+                        "kernel": "band_trace" if traced else "band_distance",
+                        "pairs": pairs, "str_len": WIDE_LEN, "band": W,
+                        "chosen": k == 0, "regime": plan["regime"],
+                        "cells_per_lane": plan["cells_per_lane"],
+                        "warps_per_pair": plan["warps_per_pair"],
+                        "same_results": same,
+                        "kernel_ms_median_min_max": _time_ms(lambda: fn(
+                            *tensors, unit_k=unit_k, costs_t=RDAMERAU_T,
+                            plan=plan)),
+                    }), flush=True)
+                    del res
+                del tensors, first
+                torch.cuda.empty_cache()
     return 0
 
 

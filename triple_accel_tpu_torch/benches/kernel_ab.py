@@ -1,8 +1,8 @@
-"""Kernel-only times of K1, K2, K4 and K5-K7 at the shapes chip_smoke.py's
+"""Kernel-only times of K1-K7 and K10 at the shapes chip_smoke.py's
 phases give them, for comparing two versions of the port in one call.
 
     python3 -m triple_accel_tpu_torch.benches.kernel_ab [--tag NAME]
-        [--kernels K1 K2 K4 K5 K6 K7 K10]
+        [--kernels K1 K2 K3W K4 K4W K5 K6 K7 K10]
 
 Run from the root of a checkout (it imports that checkout's package and
 `chip_smoke.py` input generators, and only calls the wrappers' arguments
@@ -32,6 +32,18 @@ beside this one is timed by the same script:
   longest b rounded up to 16 (`K4_past_plan_exact_band`), each at the
   version's own plan for it; 3 launches each (a launch of the
   device-memory regime takes seconds);
+* K3W / K4W `band_distance` / `band_trace` in the wide regime (bands of
+  545 - 9,281 cells), the cases of chip_smoke.py's `band_wide` phase
+  (`WIDE_*` here, so that a version without that phase is timed on the
+  same inputs): (a) 4,096 pairs of 5,000 ACGT bytes with 10% edits at
+  k = 1000, unit costs, then rDamerau with 1% adjacent swaps added;
+  (c) 256 pairs of 20,000 bytes with 5% edits at k = 4000 under affine
+  costs (2, 1, 2); (d) one pair of 1,900 bytes through `levenshtein()`
+  and `rdamerau()`; (b, K4W) the first 512 pairs of (a) traced under
+  rDamerau; each at the band, rows and plan the version's dispatch gives
+  it (the entry point called once first), 15 launches for (d); then
+  `band_sweep.py --wide`'s bands and batches (`K3W_sweep` / `K4W_sweep`:
+  band -> [full batch, one pair] ms) at the version's own plan;
 * K10 `trace_walk`: the walks of the three traced cells of the
   `band_trace` phase (8,192 x 1000 B at k = 32, 256 x 3000 B at k = 64,
   and `past_plan`, 128 x 10,000 B at an unbounded threshold; rDamerau
@@ -62,7 +74,8 @@ def main() -> int:
     ap.add_argument("--tag", default="", help="a name for the JSON line")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K5", "K6",
                                                      "K7", "K10"],
-                    choices=["K1", "K2", "K4", "K5", "K6", "K7", "K10"])
+                    choices=["K1", "K2", "K3W", "K4", "K4W", "K5", "K6",
+                             "K7", "K10"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA device", file=sys.stderr)
@@ -108,6 +121,8 @@ def main() -> int:
         del hay_d, hay
     if "K4" in args.kernels:
         out.update(time_k4(cs, dev, ms))
+    if {"K3W", "K4W"} & set(args.kernels):
+        out.update(time_wide(cs, dev, ms, args.kernels))
     if "K10" in args.kernels:
         out.update(time_k10(cs, dev, ms))
     if not {"K5", "K6", "K7"} & set(args.kernels):
@@ -184,6 +199,97 @@ def time_k4(cs, dev, ms) -> dict:
             *t, unit_k=uk, costs_t=cs.costs_tuple(costs)), 3)
         del t
         torch.cuda.empty_cache()
+    return out
+
+
+# chip_smoke.py's `band_wide` cases: pairs, bytes, edit share, k (and
+# the seeds of its generators)
+WIDE_A = (4096, 5000, 0.10, 1000, 6060)
+WIDE_SWAP_SHARE, WIDE_TRACE_PAIRS = 0.01, 512
+WIDE_C = (256, 20_000, 0.05, 4000, 6062)
+WIDE_D = (1, 1900, 0.10, None, 6063)
+
+
+def time_wide(cs, dev, ms, kernels) -> dict:
+    """K3 / K4 in the wide regime at the `band_wide` cases; the inputs as
+    chip_smoke.py makes them, the band, rows and plan as the version's
+    dispatch picks them."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import last_dispatch
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    def case(a_l, b_l, k, costs, traced, reps=7):
+        res = tt.levenshtein_k_batch(a_l, b_l, k, costs, trace_on=traced)
+        dec = last_dispatch()
+        sa = [a if len(a) <= len(b) else b for a, b in zip(a_l, b_l)]
+        sb = [b if len(a) <= len(b) else a for a, b in zip(a_l, b_l)]
+        t = lb.prepare_band_tensors(sa, sb, dec.unit_k, dec.padded_m,
+                                    device=dev)
+        fn = lb.band_trace if traced else lb.band_distance
+        ct = cs.costs_tuple(costs)
+        got = fn(*t, unit_k=dec.unit_k, costs_t=ct)
+        got = got[0] if traced else got
+        dist = res[0] if traced else res
+        assert np.array_equal(got.cpu().numpy().astype(np.int64), dist)
+        times = ms(lambda: fn(*t, unit_k=dec.unit_k, costs_t=ct), reps)
+        del t, got
+        torch.cuda.empty_cache()
+        return times + [dec.unit_k, dec.padded_m]
+
+    out = {}
+    n, length, share, k, seed = WIDE_A
+    a_l, b_l = cs.make_long_pairs(n, length, share, seed=seed)
+    b_sw = cs.swap_adjacent_list(b_l, WIDE_SWAP_SHARE,
+                                 np.random.default_rng(seed + 1))
+    if "K3W" in kernels:
+        out["K3W_a_unit"] = case(a_l, b_l, k, tt.LEVENSHTEIN_COSTS, False)
+        out["K3W_a_rdamerau"] = case(a_l, b_sw, k, tt.RDAMERAU_COSTS, False)
+    if "K4W" in kernels:
+        out["K4W_b"] = case(a_l[:WIDE_TRACE_PAIRS], b_sw[:WIDE_TRACE_PAIRS],
+                            k, tt.RDAMERAU_COSTS, True)
+    out.update(time_wide_sweep(dev, ms, kernels))
+    if "K3W" not in kernels:
+        return out
+    n, length, share, k, seed = WIDE_C
+    a_l, b_l = cs.make_long_pairs(n, length, share, seed=seed)
+    out["K3W_c_affine"] = case(a_l, b_l, k, tt.EditCosts(2, 1, 2), False)
+    n, length, share, _, seed = WIDE_D
+    a_l, b_l = cs.make_long_pairs(n, length, share, seed=seed)
+    b_sw = cs.swap_adjacent_list(b_l, WIDE_SWAP_SHARE,
+                                 np.random.default_rng(seed + 1))
+    out["K3W_d_levenshtein"] = case(a_l, b_l, cs.U32_MAX,
+                                    tt.LEVENSHTEIN_COSTS, False, 15)
+    out["K3W_d_rdamerau"] = case(a_l, b_sw, cs.U32_MAX, tt.RDAMERAU_COSTS,
+                                 False, 15)
+    return out
+
+
+def time_wide_sweep(dev, ms, kernels) -> dict:
+    """The wide regime at `band_sweep.py --wide`'s bands (its inputs:
+    `_make_batch`, rDamerau costs), a full batch and one pair, each at the
+    plan the version's `band_plan` gives it."""
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    from . import band_sweep as bsw
+
+    bands = (545, 1025, 2049, 4097, 8193, 9281)
+    out = {}
+    for name, traced, full in (("K3W_sweep", False, 1024),
+                               ("K4W_sweep", True, 256)):
+        if name[:3] not in kernels:
+            continue
+        fn = lb.band_trace if traced else lb.band_distance
+        times = {}
+        for W in bands:
+            unit_k = (W - 1) // 2
+            times[W] = []
+            for pairs in (full, 1):
+                t = bsw._make_batch(dev, pairs, 2000, unit_k)
+                times[W].append(ms(lambda: fn(
+                    *t, unit_k=unit_k, costs_t=bsw.RDAMERAU_T), 5)[0])
+                del t
+                torch.cuda.empty_cache()
+        out[name] = times
     return out
 
 

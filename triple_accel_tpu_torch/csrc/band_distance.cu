@@ -28,7 +28,7 @@
 // the code; chip_smoke.py's BAND_OPS_* list them) against 2 / W bytes of
 // strings, and the traced kernel writes 2 bits per cell.
 //
-// Four regimes, one function:
+// Four regimes, one function (the plan, ops/lev_band.py band_plan, picks):
 //   * band_kernel<TRANS, TRACE, C>, every band up to 32 * 17 = 544 cells
 //     (all of chip_smoke.py's phases: 65, 129 and 513 cells).  A group of
 //     G = 8, 16 or 32 lanes of one warp owns one pair (32 / G pairs a
@@ -53,10 +53,22 @@
 //     word and the group's lanes join them into the row's 32-bit words by
 //     shuffles (cell c at bits 2 * (c % 16) of word c / 16, the layout of
 //     the plain version), lane w writing word w: one coalesced row.
-//   * band_wide_kernel<TRANS, TRACE, false>, wider bands whose state fits
-//     a block's shared memory (6 rows of W ints: up to 9,291 cells): one
-//     pair a block, each thread a contiguous run of cells, two block
-//     barriers a row.  No main path runs it.
+//   * band_block_kernel<TRANS, TRACE, C, MAXW>, the bands past that up to
+//     9,291 cells (the bands the earlier shared-memory body took: every
+//     untraced batch past unit_k 256, traced ones from unit_k 272 to
+//     4,640, the front door's `levenshtein()` / `rdamerau()` on strings of
+//     257 to 4,096 bytes).  The warp regime's lanes over the warps of one
+//     block: one pair a block of NW warps, C = 9 or 17 cells a lane, lane
+//     gl of the pair the cells [gl*C, (gl+1)*C), so a warp's cells start
+//     on a code word.  Inside a warp a row runs as in band_kernel
+//     (shuffles, the fused add-min chain, the shuffle min-scan); across
+//     warps two slots a warp in shared memory and two block barriers a
+//     row: lane 0 of warp w + 1 hands lane 31 of warp w its first cell of
+//     row i-1 and its byte (`edge`), and each warp's carry is the min of
+//     the totals of the warps on its left (`tot`, one redux.sync).  A
+//     traced lane forms sub, the transposition and dprime again in pass 2
+//     (the LEAN lane: 4 ints a cell), so 18 warps of 17 cells fit the
+//     register file.
 //   * band_cluster_kernel<TRANS>, traced bands past that (chip_smoke.py's
 //     past_plan phase: unit_k 10,064, 20,129 cells) for pairs of b strings
 //     up to 16 * 32 * 20 * 8 - 3 = 81,917 bytes: one pair a thread-block
@@ -78,19 +90,23 @@
 //     of row i holding its first cell joins the left lane's codes with a
 //     funnel shift (the band's cells lie one column further right each
 //     row), so a warp writes 32 consecutive words a row.
-//   * band_wide_kernel<TRANS, TRACE, true>, traced bands of any width up to
-//     unit_k 2^20 for longer b strings: the shared-memory regime's row
-//     passes over the same state, kept in a per-pair scratch in device
-//     memory that the wrapper allocates.  Simple and slow (its state
-//     streams through L1 and L2 at every row: 354x its bound at band
-//     32,769); only pairs the cluster regime cannot hold take it.
+//   * band_wide_kernel<TRANS, TRACE>, traced bands of any width up to
+//     unit_k 2^20 for longer b strings: one pair a block, each thread a
+//     contiguous run of cells, two block barriers a row (the earlier
+//     shared-memory body's passes), the band state (6 rows of W ints) in
+//     a per-pair scratch in device memory that the wrapper allocates.
+//     Simple and slow (its state streams through L1 and L2 at every row:
+//     354x its bound at band 32,769); only pairs the cluster regime cannot
+//     hold take it.
 // Every cascade is selects on non-short-circuit compares (a branch makes
 // the lanes of a warp diverge), and the min chains use Hopper's DPX
 // (__viaddmin_s32 for min(a + b, c), __vimin3_s32).  The per-lane passes
-// and the wide regime's row passes are plain functions, so the host
-// rehearsal (host_rehearsal.cpp, -DTA_HOST_REHEARSAL) runs exactly this
-// arithmetic, lanes or threads one at a time, the shuffles as arrays (the
-// cluster regime: its warps in pipeline order, the rings arrays).
+// and the device-memory regime's row passes are plain functions, so the
+// host rehearsal (host_rehearsal.cpp, -DTA_HOST_REHEARSAL) runs exactly
+// this arithmetic, lanes or threads one at a time, the shuffles as arrays
+// (the block regime: its warps round by round between the barriers, the
+// slots arrays; the cluster regime: its warps in pipeline order, the
+// rings arrays).
 
 #include <stddef.h>
 
@@ -156,9 +172,15 @@ struct BandBits<17> {
   typedef uint64_t T;
 };
 
-template <bool TRANS, bool TRACE, int C>
+// LEAN (the block regime's traced lanes): pass 2 forms sub, the
+// transposition candidate and dprime again from D of rows i-1 and i-2 and
+// the bytes instead of keeping them from pass 1 (D of row i-2 moves up in
+// pass 2), so a traced lane holds 4 ints a cell instead of 7: a block of
+// up to 18 warps of 17 cells a lane fits the register file.
+template <bool TRANS, bool TRACE, int C, bool LEAN = false>
 struct BandLane {
   static_assert(C >= 1 && C <= TA_BAND_MAX_CELLS, "cells a lane");
+  static constexpr bool RECOMP = TRACE && LEAN;
   int32_t dp1[C];  // D of row i-1 (row i after pass 2)
   int32_t dp0[C];  // D of row i-2 (transpositions only)
   int32_t bg[C];   // vertical-gap state of row i-1 (row i after pass 1)
@@ -167,8 +189,8 @@ struct BandLane {
   // pass 1 -> pass 2: dprime (masked to INF outside the matrix where the
   // codes need it), and for the cascade of the codes sub and the
   // transposition candidate
-  int32_t dpr[C];
-  int32_t sub[TRACE ? C : 1], trn[TRACE ? C : 1];
+  int32_t dpr[RECOMP ? 1 : C];
+  int32_t sub[TRACE && !RECOMP ? C : 1], trn[TRACE && !RECOMP ? C : 1];
 };
 
 // What a row needs besides the registers.
@@ -197,8 +219,8 @@ struct BandUp {
   int32_t d, g;
 };
 
-template <bool TRANS, bool TRACE, int C>
-static TA_DEV BandUp band_lane_up(const BandLane<TRANS, TRACE, C>& L) {
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV BandUp band_lane_up(const BandLane<TRANS, TRACE, C, LEAN>& L) {
   return BandUp{L.dp1[0], L.bg[0]};
 }
 
@@ -209,8 +231,8 @@ static TA_DEV BandUp band_up_in(BandUp from_right, bool last_lane) {
 
 // Row 0 and the empty history; b_row is the pair's b row (its b at byte
 // offset unit_k), b_len its length: cell c reads byte i - 1 + c.
-template <bool TRANS, bool TRACE, int C>
-static TA_DEV void band_lane_init(BandLane<TRANS, TRACE, C>& L,
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV void band_lane_init(BandLane<TRANS, TRACE, C, LEAN>& L,
                                   const uint8_t* b_row, int64_t b_len,
                                   int32_t n, int32_t unit_k, int32_t W,
                                   int32_t c0, const BandCosts& k) {
@@ -228,11 +250,24 @@ static TA_DEV void band_lane_init(BandLane<TRANS, TRACE, C>& L,
   L.hl = c0 >= 1 && c0 - 1 < b_len ? (int32_t)b_row[c0 - 1] : 0;
 }
 
+// The transposition candidate of the lane's cell c at row i (TA_BAND_NONE
+// where none): b[j-2] is the byte left of b[j-1]; i > 1 is apv != -1, j >
+// 1 tlo.  D of row i-2 must not have moved up yet.
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV int32_t band_lane_trn(const BandLane<TRANS, TRACE, C, LEAN>& L,
+                                    const BandCosts& k, const BandRow& R,
+                                    int c) {
+  if (!TRANS) return TA_BAND_NONE;
+  const int32_t hj2 = c == 0 ? L.hl : L.h[c - 1];
+  const bool t = (hj2 == R.ach) & (L.h[c] == R.apv) & (c >= R.tlo);
+  return t ? L.dp0[c] + k.tc : TA_BAND_NONE;
+}
+
 // Pass 1 of a row: sub, the vertical gap (stored as the row's gap state),
 // the transposition and dprime of each cell, and the horizontal chain over
 // the lane's own cells from INF.  Returns F after the lane's last cell.
-template <bool TRANS, bool TRACE, int C>
-static TA_DEV int32_t band_lane_pass1(BandLane<TRANS, TRACE, C>& L,
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV int32_t band_lane_pass1(BandLane<TRANS, TRACE, C, LEAN>& L,
                                       const BandCosts& k, const BandRow& R,
                                       BandUp up) {
   int32_t f = TA_BAND_INF;
@@ -245,14 +280,8 @@ static TA_DEV int32_t band_lane_pass1(BandLane<TRANS, TRACE, C>& L,
     // clamped before it is carried, so saturated cells do not creep
     const int32_t bgap =
         bd_addmin(d_up, vnew, bd_addmin(g_up, k.gc, TA_BAND_INF));
-    int32_t trn = TA_BAND_NONE;
-    if (TRANS) {
-      // b[j-2] is the byte left of b[j-1]; i > 1 is apv != -1, j > 1 tlo
-      const int32_t hj2 = c == 0 ? L.hl : L.h[c - 1];
-      const bool t = (hj2 == R.ach) & (L.h[c] == R.apv) & (c >= R.tlo);
-      trn = t ? L.dp0[c] + k.tc : TA_BAND_NONE;
-      L.dp0[c] = L.dp1[c];
-    }
+    const int32_t trn = band_lane_trn<TRANS>(L, k, R, c);
+    if (TRANS && !L.RECOMP) L.dp0[c] = L.dp1[c];
     // bgap <= INF, so dprime needs no clamp
     int32_t dpr = TRANS ? bd_min3(sub, bgap, trn) : ta_min32(sub, bgap);
     // the chain into a cell inside the matrix only meets cells inside it
@@ -260,8 +289,8 @@ static TA_DEV int32_t band_lane_pass1(BandLane<TRANS, TRACE, C>& L,
     // past column n need the plain version's masked chain
     if (TRACE) dpr = c <= R.vhi ? dpr : TA_BAND_INF;
     L.bg[c] = bgap;
-    L.dpr[c] = dpr;
-    if (TRACE) {
+    if (!L.RECOMP) L.dpr[c] = dpr;
+    if (TRACE && !L.RECOMP) {
       L.sub[c] = sub;
       L.trn[c] = trn;
     }
@@ -286,27 +315,39 @@ static TA_DEV int32_t band_lane_carry(int32_t ex, int32_t l, int32_t C,
 // Pass 2: the chain from `f` (F at the lane's first cell), the cascade,
 // the new row of D (INF outside the matrix and the band); returns the
 // cells' two-bit codes (traced), cell c at bits 2c.
-template <bool TRANS, bool TRACE, int C>
+template <bool TRANS, bool TRACE, int C, bool LEAN>
 static TA_DEV typename BandBits<C>::T band_lane_pass2(
-    BandLane<TRANS, TRACE, C>& L, const BandCosts& k, const BandRow& R,
+    BandLane<TRANS, TRACE, C, LEAN>& L, const BandCosts& k, const BandRow& R,
     int32_t f) {
   typedef typename BandBits<C>::T Bits;
   Bits bits = 0;
   const int32_t hs = k.gc + k.sgc;
 #pragma unroll
   for (int c = 0; c < C; ++c) {
-    const int32_t dpr = L.dpr[c];
+    int32_t dpr, sub = 0, trn = TA_BAND_NONE;
+    if (L.RECOMP) {  // pass 1's values again, as it formed them
+      sub = L.dp1[c] + (L.h[c] == R.ach ? 0 : k.mc);
+      trn = band_lane_trn<TRANS>(L, k, R, c);
+      if (TRANS) L.dp0[c] = L.dp1[c];
+      dpr = TRANS ? bd_min3(sub, L.bg[c], trn) : ta_min32(sub, L.bg[c]);
+      dpr = c <= R.vhi ? dpr : TA_BAND_INF;
+    } else {
+      dpr = L.dpr[c];
+      if (TRACE) {
+        sub = L.sub[c];
+        trn = L.trn[c];
+      }
+    }
     int32_t d;
     if (TRACE) {
       const int32_t e = bd_addmin(f, hs, TA_BAND_INF);
-      const int32_t sub = L.sub[c];
       const int32_t bgap = L.bg[c];
       const bool te = e < sub;
       int32_t v = ta_min32(e, sub);
       const bool tb = bgap < v;
       v = ta_min32(v, bgap);
-      const bool tt = TRANS & (L.trn[c] <= v);
-      d = TRANS ? ta_min32(v, L.trn[c]) : v;
+      const bool tt = TRANS & (trn <= v);
+      d = TRANS ? ta_min32(v, trn) : v;
       uint32_t code = tb ? 2u : (uint32_t)te;
       code = tt ? 3u : code;
       bits |= (Bits)code << (2 * c);
@@ -321,15 +362,17 @@ static TA_DEV typename BandBits<C>::T band_lane_pass2(
 }
 
 // The byte the lane hands to the lane on its left as the window moves.
-template <bool TRANS, bool TRACE, int C>
-static TA_DEV int32_t band_lane_char_out(const BandLane<TRANS, TRACE, C>& L) {
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV int32_t band_lane_char_out(
+    const BandLane<TRANS, TRACE, C, LEAN>& L) {
   return L.h[0];
 }
 
 // The window moves one byte right: `in` is b's byte of the lane's new last
 // cell.
-template <bool TRANS, bool TRACE, int C>
-static TA_DEV void band_lane_slide(BandLane<TRANS, TRACE, C>& L, int32_t in) {
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV void band_lane_slide(BandLane<TRANS, TRACE, C, LEAN>& L,
+                                   int32_t in) {
   L.hl = L.h[0];
 #pragma unroll
   for (int c = 0; c + 1 < C; ++c) L.h[c] = L.h[c + 1];
@@ -338,8 +381,8 @@ static TA_DEV void band_lane_slide(BandLane<TRANS, TRACE, C>& L, int32_t in) {
 
 // D of the lane's cell `cell_in_lane` (INF where the lane has no such
 // cell).
-template <bool TRANS, bool TRACE, int C>
-static TA_DEV int32_t band_lane_pick(const BandLane<TRANS, TRACE, C>& L,
+template <bool TRANS, bool TRACE, int C, bool LEAN>
+static TA_DEV int32_t band_lane_pick(const BandLane<TRANS, TRACE, C, LEAN>& L,
                                      int32_t cell_in_lane) {
   int32_t r = TA_BAND_INF;
 #pragma unroll
@@ -398,7 +441,7 @@ struct BandStream {
 };
 
 // ---------------------------------------------------------------------------
-// the wide regime: one pair a block, the band in shared memory
+// the device-memory regime: one pair a block, the band state in a scratch
 // ---------------------------------------------------------------------------
 
 struct BandPair {
@@ -556,9 +599,10 @@ static TA_DEV uint32_t band_pack_word(const uint8_t* code, int w, int W) {
   return word;
 }
 
-// The wide regimes' state of one pair at `base`: 6 rows of W ints (three
-// of D, two of the vertical-gap state, the transposition candidates), one
-// int a warp for the scan (`wmin`), then one code byte a cell.
+// The device-memory regime's state of one pair at `base`: 6 rows of W
+// ints (three of D, two of the vertical-gap state, the transposition
+// candidates), one int a warp for the scan (`wmin`), then one code byte a
+// cell.
 static TA_DEV BandState band_wide_state(int32_t* base, int W,
                                         int32_t** wmin) {
   BandState S;
@@ -588,15 +632,15 @@ static inline size_t band_state_bytes(int W) {
   return (size_t)(6 * W + 32) * sizeof(int32_t) + (size_t)((W + 3) & ~3);
 }
 
-// What the launcher takes of the wide regimes: in shared memory, a band
-// whose state fits a block's 227 KB; in device memory (`global`), a band up
-// to TA_BAND_GLOBAL_MAX_UNIT_K with at least its state's bytes a pair, in
-// 16-byte steps.  The warp regime (`cells` != 0) takes no scratch.
+// What ta_band_distance takes past the warp regime: the device-memory
+// regime (`cells` 0, a `scratch`), a band up to TA_BAND_GLOBAL_MAX_UNIT_K
+// with at least its state's bytes a pair, in 16-byte steps.  The warp
+// regime (`cells` != 0) takes no scratch.
 static inline bool band_wide_ok(int unit_k, int cells, bool global,
                                 int64_t scratch_stride) {
   if (cells != 0) return !global;
-  if (!global) return band_state_bytes(2 * unit_k + 1) <= 232448;
-  return unit_k <= TA_BAND_GLOBAL_MAX_UNIT_K && (scratch_stride & 15) == 0 &&
+  return global && unit_k <= TA_BAND_GLOBAL_MAX_UNIT_K &&
+         (scratch_stride & 15) == 0 &&
          scratch_stride >= (int64_t)band_state_bytes(2 * unit_k + 1);
 }
 
@@ -604,6 +648,65 @@ static inline bool band_wide_ok(int unit_k, int cells, bool global,
 static inline bool band_warp_map_ok(int cells, int lanes, int W) {
   return (cells == 3 || cells == 5 || cells == 9 || cells == 17) &&
          (lanes == 8 || lanes == 16 || lanes == 32) && cells * lanes >= W;
+}
+
+// ---------------------------------------------------------------------------
+// the block regime: one pair a block of NW warps, the warp regime's lanes
+// ---------------------------------------------------------------------------
+
+// The most warps a pair (C cells a lane).  An instantiation's launch bound
+// is 16 or 18 warps: an SM's four schedulers each hold a quarter of its
+// 65,536 registers and the warps of a block spread over them, so 16 warps
+// leave 128 registers a thread and 17 or 18 only 96 (the traced rDamerau
+// lane of 17 cells spills 84 bytes there, none at 128).  9 cells a lane
+// take up to 16 warps, 17 up to 18 (bands up to 9,792 cells).
+template <int C>
+struct BandBlockWarps;
+template <>
+struct BandBlockWarps<9> {
+  static constexpr int value = 16;
+};
+template <>
+struct BandBlockWarps<17> {
+  static constexpr int value = 18;
+};
+constexpr int TA_BAND_BLOCK_WARPS = 16;  // the bound of the common case
+
+// What warp w + 1's lane 0 hands warp w's lane 31 across the edge between
+// them at the end of row i - 1: D and the gap state of its first cell
+// (the vertical predecessors of warp w's last cell at row i) and b's byte
+// of that cell (warp w's new last byte as the window moves).
+struct BandEdge {
+  int32_t d, g, h;
+};
+
+// F entering lane `gl` of the pair (`lane` of its warp) from the min of
+// the keys over the warps on its left (`left`: INF for warp 0) and the
+// warp's exclusive scan over its own lanes (`ex`; lane 0 has none).
+static TA_DEV int32_t band_block_carry(int32_t left, int32_t ex, int lane,
+                                       int32_t gl, int32_t C, int32_t gc) {
+  return band_lane_carry(lane == 0 ? left : ta_min32(left, ex), gl, C, gc);
+}
+
+// Warp w's cells, 32 C from cell 32 C w on, are the row's 2C words from
+// word 2 C w on: a warp writes whole words.
+static TA_DEV int32_t band_block_word0(int32_t w, int32_t C) {
+  return 2 * C * w;
+}
+
+// b's byte of the pair's cell `x` at row i + 1 (0 past the b row), and
+// a[i] (0 past the a row): what the last lane and lane 0 load a row.
+static TA_DEV int32_t band_byte(const uint8_t* row, int64_t len, int64_t x) {
+  return x < len ? (int32_t)row[x] : 0;
+}
+
+// What the launcher takes of the block regime: C = 9 or 17, up to its
+// instantiation's warps, holding the band.
+static inline bool band_block_ok(int unit_k, int cells, int warps) {
+  const int most = cells == 9 ? BandBlockWarps<9>::value
+                 : cells == 17 ? BandBlockWarps<17>::value : 0;
+  return unit_k >= 0 && warps >= 1 && warps <= most &&
+         32 * cells * warps >= 2 * unit_k + 1;
 }
 
 // ---------------------------------------------------------------------------
@@ -1091,10 +1194,114 @@ __global__ void __launch_bounds__(TA_BAND_WARP_THREADS)
   }
 }
 
-// GLOBAL: the state lives in `scratch`, `scratch_stride` bytes a pair,
-// instead of the block's shared memory (a template constant, so that the
-// shared-memory regime keeps its shared-memory loads and stores).
-template <bool TRANS, bool TRACE, bool GLOBAL>
+// One pair a block of NW = blockDim.x / 32 warps: the warp regime's lanes
+// (traced: the LEAN lane), lane gl of the pair the C cells from gl * C on,
+// so warp w the 32 C cells from 32 C w on.  Inside a warp a row runs as
+// in band_kernel; across warps, two slots a warp in shared memory and two
+// block barriers a row.  A row: pass 1 (lane 31 takes its right
+// neighbour's D and gap state of row i-1 from `edge`), the warp's min-scan
+// of the keys, its total into `tot`; barrier; each warp's carry from the
+// totals on its left (one redux.sync), pass 2, the codes (a warp's own 2C
+// words, one coalesced store), lane 0's first cell of row i and its byte
+// into `edge`; barrier; lane 31 takes its new last byte from there (the
+// last warp's loads it from b), lane 0 loaded a's next byte.  Every warp
+// runs every row, so every warp meets every barrier.
+template <bool TRANS, bool TRACE, int C, int MAXW>
+__global__ void __launch_bounds__(MAXW * 32)
+    band_block_kernel(const uint8_t* __restrict__ a,
+                      const uint8_t* __restrict__ b,
+                      const int32_t* __restrict__ m,
+                      const int32_t* __restrict__ n,
+                      int32_t* __restrict__ out,
+                      uint32_t* __restrict__ codes, int64_t a_stride,
+                      int64_t b_stride, int unit_k, int64_t code_rows,
+                      BandCosts k) {
+  typedef typename BandBits<C>::T Bits;
+  __shared__ BandEdge edge[MAXW];
+  __shared__ int32_t tot[MAXW];
+  const int NW = blockDim.x >> 5;
+  const int gl = threadIdx.x, lane = gl & 31, w = gl >> 5;
+  const int64_t p = blockIdx.x;
+  const int32_t W = 2 * unit_k + 1;
+  const int32_t c0 = gl * C;
+  // m is cut to the a row's length, as in band_kernel
+  const int32_t mm = min(m[p], (int32_t)a_stride);
+  const int32_t nn = n[p];
+  const uint8_t* a_row = a + p * a_stride;
+  const uint8_t* b_row = b + p * b_stride;
+  const int32_t cfin = band_final_cell(mm, nn, unit_k, W) - c0;
+  const bool owns_fin = cfin >= 0 && cfin < C;
+
+  BandLane<TRANS, TRACE, C, true> L;
+  band_lane_init(L, b_row, b_stride, nn, unit_k, W, c0, k);
+  if (owns_fin && mm == 0) out[p] = band_lane_pick(L, cfin);
+  const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
+  uint32_t* code_out = TRACE ? codes + p * code_rows * wpr : nullptr;
+  const Bits cmask = band_lane_code_mask<C>(c0, W);
+  const bool last_warp = w == NW - 1;
+  const bool b_lane = last_warp && lane == 31;
+  const int64_t b_next = (int64_t)NW * 32 * C - 1;  // + i: row i+1's byte
+  if (lane == 0) edge[w] = BandEdge{L.dp1[0], L.bg[0], 0};
+  __syncthreads();
+  int32_t ach = a_row[0], apv = -1;
+  for (int32_t i = 1; i <= mm; ++i) {
+    // the next row's byte, loaded early: a[i] (lane 0), b's (the last lane)
+    const int32_t v = lane == 0 ? band_byte(a_row, a_stride, i)
+                      : b_lane  ? band_byte(b_row, b_stride, i + b_next)
+                                : 0;
+    const BandRow R = band_row(i, ach, apv, nn, unit_k, W, c0);
+    const BandUp own = band_lane_up(L);
+    BandUp up;
+    up.d = __shfl_down_sync(TA_BAND_FULL, own.d, 1);
+    up.g = __shfl_down_sync(TA_BAND_FULL, own.g, 1);
+    if (lane == 31 && !last_warp) {
+      const BandEdge e = edge[w + 1];
+      up = BandUp{e.d, e.g};
+    }
+    up = band_up_in(up, b_lane);
+    const int32_t f_out = band_lane_pass1(L, k, R, up);
+    // inclusive min-scan of the keys over the warp (a lane below `off`
+    // meets its own value), then exclusive
+    int32_t inc = band_lane_key(f_out, gl, C, k.gc);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1)
+      inc = min(inc, __shfl_up_sync(TA_BAND_FULL, inc, off));
+    const int32_t ex = __shfl_up_sync(TA_BAND_FULL, inc, 1);
+    if (lane == 31) tot[w] = inc;
+    __syncthreads();
+    const int32_t left = __reduce_min_sync(
+        TA_BAND_FULL, lane < w ? tot[lane] : TA_BAND_INF);
+    Bits bits = band_lane_pass2(
+        L, k, R, band_block_carry(left, ex, lane, gl, C, k.gc));
+    if (TRACE) {
+      bits &= cmask;
+#pragma unroll
+      for (int r = 0; r < band_word_rounds<C>(); ++r) {
+        const int32_t wl = lane + 32 * r;
+        const uint32_t word = band_word<C>(
+            wl, 32, [&](int32_t src) { return band_shfl(bits, src, 32); });
+        const int32_t wg = band_block_word0(w, C) + wl;
+        if (wl < 2 * C && wg < wpr)
+          code_out[(int64_t)(i - 1) * wpr + wg] = word;
+      }
+    }
+    if (owns_fin && i == mm) out[p] = band_lane_pick(L, cfin);
+    const int32_t from_right =
+        __shfl_down_sync(TA_BAND_FULL, band_lane_char_out(L), 1);
+    if (lane == 0)
+      edge[w] = BandEdge{L.dp1[0], L.bg[0], band_lane_char_out(L)};
+    __syncthreads();
+    int32_t in = from_right;
+    if (lane == 31) in = last_warp ? v : edge[w + 1].h;
+    band_lane_slide(L, in);
+    apv = ach;
+    ach = __shfl_sync(TA_BAND_FULL, v, 0);
+  }
+}
+
+// The device-memory regime: the state lives in `scratch`, `scratch_stride`
+// bytes a pair.
+template <bool TRANS, bool TRACE>
 __global__ void __launch_bounds__(1024)
     band_wide_kernel(const uint8_t* __restrict__ a,
                      const uint8_t* __restrict__ b,
@@ -1105,7 +1312,6 @@ __global__ void __launch_bounds__(1024)
                      int64_t b_stride, int unit_k, int64_t code_rows,
                      BandCosts costs, uint8_t* scratch,
                      int64_t scratch_stride) {
-  extern __shared__ int32_t ta_band_smem[];
   const int W = 2 * unit_k + 1;
   const int T = blockDim.x, t = threadIdx.x;
   const int lane = t & 31, warp = t >> 5;
@@ -1115,9 +1321,7 @@ __global__ void __launch_bounds__(1024)
 
   int32_t* wmin;  // one word per warp
   BandState S = band_wide_state(
-      GLOBAL ? reinterpret_cast<int32_t*>(scratch + p * scratch_stride)
-             : ta_band_smem,
-      W, &wmin);
+      reinterpret_cast<int32_t*>(scratch + p * scratch_stride), W, &wmin);
 
   BandPair P;
   P.a = a + p * a_stride;
@@ -1422,6 +1626,26 @@ static int launch_warp_c(const BandLaunch& g) {
   return (int)cudaGetLastError();
 }
 
+template <bool TRANS, bool TRACE, int C, int MAXW>
+static int launch_block_c(const BandLaunch& g, int warps) {
+  band_block_kernel<TRANS, TRACE, C, MAXW>
+      <<<(unsigned)g.B, warps * 32, 0, g.stream>>>(
+          g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride,
+          g.unit_k, g.code_rows, g.costs);
+  return (int)cudaGetLastError();
+}
+
+// 17 cells a lane past 16 warps take the 18-warp bound (96 registers)
+template <bool TRANS, bool TRACE>
+static int launch_block(const BandLaunch& g, int cells, int warps) {
+  constexpr int W16 = TA_BAND_BLOCK_WARPS;
+  if (cells == 9) return launch_block_c<TRANS, TRACE, 9, W16>(g, warps);
+  return warps <= W16
+             ? launch_block_c<TRANS, TRACE, 17, W16>(g, warps)
+             : launch_block_c<TRANS, TRACE, 17, BandBlockWarps<17>::value>(
+                   g, warps);
+}
+
 template <bool TRANS>
 static int launch_cluster(const BandLaunch& g, int ctas, int warps) {
   cudaLaunchConfig_t cfg = {};
@@ -1452,24 +1676,9 @@ static int launch_band(const BandLaunch& g) {
     case 17: return launch_warp_c<TRANS, TRACE, 17>(g);
     default: break;
   }
-  if (g.scratch != nullptr) {
-    band_wide_kernel<TRANS, TRACE, true>
-        <<<(unsigned)g.B, g.threads, 0, g.stream>>>(
-            g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride,
-            g.unit_k, g.code_rows, g.costs, g.scratch, g.scratch_stride);
-    return (int)cudaGetLastError();
-  }
-  const size_t smem = band_state_bytes(2 * g.unit_k + 1);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        band_wide_kernel<TRANS, TRACE, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  band_wide_kernel<TRANS, TRACE, false>
-      <<<(unsigned)g.B, g.threads, smem, g.stream>>>(
-          g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride,
-          g.unit_k, g.code_rows, g.costs, nullptr, 0);
+  band_wide_kernel<TRANS, TRACE><<<(unsigned)g.B, g.threads, 0, g.stream>>>(
+      g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride, g.unit_k,
+      g.code_rows, g.costs, g.scratch, g.scratch_stride);
   return (int)cudaGetLastError();
 }
 
@@ -1481,12 +1690,10 @@ static int launch_band(const BandLaunch& g) {
 // rows 1..m of every pair (rows past m are left as they were).  `cells`:
 // cells a lane of the warp regime (3, 5, 9 or 17, with `lanes` 8, 16 or 32
 // lanes a pair, cells * lanes >= W, `threads` a multiple of 32 up to 256),
-// or 0 for the wide regimes (one pair a block of `threads` threads, a
-// multiple of 32 up to 1024): with `scratch` null the band state lives in
-// the block's shared memory (band_state_bytes(W) <= 227 KB), else in
-// `scratch`, `scratch_stride` bytes a pair (at least band_state_bytes(W),
-// a multiple of 16; unit_k <= 2^20).  Returns the cudaError_t of the
-// launch.
+// or 0 for the device-memory regime (one pair a block of `threads`
+// threads, a multiple of 32 up to 1024, the band state in `scratch`,
+// `scratch_stride` bytes a pair: at least band_state_bytes(W), a multiple
+// of 16; unit_k <= 2^20).  Returns the cudaError_t of the launch.
 extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
                                 const void* n, void* out, void* codes,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
@@ -1527,6 +1734,41 @@ extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
   if (g.codes == nullptr)
     return transpose ? launch_band<true, false>(g) : launch_band<false, false>(g);
   return transpose ? launch_band<true, true>(g) : launch_band<false, true>(g);
+}
+
+// The block regime: one pair a block of `warps` warps, `cells` (9 or 17)
+// cells a lane, 32 * cells * warps >= W, up to 16 warps at 9 cells and 18
+// at 17.  Other arguments as ta_band_distance's.  Returns the cudaError_t
+// of the launch.
+extern "C" int ta_band_block(const void* a, const void* b, const void* m,
+                             const void* n, void* out, void* codes,
+                             int64_t B, int64_t a_stride, int64_t b_stride,
+                             int unit_k, int64_t code_rows, int mc, int gc,
+                             int sgc, int tc, int transpose, int cells,
+                             int warps, void* stream) {
+  if (B <= 0) return 0;
+  if (!band_block_ok(unit_k, cells, warps) || B > 0x7fffffffLL ||
+      a_stride < 1 || b_stride < a_stride)
+    return (int)cudaErrorInvalidValue;
+  BandLaunch g = {};
+  g.a = (const uint8_t*)a;
+  g.b = (const uint8_t*)b;
+  g.m = (const int32_t*)m;
+  g.n = (const int32_t*)n;
+  g.out = (int32_t*)out;
+  g.codes = (uint32_t*)codes;
+  g.B = B;
+  g.a_stride = a_stride;
+  g.b_stride = b_stride;
+  g.unit_k = unit_k;
+  g.code_rows = code_rows;
+  g.costs = BandCosts{mc, gc, sgc, tc};
+  g.stream = (cudaStream_t)stream;
+  if (g.codes == nullptr)
+    return transpose ? launch_block<true, false>(g, cells, warps)
+                     : launch_block<false, false>(g, cells, warps);
+  return transpose ? launch_block<true, true>(g, cells, warps)
+                   : launch_block<false, true>(g, cells, warps);
 }
 
 // The cluster regime of the traced kernel: `ctas` CTAs a pair (a cluster,

@@ -1,7 +1,7 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
 // functions of myers_distance.cu and myers_search.cu, the lanes of
-// band_distance.cu's warp regime and the row passes of its wide regimes
-// (the band state in a block's shared memory or in a per-pair scratch),
+// band_distance.cu's warp and block regimes and the row passes of its
+// device-memory regime (the band state in a per-pair scratch),
 // the walk of trace_walk.cu (the lanes of a pair's group in turn, their
 // copies landing at their waits),
 // the per-lane wavefront steps of myers_blocked.cu and search_diag.cu (the
@@ -170,12 +170,11 @@ extern "C" int ta_rehearse_search(const void* hay, int64_t iter_len,
   return 0;
 }
 
-// The wide regimes: one pair after the other; inside a pair, `threads`
-// "threads" take their runs of band cells in turn, pass 1, then the
-// exclusive prefix over the threads' mins that the device gets from a warp
-// scan, then pass 2.  The state lives where the kernel keeps it: one
-// block's shared memory, used by pair after pair (a buffer here), or with
-// `scratch` the pair's own `scratch_stride` bytes of it.
+// The device-memory regime: one pair after the other; inside a pair,
+// `threads` "threads" take their runs of band cells in turn, pass 1, then
+// the exclusive prefix over the threads' mins that the device gets from a
+// warp scan, then pass 2, over the pair's own `scratch_stride` bytes of
+// `scratch`.
 template <bool TRANS, bool TRACE>
 static void rehearse_band_wide(const uint8_t* a, const uint8_t* b,
                                const int32_t* m, const int32_t* n,
@@ -188,14 +187,11 @@ static void rehearse_band_wide(const uint8_t* a, const uint8_t* b,
   const int T = threads;
   const int cpt = (W + T - 1) / T;
   const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
-  std::vector<int32_t> smem((band_state_bytes(W) + 3) / 4);
   std::vector<int32_t> cmin(T);
   for (int64_t p = 0; p < B; ++p) {
     int32_t* wmin;
     BandState S = band_wide_state(
-        scratch ? reinterpret_cast<int32_t*>(scratch + p * scratch_stride)
-                : smem.data(),
-        W, &wmin);
+        reinterpret_cast<int32_t*>(scratch + p * scratch_stride), W, &wmin);
     BandPair P;
     P.a = a + p * a_stride;
     P.b = b + p * b_stride;
@@ -395,6 +391,213 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                                 a_stride, b_stride, unit_k,
                                                 code_rows, k, threads, cells,
                                                 lanes, sp, scratch_stride);
+}
+
+// The block regime of band_distance.cu: one pair after the other; the
+// pair's NW warps run round by round, a round being what a warp runs
+// between two block barriers, the lanes of a warp in turn (the shuffles
+// arrays, the device's rules as in rehearse_band_warp at G = 32).  The
+// slots in shared memory (`edge`, `tot`) are arrays that start as garbage;
+// each remembers the row it holds, the round that wrote it and the last
+// round that read it.  A read of a slot that no earlier round wrote, or
+// that holds another row than the reader needs, fails the rehearsal, and
+// so does a write in a round in which a warp read the slot (the barriers
+// order nothing inside a round).  The warps of a round run first to last
+// (`order` 0) or last to first (1).
+template <class T>
+struct HostSlot {
+  T v;
+  int32_t row;
+  int64_t wrote, read;
+};
+
+template <class T>
+static bool slot_get(HostSlot<T>& s, int32_t row, int64_t round, T* v) {
+  if (s.wrote >= round || s.row != row) return false;
+  s.read = round;
+  *v = s.v;
+  return true;
+}
+
+template <class T>
+static bool slot_put(HostSlot<T>& s, const T& v, int32_t row, int64_t round) {
+  if (s.read == round) return false;
+  s.v = v;
+  s.row = row;
+  s.wrote = round;
+  return true;
+}
+
+template <bool TRANS, bool TRACE, int C>
+static int rehearse_band_block(const uint8_t* a, const uint8_t* b,
+                               const int32_t* m, const int32_t* n,
+                               int32_t* out, uint32_t* codes, int64_t B,
+                               int64_t a_stride, int64_t b_stride,
+                               int unit_k, int64_t code_rows, BandCosts k,
+                               int NW, int order) {
+  typedef typename BandBits<C>::T Bits;
+  typedef BandLane<TRANS, TRACE, C, true> Lane;
+  const int32_t W = 2 * unit_k + 1;
+  const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
+  const int64_t b_next = (int64_t)NW * 32 * C - 1;
+  const int T = NW * 32;
+  std::vector<Lane> L(T);
+  std::vector<BandRow> R(T);
+  std::vector<int32_t> ex(T), chr(T), v(T), ach(NW), apv(NW);
+  std::vector<HostSlot<BandEdge>> edge(NW);
+  std::vector<HostSlot<int32_t>> tot(NW);
+  auto warp_at = [&](int x) { return order == 0 ? x : NW - 1 - x; };
+  for (int64_t p = 0; p < B; ++p) {
+    std::memset(edge.data(), 0xA5, edge.size() * sizeof(edge[0]));
+    std::memset(tot.data(), 0xA5, tot.size() * sizeof(tot[0]));
+    for (int w = 0; w < NW; ++w) {
+      edge[w].row = tot[w].row = -1;
+      edge[w].wrote = edge[w].read = tot[w].wrote = tot[w].read = -1;
+    }
+    const int32_t mm = m[p] < a_stride ? m[p] : (int32_t)a_stride;
+    const int32_t nn = n[p];
+    const uint8_t* a_row = a + p * a_stride;
+    const uint8_t* b_row = b + p * b_stride;
+    uint32_t* code_out = TRACE ? codes + p * code_rows * wpr : nullptr;
+    const int32_t cfin = band_final_cell(mm, nn, unit_k, W);
+    int64_t round = 0;
+    // the round before the first barrier
+    for (int gl = 0; gl < T; ++gl) {
+      band_lane_init(L[gl], b_row, b_stride, nn, unit_k, W, gl * C, k);
+      if (mm == 0 && cfin - gl * C >= 0 && cfin - gl * C < C)
+        out[p] = band_lane_pick(L[gl], cfin - gl * C);
+    }
+    for (int w = 0; w < NW; ++w) {
+      slot_put(edge[w], BandEdge{L[32 * w].dp1[0], L[32 * w].bg[0], 0}, 0,
+               round);
+      ach[w] = a_row[0];
+      apv[w] = -1;
+    }
+    for (int32_t i = 1; i <= mm + 1; ++i) {
+      ++round;  // the previous row's slide, then pass 1 and the scan
+      for (int x = 0; x < NW; ++x) {
+        const int w = warp_at(x);
+        const bool last_warp = w == NW - 1;
+        BandEdge e{TA_BAND_INF, TA_BAND_INF, 0};
+        if (!last_warp && !slot_get(edge[w + 1], i - 1, round, &e)) return 2;
+        if (i > 1) {
+          for (int l = 0; l < 32; ++l) {
+            const int gl = 32 * w + l;
+            band_lane_slide(L[gl], l < 31 ? chr[gl + 1]
+                                   : last_warp ? v[gl] : e.h);
+          }
+          apv[w] = ach[w];
+          ach[w] = v[32 * w];
+        }
+        if (i > mm) continue;  // the loop ends after the last slide
+        BandUp own[32];
+        int32_t inc[32], tmp[32];
+        for (int l = 0; l < 32; ++l) {
+          const int gl = 32 * w + l;
+          R[gl] = band_row(i, ach[w], apv[w], nn, unit_k, W, gl * C);
+          own[l] = band_lane_up(L[gl]);
+        }
+        for (int l = 0; l < 32; ++l) {
+          const int gl = 32 * w + l;
+          BandUp up = l < 31 ? own[l + 1] : BandUp{e.d, e.g};
+          up = band_up_in(up, last_warp && l == 31);
+          inc[l] = band_lane_key(band_lane_pass1(L[gl], k, R[gl], up), gl, C,
+                                 k.gc);
+        }
+        for (int off = 1; off < 32; off <<= 1) {
+          for (int l = 0; l < 32; ++l)
+            tmp[l] = l >= off ? inc[l - off] : inc[l];
+          for (int l = 0; l < 32; ++l) inc[l] = ta_min32(inc[l], tmp[l]);
+        }
+        for (int l = 0; l < 32; ++l)
+          ex[32 * w + l] = l >= 1 ? inc[l - 1] : inc[l];
+        if (!slot_put(tot[w], inc[31], i, round)) return 2;
+      }
+      if (i > mm) break;
+      ++round;  // the carry, pass 2, the codes and the hand-over
+      for (int x = 0; x < NW; ++x) {
+        const int w = warp_at(x);
+        int32_t left = TA_BAND_INF;
+        for (int q = 0; q < w; ++q) {
+          int32_t t;
+          if (!slot_get(tot[q], i, round, &t)) return 2;
+          left = ta_min32(left, t);
+        }
+        Bits bits[32];
+        for (int l = 0; l < 32; ++l) {
+          const int gl = 32 * w + l;
+          bits[l] = band_lane_pass2(
+              L[gl], k, R[gl],
+              band_block_carry(left, ex[gl], l, gl, C, k.gc));
+          bits[l] &= band_lane_code_mask<C>(gl * C, W);
+        }
+        if (TRACE)
+          for (int l = 0; l < 32; ++l)
+            for (int r = 0; r < band_word_rounds<C>(); ++r) {
+              const int32_t wl = l + 32 * r;
+              const uint32_t word = band_word<C>(
+                  wl, 32, [&](int32_t src) { return bits[src % 32]; });
+              const int32_t wg = band_block_word0(w, C) + wl;
+              if (wl < 2 * C && wg < wpr)
+                code_out[(int64_t)(i - 1) * wpr + wg] = word;
+            }
+        for (int l = 0; l < 32; ++l) {
+          const int gl = 32 * w + l;
+          if (i == mm && cfin - gl * C >= 0 && cfin - gl * C < C)
+            out[p] = band_lane_pick(L[gl], cfin - gl * C);
+          chr[gl] = band_lane_char_out(L[gl]);
+          v[gl] = l == 0 ? band_byte(a_row, a_stride, i)
+                  : (w == NW - 1 && l == 31)
+                      ? band_byte(b_row, b_stride, i + b_next)
+                      : 0;
+        }
+        const Lane& L0 = L[32 * w];
+        if (!slot_put(edge[w], BandEdge{L0.dp1[0], L0.bg[0],
+                                        band_lane_char_out(L0)},
+                      i, round))
+          return 2;
+      }
+    }
+  }
+  return 0;
+}
+
+// Same arguments as ta_band_block, host pointers, no stream, and the
+// warps' `order` (see rehearse_band_block); refuses what the launcher
+// refuses, returns 2 where a warp reads a slot no earlier round wrote.
+extern "C" int ta_rehearse_band_block(const void* a, const void* b,
+                                      const void* m, const void* n,
+                                      void* out, void* codes, int64_t B,
+                                      int64_t a_stride, int64_t b_stride,
+                                      int unit_k, int64_t code_rows, int mc,
+                                      int gc, int sgc, int tc, int transpose,
+                                      int cells, int warps, int order) {
+  if (!band_block_ok(unit_k, cells, warps) || a_stride < 1 ||
+      b_stride < a_stride)
+    return 1;
+  if (B <= 0) return 0;
+  const BandCosts k{mc, gc, sgc, tc};
+  const uint8_t* ap = (const uint8_t*)a;
+  const uint8_t* bp = (const uint8_t*)b;
+  const int32_t* mp = (const int32_t*)m;
+  const int32_t* np_ = (const int32_t*)n;
+  int32_t* op = (int32_t*)out;
+  uint32_t* cp = (uint32_t*)codes;
+#define TA_BLOCK_RUN(TR, TC, CC)                                            \
+  return rehearse_band_block<TR, TC, CC>(ap, bp, mp, np_, op, cp, B,      \
+                                         a_stride, b_stride, unit_k,      \
+                                         code_rows, k, warps, order)
+#define TA_BLOCK_CELLS(TR, TC) \
+  if (cells == 9) TA_BLOCK_RUN(TR, TC, 9); \
+  TA_BLOCK_RUN(TR, TC, 17)
+  if (cp == nullptr) {
+    if (transpose) { TA_BLOCK_CELLS(true, false); }
+    TA_BLOCK_CELLS(false, false);
+  }
+  if (transpose) { TA_BLOCK_CELLS(true, true); }
+  TA_BLOCK_CELLS(false, true);
+#undef TA_BLOCK_CELLS
+#undef TA_BLOCK_RUN
 }
 
 // The cluster regime of band_distance.cu: one pair after the other; the

@@ -22,7 +22,10 @@ is unbounded.  The band bounds the kernel's regime: up to
 `MAX_WARP_BAND` cells a group of lanes of one warp holds a pair's band in
 registers (`band_plan` picks the cells a lane, the lanes a pair and the
 threads a block from the band and the batch); wider bands, up to
-`MAX_UNIT_K`, run one pair a block with the band in shared memory.  Traced
+`MAX_WIDE_BAND` cells (every untraced band up to `MAX_UNIT_K`), run one
+pair a block whose warps hold the band in registers, the same lanes joined
+across warps by two slots a warp in shared memory (`BLOCK_CELLS` cells a
+lane, `_block_map` picks them and the warps).  Traced
 bands past that, up to `MAX_TRACE_UNIT_K`, have two regimes: pairs whose
 columns a thread-block cluster holds (n + 3 <= `CLUSTER_MAX_COLUMNS`) run
 one pair a cluster with the matrix's columns in registers (no cell left
@@ -86,11 +89,26 @@ MAX_WARP_BAND = max(WARP_LANES) * max(WARP_CELLS)  # 544 cells
 FULL_THREADS = 256
 SMALL_THREADS = 64
 SMALL_BATCH_WARPS = 4 * SM_COUNT
-# The wide regimes (band_wide_kernel): band cells a thread walks serially,
-# threads rounded up to whole warps, at most 1024 (not swept past 544
-# cells).
-WIDE_CELLS_PER_THREAD = 4
-# The device-memory regime (band_wide_kernel<*, *, true>) takes traced
+# The block regime (band_block_kernel<TRANS, TRACE, C, MAXW>): cells a
+# lane (the kernel's instantiations) and the most warps a pair of each
+# (launch bounds of 16 warps, 128 registers a thread, and for 17 cells
+# also 18 warps, 96 registers: 9,792 cells).
+BLOCK_CELLS = (9, 17)
+BLOCK_MAX_WARPS = {9: 16, 17: 18}
+# 9 cells a lane where at most this many warps of them hold the band,
+# else 17: a batch that fills the card (index 0) / one of fewer pairs than
+# the card has SMs (1).  From `benches/band_sweep.py --wide` (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md), rDamerau, 2,000 rows, ms at 9 / 17
+# cells a lane: 1,024 pairs untraced, band 545 1.94 / 3.03 (2 warps
+# each: 17 cells leave half their cells past the band), 1,025 3.40 /
+# 3.01, 2,049 6.42 / 5.63, 4,097 12.81 / 11.03; 256 traced, 545 1.56 /
+# 2.22, 1,025 2.09 / 2.34, 2,049 3.54 / 3.54, 4,097 6.94 / 6.31; one pair
+# untraced, 545 0.95 / 1.26, 1,025 0.94 / 1.25, 2,049 1.24 / 1.27 (8 / 4
+# warps), 4,097 2.04 / 1.84 (15 / 8: two barriers a row over 15 warps
+# cost more than the 8 cells a lane they save); traced 1.58 / 2.22, 1.60
+# / 2.27, 2.07 / 2.32, 3.47 / 3.55.
+NINE_CELL_WARPS = (2, 8)
+# The device-memory regime (band_wide_kernel<*, *>) takes traced
 # bands up to this half-width: every intermediate of its row passes stays
 # in int32 (csrc/band_distance.cu TA_BAND_GLOBAL_MAX_UNIT_K).
 MAX_TRACE_UNIT_K = 1 << 20
@@ -133,9 +151,11 @@ def _round_up(x: int, mult: int) -> int:
 
 
 def _smem_bytes(W: int) -> int:
-    """Shared memory of one pair's block in the wide regime: 6 rows of W
-    ints (three of D, two of the vertical-gap state, one transposition
-    scratch), one word per warp for the scan, one code byte a cell."""
+    """The band state of one pair of the device-memory regime (once held
+    in a block's shared memory, which set the block regime's widest
+    band): 6 rows of W ints (three of D, two of the vertical-gap
+    state, one transposition scratch), one word per warp for the scan, one
+    code byte a cell."""
     return (6 * W + 32) * 4 + ((W + 3) & ~3)
 
 
@@ -147,12 +167,25 @@ def _max_unit_k() -> int:
 
 
 MAX_UNIT_K = _max_unit_k()  # 4096: W = 8193, 6 * W ints = 192 KB
+# The widest band of the block regime: the widest whose state the earlier
+# shared-memory body held (`_smem_bytes`), so the regime takes the bands
+# it took: traced batches up to unit_k 4,640 (the 16-rounding), any
+# untraced one up to MAX_UNIT_K.
+MAX_WIDE_BAND = 2 * MAX_UNIT_K + 1
+while _smem_bytes(MAX_WIDE_BAND + 2) <= SMEM_BYTES_PER_BLOCK:
+    MAX_WIDE_BAND += 2  # 9,291
 
 
 def _scratch_bytes(W: int) -> int:
     """Bytes a pair of the device-memory regime's scratch: the shared
     memory layout of `_smem_bytes`, rounded up to 16."""
     return _round_up(_smem_bytes(W), 16)
+
+
+def _block_smem_bytes(cells: int) -> int:
+    """Static shared memory of a block of the block regime: a hand-over
+    slot (3 ints) and a total (1 int) a warp of its instantiation."""
+    return 16 * BLOCK_MAX_WARPS[cells]
 
 
 def _cluster_fits(max_m: int, max_n: int, unit_k: int) -> bool:
@@ -176,6 +209,16 @@ def _cluster_map(max_n: int, batch: Optional[int]) -> Tuple[int, int]:
         ctas = -(-warps // CLUSTER_SPREAD_WARPS)
     ctas = min(max(ctas, -(-warps // CLUSTER_MAX_WARPS)), CLUSTER_MAX_CTAS)
     return ctas, -(-warps // ctas)
+
+
+def _block_map(W: int, batch: Optional[int]) -> Tuple[int, int]:
+    """(cells a lane, warps a pair) of the block regime: 9 cells a lane
+    where NINE_CELL_WARPS warps of them hold the band (a batch of fewer
+    pairs than the card has SMs takes more of them: a shorter chain a row),
+    else 17; the fewest warps that hold the band."""
+    few = batch is not None and batch < SM_COUNT
+    cells = 9 if -(-W // (32 * 9)) <= NINE_CELL_WARPS[few] else 17
+    return cells, -(-W // (32 * cells))
 
 
 def _warp_map(W: int, batch: Optional[int]) -> Tuple[int, int, int]:
@@ -202,18 +245,18 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
     kernel's code rows only).  Up to MAX_WARP_BAND cells the warp regime
     runs (`regime` "warp"): `lanes_per_pair` lanes of one warp hold a
     pair's band in registers, `cells_per_lane` consecutive cells a lane,
-    `threads` threads a block.  Past it the wide regime (`regime` "wide"):
-    one pair a block of `threads` threads, `cells_per_lane` cells a thread,
-    the band state (6 * W ints) in the block's shared memory, which must
-    fit the 227 KB a block may use: unit_k <= MAX_UNIT_K.  A traced batch
+    `threads` threads a block.  Past it, up to MAX_WIDE_BAND cells, the
+    block regime (`regime` "wide"): one pair a block of `warps_per_pair`
+    warps, `cells_per_lane` cells a lane in registers (`_block_map`); every
+    untraced band up to MAX_UNIT_K.  A traced batch
     past that, up to MAX_TRACE_UNIT_K, runs one of two regimes.  Where a
     cluster holds the pairs' columns (`_cluster_fits`: n + 3 <=
     CLUSTER_MAX_COLUMNS) the cluster regime (`regime` "wide_cluster"):
     one pair a cluster of `ctas_per_pair` CTAs of `threads` threads, 16
     columns of the matrix a lane (`cells_per_lane`), no cell left of
     column 0 computed.  Past it the device-memory regime (`regime`
-    "wide_global"): the wide regime's row passes over the same state,
-    GLOBAL_THREADS threads a block, in `scratch_bytes_per_pair` bytes a
+    "wide_global"): one pair a block of GLOBAL_THREADS threads, each a run
+    of band cells, the band state in `scratch_bytes_per_pair` bytes a
     pair of device memory that the wrapper allocates.  Untraced batches
     past MAX_UNIT_K have other kernels (K5, K9): None.
     """
@@ -228,8 +271,13 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
                 "lanes_per_pair": lanes, "warps_per_pair": 1,
                 "threads": threads, "pairs_per_block": threads // lanes,
                 "smem_bytes": 0}
-    elif (trace and _smem_bytes(W) > SMEM_BYTES_PER_BLOCK
-          and unit_k <= MAX_TRACE_UNIT_K
+    elif W <= MAX_WIDE_BAND:
+        cells, warps = _block_map(W, batch)
+        plan = {"regime": "wide", "cells_per_lane": cells,
+                "lanes_per_pair": 32 * warps, "warps_per_pair": warps,
+                "threads": 32 * warps, "pairs_per_block": 1,
+                "smem_bytes": _block_smem_bytes(cells)}
+    elif (trace and unit_k <= MAX_TRACE_UNIT_K
           and _cluster_fits(max_m, max_n, unit_k)):
         ctas, warps = _cluster_map(max_n, batch)
         plan = {"regime": "wide_cluster", "cells_per_lane": 16,
@@ -237,21 +285,13 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
                 "warps_per_pair": warps * ctas, "threads": 32 * warps,
                 "ctas_per_pair": ctas, "pairs_per_block": 1,
                 "smem_bytes": 0}
-    else:
-        smem = _smem_bytes(W)
-        if smem <= SMEM_BYTES_PER_BLOCK:
-            regime = "wide"
-        elif trace and unit_k <= MAX_TRACE_UNIT_K:
-            regime, smem = "wide_global", 0
-        else:
-            return None
-        threads = (GLOBAL_THREADS if regime == "wide_global" else
-                   min(MAX_THREADS,
-                       _round_up(-(-W // WIDE_CELLS_PER_THREAD), 32)))
-        plan = {"regime": regime, "cells_per_lane": -(-W // threads),
+    elif trace and unit_k <= MAX_TRACE_UNIT_K:
+        threads = GLOBAL_THREADS
+        plan = {"regime": "wide_global", "cells_per_lane": -(-W // threads),
                 "lanes_per_pair": threads, "warps_per_pair": threads // 32,
-                "threads": threads, "pairs_per_block": 1,
-                "smem_bytes": smem}
+                "threads": threads, "pairs_per_block": 1, "smem_bytes": 0}
+    else:
+        return None
     plan["scratch_bytes_per_pair"] = (_scratch_bytes(W)
                                       if plan["regime"] == "wide_global"
                                       else 0)
@@ -275,13 +315,16 @@ def _check_plan(plan: dict, W: int) -> None:
               and plan["lanes_per_pair"] in WARP_LANES
               and plan["cells_per_lane"] * plan["lanes_per_pair"] >= W
               and threads % 32 == 0 and 32 <= threads <= WARP_MAX_THREADS)
+    elif plan["regime"] == "wide":
+        # any band its warps hold (a check may force it onto a narrow one)
+        cells, warps = plan["cells_per_lane"], plan["warps_per_pair"]
+        ok = (cells in BLOCK_CELLS and 1 <= warps <= BLOCK_MAX_WARPS[cells]
+              and threads == 32 * warps and 32 * cells * warps >= W)
     else:
         # the device-memory regime takes any band up to its cap (a check
         # may force it onto a narrow one)
-        fits = (_smem_bytes(W) <= SMEM_BYTES_PER_BLOCK
-                if plan["regime"] == "wide"
-                else W <= 2 * MAX_TRACE_UNIT_K + 1)
-        ok = (plan["regime"] in ("wide", "wide_global") and fits
+        ok = (plan["regime"] == "wide_global"
+              and W <= 2 * MAX_TRACE_UNIT_K + 1
               and threads % 32 == 0 and 32 <= threads <= MAX_THREADS)
     if not ok:
         raise ValueError(f"the band kernel does not take the plan {plan} "
@@ -430,8 +473,8 @@ def _plan_for(a_t, n, unit_k: int, trace: bool, plan: Optional[dict],
     W = 2 * unit_k + 1
     if max_n is None and trace and (
             plan["regime"] == "wide_cluster" if plan is not None
-            else _smem_bytes(W) > SMEM_BYTES_PER_BLOCK):
-        max_n = int(n.max()) if B else 0  # only past the shared-memory plan
+            else W > MAX_WIDE_BAND):
+        max_n = int(n.max()) if B else 0  # only past the block regime
     if plan is None:
         plan = band_plan(rows, unit_k, trace, batch=B, max_n=max_n)
     else:
@@ -470,6 +513,17 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool,
                 int(bool(allow_transpose)), plan["ctas_per_pair"],
                 plan["threads"] // 32, stream)
         check_launch(lib, code, "band_trace")
+        return out, codes
+    if plan["regime"] == "wide":
+        with torch.cuda.device(a_t.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            code = lib.ta_band_block(
+                *(t.data_ptr() for t in tensors), out.data_ptr(),
+                codes.data_ptr() if trace and B else None, B,
+                tensors[0].shape[1], tensors[1].shape[1], unit_k, rows,
+                mc, gc, sgc, tc, int(bool(allow_transpose)),
+                plan["cells_per_lane"], plan["warps_per_pair"], stream)
+        check_launch(lib, code, "band_trace" if trace else "band_distance")
         return out, codes
     scratch, stride = None, 0
     if plan["regime"] == "wide_global" and B:

@@ -147,6 +147,11 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
         i32, i32, i32, i32, i32, i32, i32, i32, vp, i64, vp,
     ]
+    lib.ta_band_block.restype = ctypes.c_int
+    lib.ta_band_block.argtypes = [
+        vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
+        i32, i32, i32, i32, i32, i32, i32, vp,
+    ]
     lib.ta_band_trace_cluster.restype = ctypes.c_int
     lib.ta_band_trace_cluster.argtypes = [
         vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
