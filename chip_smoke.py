@@ -56,9 +56,11 @@ each against its plain PyTorch version on the card:
   traced (band 2,017, then the walk and the decode); 256 pairs of 20,000
   bytes with 5% edits at k = 4000 under affine costs (2, 1, 2) (band
   8,193); `levenshtein()` and `rdamerau()` on one pair of 1,900 bytes
-  (band 4,097); and once the traced kernel's device-memory regime (2
-  pairs of 90,000 bytes, 2% edits, k = 5000: b past the cluster's
-  columns), held against the plain version on a 2,000-byte prefix;
+  (band 4,097); then the traced kernel's cluster regime past what a
+  cluster held at once, its warps a ring over strips of the columns: (e)
+  2 pairs and (f) 64 pairs of 90,000 bytes, 2% edits, k = 5000 (band
+  10,017), held against the untraced call (K5) and against the plain
+  version on a 2,000-byte prefix;
 * `hamming`: `hamming_batch` on the distance pairs and a Hamming search of
   the search needle over the 128 MiB haystack (plain PyTorch ops: the JAX
   package has no hand-written kernel there either);
@@ -135,9 +137,11 @@ PAST_PLAN_PLAIN_PAIRS, PLAIN_WALK_PAIRS = 2, 64
 # swaps added; (b) the first of them traced (band 2,017); (c) long pairs
 # with 5% edits under affine costs at k = 4000 (band 8,193, the untraced
 # regime's widest); (d) one pair through `levenshtein()` / `rdamerau()`
-# (band 4,097); (e) the device-memory regime once: 2 traced pairs past
-# the cluster regime's columns, held against the plain version on a
-# prefix of WIDE_DEEP_CUT bytes.  The compiled comparators check the
+# (band 4,097); (e), (f) K4's cluster regime past what a cluster held at
+# once (b of 90,000 bytes: 176 strips of 512 columns on a ring of 21 or
+# 24 warps): 2 and 64 traced pairs, held against the untraced call (K5)
+# and against the plain version on a prefix of WIDE_DEEP_CUT bytes of
+# the first WIDE_PLAIN_PAIRS pairs.  The compiled comparators check the
 # first WIDE_NATIVE_PAIRS pairs of every untraced case (unit costs: all
 # pairs), on CPU threads beside the card's work.
 WIDE_PAIRS, WIDE_LEN, WIDE_EDIT_SHARE, K_WIDE = 4096, 5000, 0.10, 1000
@@ -145,6 +149,7 @@ WIDE_SWAP_SHARE, WIDE_TRACE_PAIRS = 0.01, 512
 WIDE_AFFINE = (256, 20_000, 0.05, 4000)  # pairs, bytes, edit share, k
 WIDE_FRONT = (1900, 0.10)  # bytes, edit share
 WIDE_DEEP = (2, 90_000, 0.02, 5000)  # pairs, bytes, edit share, k
+WIDE_DEEP_F = (64, 90_000, 0.02, 5000)  # the same that fills the card
 WIDE_DEEP_CUT = 2000
 WIDE_NATIVE_PAIRS, WIDE_PLAIN_PAIRS = 64, 2
 # K10's longest walk alone is timed with L2 warm and with L2 emptied
@@ -998,8 +1003,7 @@ def check_band_kernels(dev):
     lengths: the short regime, the long one (rows >= 16384, band 513), the
     block regime (bands 1025 and 8193 at the plan's maps, then every map
     of `band_block_cases` on its warp edges, with swaps on the diagonals
-    of the warp edges), the traced kernel's device-memory
-    regime (forced onto bands 65, 1025 and 16,385; its cluster regime has
+    of the warp edges; the traced kernel's cluster regime has
     `check_band_cluster`), and every lane map of the warp
     regime at its lane and group edges (`band_lane_cases`), at a batch
     that leaves its last warp part empty and at a full one, with swaps on
@@ -1044,33 +1048,6 @@ def check_band_kernels(dev):
                                 f"unit_k={unit_k} max_m={max_m}")
                 cases[regime] += 2  # the untraced and the traced kernel
                 del got_codes, ref_codes
-    # the device-memory regime (traced only): forced onto narrow bands at
-    # 64 and 1024 threads, then band 16,385 (the plan takes it past the
-    # cluster regime's columns)
-    cases["device_memory"] = 0
-    deep = device_memory_plan()
-    for costs in (RDAMERAU_COSTS, EditCosts(*AFFINE)):
-        ct = costs_tuple(costs)
-        for unit_k, max_m, n_pairs, plan in (
-                (32, 300, 40, dict(deep, threads=64)),
-                (512, 1100, 9, dict(deep, threads=1024)),
-                (2 * MAX_UNIT_K, 400, 5, deep)):
-            a_list, b_list = band_cases(rng, n_pairs, max_m, unit_k)
-            a_e, b_e = walk_edge_pairs(rng, unit_k, max_m)
-            t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k,
-                                     max_m, device=dev)
-            got_dt, got_codes = band_trace(*t, unit_k=unit_k, costs_t=ct,
-                                           plan=plan)
-            torch.cuda.synchronize()
-            ref_d, ref_codes = band_scan_distance(
-                *t, unit_k=unit_k, costs_t=ct, trace_on=True)
-            err = band_errors(got_dt, got_codes, ref_d, ref_codes, t,
-                              unit_k, walk=True)
-            worst = max(worst, err)
-            check(err == 0, f"band_trace in device memory != plain at "
-                            f"costs={ct} unit_k={unit_k} max_m={max_m}")
-            cases["device_memory"] += 1
-            del got_codes, ref_codes
     cases["block_edges"] = 0
     for q, (W, cells, warps) in enumerate(band_block_cases()):
         unit_k, max_m = (W - 1) // 2, 60
@@ -1129,18 +1106,12 @@ def check_band_kernels(dev):
     return cases, worst
 
 
-def device_memory_plan() -> dict:
-    """K4's device-memory regime as the plan gives it: past the cluster
-    regime's columns (a check forces it onto other bands)."""
-    from triple_accel_tpu_torch.ops import lev_band as lb
-
-    return lb.band_plan(8, 2 * lb.MAX_UNIT_K, True,
-                        max_n=lb.CLUSTER_MAX_COLUMNS)
-
-
-def cluster_plan(max_m: int, unit_k: int, ctas: int, warps: int) -> dict:
+def cluster_plan(max_m: int, unit_k: int, ctas: int, warps: int,
+                 full_band: bool = False) -> dict:
     """A plan of K4's cluster regime at a given cluster: `ctas` CTAs of
-    `warps` warps."""
+    `warps` warps (a ring over the pair's strips of 512 columns, however
+    many), with its strips over every band column where `full_band` (or
+    where the batch needs it: `lev_band._full_band`)."""
     from triple_accel_tpu_torch.ops import lev_band as lb
 
     from triple_accel_tpu_torch.ops.band_scan import code_words
@@ -1150,7 +1121,8 @@ def cluster_plan(max_m: int, unit_k: int, ctas: int, warps: int) -> dict:
     return dict(plan, ctas_per_pair=ctas, threads=32 * warps,
                 warps_per_pair=ctas * warps,
                 lanes_per_pair=32 * ctas * warps, code_words=code_words(W),
-                code_bytes_per_pair=max(max_m, 1) * code_words(W) * 4)
+                code_bytes_per_pair=max(max_m, 1) * code_words(W) * 4,
+                full_band=full_band or lb._full_band(max_m, unit_k))
 
 
 def cluster_pairs(rng, n_pairs: int, max_m: int, max_n: int, unit_k: int):
@@ -1229,12 +1201,47 @@ CLUSTER_CHECKS = (
 )
 
 
+def ring_edge_pair(rng, m: int, unit_k: int):
+    """A pair whose cheapest path runs on the band's right edge (b =
+    unit_k bytes, then a), with adjacent swaps that end on each strip's
+    first column in the first row whose band reaches it (row 512 s -
+    unit_k): their transpositions read D two rows up, which comes from the
+    strip on the left before the band reaches this one."""
+    a = ACGT[rng.integers(0, 4, m)]
+    b = a.copy()
+    for s in range(1, (m + unit_k) // 512 + 1):
+        q = 512 * s - unit_k - 2
+        if 0 <= q and q + 1 < m:  # a: X N, b: N X
+            a[q + 1] = b[q] = ord("N")
+            b[q + 1] = a[q]
+    return a, np.concatenate([ACGT[rng.integers(0, 4, unit_k)], b])
+
+
+# K4's cluster regime as a ring: fewer warps than strips of 512 columns
+# (unit_k, rows, longest b, CTAs a cluster, warps a CTA, pairs, strips over
+# every band column): the plan's bands (9,409; 10,017 as in `band_wide`
+# case (e)) over 11 to 13 strips on 2 to 8 warps, a band of 2,001 cells
+# on 3 warps, narrow bands whose strips run disjoint rows on 1 and 2
+# warps, and the strips over every band column (`full_band`, the path
+# past the INF rule) at two of them.
+RING_CHECKS = (
+    (4704, 600, 5_300, 1, 2, 4, False),
+    (5008, 1500, 6_500, 2, 4, 3, False),
+    (4704, 400, 5_104, 3, 1, 4, True),
+    (1000, 4000, 5_000, 1, 3, 4, False),
+    (8, 3000, 3_000, 1, 1, 6, False),
+    (40, 6000, 6_040, 2, 1, 6, True),
+)
+
+
 def check_band_cluster(dev):
     """K4's cluster regime against the plain version on the card, under
     the four cost models: distances and every code word of rows 1..m,
     bit for bit, at CLUSTER_CHECKS (`cluster_pairs`, and
-    `cluster_edge_pairs`: transpositions across lane, warp and CTA edges).
-    K10 over this regime's codes: `check_trace_walk_kernel`."""
+    `cluster_edge_pairs`: transpositions across lane, warp and CTA edges)
+    and at RING_CHECKS (the same, and `ring_edge_pair`: transpositions at
+    each strip's first row).  K10 over this regime's codes:
+    `check_trace_walk_kernel`."""
     from triple_accel_tpu_torch.ops.band_scan import band_scan_distance
     from triple_accel_tpu_torch.ops.lev_band import (
         band_trace, prepare_band_tensors)
@@ -1243,13 +1250,16 @@ def check_band_cluster(dev):
 
     rng = np.random.default_rng(1100)
     worst, cases = 0, 0
-    for q, (unit_k, max_m, max_n, ctas, warps, n_pairs) in enumerate(
-            CLUSTER_CHECKS):
+    for q, (unit_k, max_m, max_n, ctas, warps, n_pairs, full) in enumerate(
+            [c + (False,) for c in CLUSTER_CHECKS] + list(RING_CHECKS)):
         a_list, b_list = cluster_pairs(rng, n_pairs, max_m, max_n, unit_k)
         a_e, b_e = cluster_edge_pairs(rng, unit_k, max_m, max_n)
+        if q >= len(CLUSTER_CHECKS):
+            a_r, b_r = ring_edge_pair(rng, max_n - unit_k - 8, unit_k)
+            a_e, b_e = a_e + [a_r], b_e + [b_r]
         t = prepare_band_tensors(a_list + a_e, b_list + b_e, unit_k, max_m,
                                  device=dev)
-        plan = cluster_plan(max_m, unit_k, ctas, warps)
+        plan = cluster_plan(max_m, unit_k, ctas, warps, full_band=full)
         for costs in (LEVENSHTEIN_COSTS, RDAMERAU_COSTS, EditCosts(*AFFINE),
                       EditCosts(3, 2, 1, 2)):
             ct = costs_tuple(costs)
@@ -1306,8 +1316,9 @@ def check_trace_walk_kernel(dev):
     """The walk kernel K10 against its plain version (`trace_walk_plain`):
     every pair's run count and packed runs, at the plan's launch shape and
     at WALK_CHECK_PLANS.  On codes from K4 in each of its regimes (warp,
-    block, device memory at a forced narrow plan and at
-    band 16,385, the cluster regime at band 16,385 as the plan gives it),
+    block, the cluster regime as a ring of fewer warps than strips at a
+    forced narrow plan and at band 16,385, and at band 16,385 as the plan
+    gives it),
     under a cost model with transpositions and one without: edited pairs
     with m = 0 and empty pairs (`band_cases`), walks along band cells 0,
     15, 16, 31, 32 and W - 1 and a transposition as a walk's last step
@@ -1341,11 +1352,11 @@ def check_trace_walk_kernel(dev):
             cases += 1
         return got
 
-    deep = device_memory_plan()
     regimes = (("warp", 16, 80, 33, None),
                ("wide", 600, 2500, 9, None),
-               ("device_memory_forced", 16, 80, 71, dict(deep, threads=64)),
-               ("device_memory", 2 * MAX_UNIT_K, 200, 3, deep),
+               ("ring_forced", 16, 1200, 9, cluster_plan(1200, 16, 1, 1)),
+               ("ring", 2 * MAX_UNIT_K, 200, 3,
+                cluster_plan(200, 2 * MAX_UNIT_K, 1, 2, full_band=True)),
                ("cluster", 2 * MAX_UNIT_K, 200, 3, None))
     for costs in (RDAMERAU_COSTS, EditCosts(*AFFINE)):
         ct = costs_tuple(costs)
@@ -3067,11 +3078,7 @@ def band_kernel_only(dev, a_list, b_list, decision, costs, traced: bool,
     tr = str(traced).lower()
     kernel = {"warp": f"band_kernel<*, {tr}, {plan['cells_per_lane']}>",
               "wide_cluster": "band_cluster_kernel<*>",
-              "wide_global": f"band_wide_kernel<*, {tr}>",
-              # a version without the block regime: the shared-memory body
-              "wide": (f"band_block_kernel<*, {tr}, {plan['cells_per_lane']}>"
-                       if hasattr(lb, "BLOCK_CELLS")
-                       else f"band_wide_kernel<*, {tr}, false>")}
+              "wide": f"band_block_kernel<*, {tr}, {plan['cells_per_lane']}>"}
     entry = {
         "kernel": kernel[plan["regime"]],
         "max_abs_err": err, "ms": times[0], "ms_min": times[1],
@@ -3514,9 +3521,10 @@ def drive_untraced(a_l, b_l, k: int, costs, name: str):
 
 def run_band_wide(dev, scale: float, native_loaded: bool):
     """K3 / K4's block regime (bands of 545 - 9,281 cells) through the entry
-    points, cases (a) - (d) of WIDE_*, then K4's device-memory regime once
-    (e).  Every distance within the threshold and every trace is checked;
-    returns the `kernels` entries."""
+    points, cases (a) - (d) of WIDE_*, then K4's cluster regime past a
+    cluster's columns, cases (e) and (f) (`run_wide_ring`).  Every
+    distance within the threshold and every trace is checked; returns the
+    `kernels` entries."""
     import triple_accel_tpu_torch as tt
     from triple_accel_tpu_torch.dispatch import dispatch_history
     from triple_accel_tpu_torch.ops import lev_band as lb
@@ -3697,74 +3705,115 @@ def run_band_wide(dev, scale: float, native_loaded: bool):
               "note": "one pair: latency-bound, no roofline applies",
               **plan, **phase})
 
-    # (e) the device-memory regime once: b past the cluster's columns
-    n_e, length, share, k_e = WIDE_DEEP
-    name = "band_trace_device_memory"
-    a_l, b_l = make_long_pairs(n_e, length, share, seed=6065)
+    # (e), (f): K4's cluster regime past a cluster's columns (b strings
+    # of 90,000 bytes: 176 strips of 512 columns, 21 of which meet a row),
+    # its warps a ring over them
+    for case, (n_x, length, share, k_x), seed in (
+            ("e", WIDE_DEEP, 6065),
+            ("f", (max(2, int(WIDE_DEEP_F[0] * scale)),) + WIDE_DEEP_F[1:],
+             6066)):
+        entries.append(run_wide_ring(dev, case, n_x, length, share, k_x,
+                                     seed))
+    pool.shutdown()
+    emit({"phase": "band_wide", "case": "done",
+          "phase_s": round(time.perf_counter() - t_phase, 1)})
+    return entries
+
+
+def run_wide_ring(dev, case: str, n_x: int, length: int, share: float,
+                  k_x: int, seed: int) -> dict:
+    """`band_wide` case (e) or (f): `n_x` traced pairs of `length` ACGT
+    bytes with `share` of edits at k_x under rDamerau costs, b past what a
+    cluster held at once, through `levenshtein_k_batch` (the plan must be
+    the cluster regime with fewer warps than strips); distances against
+    the untraced call (K5), every trace replayed; the kernel once more
+    alone, timed, and against the plain version at the same plan on the
+    first WIDE_DEEP_CUT bytes of the first WIDE_PLAIN_PAIRS pairs.  (e)
+    also gives `e2e_split_s`.  Returns the `kernels` entry."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.ops import band_scan as bs
+    from triple_accel_tpu_torch.ops import lev_band as lb
+    from triple_accel_tpu_torch.ops import myers_chunked as mc
+
+    name = f"band_trace_ring_{case}"
+    t0 = time.perf_counter()
+    a_l, b_l = make_long_pairs(n_x, length, share, seed=seed)
+    gen_s = time.perf_counter() - t0
     out, traces, e2e_s, launches, walks, dec = drive_traced(
-        a_l, b_l, k_e, tt.RDAMERAU_COSTS, name, "band_trace_global")
+        a_l, b_l, k_x, tt.RDAMERAU_COSTS, name, "band_trace_global")
     sa, sb = shorter_first(a_l, b_l)
-    plan = lb.band_plan(dec.padded_m, dec.unit_k, True, batch=n_e,
-                        max_n=max(len(x) for x in sb))
-    check(plan["regime"] == "wide_global", f"{name}: plan {plan}")
+    max_n = max(len(x) for x in sb)
+    plan = lb.band_plan(dec.padded_m, dec.unit_k, True, batch=n_x,
+                        max_n=max_n)
+    strips = -(-(max_n + 3) // 512)
+    check(plan["regime"] == "wide_cluster"
+          and plan["warps_per_pair"] < strips and not plan["full_band"],
+          f"{name}: plan {plan} for {strips} strips")
     mc.blocked_distance.launches = 0
-    untraced = tt.levenshtein_k_batch(a_l, b_l, k_e, tt.RDAMERAU_COSTS)
+    untraced = tt.levenshtein_k_batch(a_l, b_l, k_x, tt.RDAMERAU_COSTS)
     check(mc.blocked_distance.launches >= 1,
           f"{name}: the untraced call did not take K5")
     check(np.array_equal(untraced, out),
           f"{name}: traced distances != the untraced call's (K5)")
+    split = (band_trace_split(a_l, b_l, k_x, tt.RDAMERAU_COSTS, out, traces)
+             if case == "e" else None)
     ct = costs_tuple(tt.RDAMERAU_COSTS)
     t = lb.prepare_band_tensors(sa, sb, dec.unit_k, dec.padded_m, device=dev)
     kw = dict(unit_k=dec.unit_k, costs_t=ct)
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
+    times = time_launches(lambda: lb.band_trace(*t, **kw), 3)
     got_d, got_codes = lb.band_trace(*t, **kw)
-    t1.record()
-    torch.cuda.synchronize()
-    ms = t0.elapsed_time(t1)
     check(np.array_equal(got_d.cpu().numpy().astype(np.int64), out),
           f"{name}: kernel-only rerun != main path result")
+    code_mb = got_codes.numel() * 4 / 1e6
     bound = prof.k4_bound(t[2].cpu().numpy(), t[3].cpu().numpy(),
                           dec.unit_k, ct)
     del got_codes, t
+    torch.cuda.empty_cache()
     # the same launch shape against the plain version on a prefix
+    n_cut = min(WIDE_PLAIN_PAIRS, n_x)
     cut = lb.prepare_band_tensors(
-        [x[:WIDE_DEEP_CUT] for x in sa], [y[:WIDE_DEEP_CUT] for y in sb],
+        [x[:WIDE_DEEP_CUT] for x in sa[:n_cut]],
+        [y[:WIDE_DEEP_CUT] for y in sb[:n_cut]],
         dec.unit_k, WIDE_DEEP_CUT, device=dev)
     cut_d, cut_codes = lb.band_trace(*cut, plan=plan, **kw)
     ref = None
 
     def run_plain():
         nonlocal ref
-        from triple_accel_tpu_torch.ops import band_scan as bs
         ref = bs.band_scan_distance(*cut, trace_on=True, **kw)
 
     plain_ms = time_once_ms(run_plain)
     err = band_errors(cut_d, cut_codes, ref[0], ref[1], cut, dec.unit_k,
                       False)
     check(err == 0, f"{name}: != plain on the {WIDE_DEEP_CUT}-byte prefix")
-    entries.append(band_entry(name, "wide_global", True, "773", launches, {
-        "kernel": "band_wide_kernel<*, true>", "max_abs_err": err,
-        "ms": ms, "plain_ms": plain_ms,
-        "plain_shape": f"the first {WIDE_DEEP_CUT} bytes of each string, "
-                       "the same band and plan",
+    rows = dec.padded_m
+    emit({"phase": "band_wide", "case": case, "name": name, "pairs": n_x,
+          "str_len": length, "edit_share": share, "k": k_x,
+          "costs": "RDAMERAU_COSTS", "unit_k": dec.unit_k,
+          "band_cells": 2 * dec.unit_k + 1, "rows": rows,
+          "strips_per_pair": strips, "traces_replayed": n_x,
+          "launches": launches, "walk_launches": walks,
+          "reference": "K5 on every pair", "datagen_s": round(gen_s, 3),
+          "code_MB": round(code_mb, 1),
+          "wrap_MB": round(n_x * plan["scratch_bytes_per_pair"] / 1e6, 1),
+          "e2e_s": round(e2e_s, 4), "e2e_split_s": split,
+          "kernel_ms": round(times[0], 4),
+          "kernel_ms_min_max": [round(times[1], 4), round(times[2], 4)],
+          "us_per_row": round(times[0] * 1e3 / max(rows, 1), 3),
+          "bound_ms": bound["bound_ms"],
+          "plain_ms_at_cut": round(plain_ms, 1),
+          "plain_cut": [n_cut, WIDE_DEEP_CUT],
+          **{k_: plan[k_] for k_ in ("regime", "ctas_per_pair", "threads",
+                                     "warps_per_pair", "full_band")}})
+    return band_entry(name, "wide_cluster", True, "773", launches, {
+        "kernel": "band_cluster_kernel<*>", "max_abs_err": err,
+        "ms": times[0], "ms_min": times[1], "ms_max": times[2],
+        "plain_ms": plain_ms,
+        "plain_shape": f"the first {WIDE_DEEP_CUT} bytes of the first "
+                       f"{n_cut} pairs, the same band and plan",
         "library_ms": None,
         **{k_: bound[k_] for k_ in ("bound_ms", "bound_by", "bound_bytes_ms",
-                                    "bound_operations_ms")}}))
-    emit({"phase": "band_wide", "case": "e", "name": name, "pairs": n_e,
-          "str_len": length, "k": k_e, "costs": "RDAMERAU_COSTS",
-          "unit_k": dec.unit_k, "band_cells": 2 * dec.unit_k + 1,
-          "traces_replayed": n_e, "launches": launches,
-          "walk_launches": walks, "reference": "K5 on every pair",
-          "code_MB": round(n_e * plan["code_bytes_per_pair"] / 1e6, 1),
-          "e2e_s": round(e2e_s, 4), "kernel_ms": round(ms, 4),
-          "plain_ms_at_cut": round(plain_ms, 1),
-          "regime": plan["regime"], "threads": plan["threads"]})
-    pool.shutdown()
-    emit({"phase": "band_wide", "case": "done",
-          "phase_s": round(time.perf_counter() - t_phase, 1)})
-    return entries
+                                    "bound_operations_ms")}})
 
 
 def run_hamming(dev, a_list, b_list, needle, hay, planted):
@@ -4878,7 +4927,6 @@ def main() -> int:
               "cases_wide": b_cases["wide"],
               "cases_block_edges": b_cases["block_edges"],
               "cases_lane_edges": b_cases["lane_edges"],
-              "cases_device_memory": b_cases["device_memory"],
               "max_abs_err": b_err},
           "band_trace_cluster": {"cases": c_cases, "max_abs_err": c_err},
           "trace_walk": {"cases": w_cases, "max_abs_err": w_err},
@@ -4939,7 +4987,7 @@ def main() -> int:
     for entry in wide:
         entry.update(ok=True, cases=(
             w_cases if entry["name"].startswith("trace_walk")
-            else b_cases["device_memory"] if entry["regime"] == "wide_global"
+            else c_cases if entry["regime"] == "wide_cluster"
             else (b_cases["wide"] + b_cases["block_edges"]) // 2))
     for entry, regime in ((k3, "short"), (k3_long, "long"), (k4, "short"),
                           (k4_long, "long")):

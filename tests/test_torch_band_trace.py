@@ -292,7 +292,7 @@ def test_single_pair_trace_equals_jax_and_oracle(a, b):
 # batches past the plan have engines: untraced, the blocked Myers distance
 # kernel for unit and rDamerau costs (test_torch_blocked_distance.py) and
 # the flat distance kernel for the others (test_torch_flat_distance.py);
-# traced, the band kernel with its state in device memory and the walk
+# traced, the band kernel's cluster regime and the walk
 @pytest.mark.parametrize("c,trace,engine", [
     (COSTS[0], True, "band_trace_global"),
     (COSTS[1], True, "band_trace_global"),
@@ -306,8 +306,8 @@ def test_batches_past_the_band_plan_raise(c, trace, engine):
     its engine on the shortest strings past the plan and is held against
     the compiled scalar comparator, traces replayed.  A traced batch runs
     at its unit_k rounded up to 16, so its strings are longer than the
-    untraced one's: n = 4,704 gives band 9,409, past a block's shared
-    memory (`_smem_bytes`: n >= 4,641)."""
+    untraced one's: n = 4,704 gives band 9,409, past the block regime
+    (`lev_band.MAX_WIDE_BAND`: n >= 4,641)."""
     from triple_accel_tpu_torch.utils.native import (
         scalar_banded_batch_native)
 

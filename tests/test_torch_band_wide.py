@@ -89,10 +89,16 @@ def test_plan_maps_the_wide_bands_onto_one_block_of_warps():
 
 
 def test_the_regime_takes_exactly_the_bands_the_shared_memory_body_took():
-    # the widest band whose 6 rows of W ints fit a block's shared memory
-    assert tlb.MAX_WIDE_BAND == 9291
-    assert tlb._smem_bytes(tlb.MAX_WIDE_BAND) <= tlb.SMEM_BYTES_PER_BLOCK
-    assert tlb._smem_bytes(tlb.MAX_WIDE_BAND + 2) > tlb.SMEM_BYTES_PER_BLOCK
+    # the widest band whose state (6 rows of W ints, an int a warp, a code
+    # byte a cell) fitted a block's shared memory, and its power of two
+    def state_bytes(W):
+        return (6 * W + 32) * 4 + ((W + 3) & ~3)
+
+    assert tlb.MAX_WIDE_BAND == 9291 and tlb.MAX_UNIT_K == 4096
+    assert state_bytes(tlb.MAX_WIDE_BAND) <= tlb.SMEM_BYTES_PER_BLOCK
+    assert state_bytes(tlb.MAX_WIDE_BAND + 2) > tlb.SMEM_BYTES_PER_BLOCK
+    assert state_bytes(2 * tlb.MAX_UNIT_K + 1) <= tlb.SMEM_BYTES_PER_BLOCK
+    assert state_bytes(4 * tlb.MAX_UNIT_K + 1) > tlb.SMEM_BYTES_PER_BLOCK
     for trace in (False, True):
         # the first band past the warp regime's 544 cells, and the last
         # inside it
@@ -102,12 +108,12 @@ def test_the_regime_takes_exactly_the_bands_the_shared_memory_body_took():
     # every untraced band up to MAX_UNIT_K, and none past the widest
     assert tlb.band_plan(8, tlb.MAX_UNIT_K)["regime"] == "wide"
     assert tlb.band_plan(8, 4646) is None
-    # traced bands past it: the cluster regime, or past its columns the
-    # device-memory regime
+    # traced bands past it: the cluster regime, whatever the length of b
+    # (its warps a ring over strips of the columns)
     assert tlb.band_plan(8, 4646, True)["regime"] == "wide_cluster"
     assert tlb.band_plan(8, 4640, True, max_n=90_000)["regime"] == "wide"
     assert tlb.band_plan(8, 4656, True, max_n=90_000)["regime"] \
-        == "wide_global"
+        == "wide_cluster"
 
 
 BAD_PLANS = [

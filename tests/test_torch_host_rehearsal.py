@@ -78,13 +78,13 @@ def lib(tmp_path_factory):
         vp, i64, vp, i32, i32, i64, i64, i64, i32, i32, vp, i64, i32]
     lib.ta_rehearse_band.restype = ctypes.c_int
     lib.ta_rehearse_band.argtypes = (
-        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8 + [vp, i64])
+        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
     lib.ta_rehearse_band_block.restype = ctypes.c_int
     lib.ta_rehearse_band_block.argtypes = (
         [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
     lib.ta_rehearse_band_cluster.restype = ctypes.c_int
     lib.ta_rehearse_band_cluster.argtypes = (
-        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 8)
+        [vp] * 6 + [i64, i64, i64, i32, i64] + [i32] * 9)
     lib.ta_rehearse_trace_walk.restype = ctypes.c_int
     lib.ta_rehearse_trace_walk.argtypes = (
         [vp] * 7 + [i64] * 5 + [i32, i64] + [i32] * 3)
@@ -360,15 +360,13 @@ def _same_runs(got, ref) -> bool:
 
 
 def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
-                lanes, oracle=True, scratch_pad=None, block=None):
+                lanes, oracle=True, block=None):
     """The rehearsal (untraced and traced) at one launch plan against the
     plain version (distances, codes of rows 1..m, walked streams, K10's
     body walking the rehearsal's codes) and, with `oracle`, the oracle
-    wherever the costs stay inside the band.  `scratch_pad` (bytes past
-    the state a pair, a multiple of 16): the device-memory regime with its
-    state in a per-pair scratch, as the wrapper allocates it.  `block`
-    (cells a lane, warps a pair, order of the warps in a round): the block
-    regime (`threads`, `cells` and `lanes` are not read)."""
+    wherever the costs stay inside the band.  `block` (cells a lane, warps
+    a pair, order of the warps in a round): the block regime (`threads`,
+    `cells` and `lanes` are not read)."""
     B = len(a_list)
     ct = (costs[0], costs[1], costs[2], costs[3] or 0, costs[3] is not None)
     t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m, device="cpu")
@@ -377,11 +375,6 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
     plain_seq, _ = bs.walk_packed_traceback(plain_codes, *t, unit_k=unit_k)
     arrs = [x.numpy() for x in t]
     rows, wpr = plain_codes.shape[1], plain_codes.shape[2]
-    stride = 0
-    scratch = None
-    if scratch_pad is not None:
-        stride = lb._scratch_bytes(2 * unit_k + 1) + scratch_pad
-        scratch = np.full(B * stride, 0xA5, np.uint8)  # garbage, not zeros
     for traced in (False, True):
         out = np.full(B, -7, np.int32)
         codes = np.zeros((B, rows, wpr), np.int32)
@@ -391,9 +384,7 @@ def _band_check(lib, a_list, b_list, unit_k, max_m, costs, threads, cells,
         if block is not None:
             rc = lib.ta_rehearse_band_block(*head, *block)
         else:
-            rc = lib.ta_rehearse_band(
-                *head, threads, cells, lanes,
-                None if scratch is None else scratch.ctypes.data, stride)
+            rc = lib.ta_rehearse_band(*head, threads, cells, lanes)
         assert rc == 0
         assert np.array_equal(out, plain_d.numpy()), costs
         if traced:
@@ -507,14 +498,13 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
     out = np.zeros(1, np.int32)
     args = [z.ctypes.data, z.ctypes.data, i0.ctypes.data, i0.ctypes.data,
             out.ctypes.data, None, 1, 16, 25]
-    no_scratch = (None, 0)
     # the block regime: 9 or 17 cells a lane, 1 to 16 or 18 warps that
     # hold the band (the band in shared memory is no longer taken)
     assert lib.ta_rehearse_band_block(*args, 4, 16, 1, 1, 0, 0, 0, 9, 1,
                                       0) == 0
     assert out[0] == 0
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0, 0,
-                                *no_scratch) == 1
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 32, 0,
+                                0) == 1
     for cells, warps in ((9, 0), (5, 1), (9, 17), (17, 19)):
         assert lib.ta_rehearse_band_block(*args, 4, 16, 1, 1, 0, 0, 0,
                                           cells, warps, 0) == 1
@@ -522,62 +512,29 @@ def test_band_rehearsal_refuses_what_the_launcher_refuses(lib):
                                       18, 0) == 1  # 9,792 cells < 16,385
     assert lib.ta_rehearse_band_block(*args, 144, 16, 1, 1, 0, 0, 0, 9, 1,
                                       0) == 1  # 288 cells < W = 289
-    # the warp regime: a known lane map that holds the band, <= 256 threads
+    # the warp regime: a known lane map that holds the band, <= 256
+    # threads; no other regime behind it (cells 0 took the band in device
+    # memory once)
     out[0] = -7
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8,
-                                *no_scratch) == 0
+    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3,
+                                8) == 0
     assert out[0] == 0
     for cells, lanes, threads in ((4, 8, 32), (3, 4, 32), (3, 64, 32),
-                                  (3, 8, 512)):
+                                  (3, 8, 512), (0, 0, 128), (0, 0, 1024)):
         assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, threads,
-                                    cells, lanes, *no_scratch) == 1
+                                    cells, lanes) == 1
     assert lib.ta_rehearse_band(*args, 12, 16, 1, 1, 0, 0, 0, 32, 3,
-                                8, *no_scratch) == 1  # 24 cells < W = 25
-    # the device-memory regime: the state's bytes a pair or more, in steps
-    # of 16, no warp-regime map, any band up to its cap
-    need = lb._scratch_bytes(2 * 8192 + 1)
-    scratch = np.zeros(need + 16, np.uint8)
-    big = [z.ctypes.data, np.zeros(8192 + 16 + 16385, np.uint8).ctypes.data,
-           i0.ctypes.data, i0.ctypes.data, out.ctypes.data, None, 1, 16,
-           8192 + 16 + 16385]
-    out[0] = -7
-    assert lib.ta_rehearse_band(*big, 8192, 16, 1, 1, 0, 0, 0, 1024, 0, 0,
-                                scratch.ctypes.data, need) == 0
-    assert out[0] == 0
-    for stride in (need - 16, need + 8):
-        assert lib.ta_rehearse_band(*big, 8192, 16, 1, 1, 0, 0, 0, 1024, 0,
-                                    0, scratch.ctypes.data, stride) == 1
-    assert lib.ta_rehearse_band(*args, 4, 16, 1, 1, 0, 0, 0, 64, 3, 8,
-                                scratch.ctypes.data, need) == 1
-    assert lib.ta_rehearse_band(*args, lb.MAX_TRACE_UNIT_K + 1, 16, 1, 1, 0,
-                                0, 0, 1024, 0, 0, scratch.ctypes.data,
-                                1 << 40) == 1
-
-
-# The device-memory regime (band_wide_kernel<*, *>): the thread-a-run
-# row passes over a per-pair scratch that starts as garbage,
-# forced onto narrow bands (the plan takes it past unit_k 4096 only), one
-# stride the state's own size and one with room after it.
-@pytest.mark.parametrize("costs", BAND_COSTS,
-                         ids=["unit", "rdamerau", "affine", "affine_transpose"])
-def test_band_rows_in_device_memory_equal_plain_version_and_oracle(lib,
-                                                                   costs):
-    for unit_k, max_m, threads, pad in ((4, 40, 32, 0), (16, 50, 64, 48),
-                                        (40, 30, 96, 0)):
-        rng = np.random.default_rng(17 * unit_k + costs[0])
-        a_list, b_list = _band_pairs(rng, 24, max_m, unit_k)
-        a_e, b_e = cs.walk_edge_pairs(rng, unit_k, max_m)
-        _band_check(lib, a_list + a_e, b_list + b_e, unit_k, max_m, costs,
-                    threads, 0, 0, scratch_pad=pad)
+                                8) == 1  # 24 cells < W = 25
 
 
 def _cluster_check(lib, a_list, b_list, unit_k, max_m, costs, ctas, warps,
-                   oracle):
+                   oracle, full=False):
     """K4's cluster regime, rehearsed at `ctas` CTAs of `warps` warps in
     both of the rehearsal's warp orders, against the plain version:
     distances, every code word of rows 1..m, and the walked streams; with
     `oracle`, distances and edit lists against the oracle wherever the
-    costs stay inside the band."""
+    costs stay inside the band.  `full`: the strips cover every band
+    column (no rule right of column n + 2)."""
     B = len(a_list)
     ct = (costs[0], costs[1], costs[2], costs[3] or 0, costs[3] is not None)
     t = lb.prepare_band_tensors(a_list, b_list, unit_k, max_m, device="cpu")
@@ -592,7 +549,7 @@ def _cluster_check(lib, a_list, b_list, unit_k, max_m, costs, ctas, warps,
         rc = lib.ta_rehearse_band_cluster(
             *[x.ctypes.data for x in arrs], out.ctypes.data, codes.ctypes.data,
             B, arrs[0].shape[1], arrs[1].shape[1], unit_k, rows, *ct[:4],
-            int(ct[4]), ctas, warps, order)
+            int(ct[4]), ctas, warps, int(full), order)
         assert rc == 0
         assert np.array_equal(out, plain_d.numpy()), (costs, order)
         for p in range(B):
@@ -679,12 +636,103 @@ def test_band_cluster_rehearsal_refuses_what_the_launcher_refuses(lib):
     args = [z.ctypes.data, z.ctypes.data, i0.ctypes.data, i0.ctypes.data,
             out.ctypes.data, codes.ctypes.data, 1, 16, 25, 4, 1, 1, 1, 0, 0,
             0]
-    assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0) == 0
+    assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0, 0) == 0
     assert out[0] == 0
-    for ctas, warps in ((0, 1), (9, 1), (1, 0), (1, 21)):
-        assert lib.ta_rehearse_band_cluster(*args, ctas, warps, 0) == 1
+    for ctas, warps, full in ((0, 1, 0), (9, 1, 0), (1, 0, 0), (1, 21, 0),
+                              (1, 1, 2), (1, 1, -1)):
+        assert lib.ta_rehearse_band_cluster(*args, ctas, warps, full,
+                                            0) == 1
+    big = list(args)
+    big[9] = lb.MAX_TRACE_UNIT_K + 1  # past the widest traced band
+    assert lib.ta_rehearse_band_cluster(*big, 1, 1, 0, 0) == 1
     args[5] = None  # no codes: the regime is traced only
-    assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0) == 1
+    assert lib.ta_rehearse_band_cluster(*args, 1, 1, 0, 0) == 1
+
+
+def _ring_pairs(rng, n_pairs, m_lo, m_hi, unit_k, max_n):
+    """ACGT pairs for the ring's cases: a of m_lo .. m_hi bytes, b a copy
+    with substitutions and adjacent swaps, grown by insertions to between
+    len(a) and min(len(a) + unit_k, max_n) bytes, the first at that top."""
+    a_list, b_list = [], []
+    for p in range(n_pairs):
+        m = int(rng.integers(m_lo, m_hi + 1))
+        a = cs.ACGT[rng.integers(0, 4, m)]
+        b = a.copy()
+        b[rng.integers(0, m, m // 30 + 1)] = cs.ACGT[rng.integers(0, 4)]
+        for q in rng.integers(0, m - 1, m // 40 + 2).tolist():
+            b[q], b[q + 1] = int(b[q + 1]), int(b[q])
+        top = min(m + unit_k, max_n)
+        n = top if p == 0 else int(rng.integers(m, top + 1))
+        b = np.insert(b, rng.integers(0, m + 1, n - m),
+                      cs.ACGT[rng.integers(0, 4, n - m)])
+        a_list.append(a)
+        b_list.append(b)
+    return a_list, b_list
+
+
+# K4's cluster regime as a ring of strips (512 columns each) over fewer
+# warps than strips, forced onto small bands so that the plain scan's
+# tensors stay under 32,768 elements: (case, CTAs, warps a CTA, unit_k,
+# rows, longest b, pairs, full_band, cost model).  `wrap`: 5 strips on 2
+# warps, the wrap taken twice, and at band 17 a strip's rows overlap only
+# its neighbours' (strips two apart run disjoint rows); `one_warp`: 3
+# strips on one warp, every hand-over through the wrap; `as_many`: 3
+# strips on 3 warps, the longest b's last lane at column n + 2; `swaps`:
+# 4 strips on 3 CTAs of one warp, transpositions on the first two columns
+# of lanes (so across lane, warp, CTA and wrap edges) and on the band's
+# right edge at each strip's first column (`cs.ring_edge_pair`); `m0`:
+# every a empty (only the strips' last steps run), b up to unit_k = 1,100
+# bytes (3 strips); `mixed`: pairs of 1 to 4 strips in one batch on 2 CTAs;
+# `full`: the strips cover every band column (the path past the INF rule)
+# on pairs whose band reaches a strip more than n + 2 does; `wide`: a band
+# of 1,201 cells (wider than a strip, as the plan's are) over 2 strips on
+# one warp.
+RING_CASES = [
+    ("wrap", 1, 2, 8, 2080, 2100, 2, False, 0),
+    ("one_warp", 1, 1, 24, 1400, 1420, 2, False, 1),
+    ("as_many", 1, 3, 16, 1520, 1533, 2, False, 2),
+    ("swaps", 3, 1, 12, 1590, 1600, 2, False, 3),
+    ("m0", 1, 1, 1100, 0, 1100, 8, False, 0),
+    ("mixed", 2, 1, 20, 1700, 1710, 3, False, 3),
+    ("full", 1, 1, 250, 300, 330, 3, True, 1),
+    ("wide", 1, 1, 600, 200, 800, 2, False, 2),
+]
+
+
+@pytest.mark.parametrize("case", RING_CASES, ids=[c[0] for c in RING_CASES])
+def test_band_cluster_ring_equals_plain_version_and_oracle(lib, case):
+    name, ctas, warps, unit_k, max_m, max_n, n_pairs, full, q = case
+    costs = BAND_COSTS[q]
+    rng = np.random.default_rng(sum(map(ord, name)) + 97 * unit_k)
+    if name in ("m0",):
+        a_list = [np.empty(0, np.uint8)] * n_pairs
+        b_list = [cs.ACGT[rng.integers(0, 4, n)] for n in
+                  (0, 1, 510, 511, 512, 1021, 1022, max_n)]
+    elif name in ("full", "wide"):
+        a_list, b_list = _ring_pairs(rng, n_pairs, max_m - 30, max_m,
+                                     unit_k, max_n)
+    else:
+        a_list, b_list = cs.cluster_pairs(rng, n_pairs, max_m, max_n,
+                                          unit_k)
+        a_e, b_e = cs.cluster_edge_pairs(rng, unit_k, max_m, max_n)
+        if name == "mixed":  # pairs of 2 and 3 strips, and the longest
+            for m in (700, 1200):
+                a_m, b_m = _ring_pairs(rng, 1, m - 10, m, unit_k, m + 20)
+                a_list, b_list = a_list + a_m, b_list + b_m
+            a_e, b_e = a_e[-1:], b_e[-1:]
+        a_list, b_list = a_list + a_e, b_list + b_e
+        if name == "swaps":
+            a_s, b_s = cs.ring_edge_pair(rng, max_n - unit_k - 8, unit_k)
+            a_list, b_list = a_list + [a_s], b_list + [b_s]
+    strips = [-(-(len(b) + 3) // 512) for b in b_list]
+    if full:  # the band reaches one strip past n + 2
+        assert all(-(-(len(a) + unit_k + 1) // 512) > s
+                   for a, s in zip(a_list, strips))
+    assert max(strips) > ctas * warps or name in ("as_many", "full")
+    if name == "mixed":
+        assert sorted(set(strips)) == [1, 2, 3, 4]
+    _cluster_check(lib, a_list, b_list, unit_k, max(max_m, 1), costs, ctas,
+                   warps, oracle=name not in ("m0",), full=full)
 
 
 # K10's body on its edges, at the plan's launch shape and at

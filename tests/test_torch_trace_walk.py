@@ -314,30 +314,46 @@ def test_band_plan_takes_traced_bands_past_the_cap():
     assert plan["ctas_per_pair"] * plan["threads"] * 16 >= 10_010 + 3
     assert plan["threads"] <= 32 * tlb.CLUSTER_MAX_WARPS
     assert 1 <= plan["ctas_per_pair"] <= tlb.CLUSTER_MAX_CTAS
-    assert plan["scratch_bytes_per_pair"] == 0
+    # a band as wide as the matrix: one strip a warp, the map of the sweep
+    assert (plan["ctas_per_pair"], plan["threads"]) == (2, 320)
+    assert plan["scratch_bytes_per_pair"] == 16 * (10_016 + 2)
     assert plan["code_bytes_per_pair"] == 10_016 * tbs.code_words(W) * 4
-    # past the cluster's columns: the device-memory regime
-    W = 2 * 16_384 + 1
-    plan = tlb.band_plan(10_016, 16_384, True, batch=128,
-                         max_n=tlb.CLUSTER_MAX_COLUMNS)
-    assert plan["regime"] == "wide_global" and plan["smem_bytes"] == 0
-    assert plan["threads"] == tlb.GLOBAL_THREADS == 128
-    assert plan["pairs_per_block"] == 1
-    assert plan["cells_per_lane"] * plan["threads"] >= W
-    assert plan["scratch_bytes_per_pair"] % 16 == 0
-    assert plan["scratch_bytes_per_pair"] >= (6 * W + 32) * 4 + W
-    assert plan["code_bytes_per_pair"] == 10_016 * tbs.code_words(W) * 4
+    # b strings past what a cluster held at once (81,917 bytes): the same
+    # regime, its warps a ring over the strips that meet a row: band
+    # 10,017 (case (e) of chip_smoke's band_wide phase) meets 21 strips
+    # of 512 columns, not the 176 of 90,000-byte strings: 24 warps of 4
+    # for 2 pairs, 20 of 10 for a batch that fills the card
+    W = 2 * 5008 + 1
+    for batch, ctas, warps in ((2, 6, 4), (64, 2, 10), (None, 2, 10)):
+        plan = tlb.band_plan(90_016, 5008, True, batch=batch,
+                             max_n=90_000)
+        assert plan["regime"] == "wide_cluster" and not plan["full_band"]
+        assert (plan["ctas_per_pair"], plan["threads"] // 32) == (ctas, warps)
+        assert plan["scratch_bytes_per_pair"] == 16 * (90_016 + 2)
+        assert plan["code_bytes_per_pair"] == 90_016 * tbs.code_words(W) * 4
+    assert tlb._cluster_map(90_016, 90_000, 5008, 2) == (6, 4)
+    # past the INF rule (255 (m + unit_k + 3) >= 2^30) the strips cover
+    # every band column, to column m + unit_k
+    assert tlb.band_plan(4_300_000, 16_384, True, batch=1,
+                         max_n=4_300_000)["full_band"]
+    assert tlb._cluster_strips(4_000_000, 4_000_000, 1 << 20) \
+        == -(-(4_000_000 + (1 << 20) + 1) // 512)
+    assert tlb._cluster_strips(4_000_000, 4_000_000, 8) \
+        == -(-(4_000_000 + 3) // 512)
+    assert tlb.band_plan(10_016, tlb.MAX_TRACE_UNIT_K, True, batch=1,
+                         max_n=1_000_000)["warps_per_pair"] == 160
     # untraced batches past the cap keep their kernels (K5, K9)
     assert tlb.band_plan(10_016, 16_384) is None
     assert tlb.band_plan(8, tlb.MAX_UNIT_K, True)["regime"] == "wide"
     assert tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True)["regime"] \
         == "wide_cluster"
     assert tlb.band_plan(8, tlb.MAX_TRACE_UNIT_K + 1, True) is None
-    # a check may force either regime onto a narrow band; not past its cap
+    # a check may force the regime onto a narrow band, at any map and
+    # with its strips over the whole band; not past its cap
     t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
                                  [np.zeros(5, np.uint8)], 4, 8, device="cpu")
     forced = dict(tlb.band_plan(8, 2 * tlb.MAX_UNIT_K, True,
-                                max_n=tlb.CLUSTER_MAX_COLUMNS), threads=64)
+                                max_n=90_000), threads=64, full_band=True)
     cluster = cs.cluster_plan(8, 4, 1, 1)
     for plan in (forced, cluster):
         assert tlb.band_trace(*t, unit_k=4, costs_t=(1, 1, 0, 0, False),
@@ -351,13 +367,25 @@ def test_band_plan_takes_traced_bands_past_the_cap():
     with pytest.raises(ValueError, match="band plan"):
         tlb.band_distance(*t, unit_k=2 * tlb.MAX_UNIT_K,
                           costs_t=(1, 1, 0, 0, False))
-    # the cluster's columns must hold every pair's b to column n + 2
+    # a cluster of one warp takes a b past its 512 columns (two strips in
+    # turn); a batch past the INF rule needs a plan whose strips cover
+    # the band
     t = tlb.prepare_band_tensors([np.zeros(3, np.uint8)],
                                  [np.zeros(510, np.uint8)], 508, 8,
                                  device="cpu")
+    assert tlb.band_trace(*t, unit_k=508, costs_t=(1, 1, 0, 0, False),
+                          plan=cs.cluster_plan(8, 508, 1, 1))[0].tolist() \
+        == [507]
+    rows = 4_300_000
+    t = (torch.empty((1, rows), dtype=torch.uint8, device="meta"),
+         torch.empty((1, rows + 2 * 5000 + 1), dtype=torch.uint8,
+                     device="meta"),
+         torch.empty(1, dtype=torch.int32, device="meta"),
+         torch.empty(1, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError, match="cluster plan"):
-        tlb.band_trace(*t, unit_k=508, costs_t=(1, 1, 0, 0, False),
-                       plan=cs.cluster_plan(8, 508, 1, 1))
+        tlb.band_trace(*t, unit_k=5000, costs_t=(1, 1, 0, 0, False),
+                       plan=dict(cs.cluster_plan(rows, 5000, 1, 1),
+                                 full_band=False), max_n=rows)
 
 
 def test_traced_batch_past_the_plan_equals_jax():

@@ -241,12 +241,10 @@ def main(argv=None) -> int:
         for kind in args.kernel:
             if kind == "band":
                 if not any(k_ in name for k_ in (
-                        "band_kernel", "band_block_kernel",
-                        "band_wide_kernel")):
+                        "band_kernel", "band_block_kernel")):
                     continue
-                rec = {"kernel": demangled, **regs.get(name, {})}
-                if "band_wide_kernel" not in name:
-                    rec.update(_row_loop(part))
+                rec = {"kernel": demangled, **regs.get(name, {}),
+                       **_row_loop(part)}
             elif kind in ("myers_distance", "myers_search") \
                     and _KERNELS[kind] in name:
                 # K1: a chunk is 16 rows; K2: one table load a word and

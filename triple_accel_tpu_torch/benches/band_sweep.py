@@ -20,17 +20,17 @@ must give the first point's distances.  Prints the card's name and power
 limit, then one JSON line per point.  Needs one CUDA device and `nvcc`;
 there is no CPU mode.
 
-With `--past-plan`, only K4 past the band plan at the shape of
-`chip_smoke.py`'s `past_plan` phase (128 pairs of 10,000 bytes at an
-unbounded threshold: unit_k 10,000, band 20,001), in the cluster regime
-over `CLUSTER_POINTS` (CTAs a cluster x warps a CTA that hold the 10,003
-columns, the plan's first), 3 timed launches each; `--pairs N` runs N
-pairs instead (1: the single-pair call).  With `--global` as well, the
-device-memory regime there over `GLOBAL_THREAD_POINTS` threads a block,
-one warm-up and one timed launch each (a launch takes seconds).  Every
-point must give the first point's distances and codes.  This is the
-measurement behind `lev_band.CLUSTER_WARPS`, `_cluster_map` and
-`GLOBAL_THREADS`.
+With `--past-plan`, only K4 past the band plan, in its cluster regime, at
+`PAST_PLAN_SHAPES`: the shape of `chip_smoke.py`'s `past_plan` phase (128
+pairs of 10,000 bytes at an unbounded threshold: unit_k 10,000, band
+20,001: one strip a warp) over `CLUSTER_POINTS` (CTAs a cluster x warps a
+CTA that hold the 10,003 columns), and those of its `band_wide` cases (e)
+and (f) (2 and 64 pairs of 90,000 bytes at unit_k 5,008, band 10,017: 176
+strips, of which 21 meet a row) over `RING_POINTS` (16 to 32 warps in the
+ring); the plan's point first, 3 timed launches each; `--pairs N` runs N
+pairs of each instead (1: the single-pair call).  Every point must give
+the first point's distances and codes.  This is the measurement behind
+`lev_band.CLUSTER_WARPS`, `CLUSTER_SPREAD_WARPS` and `_cluster_map`.
 
 With `--wide`, only the block regime (bands past 544 cells) at
 `WIDE_BANDS` (545 cells, the bands the untraced engines run, and the
@@ -63,7 +63,6 @@ import torch
 from ..ops import lev_band as lb
 
 THREADS = (32, 64, 128, 256)
-GLOBAL_THREAD_POINTS = (64, 128, 256, 512, 1024)
 RDAMERAU_T = (1, 1, 0, 1, True)
 AFFINE_T = (2, 1, 2, 0, False)
 # (name, traced, pairs, string length, unit_k, costs)
@@ -74,8 +73,11 @@ SHAPES = (
     ("band_trace_long", True, 256, 3000, 64, RDAMERAU_T),
     ("band_distance_small", False, 256, 3000, 64, AFFINE_T),
 )
-PAST_PLAN_SHAPE = ("band_trace_past_plan", True, 128, 10_000, 10_000,
-                   RDAMERAU_T)
+PAST_PLAN_SHAPES = (
+    ("band_trace_past_plan", True, 128, 10_000, 10_000, RDAMERAU_T),
+    ("band_trace_ring_e", True, 2, 90_000, 5008, RDAMERAU_T),
+    ("band_trace_ring_f", True, 64, 90_000, 5008, RDAMERAU_T),
+)
 # the block regime: bands, rows a pair, pairs that fill the card
 WIDE_BANDS = (545, 1025, 2049, 4097, 8193, 9281)
 WIDE_LEN, WIDE_FULL_PAIRS, WIDE_TRACE_PAIRS = 2000, 1024, 256
@@ -84,6 +86,11 @@ WIDE_LEN, WIDE_FULL_PAIRS, WIDE_TRACE_PAIRS = 2000, 1024, 256
 CLUSTER_POINTS = tuple((c, w + e) for c in range(2, 9)
                        for w in (-(-20 // c),) for e in (0, 1)
                        if w + e <= lb.CLUSTER_MAX_WARPS)
+# (CTAs a cluster, warps a CTA) of the ring past a cluster's columns: 16,
+# 20, 21, 24, 25, 28 and 32 warps (21 strips meet a row of band 10,017)
+RING_POINTS = ((4, 4), (8, 2), (2, 10), (5, 4), (4, 5), (1, 20), (3, 7),
+               (7, 3), (6, 4), (4, 6), (3, 8), (8, 3), (5, 5), (4, 7),
+               (7, 4), (8, 4), (4, 8), (2, 16))
 
 
 WALK_POINTS = tuple((lanes, rows, window) for lanes in (4, 8, 16, 32)
@@ -122,25 +129,23 @@ def _make_batch(dev, pairs: int, length: int, unit_k: int):
 
 
 def _plans(rows: int, unit_k: int, traced: bool, pairs: int, only_chosen,
-           max_n: int, with_global: bool = False):
-    """The chosen plan first, then every other plan of its regime (and,
-    `with_global`, the device-memory regime's)."""
+           max_n: int):
+    """The chosen plan first, then every other plan of its regime: the
+    cluster's at CLUSTER_POINTS where a warp a strip holds the columns,
+    else at RING_POINTS."""
     chosen = lb.band_plan(rows, unit_k, traced, batch=pairs, max_n=max_n)
     out = [chosen]
     W = 2 * unit_k + 1
     if chosen["regime"] == "wide_cluster" and not only_chosen:
-        for ctas, warps in CLUSTER_POINTS:
+        strips = -(-(max_n + 3) // 512)
+        one_each = strips <= chosen["warps_per_pair"]
+        for ctas, warps in CLUSTER_POINTS if one_each else RING_POINTS:
             plan = dict(chosen, ctas_per_pair=ctas, threads=32 * warps,
                         warps_per_pair=ctas * warps,
                         lanes_per_pair=32 * ctas * warps)
-            if plan != chosen and 512 * ctas * warps >= max_n + 3:
+            if plan != chosen and (not one_each
+                                   or ctas * warps >= strips):
                 out.append(plan)
-    if with_global and not only_chosen:
-        deep = lb.band_plan(rows, unit_k, traced,
-                            max_n=lb.CLUSTER_MAX_COLUMNS)
-        out += [dict(deep, threads=t, lanes_per_pair=t,
-                     warps_per_pair=t // 32, cells_per_lane=-(-W // t))
-                for t in GLOBAL_THREAD_POINTS]
     if only_chosen or chosen["regime"] != "warp":
         return out
     for cells in lb.WARP_CELLS:
@@ -172,17 +177,16 @@ def main(argv=None) -> int:
     if "--wide" in argv:
         return _wide_sweep(dev)
     past_plan = "--past-plan" in argv
-    shapes = (PAST_PLAN_SHAPE,) if past_plan else SHAPES
+    shapes = PAST_PLAN_SHAPES if past_plan else SHAPES
     if past_plan and "--pairs" in argv:
         n_pairs = int(argv[argv.index("--pairs") + 1])
-        shapes = (PAST_PLAN_SHAPE[:2] + (n_pairs,) + PAST_PLAN_SHAPE[3:],)
+        shapes = tuple(x[:2] + (n_pairs,) + x[3:] for x in shapes)
     for name, traced, pairs, length, unit_k, costs_t in shapes:
         tensors = _make_batch(dev, pairs, length, unit_k)
         fn = lb.band_trace if traced else lb.band_distance
         first = first_codes = None
         for k, plan in enumerate(_plans(tensors[0].shape[1], unit_k, traced,
-                                        pairs, only_chosen, length,
-                                        "--global" in argv)):
+                                        pairs, only_chosen, length)):
             res = fn(*tensors, unit_k=unit_k, costs_t=costs_t, plan=plan)
             dist = (res[0] if traced else res).cpu()
             if first is None:
@@ -192,11 +196,12 @@ def main(argv=None) -> int:
                 if first_codes is None:
                     first_codes = res[1]
                 extra["same_codes"] = bool(torch.equal(res[1], first_codes))
+                del res
+                res = None
             if plan["regime"] == "wide_cluster":
                 extra["ctas_per_pair"] = plan["ctas_per_pair"]
-            reps = 5
-            if past_plan:
-                reps = 1 if plan["regime"] == "wide_global" else 3
+                extra["warps_per_pair"] = plan["warps_per_pair"]
+            reps = 3 if past_plan else 5
             print(json.dumps({
                 "kernel": name, "pairs": pairs, "str_len": length,
                 "band": 2 * unit_k + 1, "chosen": k == 0,

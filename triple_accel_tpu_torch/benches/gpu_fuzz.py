@@ -20,7 +20,9 @@ they drive the port's own regimes at their thresholds:
 * 11: K3 / K4 short, at the warp regime's widest band and one past it
   (unit_k 256 / 257: 513 / 545 cells and more), K4's cluster regime,
   K10's batch plan (past `WALK_FEW_PAIRS`) and its few-pairs plan;
-* 13: K5 and K6 with one strip and with several, K9 banded and full.
+* 13: K5 and K6 with one strip and with several, K9 banded and full;
+* 16 (the port's own): K4's cluster regime forced onto fewer warps than
+  strips of columns (its ring), against the oracle.
 
 Sections 12 and 14 run on `parallel.make_mesh()` (every visible card)
 and on a mesh of 4 entries of one card; each must equal its meshless run.
@@ -734,6 +736,64 @@ def s15_banded_flat(f: Fuzz) -> None:
                 oracle=False)
 
 
+def s16_ring(f: Fuzz) -> None:
+    """K4's cluster regime forced onto fewer warps than strips (1 to 3
+    warps, 3 to 5 strips of 512 columns: the wrap taken, strips whose rows
+    do not meet), on random pairs at small bands, with the strips over the
+    band's every column in turns (`full_band`); distances and the walked
+    traces (K10, then the decode) against the oracle, every trace
+    replayed.  The wrappers are called directly (no dispatch)."""
+    from ..ops import band_scan as bs
+    from ..ops import lev_band as lb
+    from ..ops.trace_walk import trace_walk
+
+    maps = ((1, 1), (1, 2), (2, 1), (3, 1))
+    models = (LEVENSHTEIN_COSTS, RDAMERAU_COSTS, AFFINE,
+              EditCosts(3, 2, 1, 2))
+    for trial in range(f.n(8)):
+        uk = (8, 16, 40)[trial % 3]
+        ctas, warps = maps[trial % 4]
+        costs = models[trial % 4]
+        ct = (costs.mismatch_cost, costs.gap_cost, costs.start_gap_cost,
+              costs.transpose_cost_or_zero, costs.allow_transpose)
+        a_l, b_l = [], []
+        while len(a_l) < 3:
+            a = f.ints(65, 69, int(f.rng.integers(1100, 2100)))
+            b = f.edited(a, int(f.rng.integers(0, uk)), 65, 69)
+            for q in f.rng.integers(0, len(b) - 1, 4).tolist():
+                b[q], b[q + 1] = b[q + 1], b[q]
+            a, b = (a, b) if len(a) <= len(b) else (b, a)
+            if len(b) - len(a) <= uk:
+                a_l.append(a)
+                b_l.append(b)
+        rows = -(-max(len(a) for a in a_l) // 16) * 16
+        t = lb.prepare_band_tensors(a_l, b_l, uk, rows, device=f.dev)
+        plan = dict(lb.band_plan(rows, 2 * lb.MAX_UNIT_K, True, max_n=0),
+                    ctas_per_pair=ctas, threads=32 * warps,
+                    warps_per_pair=ctas * warps,
+                    lanes_per_pair=32 * ctas * warps,
+                    full_band=trial % 2 == 1)
+        dists, codes = lb.band_trace(*t, unit_k=uk, costs_t=ct, plan=plan)
+        runs, counts = trace_walk(codes, *t, unit_k=uk)
+        traces = bs.decode_walked_batch(runs.cpu().numpy(),
+                                        counts.cpu().numpy(),
+                                        [False] * len(a_l))
+        dists = dists.cpu().numpy()
+        kband = uk * costs.gap_cost + costs.start_gap_cost
+        what = f"RING t{trial} {ctas}x{warps} uk{uk} full {plan['full_band']}"
+        f.regime(f"ring_t{trial}_strips_past_warps",
+                 max(-(-(len(b) + 3) // 512) for b in b_l) > ctas * warps,
+                 True)
+        for i, (a, b) in enumerate(zip(a_l, b_l)):
+            ref = levenshtein_naive_k_with_opts(a, b, kband, True, costs)
+            if ref is not None:
+                f.check(int(dists[i]) == ref[0] and traces[i] == ref[1],
+                        f"{what} i{i}: {dists[i]} vs {ref[0]}")
+            elif int(dists[i]) < (1 << 30):
+                f.check(replay_cost(a, b, traces[i], costs) == int(dists[i]),
+                        f"{what} i{i}: replay")
+
+
 # section -> (name, function, the engines it must reach in the dispatch log)
 SECTIONS = {
     1: ("distance", s1_distance, {"myers", "band"}),
@@ -764,6 +824,7 @@ SECTIONS = {
          {"band_sharded", "flat_distance_sharded",
           "myers_search_blocked_sharded", "myers_search_many_sharded"}),
     15: ("banded_flat", s15_banded_flat, set()),
+    16: ("ring", s16_ring, set()),
 }
 LADDER = set().union(*(s[2] for s in SECTIONS.values()))
 

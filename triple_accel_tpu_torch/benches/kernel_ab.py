@@ -2,7 +2,7 @@
 phases give them, for comparing two versions of the port in one call.
 
     python3 -m triple_accel_tpu_torch.benches.kernel_ab [--tag NAME]
-        [--kernels K1 K2 K3W K4 K4W K5 K6 K7 K10]
+        [--kernels K1 K2 K3W K4 K4D K4W K5 K6 K7 K10]
 
 Run from the root of a checkout (it imports that checkout's package and
 `chip_smoke.py` input generators, and only calls the wrappers' arguments
@@ -30,8 +30,12 @@ beside this one is timed by the same script:
   10,000 B ACGT at an unbounded threshold, rDamerau costs) at the band
   the version's traced dispatch chose (`K4_past_plan`) and at the
   longest b rounded up to 16 (`K4_past_plan_exact_band`), each at the
-  version's own plan for it; 3 launches each (a launch of the
-  device-memory regime takes seconds);
+  version's own plan for it; 3 launches each;
+* K4D `band_trace` past a cluster's columns: the `band_wide` phase's
+  cases (e) and (f), 2 and 64 pairs of 90,000 ACGT bytes with 2% edits
+  at k = 5000 under rDamerau costs (`WIDE_E`, `WIDE_F` here), at the band
+  the version's traced dispatch chose for (e) and its own plan; 3
+  launches each (before the ring, a launch took seconds);
 * K3W / K4W `band_distance` / `band_trace` in the wide regime (bands of
   545 - 9,281 cells), the cases of chip_smoke.py's `band_wide` phase
   (`WIDE_*` here, so that a version without that phase is timed on the
@@ -74,8 +78,8 @@ def main() -> int:
     ap.add_argument("--tag", default="", help="a name for the JSON line")
     ap.add_argument("--kernels", nargs="+", default=["K1", "K2", "K5", "K6",
                                                      "K7", "K10"],
-                    choices=["K1", "K2", "K3W", "K4", "K4W", "K5", "K6",
-                             "K7", "K10"])
+                    choices=["K1", "K2", "K3W", "K4", "K4D", "K4W", "K5",
+                             "K6", "K7", "K10"])
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab needs a CUDA device", file=sys.stderr)
@@ -121,6 +125,8 @@ def main() -> int:
         del hay_d, hay
     if "K4" in args.kernels:
         out.update(time_k4(cs, dev, ms))
+    if "K4D" in args.kernels:
+        out.update(time_deep(cs, dev, ms))
     if {"K3W", "K4W"} & set(args.kernels):
         out.update(time_wide(cs, dev, ms, args.kernels))
     if "K10" in args.kernels:
@@ -197,6 +203,49 @@ def time_k4(cs, dev, ms) -> dict:
         t = lb.prepare_band_tensors(sa, sb, uk, dec.padded_m, device=dev)
         out[name] = ms(lambda: lb.band_trace(
             *t, unit_k=uk, costs_t=cs.costs_tuple(costs)), 3)
+        del t
+        torch.cuda.empty_cache()
+    return out
+
+
+# chip_smoke.py's `band_wide` cases (e) and (f): pairs, bytes, edit share,
+# k, the seed of its generator
+WIDE_E = (2, 90_000, 0.02, 5000, 6065)
+WIDE_F = (64, 90_000, 0.02, 5000, 6066)
+
+
+def time_deep(cs, dev, ms) -> dict:
+    """K4 at the `band_wide` cases (e) and (f); the inputs as chip_smoke.py
+    makes them, the band as the version's traced call picks it for (e),
+    the rows as it pads them, at the version's own plan.  Each entry: the
+    median, least and most ms, then unit_k, rows and the plan's regime,
+    CTAs a pair and threads a CTA."""
+    import triple_accel_tpu_torch as tt
+    from triple_accel_tpu_torch.dispatch import last_dispatch
+    from triple_accel_tpu_torch.ops import lev_band as lb
+
+    costs = tt.RDAMERAU_COSTS
+    ct = cs.costs_tuple(costs)
+    out, unit_k = {}, None
+    for name, (n, length, share, k, seed) in (("K4D_e", WIDE_E),
+                                              ("K4D_f", WIDE_F)):
+        a_l, b_l = cs.make_long_pairs(n, length, share, seed=seed)
+        sa, sb = cs.shorter_first(a_l, b_l)
+        rows = -(-max(len(a) for a in sa) // 16) * 16
+        if unit_k is None:
+            dist, _ = tt.levenshtein_k_batch(a_l, b_l, k, costs,
+                                             trace_on=True)
+            unit_k = last_dispatch().unit_k
+        t = lb.prepare_band_tensors(sa, sb, unit_k, rows, device=dev)
+        if name == "K4D_e":
+            got = lb.band_trace(*t, unit_k=unit_k, costs_t=ct)[0]
+            assert np.array_equal(got.cpu().numpy().astype(np.int64), dist)
+            del got
+        plan = lb.band_plan(rows, unit_k, True, batch=n,
+                            max_n=max(len(b) for b in sb))
+        out[name] = ms(lambda: lb.band_trace(*t, unit_k=unit_k, costs_t=ct),
+                       3) + [unit_k, rows, plan["regime"],
+                             plan.get("ctas_per_pair", 1), plan["threads"]]
         del t
         torch.cuda.empty_cache()
     return out

@@ -28,7 +28,7 @@
 // the code; chip_smoke.py's BAND_OPS_* list them) against 2 / W bytes of
 // strings, and the traced kernel writes 2 bits per cell.
 //
-// Four regimes, one function (the plan, ops/lev_band.py band_plan, picks):
+// Three regimes, one function (the plan, ops/lev_band.py band_plan, picks):
 //   * band_kernel<TRANS, TRACE, C>, every band up to 32 * 17 = 544 cells
 //     (all of chip_smoke.py's phases: 65, 129 and 513 cells).  A group of
 //     G = 8, 16 or 32 lanes of one warp owns one pair (32 / G pairs a
@@ -69,44 +69,45 @@
 //     traced lane forms sub, the transposition and dprime again in pass 2
 //     (the LEAN lane: 4 ints a cell), so 18 warps of 17 cells fit the
 //     register file.
-//   * band_cluster_kernel<TRANS>, traced bands past that (chip_smoke.py's
-//     past_plan phase: unit_k 10,064, 20,129 cells) for pairs of b strings
-//     up to 16 * 32 * 20 * 8 - 3 = 81,917 bytes: one pair a thread-block
-//     cluster, the matrix's columns (not the band's cells: in columns every
-//     dependence runs left to right or down) spread over its warps, 16
-//     consecutive columns a lane in registers (cells left of column 0 are
-//     not computed: the matrix's cells, not the band's, are the work; a
-//     warp none of whose columns meets row i's band inside columns 0 ..
-//     n + 2 skips the row's cells, `cl_warp_idle`).
-//     D and the chain's input are INF outside the matrix and the band; the
-//     band row's cells left of column 0 and right of the cluster's columns
-//     get their codes from a rule (left: 1 where a[i-1] != b's pad byte,
-//     else 0; right: 1).  The warps are a pipeline one row apart: a warp
-//     hands the next one, through a ring in the next warp's shared memory
-//     (the next CTA's, by distributed shared memory), the chain entering
-//     it, D of the row before at its last two columns and its last lane's
-//     codes; acquire / release counts, released every 4 rows, at CTA scope
-//     inside a CTA.  A lane packs its 16 codes in one register; the word
-//     of row i holding its first cell joins the left lane's codes with a
-//     funnel shift (the band's cells lie one column further right each
-//     row), so a warp writes 32 consecutive words a row.
-//   * band_wide_kernel<TRANS, TRACE>, traced bands of any width up to
-//     unit_k 2^20 for longer b strings: one pair a block, each thread a
-//     contiguous run of cells, two block barriers a row (the earlier
-//     shared-memory body's passes), the band state (6 rows of W ints) in
-//     a per-pair scratch in device memory that the wrapper allocates.
-//     Simple and slow (its state streams through L1 and L2 at every row:
-//     354x its bound at band 32,769); only pairs the cluster regime cannot
-//     hold take it.
+//   * band_cluster_kernel<TRANS>, every traced band past that up to
+//     unit_k 2^20, for b strings of any length (chip_smoke.py's past_plan
+//     phase: unit_k 10,064, 20,129 cells; band_wide case (e): 2 pairs of
+//     90,000 bytes at unit_k 5,008): one pair a thread-block cluster, the
+//     matrix's columns (not the band's cells: in columns every dependence
+//     runs left to right or down) cut into strips of 512, 16 consecutive
+//     columns a lane of a warp in registers (cells left of column 0 are
+//     not computed: the matrix's cells, not the band's, are the work).
+//     A strip runs only over the rows whose band meets it (`cl_first_row`
+//     .. `cl_last_row`), and the cluster's G warps take the strips in a
+//     ring: warp g strips g, g + G, g + 2G, ..., each over its rows in
+//     order, so the state stays on chip whatever the length of b and the
+//     plan needs only as many warps as strips meet a row (about W / 512 +
+//     1).  D and the chain's input are INF outside the matrix and the
+//     band; the band row's cells left of column 0 get their codes from a
+//     rule (1 where a[i-1] != b's pad byte, else 0), those right of the
+//     strips (past column n + 2) the code 1, which holds while the chain
+//     there stays under INF (the plan's `full_band` otherwise: then the
+//     strips cover every band column and no rule is needed).  A strip
+//     hands the next one, row by row, the chain entering it, D of the row
+//     before at its last two columns and its last lane's codes: through a
+//     ring in the next warp's shared memory (the next CTA's, by
+//     distributed shared memory; acquire / release counts that number the
+//     hand-overs across strips, released every 4), and from warp G - 1 to
+//     warp 0 (the wrap) through a per-pair buffer in device memory, a slot
+//     a row, whose writer never waits.  A lane packs its 16 codes in one
+//     register; the word of row i holding its first cell joins the left
+//     lane's codes with a funnel shift (the band's cells lie one column
+//     further right each row), so a warp writes 32 consecutive words a
+//     row.
 // Every cascade is selects on non-short-circuit compares (a branch makes
 // the lanes of a warp diverge), and the min chains use Hopper's DPX
 // (__viaddmin_s32 for min(a + b, c), __vimin3_s32).  The per-lane passes
-// and the device-memory regime's row passes are plain functions, so the
-// host rehearsal (host_rehearsal.cpp, -DTA_HOST_REHEARSAL) runs exactly
-// this arithmetic, lanes or threads one at a time, the shuffles as arrays
-// (the block regime: its warps round by round between the barriers, the
-// slots arrays; the cluster regime: its warps in pipeline order, the
-// rings arrays).
+// and the strips' bookkeeping are plain functions, so the host rehearsal
+// (host_rehearsal.cpp, -DTA_HOST_REHEARSAL) runs exactly this arithmetic,
+// lanes one at a time, the shuffles as arrays (the block regime: its warps
+// round by round between the barriers, the slots arrays; the cluster
+// regime: its warps round by round in the ring, the rings and the wrap
+// buffer arrays that remember what they hold).
 
 #include <stddef.h>
 
@@ -121,9 +122,10 @@ constexpr int TA_CODES_PER_WORD = 16;
 // the warp regime: threads a block at most, and cells a lane at most
 constexpr int TA_BAND_WARP_THREADS = 256;
 constexpr int TA_BAND_MAX_CELLS = 17;
-// the widest band of the device-memory regime: every intermediate of the
-// row passes (INF + c * gap + start, c < W, costs < 256) stays in int32
-constexpr int TA_BAND_GLOBAL_MAX_UNIT_K = 1 << 20;
+// the widest traced band (the plan's MAX_TRACE_UNIT_K); the cluster
+// regime's intermediates stay in int32 at any band (its chain's offsets
+// span one warp's 512 columns, and D, e and the chain stay <= INF)
+constexpr int TA_BAND_MAX_TRACE_UNIT_K = 1 << 20;
 
 static TA_DEV int32_t ta_min32(int32_t x, int32_t y) { return x < y ? x : y; }
 
@@ -440,210 +442,6 @@ struct BandStream {
   TA_DEV int32_t at(int64_t idx) { return (int32_t)s.at(idx + off); }
 };
 
-// ---------------------------------------------------------------------------
-// the device-memory regime: one pair a block, the band state in a scratch
-// ---------------------------------------------------------------------------
-
-struct BandPair {
-  const uint8_t* a;  // m chars
-  const uint8_t* b;  // the pair's b at byte offset unit_k of its row
-  int32_t m, n, unit_k, W;
-  BandCosts k;
-};
-
-struct BandState {
-  int32_t* dp0;    // row i-2
-  int32_t* dp1;    // row i-1
-  int32_t* cur;    // row i: sub after pass 1, D after pass 2
-  int32_t* bg;     // vertical-gap state of row i-1
-  int32_t* bgcur;  // vertical-gap state of row i
-  int32_t* tr;     // transposition candidate of row i, -1 where none
-  uint8_t* code;   // argmin codes of row i, one byte a cell
-};
-
-// What a cell knows before the row's horizontal chain is resolved.
-struct BandCellPre {
-  int32_t sub, bgap2, dprime;
-};
-
-// `trans` is the transposition candidate, TA_BAND_INF where tcond is false.
-static TA_DEV BandCellPre band_cell_pre(int32_t dp1_c, int32_t dp1_up,
-                                        int32_t bgap_up, bool chars_equal,
-                                        int32_t trans, bool valid,
-                                        const BandCosts& k) {
-  BandCellPre r;
-  r.sub = dp1_c + (chars_equal ? 0 : k.mc);
-  // clamped before it is carried, so saturated cells do not creep
-  r.bgap2 = ta_min32(ta_min32(dp1_up + (k.sgc + k.gc), bgap_up + k.gc),
-                     TA_BAND_INF);
-  int32_t d = ta_min32(ta_min32(r.sub, r.bgap2), trans);
-  r.dprime = valid ? ta_min32(d, TA_BAND_INF) : TA_BAND_INF;
-  return r;
-}
-
-struct BandCellOut {
-  int32_t dp2;
-  uint32_t code;
-};
-
-// The selection cascade.  `mins_prev` is the exclusive prefix-min of
-// dprime - c*gc over the cells left of c (TA_BAND_INF at c == 0).
-static TA_DEV BandCellOut band_cell_post(int32_t sub, int32_t bgap2,
-                                         int32_t trans, bool tcond, bool valid,
-                                         int32_t c, int32_t mins_prev,
-                                         const BandCosts& k) {
-  const int32_t e = ta_min32(mins_prev + c * k.gc + k.sgc, TA_BAND_INF);
-  BandCellOut r;
-  r.dp2 = sub;
-  r.code = 0u;
-  if (e < r.dp2) {
-    r.dp2 = e;
-    r.code = 1u;
-  }
-  if (bgap2 < r.dp2) {
-    r.dp2 = bgap2;
-    r.code = 2u;
-  }
-  if (tcond && trans <= r.dp2) {
-    r.dp2 = trans;
-    r.code = 3u;
-  }
-  r.dp2 = valid ? ta_min32(r.dp2, TA_BAND_INF) : TA_BAND_INF;
-  return r;
-}
-
-// Row 0 and the empty history, cells [c_lo, c_hi).
-static TA_DEV void band_init_row(const BandPair& P, const BandState& S,
-                                 int c_lo, int c_hi) {
-  for (int c = c_lo; c < c_hi; ++c) {
-    const int32_t j0 = c - P.unit_k;
-    S.dp0[c] = TA_BAND_INF;
-    S.bg[c] = TA_BAND_INF;
-    S.dp1[c] = (j0 >= 0 && j0 <= P.n)
-                   ? ta_min32(j0 * P.k.gc + (j0 > 0 ? P.k.sgc : 0), TA_BAND_INF)
-                   : TA_BAND_INF;
-  }
-}
-
-// Pass 1 of row i over cells [c_lo, c_hi): leaves sub in cur, the vertical
-// gap in bgcur, the transposition candidate in tr, and returns the min of
-// dprime - c*gc over these cells (TA_BAND_INF for an empty run).
-template <bool TRANS>
-static TA_DEV int32_t band_row_pass1(const BandPair& P, const BandState& S,
-                                     int i, int c_lo, int c_hi) {
-  int32_t cmin = TA_BAND_INF;
-  if (c_lo >= c_hi) return cmin;
-  const uint8_t a_char = P.a[i - 1];
-  const uint8_t a_prev = (TRANS && i > 1) ? P.a[i - 2] : (uint8_t)0;
-  const uint8_t* bw = P.b + (i - 1);  // bw[c] = b[j-1] of band cell c
-  for (int c = c_lo; c < c_hi; ++c) {
-    const int32_t j = i + c - P.unit_k;
-    const bool valid = j >= 0 && j <= P.n;
-    const uint8_t bc = bw[c];
-    const bool last = c + 1 >= P.W;
-    const int32_t dp1_up = last ? TA_BAND_INF : S.dp1[c + 1];
-    const int32_t bgap_up = last ? TA_BAND_INF : S.bg[c + 1];
-    int32_t trans = TA_BAND_INF;
-    if (TRANS) {
-      // b[j-2] is one byte left of b[j-1]; both need i > 1 and j > 1
-      const bool tcond =
-          i > 1 && j > 1 && a_char == bw[c - 1] && a_prev == bc;
-      if (tcond) trans = S.dp0[c] + P.k.tc;
-      S.tr[c] = tcond ? trans : -1;
-    }
-    const BandCellPre r = band_cell_pre(S.dp1[c], dp1_up, bgap_up,
-                                        a_char == bc, trans, valid, P.k);
-    S.cur[c] = r.sub;
-    S.bgcur[c] = r.bgap2;
-    cmin = ta_min32(cmin, r.dprime - c * P.k.gc);
-  }
-  return cmin;
-}
-
-// Pass 2 of row i over cells [c_lo, c_hi).  `carry` is the exclusive
-// prefix-min of dprime - c*gc over all cells left of c_lo.
-template <bool TRANS, bool TRACE>
-static TA_DEV void band_row_pass2(const BandPair& P, const BandState& S, int i,
-                                  int c_lo, int c_hi, int32_t carry) {
-  int32_t run = carry;
-  for (int c = c_lo; c < c_hi; ++c) {
-    const int32_t j = i + c - P.unit_k;
-    const bool valid = j >= 0 && j <= P.n;
-    const int32_t sub = S.cur[c];
-    const int32_t bgap2 = S.bgcur[c];
-    bool tcond = false;
-    int32_t trans = TA_BAND_INF;
-    if (TRANS) {
-      const int32_t t = S.tr[c];
-      tcond = t >= 0;
-      if (tcond) trans = t;
-    }
-    const BandCellOut o =
-        band_cell_post(sub, bgap2, trans, tcond, valid, c, run, P.k);
-    S.cur[c] = o.dp2;
-    if (TRACE) S.code[c] = (uint8_t)o.code;
-    const int32_t d = ta_min32(ta_min32(sub, bgap2), trans);
-    const int32_t dprime = valid ? ta_min32(d, TA_BAND_INF) : TA_BAND_INF;
-    run = ta_min32(run, dprime - c * P.k.gc);
-  }
-}
-
-// Packed word w of a row of W code bytes: cell c at bits 2 * (c % 16).
-static TA_DEV uint32_t band_pack_word(const uint8_t* code, int w, int W) {
-  uint32_t word = 0u;
-  const int base = w * TA_CODES_PER_WORD;
-  for (int q = 0; q < TA_CODES_PER_WORD; ++q) {
-    const int c = base + q;
-    if (c < W) word |= (uint32_t)(code[c] & 3u) << (2 * q);
-  }
-  return word;
-}
-
-// The device-memory regime's state of one pair at `base`: 6 rows of W
-// ints (three of D, two of the vertical-gap state, the transposition
-// candidates), one int a warp for the scan (`wmin`), then one code byte a
-// cell.
-static TA_DEV BandState band_wide_state(int32_t* base, int W,
-                                        int32_t** wmin) {
-  BandState S;
-  S.dp0 = base;
-  S.dp1 = S.dp0 + W;
-  S.cur = S.dp1 + W;
-  S.bg = S.cur + W;
-  S.bgcur = S.bg + W;
-  S.tr = S.bgcur + W;
-  *wmin = S.tr + W;
-  S.code = reinterpret_cast<uint8_t*>(*wmin + 32);
-  return S;
-}
-
-static TA_DEV void band_rotate(BandState& S) {
-  int32_t* t = S.dp0;
-  S.dp0 = S.dp1;
-  S.dp1 = S.cur;
-  S.cur = t;
-  t = S.bg;
-  S.bg = S.bgcur;
-  S.bgcur = t;
-}
-
-// ints of band state per pair (6 rows of W) and the bytes that follow them
-static inline size_t band_state_bytes(int W) {
-  return (size_t)(6 * W + 32) * sizeof(int32_t) + (size_t)((W + 3) & ~3);
-}
-
-// What ta_band_distance takes past the warp regime: the device-memory
-// regime (`cells` 0, a `scratch`), a band up to TA_BAND_GLOBAL_MAX_UNIT_K
-// with at least its state's bytes a pair, in 16-byte steps.  The warp
-// regime (`cells` != 0) takes no scratch.
-static inline bool band_wide_ok(int unit_k, int cells, bool global,
-                                int64_t scratch_stride) {
-  if (cells != 0) return !global;
-  return global && unit_k <= TA_BAND_GLOBAL_MAX_UNIT_K &&
-         (scratch_stride & 15) == 0 &&
-         scratch_stride >= (int64_t)band_state_bytes(2 * unit_k + 1);
-}
-
 // The warp regime's lane maps: cells a lane, lanes a pair.
 static inline bool band_warp_map_ok(int cells, int lanes, int W) {
   return (cells == 3 || cells == 5 || cells == 9 || cells == 17) &&
@@ -711,37 +509,86 @@ static inline bool band_block_ok(int unit_k, int cells, int warps) {
 
 // ---------------------------------------------------------------------------
 // the cluster regime: one pair a thread-block cluster, the matrix's columns
-// in registers, the warps a pipeline one row apart
+// in strips of 512 (a warp's lanes, 16 columns each, in registers), the
+// cluster's warps taking the strips in a ring
 // ---------------------------------------------------------------------------
 
 constexpr int TA_CL_COLS = 16;  // columns a lane: one code word a row
+constexpr int TA_CL_STRIP = 32 * TA_CL_COLS;  // columns a strip (a warp)
 constexpr int TA_CL_MAX_CTAS = 8;     // CTAs a cluster (the portable size)
 constexpr int TA_CL_MAX_WARPS = 20;   // warps a CTA
 constexpr int TA_CL_RING = 32;        // hand-over slots a warp boundary
-// rows a hand-over count is released for, dividing TA_CL_RING / 2 (a
-// release waits for the thread's earlier stores; one every 4 rows took a
-// single pair 18.0 ms against 19.0 every row, 18.1 every 8: PERF.md)
+// hand-overs a count is released for, dividing TA_CL_RING / 2 (a release
+// waits for the thread's earlier stores; one every 4 rows took a single
+// pair 18.0 ms against 19.0 every row, 18.1 every 8: PERF.md)
 constexpr int TA_CL_BATCH = 4;
 constexpr uint32_t TA_CL_ONES = 0x55555555u;  // 16 codes 1 (consume b)
 
-// One pair as a cluster sees it.  Lane k of the cluster (k = (cta * warps
-// + warp) * 32 + lane) owns columns [16k, 16k + 16); K lanes hold columns
-// [0, 16K), and 16K > n + 2.
+// One pair as a cluster sees it.  Strip s holds columns [512 s, 512 s +
+// 512), lane k of the pair (k = 32 s + lane) columns [16k, 16k + 16); the
+// S strips hold columns [0, 16K), K = 32 S lanes: past n + 2 (the codes
+// right of them are 1 while the chain stays under INF), or with `full`
+// past the band's last column at row m too (then no rule is needed).
 struct ClPair {
-  int32_t m, n, uk, W, wpr, K;
+  int32_t m, n, uk, W, wpr, K, S;
   int32_t jf;  // the final column: band cell clip(n - m + uk, 0, W-1), row m
 };
 
-static TA_DEV ClPair cl_pair(int32_t m, int32_t n, int32_t uk, int32_t K) {
+static TA_DEV ClPair cl_pair(int32_t m, int32_t n, int32_t uk, bool full) {
   ClPair P;
   P.m = m;
   P.n = n;
   P.uk = uk;
   P.W = 2 * uk + 1;
   P.wpr = (P.W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
-  P.K = K;
+  int32_t cols = n + 3;
+  if (full && m + uk + 1 > cols) cols = m + uk + 1;
+  P.S = (cols + TA_CL_STRIP - 1) / TA_CL_STRIP;
+  P.K = 32 * P.S;
   P.jf = band_final_cell(m, n, uk, P.W) + m - uk;
   return P;
+}
+
+// The rows strip s runs: from the row before the band reaches it (its
+// first row has no band cell: it brings D of that row, which the next row's
+// transpositions read, from the strip on the left) to the last row whose
+// band meets it; then one step more, row last + 1, writes the codes of its
+// last row.  Strip s's columns meet row i's band (columns i - unit_k .. i
+// + unit_k) exactly when 512 s - unit_k <= i <= 512 s + 511 + unit_k.
+// first <= last + 1 <= m + 1 for every strip of the pair.
+static TA_DEV int32_t cl_first_row(int32_t s, const ClPair& P) {
+  const int32_t i = s * TA_CL_STRIP - P.uk - 1;
+  return i > 1 ? i : 1;
+}
+
+static TA_DEV int32_t cl_last_row(int32_t s, const ClPair& P) {
+  const int32_t i = s * TA_CL_STRIP + (TA_CL_STRIP - 1) + P.uk;
+  return i < P.m ? i : P.m;
+}
+
+// The strips that run row i (1 <= i <= m): lo .. hi, at most W / 512 + 2.
+static TA_DEV int32_t cl_strip_lo(int32_t i, const ClPair& P) {
+  const int32_t x = i - (TA_CL_STRIP - 1) - P.uk;
+  return x <= 0 ? 0 : (x + TA_CL_STRIP - 1) / TA_CL_STRIP;
+}
+
+static TA_DEV int32_t cl_strip_hi(int32_t i, const ClPair& P) {
+  const int32_t s = (i + P.uk + 1) / TA_CL_STRIP;
+  return s < P.S - 1 ? s : P.S - 1;
+}
+
+// Strip s (s >= 1) takes the hand-overs of rows first(s) .. last(s - 1) + 1
+// from strip s - 1: the rows both run, and the last step of s - 1.  Past
+// them strip s - 1 lies left of the band, and what it would hand on is
+// known: no chain (INF), D of the row before INF at its last columns
+// (outside the band), and codes no word reads (`cl_slot_past`).  So strip s
+// hands on rows first(s + 1) .. last(s) + 1, in order.
+static TA_DEV int32_t cl_in_last(int32_t s, const ClPair& P) {
+  return s > 0 ? cl_last_row(s - 1, P) + 1 : 0;
+}
+
+static TA_DEV int32_t cl_out_first(int32_t s, const ClPair& P) {
+  return s + 1 < P.S ? cl_first_row(s + 1, P) : 0x7fffffff;
 }
 
 // What a row needs besides the registers, a bit a column of the lane
@@ -848,18 +695,6 @@ static TA_DEV void cl_lane_masks(ClLane<TRANS>& L, const ClRow& R) {
   L.mp = L.ma;
   L.ma = cl_eq_mask(L.h4, R.ach);
   if (TRANS) L.tb = ((L.ma << 1) | (uint32_t)(L.hl == R.ach)) & L.mp & R.j2;
-}
-
-// Whether warp g (columns 512 g .. 512 g + 511) holds no cell of row i
-// inside the band and columns 0 .. n + 2: left of the band it is done for
-// good (nothing inside the band reads its D again but masked cells), right
-// of it its D and gap state are still INF; it computes nothing, hands on
-// the chain as INF, and its codes are 1 (right of the band's cells inside
-// the matrix; left of the band no word holds them).
-static TA_DEV bool cl_warp_idle(int32_t g, int32_t i, const ClPair& P) {
-  const int32_t lo = g * 32 * TA_CL_COLS, hi = lo + 32 * TA_CL_COLS - 1;
-  const int32_t right = i + P.uk < P.n + 2 ? i + P.uk : P.n + 2;
-  return hi < i - P.uk || lo > right;
 }
 
 // D and the gap state the lane hands to the lane on its right (row i-1:
@@ -1052,7 +887,8 @@ static TA_DEV uint32_t cl_left_word_in(const uint8_t* b_row, int64_t x0,
 // Row i's words that hold no lane's first cell: those left of the first
 // lane's, [0, nl), from b's bytes left of column 0, then those right of
 // the last lane's straddling word, [r0, wpr), all code 1 (the plan keeps
-// the chain there under INF).  The x-th of them: its index, or -1.
+// the chain there under INF, or covers the band with its strips).  The
+// x-th of them: its index, or -1.
 static TA_DEV int32_t cl_extra_index(int32_t x, int32_t i, const ClPair& P) {
   const int32_t q = (P.uk - i) >> 4;
   const int32_t nl = q < 0 ? 0 : (q < P.wpr ? q : P.wpr);
@@ -1075,26 +911,56 @@ static TA_DEV uint32_t cl_extra_word(int32_t w, int32_t i, int32_t ach,
   return word & cl_word_mask(w, P);
 }
 
-// Codes of columns -16 .. -1 of row i: what lane 0 of the cluster joins
-// with its own in its word.
+// The strips that run row i share its extra words: lane `lane` of strip s
+// takes the x-th from x = 32 (s - lo) + lane on, in steps of 32 (hi - lo +
+// 1) (lo, hi: `cl_strip_lo`, `cl_strip_hi`).
+static TA_DEV int32_t cl_extra_first(int32_t s, int lane, int32_t i,
+                                     const ClPair& P) {
+  return 32 * (s - cl_strip_lo(i, P)) + lane;
+}
+
+static TA_DEV int32_t cl_extra_step(int32_t i, const ClPair& P) {
+  return 32 * (cl_strip_hi(i, P) - cl_strip_lo(i, P) + 1);
+}
+
+// Codes of columns -16 .. -1 of row i: what lane 0 of strip 0 joins with
+// its own in its word.
 static TA_DEV uint32_t cl_left_of_zero(const uint8_t* b_row, int64_t b_len,
                                        int32_t uk, int32_t ach) {
   return cl_left_word(b_row, b_len, (int64_t)uk - 17, ach);
 }
 
-// The hand-over from a warp to the next (in the CTA, or the first warp of
-// the next CTA of the cluster), one slot a row: F entering the next warp's
-// first column at row i, D of row i-1 at the warp's last two columns, and
-// the codes of its last lane at row i-1.  Row m + 1 carries the codes only.
+// The hand-over from a strip to the next, one slot a row i: F entering the
+// next strip's first column at row i, D of row i-1 at the strip's last two
+// columns, and the codes of its last lane at row i-1.  The strip's last
+// step (row last + 1) hands on no chain: F is INF there.
 struct ClSlot {
   int32_t f, d1, d2;
   uint32_t v;
 };
 
-// What the launcher takes: the band, the cluster and the lanes' columns.
-static inline bool band_cluster_ok(int unit_k, int ctas, int warps) {
-  return unit_k >= 0 && unit_k <= TA_BAND_GLOBAL_MAX_UNIT_K && ctas >= 1 &&
-         ctas <= TA_CL_MAX_CTAS && warps >= 1 && warps <= TA_CL_MAX_WARPS;
+// What strip s - 1 would hand on at a row i past its last step: no chain,
+// D INF (row i - 1 lies left of the band at its columns), and codes that
+// no word reads (a word of row i - 1 that holds strip s's first column
+// and lies inside the band starts at that column).
+static TA_DEV ClSlot cl_slot_past() {
+  return ClSlot{TA_BAND_INF, TA_BAND_INF, TA_BAND_INF, 0u};
+}
+
+// Whether lane 31 of strip s writes the word past its own first-cell word
+// at row i (the rest of it code 1): where strip s + 1 does not run row i,
+// right of the band there or past the strips.
+static TA_DEV bool cl_writes_next_word(int32_t s, int32_t i,
+                                       const ClPair& P) {
+  return i < cl_out_first(s, P);
+}
+
+// What the launcher takes: the band, the cluster, 0 or 1 for `full`.
+static inline bool band_cluster_ok(int unit_k, int ctas, int warps,
+                                   int full) {
+  return unit_k >= 0 && unit_k <= TA_BAND_MAX_TRACE_UNIT_K && ctas >= 1 &&
+         ctas <= TA_CL_MAX_CTAS && warps >= 1 && warps <= TA_CL_MAX_WARPS &&
+         (full == 0 || full == 1);
 }
 
 }  // namespace
@@ -1299,78 +1165,16 @@ __global__ void __launch_bounds__(MAXW * 32)
   }
 }
 
-// The device-memory regime: the state lives in `scratch`, `scratch_stride`
-// bytes a pair.
-template <bool TRANS, bool TRACE>
-__global__ void __launch_bounds__(1024)
-    band_wide_kernel(const uint8_t* __restrict__ a,
-                     const uint8_t* __restrict__ b,
-                     const int32_t* __restrict__ m,
-                     const int32_t* __restrict__ n,
-                     int32_t* __restrict__ out,
-                     uint32_t* __restrict__ codes, int64_t a_stride,
-                     int64_t b_stride, int unit_k, int64_t code_rows,
-                     BandCosts costs, uint8_t* scratch,
-                     int64_t scratch_stride) {
-  const int W = 2 * unit_k + 1;
-  const int T = blockDim.x, t = threadIdx.x;
-  const int lane = t & 31, warp = t >> 5;
-  const int cpt = (W + T - 1) / T;
-  const int c_lo = min(t * cpt, W), c_hi = min(c_lo + cpt, W);
-  const int64_t p = blockIdx.x;
-
-  int32_t* wmin;  // one word per warp
-  BandState S = band_wide_state(
-      reinterpret_cast<int32_t*>(scratch + p * scratch_stride), W, &wmin);
-
-  BandPair P;
-  P.a = a + p * a_stride;
-  P.b = b + p * b_stride;
-  // m is cut to the a row's length, as in band_kernel
-  P.m = min(m[p], (int32_t)a_stride);
-  P.n = n[p];
-  P.unit_k = unit_k;
-  P.W = W;
-  P.k = costs;
-
-  const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
-  uint32_t* code_out = TRACE ? codes + p * code_rows * wpr : nullptr;
-
-  band_init_row(P, S, c_lo, c_hi);
-  __syncthreads();
-  for (int i = 1; i <= P.m; ++i) {
-    const int32_t cmin = band_row_pass1<TRANS>(P, S, i, c_lo, c_hi);
-    // inclusive scan of the threads' mins inside the warp, then the
-    // exclusive value of this thread
-    int32_t inc = cmin;
-#pragma unroll
-    for (int off = 1; off < 32; off <<= 1) {
-      const int32_t v = __shfl_up_sync(0xffffffffu, inc, off);
-      if (lane >= off) inc = min(inc, v);
-    }
-    int32_t carry = __shfl_up_sync(0xffffffffu, inc, 1);
-    if (lane == 0) carry = TA_BAND_INF;
-    if (lane == 31) wmin[warp] = inc;
-    __syncthreads();
-    for (int w = 0; w < warp; ++w) carry = min(carry, wmin[w]);
-    band_row_pass2<TRANS, TRACE>(P, S, i, c_lo, c_hi, carry);
-    __syncthreads();
-    if (TRACE) {
-      for (int w = t; w < wpr; w += T)
-        code_out[(int64_t)(i - 1) * wpr + w] = band_pack_word(S.code, w, W);
-    }
-    band_rotate(S);
-  }
-  if (t == 0) out[p] = S.dp1[band_final_cell(P.m, P.n, P.unit_k, P.W)];
-}
-
 namespace {
 
 // Where a warp's hand-overs live: the ring of the warp it receives from is
 // in its own CTA's shared memory (the sender writes it, across CTAs through
-// the cluster's distributed shared memory); `pub[w]` counts the rows put
-// into warp w's ring, `taken[w]` the rows taken from warp w's outbound
-// ring (kept in the sender's CTA, so that the sender polls locally).
+// the cluster's distributed shared memory); `pub[w]` counts the hand-overs
+// put into warp w's ring, `taken[w]` those taken from warp w's outbound
+// ring (kept in the sender's CTA, so that the sender polls locally).  The
+// cluster's first warp takes its hand-overs from the last (the wrap) out of
+// the pair's buffer in device memory, a slot a row, counted in `pub[0]` of
+// the first CTA; its writer never waits.
 struct ClRing {
   ClSlot slot[TA_CL_MAX_WARPS][TA_CL_RING];
   int pub[TA_CL_MAX_WARPS];
@@ -1379,8 +1183,8 @@ struct ClRing {
 
 // Acquire / release at the narrowest scope that holds both warps: the CTA
 // when they share one (an SM's own memory order), the cluster across CTAs
-// (its release also waits for the thread's earlier global stores to reach
-// the cluster, so it costs about an L2 round trip).
+// and at the wrap (its release also waits for the thread's earlier global
+// stores to reach the cluster, so it costs about an L2 round trip).
 static __device__ __forceinline__ int cl_ld_acquire(const int* p, bool cta) {
   int v;
   if (cta)
@@ -1411,14 +1215,37 @@ static __device__ __forceinline__ int cl_wait(const int* p, int target,
   return v;
 }
 
+// A slot of the wrap's buffer, read from L2 (another SM wrote it; a line
+// in L1 may hold the rows next to it from before).
+static __device__ __forceinline__ ClSlot cl_ld_wrap(const ClSlot* p) {
+  const int4 v = __ldcg(reinterpret_cast<const int4*>(p));
+  return ClSlot{v.x, v.y, v.z, (uint32_t)v.w};
+}
+
 }  // namespace
 
 // One pair a cluster of gridDim-consecutive CTAs (cluster size = the
-// launch's), `blockDim.x / 32` warps a CTA, 16 columns a lane.  Each warp
-// runs the pair's rows in order; it takes row i's hand-over from the warp
-// on its left once that warp's pass 1 and scan of row i are done, and
-// writes row i-1's code words then (its lane 0's word needs the left
-// warp's last codes of row i-1, which come with that hand-over).
+// launch's), `blockDim.x / 32` warps a CTA: G warps in a ring, warp g
+// (CTA rank * warps + warp) running the pair's strips g, g + G, g + 2G,
+// ..., each over its rows (`cl_first_row` .. `cl_last_row`, then one step
+// for the last row's codes) in order.  A strip takes row i's hand-over
+// from the strip on its left once that strip's pass 1 and scan of row i
+// are done, and writes row i-1's code words then (its lane 0's word needs
+// the left strip's last codes of row i-1, which come with that hand-over);
+// its row i goes on to the strip on its right in the same way.
+//
+// No warp waits on a hand-over that depends on its own later work.  Each
+// warp runs its steps (strip s, row i) in lexicographic order, and a step
+// waits only for (s - 1, i) (its hand-over) or, at a ring in shared memory,
+// for the warp of strip s + 1 to have taken the hand-over 32 before.  Take
+// the least waiting step in that order: (s - 1, i) is less, so it is done
+// or runs; the warp of s + 1 (another warp: the wrap carries the G = 1
+// case) runs its strips before s + 1, whose steps are all less than (s,
+// i), and then takes (s + 1, i - 32), which needs only (s, i - 32), done.
+// The wrap's writer needs no wait: strip s + G writes row i's slot after
+// (s + G, i), which follows (s + 1, i), where that slot was read, through
+// the hand-overs of strips s + 2 .. s + G - 1 (of row i, or, where row i
+// lies past a strip's last row, of its last step).
 // The launch bound, 20 warps, holds the kernel to 96 registers a thread
 // (spilling about 90 bytes), so that two CTAs of 10 warps share an SM:
 // the `past_plan` cell's 128 pairs then fit the card in one wave (50.6 ms
@@ -1432,125 +1259,145 @@ __global__ void __launch_bounds__(TA_CL_MAX_WARPS * 32)
                         int32_t* __restrict__ out,
                         uint32_t* __restrict__ codes, int64_t a_stride,
                         int64_t b_stride, int unit_k, int64_t code_rows,
-                        BandCosts k) {
+                        BandCosts k, int full, ClSlot* __restrict__ wrap) {
   namespace cg = cooperative_groups;
   __shared__ ClRing ring;
   cg::cluster_group cluster = cg::this_cluster();
-  const int S = (int)cluster.num_blocks();
+  const int CS = (int)cluster.num_blocks();
   const int r = (int)cluster.block_rank();
   const int NW = blockDim.x >> 5;
   const int t = threadIdx.x, lane = t & 31, w = t >> 5;
-  const int64_t p = blockIdx.x / S;
-  const int32_t K = S * NW * 32;
-  const int32_t gwarp = r * NW + w;  // the warp's place in the pipeline
-  const int32_t kl = gwarp * 32 + lane;
-  const int32_t jb = kl * TA_CL_COLS;
+  const int64_t p = blockIdx.x / CS;
+  const int32_t G = CS * NW;
+  const int32_t g = r * NW + w;  // the warp's place in the ring
   const uint8_t* a_row = a + p * a_stride;
   const uint8_t* b_row = b + p * b_stride;
-  // m is cut to the a row's length, as in band_kernel; n to what the
-  // cluster's columns hold (the wrapper's contract: n + 3 <= 16 K)
-  int32_t mm = m[p] < a_stride ? m[p] : (int32_t)a_stride;
-  int32_t nn = n[p] < 16 * K - 3 ? n[p] : 16 * K - 3;
-  const ClPair P = cl_pair(mm, nn, unit_k, K);
+  // m is cut to the a row's length and the code rows, as in band_kernel
+  const int64_t m64 = m[p] < a_stride ? m[p] : a_stride;
+  const int32_t mm = (int32_t)(m64 < code_rows ? m64 : code_rows);
+  const ClPair P = cl_pair(mm, n[p], unit_k, full != 0);
   uint32_t* code_out = codes + p * code_rows * P.wpr;
+  ClSlot* wrap_row = wrap + p * (code_rows + 2);  // the wrap's slot of row i
 
   if (t < TA_CL_MAX_WARPS) ring.pub[t] = ring.taken[t] = 0;
   cluster.sync();  // no hand-over lands before its counters are set
 
-  // the ring this warp takes from (null: the cluster's first warp) and the
-  // one it puts into (null: the last)
-  const bool first = gwarp == 0, last = gwarp == S * NW - 1;
-  // whether the warp on the left / right is in this CTA
-  const bool in_cta = w > 0, out_cta = w + 1 < NW;
-  ClSlot* in_slots = first ? nullptr : ring.slot[w];
+  // the warp it takes from and the one it hands to; the wrap joins the
+  // last to the first
+  const int32_t gi = g > 0 ? g - 1 : G - 1, go = g + 1 < G ? g + 1 : 0;
+  const bool in_wrap = g == 0, out_wrap = g == G - 1;
+  const bool in_cta = !in_wrap && gi / NW == r;
+  const bool out_cta = !out_wrap && go / NW == r;
+  const ClSlot* in_slots = in_wrap ? wrap_row : ring.slot[w];
   const int* in_pub = &ring.pub[w];
   int* in_taken = nullptr;  // the sender's count of what this warp took
-  if (!first)
-    in_taken = w > 0 ? &ring.taken[w - 1]
-                     : cluster.map_shared_rank(&ring.taken[NW - 1], r - 1);
-  ClSlot* out_slots = nullptr;
-  int* out_pub = nullptr;
+  if (!in_wrap)
+    in_taken = in_cta ? &ring.taken[gi % NW]
+                      : cluster.map_shared_rank(&ring.taken[gi % NW],
+                                                (unsigned)(gi / NW));
+  ClSlot* out_slots =
+      out_wrap ? wrap_row
+               : cluster.map_shared_rank(&ring.slot[go % NW][0],
+                                         (unsigned)(go / NW));
+  int* out_pub = cluster.map_shared_rank(&ring.pub[go % NW],
+                                         (unsigned)(go / NW));
   const int* out_taken = &ring.taken[w];
-  if (!last) {
-    const int dw = w + 1 < NW ? w + 1 : 0;
-    const int dr = w + 1 < NW ? r : r + 1;
-    out_slots = cluster.map_shared_rank(&ring.slot[dw][0], dr);
-    out_pub = cluster.map_shared_rank(&ring.pub[dw], dr);
-  }
 
-  ClLane<TRANS> L;
-  cl_lane_init(L, b_row, b_stride, P, jb, k);
-  const int32_t fcol = P.jf - jb;
-  if (mm == 0 && fcol >= 0 && fcol < TA_CL_COLS) out[p] = cl_lane_pick(L, fcol);
-  // the warp's left edge: D(i-1, jl-1), D(i-1, jl-2) and the same of row
-  // i-2 (INF left of column 0)
-  int32_t e1a = TA_BAND_INF, e1b = TA_BAND_INF;
-  int32_t e2a = TA_BAND_INF, e2b = TA_BAND_INF;
-  uint32_t vprev = 0u;  // the lane's codes of row i-1
-  int32_t ach = mm > 0 ? a_row[0] : 0, apv = -1;
-  int seen = 0;      // rows the receiver has taken, as last seen
-  int seen_pub = 0;  // rows handed over to this warp, as last seen
-  for (int32_t i = 1;; ++i) {
-    int32_t cin = TA_BAND_INF;
-    uint32_t vleft;  // codes left of lane 0 at row i-1
-    if (first) {
-      // a[i-2] is apv from row 2 on
-      vleft = i > 1 && lane == 0
-                  ? cl_left_of_zero(b_row, b_stride, unit_k, apv)
-                  : 0u;
-    } else {
-      if (seen_pub < i) seen_pub = cl_wait(in_pub, i, in_cta);
-      const ClSlot s = in_slots[i % TA_CL_RING];
-      __syncwarp();
-      if (lane == 0 && i % TA_CL_BATCH == 0)
-        cl_st_release(in_taken, i, in_cta);
-      cin = s.f;
-      vleft = s.v;
-      e2a = e1a;
-      e2b = e1b;
-      e1a = s.d1;
-      e1b = s.d2;
-    }
-    // row i-1's words: each lane the word of its first cell, the last lane
-    // also the one it shares with the columns past the cluster
-    const uint32_t from_left = __shfl_up_sync(0xffffffffu, vprev, 1);
-    const uint32_t left = lane == 0 ? vleft : from_left;
-    auto store_words = [&]() {
-      const int32_t wi = cl_word_index(kl, i - 1, unit_k);
-      if (i > 1 && wi >= 0 && wi < P.wpr)
-        code_out[(int64_t)(i - 2) * P.wpr + wi] =
-            cl_word(left, vprev, i - 1, unit_k) & cl_word_mask(wi, P);
-      if (i > 1 && kl == K - 1 && wi + 1 >= 0 && wi + 1 < P.wpr)
-        code_out[(int64_t)(i - 2) * P.wpr + wi + 1] =
-            cl_word(vprev, TA_CL_ONES, i - 1, unit_k) &
-            cl_word_mask(wi + 1, P);
-    };
-    if (i > mm) {  // the codes of row m go on to the next warp, and done
-      if (!last) {
-        if (seen < i - TA_CL_RING)
-          seen = cl_wait(out_taken, i - TA_CL_RING, out_cta);
-        __syncwarp();
-        if (lane == 31) {  // the last hand-over: released at once
-          out_slots[i % TA_CL_RING] = ClSlot{0, 0, 0, vprev};
-          cl_st_release(out_pub, i, out_cta);
+  int seq_in = 0, seq_out = 0;  // hand-overs taken and given, all strips
+  int seen_pub = 0;    // hand-overs put into this warp's ring, as last seen
+  int seen_taken = 0;  // hand-overs the receiver has taken, as last seen
+  for (int32_t s = g; s < P.S; s += G) {
+    const int32_t kl = s * 32 + lane;  // the lane's place in the pair
+    const int32_t jb = kl * TA_CL_COLS;
+    ClLane<TRANS> L;
+    cl_lane_init(L, b_row, b_stride, P, jb, k);
+    const int32_t fcol = P.jf - jb;
+    if (mm == 0 && fcol >= 0 && fcol < TA_CL_COLS)
+      out[p] = cl_lane_pick(L, fcol);
+    const int32_t first = cl_first_row(s, P), last = cl_last_row(s, P);
+    const int32_t in_last = cl_in_last(s, P), out_first = cl_out_first(s, P);
+    // the strip's left edge: D(i-1, jb-1), D(i-1, jb-2) of lane 0 and the
+    // same of row i-2 (INF left of column 0 and above the first row)
+    int32_t e1a = TA_BAND_INF, e1b = TA_BAND_INF;
+    int32_t e2a = TA_BAND_INF, e2b = TA_BAND_INF;
+    uint32_t vprev = 0u;  // the lane's codes of row i-1
+    int32_t ach = first <= mm ? a_row[first - 1] : 0;
+    int32_t apv = first > 1 ? a_row[first - 2] : -1;
+    for (int32_t i = first;; ++i) {
+      int32_t cin = TA_BAND_INF;
+      uint32_t vleft = 0u;  // codes left of lane 0 at row i-1
+      if (s == 0) {
+        // a[i-2] is apv from row 2 on
+        if (i > 1 && lane == 0)
+          vleft = cl_left_of_zero(b_row, b_stride, unit_k, apv);
+      } else {
+        ClSlot sl = cl_slot_past();
+        if (i <= in_last) {
+          ++seq_in;
+          if (seen_pub < seq_in) seen_pub = cl_wait(in_pub, seq_in, in_cta);
+          sl = in_wrap ? cl_ld_wrap(in_slots + i)
+                       : in_slots[seq_in % TA_CL_RING];
+          __syncwarp();
+          if (!in_wrap && lane == 0 &&
+              (seq_in % TA_CL_BATCH == 0 || i == in_last))
+            cl_st_release(in_taken, seq_in, in_cta);
         }
+        cin = sl.f;
+        vleft = sl.v;
+        e2a = e1a;
+        e2b = e1b;
+        e1a = sl.d1;
+        e1b = sl.d2;
       }
-      store_words();
-      break;
-    }
-    // from the lane on the left, or at lane 0 from the warp on the left
-    const ClLeft own = cl_lane_right(L);
-    ClLeft in;
-    in.d1 = __shfl_up_sync(0xffffffffu, own.d1, 1);
-    in.d0a = TRANS ? __shfl_up_sync(0xffffffffu, own.d0a, 1) : 0;
-    in.d0b = TRANS ? __shfl_up_sync(0xffffffffu, own.d0b, 1) : 0;
-    if (lane == 0) in = ClLeft{e1a, e2a, e2b};
-    const ClRow R = cl_row(i, ach, P, jb);
-    const int32_t an = i < mm ? a_row[i] : 0;  // the next row's character
-    cl_lane_masks(L, R);
-    const bool idle = cl_warp_idle(gwarp, i, P);  // the whole warp
-    int32_t ex = 0, f_next = TA_BAND_INF;  // F into the next warp: lane 31
-    if (!idle) {
+      // row i-1's words: each lane the word of its first cell, the last
+      // lane also the next one where strip s + 1 does not run row i-1
+      const uint32_t from_left = __shfl_up_sync(0xffffffffu, vprev, 1);
+      const uint32_t left = lane == 0 ? vleft : from_left;
+      auto store_words = [&]() {
+        if (i == first) return;  // the strip ran no row i-1
+        const int32_t wi = cl_word_index(kl, i - 1, unit_k);
+        if (wi >= 0 && wi < P.wpr)
+          code_out[(int64_t)(i - 2) * P.wpr + wi] =
+              cl_word(left, vprev, i - 1, unit_k) & cl_word_mask(wi, P);
+        if (lane == 31 && cl_writes_next_word(s, i - 1, P) && wi + 1 >= 0 &&
+            wi + 1 < P.wpr)
+          code_out[(int64_t)(i - 2) * P.wpr + wi + 1] =
+              cl_word(vprev, TA_CL_ONES, i - 1, unit_k) &
+              cl_word_mask(wi + 1, P);
+      };
+      // hand on row i: the chain into the next strip, D of row i-1 at the
+      // strip's last two columns, the last lane's codes of row i-1
+      auto hand_on = [&](int32_t f, bool release) {
+        ++seq_out;
+        if (!out_wrap && seen_taken < seq_out - TA_CL_RING)
+          seen_taken = cl_wait(out_taken, seq_out - TA_CL_RING, out_cta);
+        __syncwarp();
+        if (lane == 31) {
+          const ClSlot v{f, L.dp1[TA_CL_COLS - 1], L.dp1[TA_CL_COLS - 2],
+                         vprev};
+          if (out_wrap)
+            out_slots[i] = v;
+          else
+            out_slots[seq_out % TA_CL_RING] = v;
+          if (release || seq_out % TA_CL_BATCH == 0)
+            cl_st_release(out_pub, seq_out, out_cta);
+        }
+      };
+      if (i > last) {  // the strip's last step: row `last`'s codes, done
+        if (i >= out_first) hand_on(TA_BAND_INF, true);
+        store_words();
+        break;
+      }
+      // from the lane on the left, or at lane 0 from the strip on the left
+      const ClLeft own = cl_lane_right(L);
+      ClLeft in;
+      in.d1 = __shfl_up_sync(0xffffffffu, own.d1, 1);
+      in.d0a = TRANS ? __shfl_up_sync(0xffffffffu, own.d0a, 1) : 0;
+      in.d0b = TRANS ? __shfl_up_sync(0xffffffffu, own.d0b, 1) : 0;
+      if (lane == 0) in = ClLeft{e1a, e2a, e2b};
+      const ClRow R = cl_row(i, ach, P, jb);
+      const int32_t an = i < mm ? a_row[i] : 0;  // the next row's character
+      cl_lane_masks(L, R);
       const int32_t f_out = cl_lane_pass1(L, k, R, in);
       // inclusive min-scan of the keys over the warp, then exclusive
       int32_t inc = cl_key(f_out, lane, k.gc);
@@ -1559,39 +1406,27 @@ __global__ void __launch_bounds__(TA_CL_MAX_WARPS * 32)
         const int32_t v = __shfl_up_sync(0xffffffffu, inc, off);
         inc = lane >= off ? ta_min32(inc, v) : inc;
       }
-      ex = __shfl_up_sync(0xffffffffu, inc, 1);
-      f_next = cl_carry(cin, inc, 32, k.gc);
-    }
-    if (!last) {  // hand on: F into the next warp, D of row i-1, codes
-      if (seen < i - TA_CL_RING)
-        seen = cl_wait(out_taken, i - TA_CL_RING, out_cta);
-      __syncwarp();
-      if (lane == 31) {
-        out_slots[i % TA_CL_RING] =
-            ClSlot{f_next, L.dp1[TA_CL_COLS - 1],
-                   L.dp1[TA_CL_COLS - 2], vprev};
-        // the count goes out every TA_CL_BATCH rows and at row m
-        if (i % TA_CL_BATCH == 0 || i == mm)
-          cl_st_release(out_pub, i, out_cta);
+      const int32_t ex = __shfl_up_sync(0xffffffffu, inc, 1);
+      if (i >= out_first) hand_on(cl_carry(cin, inc, 32, k.gc), false);
+      // the code words go out after the hand-over's release (which waits
+      // for this thread's earlier stores) and drain during pass 2: row
+      // i-1's lane words, and row i's words that no lane's first cell lies
+      // in, shared by the strips that run row i
+      store_words();
+      for (int32_t x = cl_extra_first(s, lane, i, P),
+                   dx = cl_extra_step(i, P);; x += dx) {
+        const int32_t wx = cl_extra_index(x, i, P);
+        if (wx < 0) break;
+        code_out[(int64_t)(i - 1) * P.wpr + wx] =
+            cl_extra_word(wx, i, ach, b_row, P);
       }
+      vprev = cl_lane_pass2(L, k, R, in, cl_carry(cin, ex, lane, k.gc));
+      // the final column lies inside the band at row m: its strip runs it
+      if (i == mm && fcol >= 0 && fcol < TA_CL_COLS)
+        out[p] = cl_lane_pick(L, fcol);
+      apv = ach;
+      ach = an;
     }
-    // the code words go out after the hand-over's release (which waits for
-    // this thread's earlier stores) and drain during pass 2: row i-1's
-    // lane words, and row i's words that no lane's first cell lies in
-    store_words();
-    for (int32_t x = kl;; x += K) {
-      const int32_t wx = cl_extra_index(x, i, P);
-      if (wx < 0) break;
-      code_out[(int64_t)(i - 1) * P.wpr + wx] =
-          cl_extra_word(wx, i, ach, b_row, P);
-    }
-    vprev = idle ? TA_CL_ONES
-                 : cl_lane_pass2(L, k, R, in, cl_carry(cin, ex, lane, k.gc));
-    // the final column lies inside the band at row m: its warp is not idle
-    if (i == mm && fcol >= 0 && fcol < TA_CL_COLS)
-      out[p] = cl_lane_pick(L, fcol);
-    apv = ach;
-    ach = an;
   }
   cluster.sync();  // no CTA leaves while a hand-over may still reach it
 }
@@ -1610,8 +1445,6 @@ struct BandLaunch {
   int64_t code_rows;
   BandCosts costs;
   int threads, cells, lanes;
-  uint8_t* scratch;  // the device-memory regime's state, or null
-  int64_t scratch_stride;
   cudaStream_t stream;
 };
 
@@ -1647,7 +1480,8 @@ static int launch_block(const BandLaunch& g, int cells, int warps) {
 }
 
 template <bool TRANS>
-static int launch_cluster(const BandLaunch& g, int ctas, int warps) {
+static int launch_cluster(const BandLaunch& g, int ctas, int warps, int full,
+                          ClSlot* wrap) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)(g.B * ctas), 1, 1);
   cfg.blockDim = dim3((unsigned)(warps * 32), 1, 1);
@@ -1662,7 +1496,7 @@ static int launch_cluster(const BandLaunch& g, int ctas, int warps) {
   cfg.numAttrs = 1;
   const cudaError_t e = cudaLaunchKernelEx(
       &cfg, band_cluster_kernel<TRANS>, g.a, g.b, g.m, g.n, g.out, g.codes,
-      g.a_stride, g.b_stride, g.unit_k, g.code_rows, g.costs);
+      g.a_stride, g.b_stride, g.unit_k, g.code_rows, g.costs, full, wrap);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1674,12 +1508,8 @@ static int launch_band(const BandLaunch& g) {
     case 5: return launch_warp_c<TRANS, TRACE, 5>(g);
     case 9: return launch_warp_c<TRANS, TRACE, 9>(g);
     case 17: return launch_warp_c<TRANS, TRACE, 17>(g);
-    default: break;
+    default: return (int)cudaErrorInvalidValue;
   }
-  band_wide_kernel<TRANS, TRACE><<<(unsigned)g.B, g.threads, 0, g.stream>>>(
-      g.a, g.b, g.m, g.n, g.out, g.codes, g.a_stride, g.b_stride, g.unit_k,
-      g.code_rows, g.costs, g.scratch, g.scratch_stride);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -1687,31 +1517,21 @@ static int launch_band(const BandLaunch& g) {
 // Plain C entry point.  All pointers are device pointers; nothing is
 // allocated or synchronised here.  `codes` null: distances only; else
 // uint32 [B, code_rows, ceil(W / 16)] receives the packed argmin codes of
-// rows 1..m of every pair (rows past m are left as they were).  `cells`:
-// cells a lane of the warp regime (3, 5, 9 or 17, with `lanes` 8, 16 or 32
-// lanes a pair, cells * lanes >= W, `threads` a multiple of 32 up to 256),
-// or 0 for the device-memory regime (one pair a block of `threads`
-// threads, a multiple of 32 up to 1024, the band state in `scratch`,
-// `scratch_stride` bytes a pair: at least band_state_bytes(W), a multiple
-// of 16; unit_k <= 2^20).  Returns the cudaError_t of the launch.
+// rows 1..m of every pair (rows past m are left as they were).  The warp
+// regime: `cells` cells a lane (3, 5, 9 or 17), `lanes` lanes a pair (8, 16
+// or 32), cells * lanes >= W, `threads` a multiple of 32 up to 256.
+// Returns the cudaError_t of the launch.
 extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
                                 const void* n, void* out, void* codes,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
                                 int unit_k, int64_t code_rows, int mc, int gc,
                                 int sgc, int tc, int transpose, int threads,
-                                int cells, int lanes, void* scratch,
-                                int64_t scratch_stride, void* stream) {
+                                int cells, int lanes, void* stream) {
   if (B <= 0) return 0;
-  if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31) ||
-      B > 0x7fffffffLL || a_stride < 1 || b_stride < a_stride)
+  if (unit_k < 0 || threads < 32 || threads > TA_BAND_WARP_THREADS ||
+      (threads & 31) || B > 0x7fffffffLL || a_stride < 1 ||
+      b_stride < a_stride || !band_warp_map_ok(cells, lanes, 2 * unit_k + 1))
     return (int)cudaErrorInvalidValue;
-  if (!band_wide_ok(unit_k, cells, scratch != nullptr, scratch_stride))
-    return (int)cudaErrorInvalidValue;
-  const int W = 2 * unit_k + 1;
-  if (cells != 0) {
-    if (!band_warp_map_ok(cells, lanes, W) || threads > TA_BAND_WARP_THREADS)
-      return (int)cudaErrorInvalidValue;
-  }
   BandLaunch g;
   g.a = (const uint8_t*)a;
   g.b = (const uint8_t*)b;
@@ -1728,8 +1548,6 @@ extern "C" int ta_band_distance(const void* a, const void* b, const void* m,
   g.threads = threads;
   g.cells = cells;
   g.lanes = lanes;
-  g.scratch = (uint8_t*)scratch;
-  g.scratch_stride = scratch_stride;
   g.stream = (cudaStream_t)stream;
   if (g.codes == nullptr)
     return transpose ? launch_band<true, false>(g) : launch_band<false, false>(g);
@@ -1772,20 +1590,26 @@ extern "C" int ta_band_block(const void* a, const void* b, const void* m,
 }
 
 // The cluster regime of the traced kernel: `ctas` CTAs a pair (a cluster,
-// 1 to 8) of `warps` warps (1 to 16), 16 columns a lane; every pair needs
-// n + 3 <= 16 * 32 * ctas * warps columns and its chain's values past the
-// cluster's columns under INF (the plan: 255 * (rows + unit_k + 3) < INF).
-// Arguments as ta_band_distance's; `codes` must not be null.  Returns the
-// cudaError_t of the launch.
+// 1 to 8) of `warps` warps (1 to 20), 16 columns a lane, the warps a ring
+// over strips of 512 columns, any b length; `full` 0: the strips end past
+// column n + 2 and the band's cells right of them are coded 1, which needs
+// the chain's values there under INF (the plan: 255 * (rows + unit_k + 3)
+// < INF); 1: the strips cover every band column.  `wrap`: B * (code_rows +
+// 2) slots of 16 bytes in device memory, 16-byte aligned (the hand-overs
+// from the last warp to the first; any contents).  Arguments as
+// ta_band_distance's; `codes` must not be null.  Returns the cudaError_t
+// of the launch.
 extern "C" int ta_band_trace_cluster(const void* a, const void* b,
                                      const void* m, const void* n, void* out,
                                      void* codes, int64_t B, int64_t a_stride,
                                      int64_t b_stride, int unit_k,
                                      int64_t code_rows, int mc, int gc,
                                      int sgc, int tc, int transpose, int ctas,
-                                     int warps, void* stream) {
+                                     int warps, int full, void* wrap,
+                                     void* stream) {
   if (B <= 0) return 0;
-  if (codes == nullptr || !band_cluster_ok(unit_k, ctas, warps) ||
+  if (codes == nullptr || wrap == nullptr || ((uintptr_t)wrap & 15) ||
+      !band_cluster_ok(unit_k, ctas, warps, full) ||
       B * ctas > 0x7fffffffLL || a_stride < 1 || b_stride < a_stride ||
       code_rows < 1)
     return (int)cudaErrorInvalidValue;
@@ -1803,8 +1627,9 @@ extern "C" int ta_band_trace_cluster(const void* a, const void* b,
   g.code_rows = code_rows;
   g.costs = BandCosts{mc, gc, sgc, tc};
   g.stream = (cudaStream_t)stream;
-  return transpose ? launch_cluster<true>(g, ctas, warps)
-                   : launch_cluster<false>(g, ctas, warps);
+  ClSlot* ring_wrap = (ClSlot*)wrap;
+  return transpose ? launch_cluster<true>(g, ctas, warps, full, ring_wrap)
+                   : launch_cluster<false>(g, ctas, warps, full, ring_wrap);
 }
 
 #endif  // TA_HOST_REHEARSAL

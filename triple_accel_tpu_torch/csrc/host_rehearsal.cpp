@@ -1,7 +1,7 @@
 // Host rehearsal of the CUDA kernels' bodies: the per-pair and per-segment
 // functions of myers_distance.cu and myers_search.cu, the lanes of
-// band_distance.cu's warp and block regimes and the row passes of its
-// device-memory regime (the band state in a per-pair scratch),
+// band_distance.cu's warp, block and cluster regimes (the cluster's warps
+// round by round in their ring),
 // the walk of trace_walk.cu (the lanes of a pair's group in turn, their
 // copies landing at their waits),
 // the per-lane wavefront steps of myers_blocked.cu and search_diag.cu (the
@@ -170,57 +170,6 @@ extern "C" int ta_rehearse_search(const void* hay, int64_t iter_len,
   return 0;
 }
 
-// The device-memory regime: one pair after the other; inside a pair,
-// `threads` "threads" take their runs of band cells in turn, pass 1, then
-// the exclusive prefix over the threads' mins that the device gets from a
-// warp scan, then pass 2, over the pair's own `scratch_stride` bytes of
-// `scratch`.
-template <bool TRANS, bool TRACE>
-static void rehearse_band_wide(const uint8_t* a, const uint8_t* b,
-                               const int32_t* m, const int32_t* n,
-                               int32_t* out, uint32_t* codes, int64_t B,
-                               int64_t a_stride, int64_t b_stride, int unit_k,
-                               int64_t code_rows, BandCosts costs,
-                               int threads, uint8_t* scratch,
-                               int64_t scratch_stride) {
-  const int W = 2 * unit_k + 1;
-  const int T = threads;
-  const int cpt = (W + T - 1) / T;
-  const int wpr = (W + TA_CODES_PER_WORD - 1) / TA_CODES_PER_WORD;
-  std::vector<int32_t> cmin(T);
-  for (int64_t p = 0; p < B; ++p) {
-    int32_t* wmin;
-    BandState S = band_wide_state(
-        reinterpret_cast<int32_t*>(scratch + p * scratch_stride), W, &wmin);
-    BandPair P;
-    P.a = a + p * a_stride;
-    P.b = b + p * b_stride;
-    P.m = m[p] < a_stride ? m[p] : (int32_t)a_stride;
-    P.n = n[p];
-    P.unit_k = unit_k;
-    P.W = W;
-    P.k = costs;
-    auto lo = [&](int t) { return t * cpt < W ? t * cpt : W; };
-    auto hi = [&](int t) { return lo(t) + cpt < W ? lo(t) + cpt : W; };
-    for (int t = 0; t < T; ++t) band_init_row(P, S, lo(t), hi(t));
-    for (int i = 1; i <= P.m; ++i) {
-      for (int t = 0; t < T; ++t)
-        cmin[t] = band_row_pass1<TRANS>(P, S, i, lo(t), hi(t));
-      int32_t carry = TA_BAND_INF;
-      for (int t = 0; t < T; ++t) {
-        band_row_pass2<TRANS, TRACE>(P, S, i, lo(t), hi(t), carry);
-        carry = ta_min32(carry, cmin[t]);
-      }
-      if (TRACE)
-        for (int w = 0; w < wpr; ++w)
-          codes[(p * code_rows + (i - 1)) * wpr + w] =
-              band_pack_word(S.code, w, W);
-      band_rotate(S);
-    }
-    out[p] = S.dp1[band_final_cell(P.m, P.n, P.unit_k, P.W)];
-  }
-}
-
 // The warp regime: one warp after the other (32 / G pairs, one group of G
 // lanes each), the lanes of a warp running each step of a row in turn.
 // What the device gets from a shuffle comes from an array of the lanes'
@@ -323,8 +272,7 @@ static int rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
                          const int32_t* n, int32_t* out, uint32_t* codes,
                          int64_t B, int64_t a_stride, int64_t b_stride,
                          int unit_k, int64_t code_rows, BandCosts k,
-                         int threads, int cells, int lanes, uint8_t* scratch,
-                         int64_t scratch_stride) {
+                         int cells, int lanes) {
   switch (cells) {
 #define TA_BAND_CASE(CC)                                                  \
   case CC:                                                                \
@@ -338,10 +286,7 @@ static int rehearse_band(const uint8_t* a, const uint8_t* b, const int32_t* m,
     TA_BAND_CASE(17)
 #undef TA_BAND_CASE
     default:
-      rehearse_band_wide<TRANS, TRACE>(a, b, m, n, out, codes, B, a_stride,
-                                       b_stride, unit_k, code_rows, k,
-                                       threads, scratch, scratch_stride);
-      return 0;
+      return 1;
   }
 }
 
@@ -352,18 +297,11 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
                                 int64_t B, int64_t a_stride, int64_t b_stride,
                                 int unit_k, int64_t code_rows, int mc, int gc,
                                 int sgc, int tc, int transpose, int threads,
-                                int cells, int lanes, void* scratch,
-                                int64_t scratch_stride) {
-  if (unit_k < 0 || threads < 32 || threads > 1024 || (threads & 31) ||
-      a_stride < 1 || b_stride < a_stride)
+                                int cells, int lanes) {
+  if (unit_k < 0 || threads < 32 || threads > TA_BAND_WARP_THREADS ||
+      (threads & 31) || a_stride < 1 || b_stride < a_stride ||
+      !band_warp_map_ok(cells, lanes, 2 * unit_k + 1))
     return 1;
-  if (!band_wide_ok(unit_k, cells, scratch != nullptr, scratch_stride))
-    return 1;
-  const int W = 2 * unit_k + 1;
-  if (cells != 0) {
-    if (!band_warp_map_ok(cells, lanes, W) || threads > TA_BAND_WARP_THREADS)
-      return 1;
-  }
   if (B <= 0) return 0;
   const uint8_t* ap = (const uint8_t*)a;
   const uint8_t* bp = (const uint8_t*)b;
@@ -372,25 +310,20 @@ extern "C" int ta_rehearse_band(const void* a, const void* b, const void* m,
   int32_t* op = (int32_t*)out;
   uint32_t* cp = (uint32_t*)codes;
   const BandCosts k{mc, gc, sgc, tc};
-  uint8_t* sp = (uint8_t*)scratch;
   if (cp == nullptr)
     return transpose ? rehearse_band<true, false>(ap, bp, mp, np_, op, cp, B,
                                                   a_stride, b_stride, unit_k,
-                                                  code_rows, k, threads, cells,
-                                                  lanes, sp, scratch_stride)
+                                                  code_rows, k, cells, lanes)
                      : rehearse_band<false, false>(ap, bp, mp, np_, op, cp, B,
                                                    a_stride, b_stride, unit_k,
-                                                   code_rows, k, threads,
-                                                   cells, lanes, sp,
-                                                   scratch_stride);
+                                                   code_rows, k, cells,
+                                                   lanes);
   return transpose ? rehearse_band<true, true>(ap, bp, mp, np_, op, cp, B,
                                                a_stride, b_stride, unit_k,
-                                               code_rows, k, threads, cells,
-                                               lanes, sp, scratch_stride)
+                                               code_rows, k, cells, lanes)
                    : rehearse_band<false, true>(ap, bp, mp, np_, op, cp, B,
                                                 a_stride, b_stride, unit_k,
-                                                code_rows, k, threads, cells,
-                                                lanes, sp, scratch_stride);
+                                                code_rows, k, cells, lanes);
 }
 
 // The block regime of band_distance.cu: one pair after the other; the
@@ -601,124 +534,176 @@ extern "C" int ta_rehearse_band_block(const void* a, const void* b,
 }
 
 // The cluster regime of band_distance.cu: one pair after the other; the
-// pair's S * NW warps (S CTAs of NW) as a pipeline, each warp running one
-// row at a time with its 32 lanes in turn (the shuffles arrays), the
-// hand-over rings of the CTAs' distributed shared memory arrays that start
-// as garbage, the counts released as the kernel releases them (every
-// TA_CL_BATCH rows).  The warps take turns: `order` 0, one row a turn;
-// 1, as many rows as a warp can run before it would wait (so every ring
-// fills).  A warp that would wait (a row not yet released to it, or a ring
-// slot not yet taken) sits out its turn; a round in which no warp can run
-// is a deadlock and fails the rehearsal.
+// pair's G = ctas * warps warps in their ring, each running its steps
+// (strip, row) in order with its 32 lanes in turn (the shuffles arrays).
+// The rings of the CTAs' distributed shared memory and the wrap's buffer
+// in device memory are arrays of slots that start as garbage and remember
+// the hand-over they hold (its number) and whether it was taken; the counts
+// are released as the kernel releases them (every TA_CL_BATCH hand-overs,
+// and at a strip's last).  The warps run round by round and see the counts
+// as they stood when the round began, so a slot is read only in a round
+// after the one that wrote it: `order` 0, one step a warp a round; 1, as
+// many steps as a warp can run before it would wait (so every ring
+// fills).  A warp that would wait (a hand-over not yet released to it, or
+// a ring slot not yet taken) sits out the rest of its round; a round in
+// which no warp runs is a deadlock and fails the rehearsal (2), and so
+// does a read of a slot that does not hold the hand-over the reader counts
+// (one that no earlier round wrote, or another), or a write over one not
+// yet taken (3): at the wrap that is the claim that its writer needs no
+// wait.
+struct ClHostSlot {
+  ClSlot v;
+  int seq;     // the hand-over it holds (-1: garbage)
+  bool taken;  // read by its receiver
+};
+
 template <bool TRANS>
 struct ClWarpHost {
   ClLane<TRANS> L[32];
   uint32_t vprev[32];
-  int32_t e1a, e1b, e2a, e2b;
-  int32_t i;  // the next row it runs (past m + 1: done)
-  ClSlot ring[TA_CL_RING];  // what it takes from the warp on its left
-  int pub;    // rows released to it by the warp on its left
-  int taken;  // rows it has released as taken (to the warp on its left)
+  int32_t e1a, e1b, e2a, e2b, ach, apv;
+  int32_t s, i;  // its strip (>= S: done) and the strip's next row
+  int32_t first, last, in_last, out_first;
+  ClHostSlot ring[TA_CL_RING];  // what it takes from the warp on its left
+  int pub;        // hand-overs released to it (the first warp: the wrap's)
+  int out_taken;  // its hand-overs the warp on its right released as taken
+  int seq_in, seq_out;
 };
 
 template <bool TRANS>
-static bool rehearse_cluster_step(std::vector<ClWarpHost<TRANS>>& wp, int g,
-                                  const ClPair& P, const uint8_t* a_row,
-                                  const uint8_t* b_row, int64_t b_len,
-                                  uint32_t* code_out, int32_t* out,
-                                  const BandCosts& k) {
+static void rehearse_cluster_strip(ClWarpHost<TRANS>& H, const ClPair& P,
+                                   const uint8_t* a_row, const uint8_t* b_row,
+                                   int64_t b_len, int32_t* out,
+                                   const BandCosts& k) {
+  const int32_t s = H.s;
+  for (int l = 0; l < 32; ++l) {
+    const int32_t jb = (s * 32 + l) * TA_CL_COLS;
+    cl_lane_init(H.L[l], b_row, b_len, P, jb, k);
+    H.vprev[l] = 0u;
+    if (P.m == 0 && P.jf - jb >= 0 && P.jf - jb < TA_CL_COLS)
+      *out = cl_lane_pick(H.L[l], P.jf - jb);
+  }
+  H.first = cl_first_row(s, P);
+  H.last = cl_last_row(s, P);
+  H.in_last = cl_in_last(s, P);
+  H.out_first = cl_out_first(s, P);
+  H.e1a = H.e1b = H.e2a = H.e2b = TA_BAND_INF;
+  H.ach = H.first <= P.m ? a_row[H.first - 1] : 0;
+  H.apv = H.first > 1 ? a_row[H.first - 2] : -1;
+  H.i = H.first;
+}
+
+// One step of warp g: 0 ran, 1 would wait, 3 a slot that breaks the
+// protocol.  `pub0` / `taken0`: the counts as the round began.
+template <bool TRANS>
+static int rehearse_cluster_step(std::vector<ClWarpHost<TRANS>>& wp,
+                                 std::vector<ClHostSlot>& wrap,
+                                 const std::vector<int>& pub0,
+                                 const std::vector<int>& taken0, int g,
+                                 const ClPair& P, const uint8_t* a_row,
+                                 const uint8_t* b_row, int64_t b_len,
+                                 uint32_t* code_out, int32_t* out,
+                                 const BandCosts& k) {
   ClWarpHost<TRANS>& H = wp[g];
   const int G = (int)wp.size();
-  const bool first = g == 0, last = g == G - 1;
-  const int32_t i = H.i, uk = P.uk;
-  // where the kernel would wait: for row i's hand-over, and for the slot
-  // of row i on the right to be taken
-  if ((!first && H.pub < i) ||
-      (!last && i - TA_CL_RING > wp[g + 1].taken))
-    return false;
-  const int32_t ach = i <= P.m ? a_row[i - 1] : 0;
+  const bool in_wrap = g == 0, out_wrap = g == G - 1;
+  const int32_t s = H.s, i = H.i, uk = P.uk;
+  const bool take = s > 0 && i <= H.in_last, send = i >= H.out_first;
+  // where the kernel would wait: for its hand-over, and for a ring slot
+  if ((take && pub0[g] < H.seq_in + 1) ||
+      (send && !out_wrap && H.seq_out + 1 - TA_CL_RING > taken0[g]))
+    return 1;
   int32_t cin = TA_BAND_INF;
   uint32_t vleft = 0u;
-  if (first) {
-    if (i > 1) vleft = cl_left_of_zero(b_row, b_len, uk, a_row[i - 2]);
+  if (s == 0) {
+    if (i > 1) vleft = cl_left_of_zero(b_row, b_len, uk, H.apv);
   } else {
-    const ClSlot s = H.ring[i % TA_CL_RING];
-    if (i % TA_CL_BATCH == 0) H.taken = i;
-    cin = s.f;
-    vleft = s.v;
+    ClSlot sl = cl_slot_past();
+    if (take) {
+      const int q = ++H.seq_in;
+      ClHostSlot& hs = in_wrap ? wrap[i] : H.ring[q % TA_CL_RING];
+      if (hs.seq != q || hs.taken) return 3;
+      hs.taken = true;
+      sl = hs.v;
+      if (!in_wrap && (q % TA_CL_BATCH == 0 || i == H.in_last))
+        wp[g - 1].out_taken = q;
+    }
+    cin = sl.f;
+    vleft = sl.v;
     H.e2a = H.e1a;
     H.e2b = H.e1b;
-    H.e1a = s.d1;
-    H.e1b = s.d2;
+    H.e1a = sl.d1;
+    H.e1b = sl.d2;
   }
-  if (i > 1) {
+  auto hand_on = [&](int32_t f, bool release) {
+    const int q = ++H.seq_out;
+    ClHostSlot& hs = out_wrap ? wrap[i] : wp[g + 1].ring[q % TA_CL_RING];
+    if (hs.seq >= 0 && !hs.taken) return 3;
+    hs.v = ClSlot{f, H.L[31].dp1[TA_CL_COLS - 1],
+                  H.L[31].dp1[TA_CL_COLS - 2], H.vprev[31]};
+    hs.seq = q;
+    hs.taken = false;
+    if (release || q % TA_CL_BATCH == 0) wp[out_wrap ? 0 : g + 1].pub = q;
+    return 0;
+  };
+  if (i > H.first) {  // row i-1's words
     for (int l = 0; l < 32; ++l) {
-      const int32_t kl = g * 32 + l;
+      const int32_t kl = s * 32 + l;
       const uint32_t left = l == 0 ? vleft : H.vprev[l - 1];
       const int32_t wi = cl_word_index(kl, i - 1, uk);
       if (wi >= 0 && wi < P.wpr)
         code_out[(int64_t)(i - 2) * P.wpr + wi] =
             cl_word(left, H.vprev[l], i - 1, uk) & cl_word_mask(wi, P);
-      if (kl == P.K - 1 && wi + 1 >= 0 && wi + 1 < P.wpr)
+      if (l == 31 && cl_writes_next_word(s, i - 1, P) && wi + 1 >= 0 &&
+          wi + 1 < P.wpr)
         code_out[(int64_t)(i - 2) * P.wpr + wi + 1] =
             cl_word(H.vprev[l], TA_CL_ONES, i - 1, uk) &
             cl_word_mask(wi + 1, P);
     }
   }
-  if (i > P.m) {
-    if (!last) {
-      ClWarpHost<TRANS>& D = wp[g + 1];
-      D.ring[i % TA_CL_RING] = ClSlot{0, 0, 0, H.vprev[31]};
-      D.pub = i;
-    }
-    H.i = i + 1;
-    return true;
+  if (i > H.last) {  // the strip's last step
+    if (send && hand_on(TA_BAND_INF, true)) return 3;
+    H.s += G;
+    if (H.s < P.S) rehearse_cluster_strip(H, P, a_row, b_row, b_len, out, k);
+    return 0;
   }
   ClLeft in[32];
   ClRow R[32];
   int32_t inc[32], tmp[32];
   for (int l = 0; l < 32; ++l) {
     in[l] = l == 0 ? ClLeft{H.e1a, H.e2a, H.e2b} : cl_lane_right(H.L[l - 1]);
-    R[l] = cl_row(i, ach, P, (g * 32 + l) * TA_CL_COLS);
+    R[l] = cl_row(i, H.ach, P, (s * 32 + l) * TA_CL_COLS);
   }
-  const bool idle = cl_warp_idle(g, i, P);
   for (int l = 0; l < 32; ++l) {
     cl_lane_masks(H.L[l], R[l]);
-    inc[l] = idle ? 0
-                  : cl_key(cl_lane_pass1(H.L[l], k, R[l], in[l]), l, k.gc);
+    inc[l] = cl_key(cl_lane_pass1(H.L[l], k, R[l], in[l]), l, k.gc);
   }
   for (int off = 1; off < 32; off <<= 1) {
     for (int l = 0; l < 32; ++l) tmp[l] = l >= off ? inc[l - off] : inc[l];
     for (int l = 0; l < 32; ++l) inc[l] = ta_min32(inc[l], tmp[l]);
   }
-  if (!last) {
-    ClWarpHost<TRANS>& D = wp[g + 1];
-    D.ring[i % TA_CL_RING] =
-        ClSlot{idle ? TA_BAND_INF : cl_carry(cin, inc[31], 32, k.gc),
-               H.L[31].dp1[TA_CL_COLS - 1], H.L[31].dp1[TA_CL_COLS - 2],
-               H.vprev[31]};
-    if (i % TA_CL_BATCH == 0 || i == P.m) D.pub = i;
-  }
+  if (send && hand_on(cl_carry(cin, inc[31], 32, k.gc), false)) return 3;
   for (int l = 0; l < 32; ++l) {
-    const int32_t ex = l >= 1 ? inc[l - 1] : inc[l];
-    H.vprev[l] = idle ? TA_CL_ONES
-                      : cl_lane_pass2(H.L[l], k, R[l], in[l],
-                                      cl_carry(cin, ex, l, k.gc));
-  }
-  for (int l = 0; l < 32; ++l) {
-    const int32_t kl = g * 32 + l;
-    const int32_t fcol = P.jf - kl * TA_CL_COLS;
-    if (i == P.m && fcol >= 0 && fcol < TA_CL_COLS)
-      *out = cl_lane_pick(H.L[l], fcol);
-    for (int32_t x = kl;; x += P.K) {
+    for (int32_t x = cl_extra_first(s, l, i, P), dx = cl_extra_step(i, P);;
+         x += dx) {
       const int32_t wx = cl_extra_index(x, i, P);
       if (wx < 0) break;
       code_out[(int64_t)(i - 1) * P.wpr + wx] =
-          cl_extra_word(wx, i, ach, b_row, P);
+          cl_extra_word(wx, i, H.ach, b_row, P);
     }
   }
+  for (int l = 0; l < 32; ++l) {
+    const int32_t ex = l >= 1 ? inc[l - 1] : inc[l];
+    H.vprev[l] =
+        cl_lane_pass2(H.L[l], k, R[l], in[l], cl_carry(cin, ex, l, k.gc));
+    const int32_t fcol = P.jf - (s * 32 + l) * TA_CL_COLS;
+    if (i == P.m && fcol >= 0 && fcol < TA_CL_COLS)
+      *out = cl_lane_pick(H.L[l], fcol);
+  }
+  H.apv = H.ach;
+  H.ach = i < P.m ? a_row[i] : 0;
   H.i = i + 1;
-  return true;
+  return 0;
 }
 
 template <bool TRANS>
@@ -726,52 +711,58 @@ static int rehearse_cluster(const uint8_t* a, const uint8_t* b,
                             const int32_t* m, const int32_t* n, int32_t* out,
                             uint32_t* codes, int64_t B, int64_t a_stride,
                             int64_t b_stride, int unit_k, int64_t code_rows,
-                            BandCosts k, int ctas, int warps, int order) {
+                            BandCosts k, int ctas, int warps, int full,
+                            int order) {
   const int G = ctas * warps;
-  const int32_t K = G * 32;
   for (int64_t p = 0; p < B; ++p) {
-    const int32_t mm = m[p] < a_stride ? m[p] : (int32_t)a_stride;
-    const int32_t nn = n[p] < 16 * K - 3 ? n[p] : 16 * K - 3;
-    const ClPair P = cl_pair(mm, nn, unit_k, K);
+    const int64_t m64 = m[p] < a_stride ? m[p] : a_stride;
+    const int32_t mm = (int32_t)(m64 < code_rows ? m64 : code_rows);
+    const ClPair P = cl_pair(mm, n[p], unit_k, full != 0);
     const uint8_t* a_row = a + p * a_stride;
     const uint8_t* b_row = b + p * b_stride;
     uint32_t* code_out = codes + p * code_rows * P.wpr;
+    ClHostSlot garbage;
+    std::memset(&garbage, 0xA5, sizeof(garbage));
+    garbage.seq = -1;
+    garbage.taken = false;
+    std::vector<ClHostSlot> wrap((size_t)code_rows + 2, garbage);
     std::vector<ClWarpHost<TRANS>> wp(G);
     for (int g = 0; g < G; ++g) {
       ClWarpHost<TRANS>& H = wp[g];
-      std::memset(H.ring, 0xA5, sizeof(H.ring));  // garbage, not zeros
-      H.pub = H.taken = 0;
-      H.e1a = H.e1b = H.e2a = H.e2b = TA_BAND_INF;
-      H.i = 1;
-      for (int l = 0; l < 32; ++l) {
-        const int32_t jb = (g * 32 + l) * TA_CL_COLS;
-        cl_lane_init(H.L[l], b_row, b_stride, P, jb, k);
-        H.vprev[l] = 0u;
-        if (mm == 0 && P.jf - jb >= 0 && P.jf - jb < TA_CL_COLS)
-          out[p] = cl_lane_pick(H.L[l], P.jf - jb);
-      }
+      for (int q = 0; q < TA_CL_RING; ++q) H.ring[q] = garbage;
+      H.pub = H.out_taken = H.seq_in = H.seq_out = 0;
+      H.s = g;
+      if (g < P.S)
+        rehearse_cluster_strip(H, P, a_row, b_row, b_stride, out + p, k);
     }
-    for (bool busy = true; busy;) {
-      bool ran = false;
-      busy = false;
+    std::vector<int> pub0(G), taken0(G);
+    for (;;) {
+      bool busy = false, ran = false;
       for (int g = 0; g < G; ++g) {
-        for (int r = 0; wp[g].i <= mm + 1 && (order == 1 || r < 1); ++r) {
-          if (!rehearse_cluster_step(wp, g, P, a_row, b_row, b_stride,
-                                     code_out, out + p, k))
-            break;
+        pub0[g] = wp[g].pub;
+        taken0[g] = wp[g].out_taken;
+        busy |= wp[g].s < P.S;
+      }
+      if (!busy) break;
+      for (int g = 0; g < G; ++g) {
+        for (int r = 0; wp[g].s < P.S && (order == 1 || r < 1); ++r) {
+          const int rc = rehearse_cluster_step(wp, wrap, pub0, taken0, g, P,
+                                               a_row, b_row, b_stride,
+                                               code_out, out + p, k);
+          if (rc == 1) break;
+          if (rc) return rc;
           ran = true;
         }
-        busy |= wp[g].i <= mm + 1;
       }
-      if (busy && !ran) return 2;  // every warp waits: a deadlock
+      if (!ran) return 2;  // every warp waits: a deadlock
     }
   }
   return 0;
 }
 
-// Same arguments as ta_band_trace_cluster, host pointers, no stream, and
-// the warps' `order` (see rehearse_cluster); refuses what the launcher
-// refuses.
+// Same arguments as ta_band_trace_cluster, host pointers, no stream and no
+// wrap buffer (the rehearsal keeps its own), and the warps' `order` (see
+// rehearse_cluster); refuses what the launcher refuses.
 extern "C" int ta_rehearse_band_cluster(const void* a, const void* b,
                                         const void* m, const void* n,
                                         void* out, void* codes, int64_t B,
@@ -779,8 +770,8 @@ extern "C" int ta_rehearse_band_cluster(const void* a, const void* b,
                                         int unit_k, int64_t code_rows, int mc,
                                         int gc, int sgc, int tc,
                                         int transpose, int ctas, int warps,
-                                        int order) {
-  if (codes == nullptr || !band_cluster_ok(unit_k, ctas, warps) ||
+                                        int full, int order) {
+  if (codes == nullptr || !band_cluster_ok(unit_k, ctas, warps, full) ||
       a_stride < 1 || b_stride < a_stride || code_rows < 1)
     return 1;
   if (B <= 0) return 0;
@@ -788,7 +779,7 @@ extern "C" int ta_rehearse_band_cluster(const void* a, const void* b,
   auto run = transpose ? rehearse_cluster<true> : rehearse_cluster<false>;
   return run((const uint8_t*)a, (const uint8_t*)b, (const int32_t*)m,
              (const int32_t*)n, (int32_t*)out, (uint32_t*)codes, B, a_stride,
-             b_stride, unit_k, code_rows, k, ctas, warps, order);
+             b_stride, unit_k, code_rows, k, ctas, warps, full, order);
 }
 
 // The lanes of one group of trace_walk.cu, run in turn: a lane's copies

@@ -14,8 +14,8 @@ engines and every host step around them:
   runs) and their decode (ops/band_scan.py);
 * `band_trace_global` — traced batches past that band plan: the traced
   band kernel's cluster regime (one pair a thread-block cluster, the
-  matrix's columns in registers) or, for b strings longer than a cluster
-  holds, its device-memory regime, then the same walk and decode;
+  matrix's columns in registers, its warps a ring over strips of them, so
+  b strings of any length), then the same walk and decode;
 * `myers_blocked_distance` — the same entry points past the band plan
   with unit or restricted-Damerau costs, untraced: exact distances of
   pairs of any length (ops/myers_chunked.py, kernel K5), so `levenshtein`
@@ -298,8 +298,7 @@ def levenshtein_exp_with_opts(
     1480-1494).  Every cost model resolves at any length: past the band
     plan untraced searches take the blocked Myers kernel or the flat
     distance kernel for general costs, traced ones the band kernel's
-    cluster regime (or, for the longest strings, its device-memory
-    regime)."""
+    cluster regime."""
     k = 30
     while True:
         res = levenshtein_simd_k_with_opts(a, b, k, trace_on, costs,
@@ -398,9 +397,9 @@ def levenshtein_k_batch(
     * `band_trace_global` [`trace_batch`]: traced batches past the plan
       (band state past a block's shared memory: unit_k > 4,640 at the
       16-rounding, up to `lev_band.MAX_TRACE_UNIT_K`): the traced band
-      kernel's cluster regime, past `lev_band.CLUSTER_MAX_COLUMNS` its
-      device-memory regime (`band_plan` picks), chunked and walked the
-      same way; traced batches run at their unit_k rounded up to 16;
+      kernel's cluster regime (its warps a ring over strips of the
+      columns, any length), chunked and walked the same way; traced
+      batches run at their unit_k rounded up to 16;
     * `myers_blocked_distance` [`myers_blocked_distance`]: untraced batches
       past the plan under unit or restricted-Damerau costs: the exact
       full-matrix bit-vector distance of pairs of any length

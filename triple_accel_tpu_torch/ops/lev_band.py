@@ -26,12 +26,10 @@ threads a block from the band and the batch); wider bands, up to
 pair a block whose warps hold the band in registers, the same lanes joined
 across warps by two slots a warp in shared memory (`BLOCK_CELLS` cells a
 lane, `_block_map` picks them and the warps).  Traced
-bands past that, up to `MAX_TRACE_UNIT_K`, have two regimes: pairs whose
-columns a thread-block cluster holds (n + 3 <= `CLUSTER_MAX_COLUMNS`) run
-one pair a cluster with the matrix's columns in registers (no cell left
-of column 0 is computed, and a warp wholly outside a row's band skips
-it); longer ones run one pair a block with the band in a per-pair
-scratch in device memory.
+bands past that, up to `MAX_TRACE_UNIT_K`, run one pair a thread-block
+cluster with the matrix's columns in registers, in strips of 512 that the
+cluster's warps take in a ring, each strip over the rows whose band meets
+it (no cell left of column 0 is computed), for b strings of any length.
 
 Layout (the port's own, pair order): `a_t` uint8 [B, max_m], `b_t` uint8
 [B, max_m + W] with each pair's b at byte offset unit_k and 0 pads (a pad
@@ -51,7 +49,6 @@ from .band_scan import INF, band_scan_distance, code_words
 __all__ = [
     "MAX_UNIT_K",
     "MAX_TRACE_UNIT_K",
-    "CLUSTER_MAX_COLUMNS",
     "MAX_WARP_BAND",
     "band_plan",
     "select_band_dtype",
@@ -65,7 +62,6 @@ CostsT = Tuple[int, int, int, int, bool]
 
 # what one thread block of an H100 may use (227 KB of the SM's 256 KB)
 SMEM_BYTES_PER_BLOCK = 232_448
-MAX_THREADS = 1024
 SM_COUNT = 132  # the H100 SXM's SMs: what "fills the card" is counted in
 # The warp regime (csrc/band_distance.cu band_kernel<TRANS, TRACE, C>):
 # cells a lane (the kernel's instantiations), lanes a pair (one group of a
@@ -108,40 +104,36 @@ BLOCK_MAX_WARPS = {9: 16, 17: 18}
 # cost more than the 8 cells a lane they save); traced 1.58 / 2.22, 1.60
 # / 2.27, 2.07 / 2.32, 3.47 / 3.55.
 NINE_CELL_WARPS = (2, 8)
-# The device-memory regime (band_wide_kernel<*, *>) takes traced
-# bands up to this half-width: every intermediate of its row passes stays
-# in int32 (csrc/band_distance.cu TA_BAND_GLOBAL_MAX_UNIT_K).
+# The cluster regime (band_cluster_kernel<TRANS>) takes traced bands up
+# to this half-width (csrc/band_distance.cu TA_BAND_MAX_TRACE_UNIT_K); the
+# intermediates of its lanes stay in int32 at any band.
 MAX_TRACE_UNIT_K = 1 << 20
-# Its threads a block, from `benches/band_sweep.py --past-plan` (NVIDIA
-# H100 80GB HBM3, 700 W; PERF.md): 128 pairs of 10,000 bytes, band 32,769,
-# one launch each: 64 threads 6,311.7 ms, 128 4,250.5, 256 4,286.1, 512
-# 4,744.7, 1024 (the shared-memory regime's rule) 11,418.3.  With fewer
-# threads each runs a longer stretch of its cells, which stays in L1.
-GLOBAL_THREADS = 128
-# The cluster regime (band_cluster_kernel): one pair a cluster of `ctas`
-# CTAs of `warps` warps, 16 columns a lane, so 512 columns a warp; the
-# kernel's limits (csrc/band_distance.cu TA_CL_*): 8 CTAs a cluster (the
-# portable cluster size), 20 warps a CTA (its launch bound, 640 threads,
-# holds it to 96 registers a thread: two CTAs of 10 warps an SM).
+# One pair a cluster of `ctas` CTAs of `warps` warps, 16 columns a lane, so
+# a strip of 512 columns a warp; the kernel's limits (csrc/band_distance.cu
+# TA_CL_*): 8 CTAs a cluster (the portable cluster size), 20 warps a CTA
+# (its launch bound, 640 threads, holds it to 96 registers a thread: two
+# CTAs of 10 warps an SM).  The warps take the strips in a ring, each
+# strip only over the rows whose band meets it, so a pair needs as many
+# warps as strips meet one row (`_cluster_map`), whatever the length of b.
 CLUSTER_COLS_PER_WARP = 32 * 16
 CLUSTER_MAX_CTAS = 8
 CLUSTER_MAX_WARPS = 20
-# What the regime takes: any band up to MAX_TRACE_UNIT_K whose pairs' b
-# strings are at most CLUSTER_MAX_COLUMNS - 3 = 81,917 bytes.  It keeps
-# the matrix's columns 0 .. n + 2, not the band's cells, on chip (the
-# largest cluster: 8 CTAs x 20 warps x 512 columns), so what bounds it is
-# the length of b, not the band; and it codes the band's cells right of
-# its columns as 1, which holds while the chain there stays under INF
-# (`_cluster_fits`).  Past it the device-memory regime runs.
-CLUSTER_MAX_COLUMNS = CLUSTER_MAX_CTAS * CLUSTER_MAX_WARPS * CLUSTER_COLS_PER_WARP
 # Warps a CTA, from `benches/band_sweep.py --past-plan` (NVIDIA H100 80GB
-# HBM3, 700 W; PERF.md): a batch whose clusters fill the card takes CTAs of
-# CLUSTER_WARPS warps (128 pairs of 10,000 bytes, 20 warps a pair: 2 x 10
-# 48.2 ms, 2 x 11 54.1, 5 x 4 56.1, 4 x 5 65.8, 3 x 7 71.5: two CTAs of 10
-# warps an SM put the batch on the card in one wave); a smaller one
-# spreads each pair over CTAs of CLUSTER_SPREAD_WARPS (1 pair: 5 x 4 17.7
-# ms, 7 x 3 17.9, 4 x 5 22.0, 2 x 10 27.2; 16 pairs: 5 x 4 18.3, 8 x 3
-# 22.2).
+# HBM3, 700 W; PERF.md).  A batch whose clusters fill the card takes CTAs
+# of CLUSTER_WARPS warps: one strip a warp, 128 pairs of 10,000 bytes, 20
+# warps a pair: 2 x 10 48.2 ms, 2 x 11 54.1, 5 x 4 56.1, 4 x 5 65.8, 3 x 7
+# 71.5 (two CTAs of 10 warps an SM put the batch on the card in one wave;
+# again 47.0 against 53.4 - 78.5 with the ring); a ring (fewer warps than
+# strips) whole CTAs of them, as many as come nearest what meets a row:
+# 64 pairs of 90,000 bytes at band 10,017 (21 strips meet a row), 2 x 10
+# 213.6 ms, 5 x 4 238.1, 2 x 16 246.6, 7 x 3 263.6, 4 x 4 292.0, 7 x 4
+# 308.1, 6 x 4 310.2, 3 x 7 326.7, 4 x 5 333.8, 4 x 7 410.1 (64 x 2 CTAs:
+# one an SM).  A smaller batch spreads each pair over CTAs of
+# CLUSTER_SPREAD_WARPS, one warp a scheduler (1 pair at band 20,001: 5 x
+# 4 17.7 ms, 7 x 3 17.9, 4 x 5 22.0, 2 x 10 27.2; 16 pairs: 5 x 4 18.3, 8
+# x 3 22.2; 2 pairs of 90,000 bytes at band 10,017: 24 warps 6 x 4 142.1,
+# 8 x 3 142.1, 7 x 4 141.9, 5 x 4 144.1, and with 5 or more warps a CTA
+# 169.1 - 173.7, 2 x 10 209.6, 1 x 20 316.2, 16 warps 176.6).
 CLUSTER_WARPS = 10
 CLUSTER_SPREAD_WARPS = 4
 
@@ -150,63 +142,53 @@ def _round_up(x: int, mult: int) -> int:
     return -(-x // mult) * mult
 
 
-def _smem_bytes(W: int) -> int:
-    """The band state of one pair of the device-memory regime (once held
-    in a block's shared memory, which set the block regime's widest
-    band): 6 rows of W ints (three of D, two of the vertical-gap
-    state, one transposition scratch), one word per warp for the scan, one
-    code byte a cell."""
-    return (6 * W + 32) * 4 + ((W + 3) & ~3)
+# The widest untraced band, and the widest band of the block regime: the
+# bands the earlier body took that kept a pair's band state in a block's
+# shared memory (6 rows of W ints, one int a warp and a code byte a cell,
+# within 232,448 bytes: unit_k 4,096 at a power of two, W 9,291 at most),
+# so that no batch changed regime when the block regime took its place.
+MAX_UNIT_K = 4096
+MAX_WIDE_BAND = 9291
 
 
-def _max_unit_k() -> int:
-    uk = 1
-    while _smem_bytes(2 * (2 * uk) + 1) <= SMEM_BYTES_PER_BLOCK:
-        uk *= 2
-    return uk
+def _full_band(max_m: int, unit_k: int) -> bool:
+    """Whether the cluster regime's strips must cover every band column:
+    it codes the band's cells right of column n + 2 as 1, which holds
+    while every chain value there stays under INF: there e <= mc (m + 1)
+    + 2 sgc + gc unit_k (a diagonal path to (i - 1, n - 1), then one gap),
+    bounded here with every cost at 255.  Past that the strips reach
+    column m + unit_k and compute those cells."""
+    return 255 * (max_m + unit_k + 3) >= INF
 
 
-MAX_UNIT_K = _max_unit_k()  # 4096: W = 8193, 6 * W ints = 192 KB
-# The widest band of the block regime: the widest whose state the earlier
-# shared-memory body held (`_smem_bytes`), so the regime takes the bands
-# it took: traced batches up to unit_k 4,640 (the 16-rounding), any
-# untraced one up to MAX_UNIT_K.
-MAX_WIDE_BAND = 2 * MAX_UNIT_K + 1
-while _smem_bytes(MAX_WIDE_BAND + 2) <= SMEM_BYTES_PER_BLOCK:
-    MAX_WIDE_BAND += 2  # 9,291
+def _cluster_strips(max_m: int, max_n: int, unit_k: int) -> int:
+    """Strips of 512 columns of the batch's longest pair: columns 0 .. n +
+    2, or with `_full_band` every band column."""
+    cols = max_n + 3
+    if _full_band(max_m, unit_k):
+        cols = max(cols, max_m + unit_k + 1)
+    return -(-cols // CLUSTER_COLS_PER_WARP)
 
 
-def _scratch_bytes(W: int) -> int:
-    """Bytes a pair of the device-memory regime's scratch: the shared
-    memory layout of `_smem_bytes`, rounded up to 16."""
-    return _round_up(_smem_bytes(W), 16)
-
-
-def _block_smem_bytes(cells: int) -> int:
-    """Static shared memory of a block of the block regime: a hand-over
-    slot (3 ints) and a total (1 int) a warp of its instantiation."""
-    return 16 * BLOCK_MAX_WARPS[cells]
-
-
-def _cluster_fits(max_m: int, max_n: int, unit_k: int) -> bool:
-    """Whether the cluster regime takes the batch: columns 0 .. n + 2 held
-    by the largest cluster, and every chain value right of the cluster's
-    columns under INF, so that their codes are 1: there e <= mc (m + 1) +
-    2 sgc + gc unit_k (a diagonal path to (i - 1, n - 1), then one gap),
-    bounded here with every cost at 255."""
-    return (max_n + 3 <= CLUSTER_MAX_COLUMNS
-            and 255 * (max_m + unit_k + 3) < INF)
-
-
-def _cluster_map(max_n: int, batch: Optional[int]) -> Tuple[int, int]:
-    """(CTAs a cluster, warps a CTA) that hold columns 0 .. max_n + 2: CTAs
-    of CLUSTER_WARPS warps, or, for a batch whose clusters would leave SMs
-    empty, of CLUSTER_SPREAD_WARPS; within 1..CLUSTER_MAX_CTAS CTAs of at
-    most CLUSTER_MAX_WARPS."""
-    warps = -(-(max_n + 3) // CLUSTER_COLS_PER_WARP)
+def _cluster_map(max_m: int, max_n: int, unit_k: int,
+                 batch: Optional[int]) -> Tuple[int, int]:
+    """(CTAs a cluster, warps a CTA): as many warps as strips meet one row
+    (a band of W cells meets at most ceil(W / 512) + 1 of them), so that
+    no warp's next strip waits for its last, and no more than the pair's
+    strips (so that a band as wide as the matrix keeps one strip a warp);
+    capped at 8 CTAs of 20 warps.  CTAs of CLUSTER_WARPS warps (a ring:
+    whole ones, the count nearest that), or, for a batch whose clusters
+    would leave SMs empty, of CLUSTER_SPREAD_WARPS."""
+    W = 2 * unit_k + 1
+    strips = _cluster_strips(max_m, max_n, unit_k)
+    warps = min(strips, -(-W // CLUSTER_COLS_PER_WARP) + 1,
+                CLUSTER_MAX_CTAS * CLUSTER_MAX_WARPS)
     ctas = -(-warps // CLUSTER_WARPS)
     if batch is not None and batch * ctas < SM_COUNT:
         ctas = -(-warps // CLUSTER_SPREAD_WARPS)
+    elif warps < strips:  # a ring: whole CTAs of CLUSTER_WARPS
+        ctas = max(1, (warps + CLUSTER_WARPS // 2) // CLUSTER_WARPS)
+        warps = ctas * CLUSTER_WARPS
     ctas = min(max(ctas, -(-warps // CLUSTER_MAX_WARPS)), CLUSTER_MAX_CTAS)
     return ctas, -(-warps // ctas)
 
@@ -248,23 +230,22 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
     `threads` threads a block.  Past it, up to MAX_WIDE_BAND cells, the
     block regime (`regime` "wide"): one pair a block of `warps_per_pair`
     warps, `cells_per_lane` cells a lane in registers (`_block_map`); every
-    untraced band up to MAX_UNIT_K.  A traced batch
-    past that, up to MAX_TRACE_UNIT_K, runs one of two regimes.  Where a
-    cluster holds the pairs' columns (`_cluster_fits`: n + 3 <=
-    CLUSTER_MAX_COLUMNS) the cluster regime (`regime` "wide_cluster"):
+    untraced band up to MAX_UNIT_K.  A traced batch past that, up to
+    MAX_TRACE_UNIT_K, runs the cluster regime (`regime` "wide_cluster"):
     one pair a cluster of `ctas_per_pair` CTAs of `threads` threads, 16
-    columns of the matrix a lane (`cells_per_lane`), no cell left of
-    column 0 computed.  Past it the device-memory regime (`regime`
-    "wide_global"): one pair a block of GLOBAL_THREADS threads, each a run
-    of band cells, the band state in `scratch_bytes_per_pair` bytes a
-    pair of device memory that the wrapper allocates.  Untraced batches
-    past MAX_UNIT_K have other kernels (K5, K9): None.
+    columns of the matrix a lane (`cells_per_lane`), the warps a ring over
+    the pair's strips of 512 columns (`_cluster_map`), any b length;
+    `full_band` where the strips must cover every band column
+    (`_full_band`); `scratch_bytes_per_pair`: the wrap's buffer in device
+    memory (16 bytes a row and two more), which the wrapper allocates.
+    Untraced batches past MAX_UNIT_K have other kernels (K5, K9): None.
     """
     if unit_k < 0 or max_m < 0:
         return None
     W = 2 * unit_k + 1
     if max_n is None:
         max_n = max_m + unit_k
+    scratch = 0
     if W <= MAX_WARP_BAND:
         cells, lanes, threads = _warp_map(W, batch)
         plan = {"regime": "warp", "cells_per_lane": cells,
@@ -276,29 +257,30 @@ def band_plan(max_m: int, unit_k: int, trace: bool = False,
         plan = {"regime": "wide", "cells_per_lane": cells,
                 "lanes_per_pair": 32 * warps, "warps_per_pair": warps,
                 "threads": 32 * warps, "pairs_per_block": 1,
-                "smem_bytes": _block_smem_bytes(cells)}
-    elif (trace and unit_k <= MAX_TRACE_UNIT_K
-          and _cluster_fits(max_m, max_n, unit_k)):
-        ctas, warps = _cluster_map(max_n, batch)
+                # static shared memory: a hand-over slot (3 ints) and a
+                # total (1 int) a warp of the instantiation
+                "smem_bytes": 16 * BLOCK_MAX_WARPS[cells]}
+    elif trace and unit_k <= MAX_TRACE_UNIT_K:
+        ctas, warps = _cluster_map(max_m, max_n, unit_k, batch)
         plan = {"regime": "wide_cluster", "cells_per_lane": 16,
                 "lanes_per_pair": 32 * warps * ctas,
                 "warps_per_pair": warps * ctas, "threads": 32 * warps,
                 "ctas_per_pair": ctas, "pairs_per_block": 1,
-                "smem_bytes": 0}
-    elif trace and unit_k <= MAX_TRACE_UNIT_K:
-        threads = GLOBAL_THREADS
-        plan = {"regime": "wide_global", "cells_per_lane": -(-W // threads),
-                "lanes_per_pair": threads, "warps_per_pair": threads // 32,
-                "threads": threads, "pairs_per_block": 1, "smem_bytes": 0}
+                "smem_bytes": 0, "full_band": _full_band(max_m, unit_k)}
+        scratch = _wrap_bytes(max(max_m, 1))
     else:
         return None
-    plan["scratch_bytes_per_pair"] = (_scratch_bytes(W)
-                                      if plan["regime"] == "wide_global"
-                                      else 0)
+    plan["scratch_bytes_per_pair"] = scratch
     plan["code_words"] = code_words(W) if trace else 0
     plan["code_bytes_per_pair"] = (max(max_m, 1) * code_words(W) * 4
                                    if trace else 0)
     return plan
+
+
+def _wrap_bytes(rows: int) -> int:
+    """The cluster regime's wrap buffer of one pair: a 16-byte hand-over
+    slot for each of rows 0 .. rows + 1."""
+    return 16 * (rows + 2)
 
 
 def _check_plan(plan: dict, W: int) -> None:
@@ -306,10 +288,12 @@ def _check_plan(plan: dict, W: int) -> None:
     the kernel takes."""
     threads = plan["threads"]
     if plan["regime"] == "wide_cluster":
+        # any band up to the cap (a check may force it onto a narrow one)
         ok = (1 <= plan["ctas_per_pair"] <= CLUSTER_MAX_CTAS
               and threads % 32 == 0
               and 32 <= threads <= 32 * CLUSTER_MAX_WARPS
-              and W <= 2 * MAX_TRACE_UNIT_K + 1)
+              and W <= 2 * MAX_TRACE_UNIT_K + 1
+              and isinstance(plan.get("full_band"), bool))
     elif plan["regime"] == "warp":
         ok = (plan["cells_per_lane"] in WARP_CELLS
               and plan["lanes_per_pair"] in WARP_LANES
@@ -321,11 +305,7 @@ def _check_plan(plan: dict, W: int) -> None:
         ok = (cells in BLOCK_CELLS and 1 <= warps <= BLOCK_MAX_WARPS[cells]
               and threads == 32 * warps and 32 * cells * warps >= W)
     else:
-        # the device-memory regime takes any band up to its cap (a check
-        # may force it onto a narrow one)
-        ok = (plan["regime"] == "wide_global"
-              and W <= 2 * MAX_TRACE_UNIT_K + 1
-              and threads % 32 == 0 and 32 <= threads <= MAX_THREADS)
+        ok = False
     if not ok:
         raise ValueError(f"the band kernel does not take the plan {plan} "
                          f"at band {W}")
@@ -467,24 +447,21 @@ def _check_inputs(a_t, b_t, m, n, unit_k: int, costs_t: CostsT,
 def _plan_for(a_t, n, unit_k: int, trace: bool, plan: Optional[dict],
               max_n: Optional[int]) -> dict:
     """The plan of this batch (`band_plan`'s, or the one handed in, checked);
-    the cluster regime's columns are held against the batch's longest b
-    (`max_n`, read from `n` when not given)."""
+    the cluster regime's map is chosen from the batch's longest b (`max_n`,
+    read from `n` when not given), and a cluster plan handed in must cover
+    the band where the batch needs it (`_full_band`)."""
     B, rows = a_t.shape
     W = 2 * unit_k + 1
-    if max_n is None and trace and (
-            plan["regime"] == "wide_cluster" if plan is not None
-            else W > MAX_WIDE_BAND):
-        max_n = int(n.max()) if B else 0  # only past the block regime
     if plan is None:
-        plan = band_plan(rows, unit_k, trace, batch=B, max_n=max_n)
-    else:
-        _check_plan(plan, 2 * unit_k + 1)
+        if max_n is None and trace and W > MAX_WIDE_BAND:
+            max_n = int(n.max()) if B else 0  # only past the block regime
+        return band_plan(rows, unit_k, trace, batch=B, max_n=max_n)
+    _check_plan(plan, W)
     if plan["regime"] == "wide_cluster" and not (
-            trace and max_n + 3 <= plan["ctas_per_pair"] * plan["threads"] * 16
-            and _cluster_fits(rows, max_n, unit_k)):
+            trace and (plan["full_band"] or not _full_band(rows, unit_k))):
         raise ValueError(f"the band kernel's cluster plan {plan} does not "
-                         f"take this batch (traced {trace}, b strings of "
-                         f"{max_n} bytes)")
+                         f"take this batch (traced {trace}, {rows} rows at "
+                         f"unit_k {unit_k})")
     return plan
 
 
@@ -503,46 +480,27 @@ def _launch(a_t, b_t, m, n, unit_k: int, costs_t: CostsT, trace: bool,
         codes = torch.empty((B, rows, code_words(W)), dtype=torch.int32,
                             device=a_t.device)
     mc, gc, sgc, tc, allow_transpose = costs_t
-    if plan["regime"] == "wide_cluster":
-        with torch.cuda.device(a_t.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.ta_band_trace_cluster(
-                *(t.data_ptr() for t in tensors), out.data_ptr(),
-                codes.data_ptr() if B else None, B, tensors[0].shape[1],
-                tensors[1].shape[1], unit_k, rows, mc, gc, sgc, tc,
-                int(bool(allow_transpose)), plan["ctas_per_pair"],
-                plan["threads"] // 32, stream)
-        check_launch(lib, code, "band_trace")
-        return out, codes
-    if plan["regime"] == "wide":
-        with torch.cuda.device(a_t.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            code = lib.ta_band_block(
-                *(t.data_ptr() for t in tensors), out.data_ptr(),
-                codes.data_ptr() if trace and B else None, B,
-                tensors[0].shape[1], tensors[1].shape[1], unit_k, rows,
-                mc, gc, sgc, tc, int(bool(allow_transpose)),
-                plan["cells_per_lane"], plan["warps_per_pair"], stream)
-        check_launch(lib, code, "band_trace" if trace else "band_distance")
-        return out, codes
-    scratch, stride = None, 0
-    if plan["regime"] == "wide_global" and B:
-        stride = _scratch_bytes(W)  # a forced plan may come from another band
-        scratch = torch.empty(B * stride, dtype=torch.uint8,
-                              device=a_t.device)
     with torch.cuda.device(a_t.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.ta_band_distance(
-            *(t.data_ptr() for t in tensors), out.data_ptr(),
-            codes.data_ptr() if trace and B else None, B,
-            tensors[0].shape[1], tensors[1].shape[1], unit_k, rows,
-            mc, gc, sgc, tc, int(bool(allow_transpose)),
-            plan["threads"],
-            plan["cells_per_lane"] if plan["regime"] == "warp" else 0,
-            plan["lanes_per_pair"],
-            scratch.data_ptr() if scratch is not None else None, stride,
-            stream,
-        )
+        head = (*(t.data_ptr() for t in tensors), out.data_ptr(),
+                codes.data_ptr() if trace and B else None, B,
+                tensors[0].shape[1], tensors[1].shape[1], unit_k, rows, mc,
+                gc, sgc, tc, int(bool(allow_transpose)))
+        if plan["regime"] == "wide_cluster":
+            # the wrap's buffer: any contents (each slot is written before
+            # it is read)
+            wrap = torch.empty(max(B, 1) * _wrap_bytes(rows) // 4,
+                               dtype=torch.int32, device=a_t.device)
+            code = lib.ta_band_trace_cluster(
+                *head, plan["ctas_per_pair"], plan["threads"] // 32,
+                int(plan["full_band"]), wrap.data_ptr(), stream)
+        elif plan["regime"] == "wide":
+            code = lib.ta_band_block(*head, plan["cells_per_lane"],
+                                     plan["warps_per_pair"], stream)
+        else:
+            code = lib.ta_band_distance(*head, plan["threads"],
+                                        plan["cells_per_lane"],
+                                        plan["lanes_per_pair"], stream)
     check_launch(lib, code, "band_trace" if trace else "band_distance")
     return out, codes
 
@@ -583,9 +541,9 @@ def band_trace(a_t: torch.Tensor, b_t: torch.Tensor, m: torch.Tensor,
     int32 [B, max_m, ceil(W / 16)]).  Only code rows 0..m-1 of a pair are
     defined.  The codes stay on the device for the walk
     (`trace_walk.trace_walk`).  Past MAX_UNIT_K the plan is the cluster
-    regime or, for b strings longer than a cluster holds, the
-    device-memory regime, up to MAX_TRACE_UNIT_K; `max_n`, the longest b
-    of the batch, is read from `n` (one copy to the host) when not given.
+    regime, up to MAX_TRACE_UNIT_K; `max_n`, the longest b of the batch,
+    which picks its map, is read from `n` (one copy to the host) when not
+    given.
 
     CUDA tensors launch the hand-written kernel and count one launch in
     `band_trace.launches`; `plan` as in `band_distance`.  CPU tensors — and

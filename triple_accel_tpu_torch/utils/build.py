@@ -145,7 +145,7 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     lib.ta_band_distance.restype = ctypes.c_int
     lib.ta_band_distance.argtypes = [
         vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
-        i32, i32, i32, i32, i32, i32, i32, i32, vp, i64, vp,
+        i32, i32, i32, i32, i32, i32, i32, i32, vp,
     ]
     lib.ta_band_block.restype = ctypes.c_int
     lib.ta_band_block.argtypes = [
@@ -155,7 +155,7 @@ def load_kernels(rebuild: bool = False) -> ctypes.CDLL:
     lib.ta_band_trace_cluster.restype = ctypes.c_int
     lib.ta_band_trace_cluster.argtypes = [
         vp, vp, vp, vp, vp, vp, i64, i64, i64, i32, i64,
-        i32, i32, i32, i32, i32, i32, i32, vp,
+        i32, i32, i32, i32, i32, i32, i32, i32, vp, vp,
     ]
     lib.ta_trace_walk.restype = ctypes.c_int
     lib.ta_trace_walk.argtypes = [

@@ -50,8 +50,7 @@ __all__ = [
 KERNELS: Dict[str, Tuple[str, ...]] = {
     "K1": ("myers_distance_kernel",),
     "K2": ("myers_search_kernel",),
-    "K3/K4": ("band_kernel", "band_block_kernel", "band_wide_kernel",
-              "band_cluster_kernel"),
+    "K3/K4": ("band_kernel", "band_block_kernel", "band_cluster_kernel"),
     "K5/K6": ("blocked_kernel",),
     "K7": ("search_diag_kernel",),
     "K8/K9": ("flat_kernel",),
